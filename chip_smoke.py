@@ -7,8 +7,8 @@ NVIDIA card.
 Phases, one status line each; any failure exits non-zero:
   1. card      name, power limit, torch and CUDA versions
   2. build     the CUDA kernels (nvcc, sm_90a) and the native pass A
-  3. kernels   each bool-decoder kernel against its plain PyTorch
-               version on the card:
+  3. kernels   each kernel against its plain PyTorch version on the
+               card:
                - decode_bits_multi / decode_tree_multi on seeded
                  streams, S = 64 lanes (the stream path);
                - decode_coeffs_multi on every coefficient block of
@@ -17,13 +17,18 @@ Phases, one status line each; any failure exits non-zero:
                  coefficient path), also against the host
                  coefficients and eob;
                with times, launches and token rates beside the native
-               C pass A's rate on the same frame
-  4. decode    all 30 frames of vectors/bench_1080p.ivf through
-               VP9Decoder(device="cuda").decode_stream, every MD5
-               against vectors/bench_1080p.framemd5; then five timed
-               pipelined passes (median fps and its spread) and a
-               serial pass with the stage timers synchronised to the
-               card (per-stage times)
+               C pass A's rate on the same frame;
+               - lf_dense (csrc/lpf.cu) on the whole of
+                 bench_1080p_lf frame 0: its Y and U+V planes as
+                 reconstructed before the loop filter, and their grids
+  4. decode    each clip through VP9Decoder(device="cuda")
+               .decode_stream, every MD5 against its framemd5: all 30
+               frames of vectors/bench_1080p.ivf (no loop filter: the
+               loop-filter kernel must not launch) and all 6 of
+               vectors/bench_1080p_lf.ivf (every frame filtered: it
+               must); then five timed pipelined passes (median fps and
+               its spread) and a serial pass with the stage timers
+               synchronised to the card (per-stage times)
   5. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
@@ -39,11 +44,12 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLIP = os.path.join(ROOT, "vectors", "bench_1080p.ivf")
-CLIP_MD5 = os.path.join(ROOT, "vectors", "bench_1080p.framemd5")
+CLIPS = ("bench_1080p", "bench_1080p_lf")
 PKG = "ffmpeg_hybrid_tpu_torch"
 KERNEL_SRC = PKG + "/csrc/rac.cu"
 PALLAS_SRC = "ffmpeg_hybrid_tpu/ops/rac_pallas.py"
+LPF_SRC = PKG + "/csrc/lpf.cu"
+LPF_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_dense.py:77"
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
 # float32 outside the tensor cores (the rate the bool decoders' integer
@@ -52,6 +58,9 @@ HBM_BPS = 3.35e12
 CUDA_CORE_OPS = 67e12
 BOOST_HZ = 1.98e9
 SEED = 20261016
+# integer operations of one lane's loop-filter edge decision (fm: seven
+# differences, absolutes and compares, the weighted p0/q0 term, the ands)
+LF_DECISION_OPS = 30
 DEVICE = "cuda"
 # timed pipelined passes over the clip (the fps is their median)
 WINDOWS = 5
@@ -85,13 +94,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bounds(nbytes, nbools, chain):
+def bounds(nbytes, nops, chain):
     """(bound_ms, bound_by, chain_bound_ms): the bytes the function must
-    move over HBM, its bool decodes (one operation each) over the
-    CUDA-core rate, and its longest lane's dependent bool chain at one
-    boost-clock cycle per bool (a floor no serial decoder beats)."""
+    move over HBM, its operations (one per bool for the bool decoders)
+    over the CUDA-core rate, and its longest dependent chain (bools, or
+    loop-filter edge positions) at one boost-clock cycle per step (a
+    floor no serial implementation beats)."""
     bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = nbools / CUDA_CORE_OPS * 1e3
+    ops_ms = nops / CUDA_CORE_OPS * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), bound_by, chain / BOOST_HZ * 1e3
 
@@ -281,12 +291,101 @@ def coef_phase(rac, torch, np, packet):
             "bytes_needed": need}
 
 
-def decode_phase(torch, frames, want):
+def lpf_phase(torch, np, packet):
+    """lf_dense on one frame's real inputs: frame `packet` reconstructed
+    on the card up to the loop filter, the filter's planes and grids
+    captured as the decoder hands them over, then the kernel against
+    the plain version on each plane set, with timings."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
-    from ffmpeg_hybrid_tpu_torch.ops import rac
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense as LD
+    calls = []
+    real = LD.lf_dense
+
+    def capture(*args):
+        calls.append([a.clone() if torch.is_tensor(a) else a
+                      for a in args])
+        return real(*args)
+
+    LD.lf_dense = capture
+    try:
+        VP9Decoder(device=DEVICE).decode(packet)
+    finally:
+        LD.lf_dense = real
+    if len(calls) != 2:
+        raise RuntimeError(f"frame 0 ran {len(calls)} loop-filter calls, "
+                           "expected Y and U+V")
+    err = 0
+    plain_ms = 0.0
+    ms = 0.0
+    nbytes = nops = chain = 0
+    shapes = []
+    for args in calls:
+        planes, vg, hg, sb_rows, sb_cols = args[:5]
+        out = real(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = LD.lf_dense_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        err = max(err, int((out - want).abs().max()))
+        if not torch.equal(out, want):
+            raise RuntimeError(f"lf_dense on {tuple(planes.shape)}: kernel "
+                               f"!= plain (max |diff| {err})")
+        changed = int((want != planes).sum())
+        if not changed:
+            raise RuntimeError("the loop filter changed no sample")
+        set_ms = cuda_ms(lambda: real(*args), 20)
+        ms += set_ms
+        # each plane read and written once, each grid read once; the
+        # operations are the edge decision (LF_DECISION_OPS) of every
+        # lane of every active edge, a floor of what the filter does
+        nbytes += 2 * planes.numel() * 4 + (vg.numel() + hg.numel()) * 4
+        active = int((vg[..., 0] > 0).sum()) + int((hg[..., 0] > 0).sum())
+        nops += active * 8 * planes.shape[0] * LF_DECISION_OPS
+        nwaves = 2 * (sb_rows - 1) + sb_cols
+        chain += nwaves * (vg.shape[1] // sb_cols + hg.shape[0] // sb_rows)
+        shapes.append(f"{tuple(planes.shape)} V{tuple(vg.shape)} "
+                      f"H{tuple(hg.shape)}: {changed} samples changed, "
+                      f"{set_ms:.4f} ms")
+    bound_ms, bound_by, chain_ms = bounds(nbytes, nops, chain)
+    say("kernels", f"lf_dense on bench_1080p_lf frame 0 ({'; '.join(shapes)})"
+        f": ms={ms:.4f} (Y + U+V, wrapper with its padded copies) "
+        f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        f"{nbytes} B, {nops} ops) chain_ms={chain_ms:.6f} ({chain} serial "
+        "positions); exact vs plain")
+    return {"name": "lf_dense", "route": "cuda", "source": LPF_SRC,
+            "replaces": LPF_REPLACES, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "bytes_needed": nbytes, "ops": nops, "chain_positions": chain,
+            "chain_bound_ms": chain_ms}
+
+
+def read_clip(name):
+    from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
+    from ffmpeg_hybrid_tpu_torch.formats.superframe import split_superframe
+    frames = []
+    for pts, data in read_ivf(os.path.join(ROOT, "vectors",
+                                           name + ".ivf"))[1]:
+        for _fpts, fd in split_superframe(data, pts):
+            frames.append(fd)
+    want = [line.split(",")[-1].strip()
+            for line in open(os.path.join(ROOT, "vectors",
+                                          name + ".framemd5"))
+            if line.strip() and not line.startswith("#")]
+    return frames, want
+
+
+def decode_phase(torch, name, frames, want):
+    """Conformance, then timing, of one clip on the main path. Returns
+    (median fps, all fps, per-stage ms/frame, launches of the
+    conformance pass by kernel)."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, rac
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
-    # conformance pass
+    # conformance pass: the main path's run, launches counted from zero
     rac.reset_launches()
+    lpf_dense.reset_launches()
     t0 = time.perf_counter()
     dec = VP9Decoder(device=DEVICE)
     n = 0
@@ -295,13 +394,15 @@ def decode_phase(torch, frames, want):
             raise RuntimeError(f"frame {n} was not reconstructed on the card")
         got = hashlib.md5(f.to_bytes()).hexdigest()
         if got != want[n]:
-            raise RuntimeError(f"frame {n}: md5 {got} != {want[n]}")
+            raise RuntimeError(f"{name} frame {n}: md5 {got} != {want[n]}")
         n += 1
     if n != len(want):
-        raise RuntimeError(f"decoded {n} frames, expected {len(want)}")
-    say("decode", f"{n} frames bit-exact vs framemd5 in "
+        raise RuntimeError(f"{name}: decoded {n} frames, expected "
+                           f"{len(want)}")
+    launches = dict(rac.LAUNCHES, **lpf_dense.LAUNCHES)
+    say("decode", f"{name}: {n} frames bit-exact vs framemd5 in "
         f"{time.perf_counter() - t0:.1f} s (first pass, incl. warm-up); "
-        f"bool-decoder launches on this path: {dict(rac.LAUNCHES)}")
+        f"kernel launches on this path: {launches}")
     # timed pipelined passes (frames stay on the device): the host clock
     # spreads on a host-bound path, so report the median of WINDOWS
     fps_runs = []
@@ -313,7 +414,8 @@ def decode_phase(torch, frames, want):
         torch.cuda.synchronize()
         fps_runs.append(len(outs) / (time.perf_counter() - t0))
     fps = sorted(fps_runs)[len(fps_runs) // 2]
-    say("decode", f"timed pipelined passes of {len(frames)} frames: median "
+    say("decode", f"{name}: timed pipelined passes of {len(frames)} "
+        "frames: median "
         f"{fps:.3f} fps over {WINDOWS} (min {min(fps_runs):.3f}, max "
         f"{max(fps_runs):.3f}; all: "
         + ", ".join(f"{v:.3f}" for v in fps_runs) + ")")
@@ -331,9 +433,9 @@ def decode_phase(torch, frames, want):
         metrics.disable()
     stages = {k: round(v["total_s"] * 1e3 / len(frames), 3)
               for k, v in metrics.report().items() if "total_s" in v}
-    say("decode", "serial pass, ms/frame per stage (synchronised): "
-        + json.dumps(stages, sort_keys=True))
-    return fps, fps_runs, stages
+    say("decode", f"{name}: serial pass, ms/frame per stage "
+        "(synchronised): " + json.dumps(stages, sort_keys=True))
+    return fps, fps_runs, stages, launches
 
 
 def main():
@@ -342,8 +444,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, PKG)) \
-            or not os.path.exists(CLIP):
+    if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
+            os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
+            for c in CLIPS):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -353,8 +456,6 @@ def main():
             or torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("TF32 must be off for the exact intra product")
     from ffmpeg_hybrid_tpu_torch import _build, passa_native
-    from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
-    from ffmpeg_hybrid_tpu_torch.formats.superframe import split_superframe
     from ffmpeg_hybrid_tpu_torch.ops import rac
 
     card = card_line()
@@ -386,24 +487,28 @@ def main():
                         or "Compiling" in line:
                     say("build", f"{src}: {line.strip()}")
 
-    frames = []
-    for pts, data in read_ivf(CLIP)[1]:
-        for _fpts, fd in split_superframe(data, pts):
-            frames.append(fd)
-    want = [line.split(",")[-1].strip() for line in open(CLIP_MD5)
-            if line.strip() and not line.startswith("#")]
-
+    clips = {c: read_clip(c) for c in CLIPS}
     kernels = [stream_phase(rac, torch, np, "bits"),
                stream_phase(rac, torch, np, "tree"),
-               coef_phase(rac, torch, np, frames[0])]
-    fps, fps_runs, stages = decode_phase(torch, frames, want)
-    top = sorted(((v, k) for k, v in stages.items()
-                  if k.startswith(("recon.", "upload.", "intra."))),
-                 reverse=True)[:4]
-    say("decode", f"bench_1080p: median {fps:.3f} fps (min "
-        f"{min(fps_runs):.3f}, max {max(fps_runs):.3f}) on {card}; largest "
-        "pass-B stages (ms/frame): "
-        + ", ".join(f"{k} {v}" for v, k in top))
+               coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
+               lpf_phase(torch, np, clips["bench_1080p_lf"][0][0])]
+    for name in CLIPS:
+        frames, want = clips[name]
+        fps, fps_runs, stages, launches = decode_phase(torch, name, frames,
+                                                       want)
+        lf = launches["lf_dense"]
+        if (lf > 0) != (name == "bench_1080p_lf"):
+            raise RuntimeError(f"{name}: lf_dense launched {lf} times")
+        if lf:
+            kernels[-1]["launches"] = lf
+            kernels[-1]["launches_per_frame"] = lf / len(frames)
+        top = sorted(((v, k) for k, v in stages.items()
+                      if k.startswith(("recon.", "upload.", "intra."))),
+                     reverse=True)[:5]
+        say("decode", f"{name}: median {fps:.3f} fps (min "
+            f"{min(fps_runs):.3f}, max {max(fps_runs):.3f}) on {card}; "
+            "largest pass-B stages (ms/frame): "
+            + ", ".join(f"{k} {v}" for v, k in top))
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

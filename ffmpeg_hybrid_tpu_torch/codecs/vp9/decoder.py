@@ -151,7 +151,7 @@ _JOB_ATTRS = (
     "eob_v", "txsz4", "txtype4", "uvtx4", "inter4", "inter4uv", "mv4",
     "uvmv4", "ref4", "comp4", "filter4", "lf_level", "lf_mask",
     "cols", "rows", "sb_cols", "sb_rows", "ss_h", "ss_v", "use_native",
-    "coef_counts", "coef_pairs")
+    "coef_counts", "coef_pairs", "lim_lut", "mblim_lut")
 
 
 # pipeline depth the buffer pools must cover (see _setup_arrays)

@@ -13,12 +13,17 @@ reference: vp9_webgpu.c:2956):
   3. intra wavefront — host-computed dependency levels; per level the
                        tx blocks' edges are gathered and predicted with
                        one exact float32 product (ops/intra_tables) + TM
+  4. loop filter     — pass A's per-superblock levels and edge masks
+                       become dense parameter grids on the device
+                       (ops/lpf_masks), then the superblock-wavefront
+                       filter runs (ops/lpf_dense; csrc/lpf.cu on the
+                       card)
 
 Frame planes stay on the device across frames (references included).
 Every stage is integer math or exact float32, so the planes equal the
 JAX package's bit for bit. The slice covers 8-bit 4:2:0 frames with
-unscaled references and no loop filter; other frames raise
-NotImplementedError naming the slice they wait for.
+unscaled references; other frames raise NotImplementedError naming the
+slice they wait for.
 
 Where JAX clamps out-of-bounds gather indices and drops out-of-bounds
 scatter writes, torch raises, so this module masks explicitly: pad and
@@ -36,6 +41,7 @@ from ..utils.metrics import metrics
 
 from . import itxfm
 from . import intra_tables as it
+from . import lpf_dense, lpf_masks
 from ..codecs.vp9 import tables as T
 
 XP = itxfm.TORCH
@@ -89,10 +95,6 @@ def _iota(n, device):
 def _check_slice(s):
     """Frames this slice of the port does not reconstruct raise."""
     h = s.header
-    if h.filter_level:
-        raise NotImplementedError(
-            f"filter_level={h.filter_level}: the loop filter waits for "
-            "the loop-filter slice of the port")
     if h.bpp != 8:
         raise NotImplementedError(
             f"{h.bpp}-bit frames wait for the 10/12-bit slice of the port")
@@ -1069,6 +1071,8 @@ def precompute_host(s):
                 txg = s.txsz4 if plane_idx == 0 else s.uvtx4
                 pre["pairs"][plane_idx] = _pack_coef_host(
                     coef, eob4, txg, wide=h.bpp > 8)
+    if h.filter_level:
+        _pack_lf(s, pre)
     with metrics.timer("recon.recs_pack"):
         pre["recs"] = _pack_records(s)
     # merge every upload into one flat buffer (one copy per frame)
@@ -1077,16 +1081,43 @@ def precompute_host(s):
     s.pre = pre
 
 
+def _pack_lf(s, pre):
+    """Loop-filter part of the host precompute: the plane-set flags
+    and, when either is set, the level/mask/LUT buffers that
+    lpf_masks.grids_device takes."""
+    with metrics.timer("recon.lf_flags"):
+        pre["lf_masks"] = lpf_masks.lf_flags(s)
+        if pre["lf_masks"][0] or pre["lf_masks"][1]:
+            pre["lf_bufs"] = lpf_masks.lf_buffers(s)
+
+
+def _lf_views(pre):
+    """The lf_bufs arrays that go up with the frame, by upload name."""
+    lfm = pre.get("lf_masks")
+    if lfm is None or not (lfm[0] or lfm[1]):
+        return {}
+    return dict(zip(("lfl", "lfm", "lfluts"), pre["lf_bufs"]))
+
+
 def _pack_flat_upload(pre):
     """Concatenate every pass-B input array into ONE flat int16 host
-    buffer + slicing spec: one host-to-device copy per frame."""
+    buffer + slicing spec: one host-to-device copy per frame. int32
+    arrays ride as little-endian int16 pairs at an even offset and are
+    viewed back as int32 on the device."""
     parts, spec = [], {}
     off = 0
 
     def add(name, arr):
         nonlocal off
-        flat = arr.reshape(-1)
-        spec[name] = (off, arr.shape)
+        if arr.dtype == np.int32:
+            if off % 2:
+                parts.append(np.zeros(1, np.int16))
+                off += 1
+            spec[name] = (off, arr.shape, np.int32)
+            flat = arr.reshape(-1).view(np.int16)
+        else:
+            spec[name] = (off, arr.shape, None)
+            flat = arr.reshape(-1)
         parts.append(flat)
         off += flat.size
 
@@ -1101,6 +1132,8 @@ def _pack_flat_upload(pre):
         sl = pre["slabs"][i]
         if sl is not None:
             add("slab%d" % i, sl[0])
+    for name, arr in _lf_views(pre).items():
+        add(name, arr)
     return np.concatenate(parts), spec
 
 
@@ -1119,13 +1152,19 @@ def upload_job(s):
         with metrics.timer("upload.flat"):
             fdev = torch.from_numpy(buf).to(device)
         views = {}
-        for name, (off, shape) in spec.items():
+        for name, (off, shape, wide) in spec.items():
             n = int(np.prod(shape))
-            views[name] = fdev[off:off + n].view(shape)
+            if wide is np.int32:
+                views[name] = fdev[off:off + 2 * n].view(torch.int32) \
+                    .view(shape)
+            else:
+                views[name] = fdev[off:off + n].view(shape)
         dev["recs"] = views["recs"]
         dev["cp"] = views["cp"]
         dev["ep"] = views["ep"]
         dev["slabs"] = [views.get("slab0"), views.get("slab1")]
+        for name in _lf_views(pre):
+            dev[name] = views[name]
     else:
         with metrics.timer("upload.arrays"):
             dev["recs"] = torch.from_numpy(pre["recs"]).to(device)
@@ -1136,7 +1175,33 @@ def upload_job(s):
             dev["slabs"] = [torch.from_numpy(sl[0]).to(device)
                             if sl is not None else None
                             for sl in pre["slabs"]]
+            for name, arr in _lf_views(pre).items():
+                dev[name] = torch.from_numpy(arr).to(device)
     pre["dev"] = dev
+
+
+def _loop_filter(s, outs, dev):
+    """The loop filter on the device: dense parameter grids from the
+    uploaded levels and masks, then the wavefront filter on Y and on
+    stacked U+V. Returns the filtered [y, u, v]."""
+    h = s.header
+    y_any, uv_any = s.pre["lf_masks"][:2]
+    if not (y_any or uv_any):
+        return outs
+    with metrics.timer("recon.lf_grids"):
+        Vy, Hy, Vu, Hu = lpf_masks.grids_device(
+            dev["lfl"], dev["lfm"], dev["lfluts"], s.sb_rows, s.sb_cols,
+            h.ss_h, h.ss_v)
+    y, u, v = outs
+    with metrics.timer("recon.lf"):
+        if y_any:
+            y = lpf_dense.lf_dense(y[None], Vy, Hy, s.sb_rows, s.sb_cols,
+                                   64, 64, h.bpp)[0]
+        if uv_any:
+            u, v = lpf_dense.lf_dense(torch.stack([u, v]), Vu, Hu,
+                                      s.sb_rows, s.sb_cols, 64 >> h.ss_h,
+                                      64 >> h.ss_v, h.bpp).unbind(0)
+    return [y, u, v]
 
 
 def recon_frame(s):
@@ -1244,5 +1309,7 @@ def recon_frame(s):
                 pre["slabs"][k], dev["slabs"][k])
         outs.append(plane_dev)
 
+    if h.filter_level:
+        outs = _loop_filter(s, outs, dev)
     cur.dev = outs
     cur._host_stale = True

@@ -21,7 +21,8 @@ from .device import resolve
 _BLOCK_ATTRS = ("bs", "seg_id", "skip", "intra", "tx", "uvtx", "mode",
                 "uvmode", "comp", "ref", "filter", "mv")
 # the host products of precompute_host; the device half is rebuilt
-_PRE_KEYS = ("levels", "pairs", "pairs_merged", "slabs", "recs")
+_PRE_KEYS = ("levels", "pairs", "pairs_merged", "slabs", "recs",
+             "lf_masks", "lf_bufs")
 
 
 def _host(a):
@@ -103,6 +104,10 @@ def frame_job(snap, device=None) -> FrameJob:
     job.outputs = [job.cur_frame_obj]
     if snap["pre"] is not None:
         pre = dict(snap["pre"])
+        if job.header.filter_level and pre["lf_masks"] is None:
+            # the JAX package took its record-replay loop filter (or its
+            # host one) for this frame: the port takes the masks path
+            recon._pack_lf(job, pre)
         pre["flat"] = recon._pack_flat_upload(pre)
         job.pre = pre
     return job

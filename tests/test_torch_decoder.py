@@ -1,9 +1,9 @@
 """The port's decoder (ffmpeg_hybrid_tpu_torch, on the CPU) end to end:
-mini_encoder chains against the JAX package's VP9Decoder(
-recon_backend="tpu") plane by plane and against the golden decoder's
-frame bytes; one pass-A snapshot carried across with state.py; frames
-outside the slice raise; the first frames of bench_1080p against their
-framemd5 lines. Every comparison is exact."""
+mini_encoder chains, with and without the loop filter, against the JAX
+package's VP9Decoder(recon_backend="tpu") plane by plane and against
+the golden decoder's frame bytes; pass-A snapshots carried across with
+state.py; frames outside the slice raise; the first frames of
+bench_1080p against their framemd5 lines. Every comparison is exact."""
 import hashlib
 import itertools
 import os
@@ -41,6 +41,27 @@ def _chain(w, h, n_inter, seed=3):
     return pkts
 
 
+def _filtered_chain(w, h, n_inter, seed=5):
+    """Keyframe, then inter frames, all loop-filtered: lf deltas, a
+    segment with an alt-LF feature, mixed sharpness, 4x4 transforms on
+    the keyframe (4px-offset edges); the inter frames predict from
+    filtered references."""
+    m = _mini()
+    deltas = ([3, -2, 0, 1], [2, -1])
+    seg = [(0, 12, -1, 0)] + [(0, 0, -1, 0)] * 7
+    pkts = [m.encode_keyframe_random(w, h, 8, seed=seed, txfmmode=0,
+                                     filter_level=36, lf_deltas=deltas,
+                                     seg_feat=seg)]
+    for i in range(n_inter):
+        pkts.append(m.encode_inter_flex(
+            w, h, seed=seed + 31 + i, comppredmode=2 if i % 2 else 0,
+            signbias=(0, 0, 1), filtermode=4, coeffs=True, p_intra=0.2,
+            p_skip=0.3, mv_mags=(0, 2, 4, 8, 16), refresh_mask=0x01,
+            filter_level=24 + 13 * i, sharpness=3 * (i % 2),
+            lf_deltas=deltas, seg_feat=seg))
+    return pkts
+
+
 def _planes_torch(f):
     return [p.numpy() for p in f.dev]
 
@@ -71,6 +92,42 @@ def test_chain_matches_jax_tpu_backend_and_golden(w, h, native, stream):
                                        _planes_torch(got[k]))):
             assert np.array_equal(a, b), (k, i)
         assert got[k].to_bytes() == gf.to_bytes(), k
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_filtered_chain_matches_jax_tpu_backend_and_golden(native,
+                                                           monkeypatch):
+    """Every frame loop-filtered (the port's masks path for both pass
+    A implementations): MD5 equal to the JAX package's tpu and golden
+    backends."""
+    from ffmpeg_hybrid_tpu.codecs.vp9.decoder import VP9Decoder as JDec
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense
+
+    pkts = _filtered_chain(128, 128 if native else 64, 2)
+    port = VP9Decoder(device="cpu", use_native=native)
+    jobs = [port.precompute_job(port.decode_pass_a(p)) for p in pkts]
+    tpu = JDec(recon_backend="tpu", use_native=native)
+    gold = JDec(recon_backend="golden", use_native=native)
+    calls = []
+    real = lpf_dense.lf_dense_plain
+
+    def counted(*a):
+        calls.append(a[0].shape[0])
+        return real(*a)
+
+    monkeypatch.setattr(lpf_dense, "lf_dense_plain", counted)
+    for k, (pkt, job) in enumerate(zip(pkts, jobs)):
+        assert job.header.filter_level and job.pre["lf_masks"] == \
+            (True, True), k
+        (got,) = port.decode_pass_b(job)
+        (jf,) = tpu.decode(pkt)
+        (gf,) = gold.decode(pkt)
+        md5 = hashlib.md5(got.to_bytes()).hexdigest()
+        assert md5 == hashlib.md5(gf.to_bytes()).hexdigest(), k
+        assert md5 == hashlib.md5(jf.to_bytes()).hexdigest(), k
+    # Y, then U+V stacked, on every frame
+    assert calls == [1, 2] * len(pkts)
 
 
 def test_lossless_keyframe_matches_golden():
@@ -110,6 +167,39 @@ def test_state_carries_one_snapshot_across():
     assert len(snap["ref_frames"]) >= 1
 
 
+@pytest.mark.parametrize("lf_impl", ["dense", "scan"])
+def test_state_carries_a_filtered_frame_across(lf_impl):
+    """Snapshots of loop-filtered frames (limit tables and the
+    loop-filter part of the host precompute included) reconstruct
+    identically in both packages, whichever loop-filter route the JAX
+    package took for them."""
+    import dataclasses
+    from ffmpeg_hybrid_tpu.codecs.vp9.decoder import VP9Decoder as JDec
+    from ffmpeg_hybrid_tpu.utils.config import get_config, set_config
+    from ffmpeg_hybrid_tpu_torch import state
+    from ffmpeg_hybrid_tpu_torch.ops import recon
+
+    pkts = _filtered_chain(128, 64, 1, seed=9)
+    cfg = get_config()
+    set_config(dataclasses.replace(cfg, lf_impl=lf_impl))
+    try:
+        jd = JDec(recon_backend="tpu")
+        for pkt in pkts:
+            job = jd.precompute_job(jd.decode_pass_a(pkt))
+            snap = state.snapshot(job)
+            jd.decode_pass_b(job)
+            assert snap["lim_lut"].any() and snap["mblim_lut"].any()
+            assert (snap["pre"]["lf_bufs"] is not None) == \
+                (lf_impl == "dense")
+            pj = state.frame_job(snap, device="cpu")
+            recon.recon_frame(pj)
+            for a, b in zip(_planes_jax(job.cur_frame_obj),
+                            _planes_torch(pj.cur_frame_obj)):
+                assert np.array_equal(a, b)
+    finally:
+        set_config(cfg)
+
+
 def _decode_all(pkts):
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
     dec = VP9Decoder(device="cpu")
@@ -118,9 +208,6 @@ def _decode_all(pkts):
 
 def test_out_of_slice_frames_raise():
     m = _mini()
-    with pytest.raises(NotImplementedError, match="loop-filter"):
-        _decode_all([m.encode_keyframe_random(64, 64, 8, seed=1,
-                                              filter_level=20)])
     with pytest.raises(NotImplementedError, match="10/12-bit"):
         _decode_all([m.encode_keyframe_random(64, 64, 10, seed=1,
                                               filter_level=0)])
