@@ -20,15 +20,29 @@ Phases, one status line each; any failure exits non-zero:
                C pass A's rate on the same frame;
                - lf_dense (csrc/lpf.cu) on the whole of
                  bench_1080p_lf frame 0: its Y and U+V planes as
-                 reconstructed before the loop filter, and their grids
+                 reconstructed before the loop filter, and their grids;
+               - residual_plane (csrc/itxfm.cu) on the coefficients and
+                 grids of all three planes of bench_1080p frames 0 (a
+                 keyframe) and 1 (an inter frame), as recon_frame hands
+                 them over;
+               - _intra_scan (csrc/intra.cu) on the planes, residuals
+                 and slabs of bench_1080p_lf frame 0 (Y, U, V), as
+                 recon_frame hands them over, with the windows each
+                 level took; then on U's slab spread to more rows per
+                 level than a window holds, so that every level spans
+                 two windows or more;
+               each with its time, bound terms and the plain version's
+               time on the same inputs
   4. decode    each clip through VP9Decoder(device="cuda")
                .decode_stream, every MD5 against its framemd5: all 30
                frames of vectors/bench_1080p.ivf (no loop filter: the
                loop-filter kernel must not launch) and all 6 of
                vectors/bench_1080p_lf.ivf (every frame filtered: it
-               must); then five timed pipelined passes (median fps and
-               its spread) and a serial pass with the stage timers
-               synchronised to the card (per-stage times)
+               must, 744 times); the residual and intra kernels must
+               launch on both; then five timed pipelined passes (median
+               fps and its spread) and a serial pass with the stage
+               timers synchronised to the card (per-stage times and the
+               intra levels per frame)
   5. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
@@ -50,12 +64,21 @@ KERNEL_SRC = PKG + "/csrc/rac.cu"
 PALLAS_SRC = "ffmpeg_hybrid_tpu/ops/rac_pallas.py"
 LPF_SRC = PKG + "/csrc/lpf.cu"
 LPF_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_dense.py:77"
+ITXFM_SRC = PKG + "/csrc/itxfm.cu"
+ITXFM_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:54"
+INTRA_SRC = PKG + "/csrc/intra.cu"
+INTRA_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:706"
+# loop-filter launches of the bench_1080p_lf conformance pass (124 per
+# frame: 62 waves x 2 plane sets)
+LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 744}
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
-# float32 outside the tensor cores (the rate the bool decoders' integer
-# work runs on), and the boost clock for the serial-chain bound
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s;
+# int32 outside the tensor cores, 64 lanes per SM against float32's 128
+# (Hopper whitepaper), so half of the 67e12 float32 rate, counted the
+# same way (a multiply-add as two operations): every kernel here does
+# integer work; the boost clock for the serial-chain bound
 HBM_BPS = 3.35e12
-CUDA_CORE_OPS = 67e12
+INT32_OPS = 33.5e12
 BOOST_HZ = 1.98e9
 SEED = 20261016
 # integer operations of one lane's loop-filter edge decision (fm: seven
@@ -96,12 +119,13 @@ def cuda_ms(fn, reps):
 
 def bounds(nbytes, nops, chain):
     """(bound_ms, bound_by, chain_bound_ms): the bytes the function must
-    move over HBM, its operations (one per bool for the bool decoders)
-    over the CUDA-core rate, and its longest dependent chain (bools, or
-    loop-filter edge positions) at one boost-clock cycle per step (a
-    floor no serial implementation beats)."""
+    move over HBM, its integer operations (one per bool for the bool
+    decoders) over the int32 rate, and its longest dependent chain
+    (bools, loop-filter edge positions or intra levels) at one
+    boost-clock cycle per step (a floor no serial implementation
+    beats)."""
     bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = nops / CUDA_CORE_OPS * 1e3
+    ops_ms = nops / INT32_OPS * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), bound_by, chain / BOOST_HZ * 1e3
 
@@ -291,26 +315,50 @@ def coef_phase(rac, torch, np, packet):
             "bytes_needed": need}
 
 
-def lpf_phase(torch, np, packet):
-    """lf_dense on one frame's real inputs: frame `packet` reconstructed
-    on the card up to the loop filter, the filter's planes and grids
-    captured as the decoder hands them over, then the kernel against
-    the plain version on each plane set, with timings."""
+def capture_inputs(torch, targets, packets):
+    """Decode `packets` on the card with each (module, name) of
+    `targets` wrapped to keep a copy of its arguments, as the decoder
+    hands them over. Returns {name: [args, ...]}."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
-    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense as LD
-    calls = []
-    real = LD.lf_dense
+    calls = {name: [] for _mod, name in targets}
+    reals = {name: getattr(mod, name) for mod, name in targets}
 
-    def capture(*args):
-        calls.append([a.clone() if torch.is_tensor(a) else a
-                      for a in args])
-        return real(*args)
+    def wrap(name):
+        def capture(*args):
+            calls[name].append([a.clone() if torch.is_tensor(a) else a
+                                for a in args])
+            return reals[name](*args)
+        return capture
 
-    LD.lf_dense = capture
+    for mod, name in targets:
+        setattr(mod, name, wrap(name))
     try:
-        VP9Decoder(device=DEVICE).decode(packet)
+        dec = VP9Decoder(device=DEVICE)
+        for packet in packets:
+            dec.decode(packet)
+        torch.cuda.synchronize()
     finally:
-        LD.lf_dense = real
+        for mod, name in targets:
+            setattr(mod, name, reals[name])
+    return calls
+
+
+def host_ms(torch, fn):
+    """Host ms of one synchronised call of fn (the plain versions)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lpf_phase(torch, calls):
+    """lf_dense on one frame's real inputs (bench_1080p_lf frame 0
+    reconstructed on the card up to the loop filter, the filter's planes
+    and grids as the decoder hands them over): the kernel against the
+    plain version on each plane set, with timings."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense as LD
+    real = LD.lf_dense
     if len(calls) != 2:
         raise RuntimeError(f"frame 0 ran {len(calls)} loop-filter calls, "
                            "expected Y and U+V")
@@ -322,11 +370,8 @@ def lpf_phase(torch, np, packet):
     for args in calls:
         planes, vg, hg, sb_rows, sb_cols = args[:5]
         out = real(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = LD.lf_dense_plain(*args)
-        torch.cuda.synchronize()
-        plain_ms += (time.perf_counter() - t0) * 1e3
+        want, t = host_ms(torch, lambda: LD.lf_dense_plain(*args))
+        plain_ms += t
         err = max(err, int((out - want).abs().max()))
         if not torch.equal(out, want):
             raise RuntimeError(f"lf_dense on {tuple(planes.shape)}: kernel "
@@ -361,6 +406,228 @@ def lpf_phase(torch, np, packet):
             "chain_bound_ms": chain_ms}
 
 
+class _CountOps:
+    """Stands for a value in ops/itxfm.py's 1-D butterflies and counts
+    the integer operations (+, -, *, >>, negation) done on it."""
+    n = 0
+
+    def _op(self, *_a):
+        _CountOps.n += 1
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+    __rshift__ = __neg__ = _op
+
+    def __getitem__(self, _k):
+        return _CountOps()
+
+    @staticmethod
+    def stack(xs, axis):
+        return xs
+
+
+def butterfly_ops(fn, *args):
+    """Integer operations of one 1-D transform of ops/itxfm.py."""
+    _CountOps.n = 0
+    fn(_CountOps, _CountOps(), *args)
+    return _CountOps.n
+
+
+def residual_work(np, coef, eob4, txsz4, txtype4, lossless):
+    """(bytes, operations) one residual_plane call must move and do: the
+    three grids read once, of the coefficients only the first eob (in
+    scan order) of each coded block, the int32 residual written once;
+    per coded block, its two passes of 1-D butterflies (counted from
+    ops/itxfm.py), the int16 wrap after each and the final rounding
+    (add, shift) of each pixel, or the DC shortcut (4 operations, then
+    the rounding of its one value)."""
+    from ffmpeg_hybrid_tpu_torch.ops import itxfm
+    nbytes = sum(g.numel() * g.element_size()
+                 for g in (eob4, txsz4, txtype4)) + coef.numel() * 4
+    e, t, ty = (g.cpu().numpy().astype(np.int64)
+                for g in (eob4, txsz4, txtype4))
+    r4, c4 = e.shape
+    yy, xx = np.mgrid[:r4, :c4]
+    ops = 0
+    for tx in ((0,) if lossless else range(4)):
+        k, sz = 1 << tx, 4 << tx
+        root = (t == tx) & (e > 0) & (yy % k == 0) & (xx % k == 0)
+        nbytes += int(np.minimum(e[root], sz * sz).sum()) \
+            * coef.element_size()
+        if lossless:
+            n = int(root.sum())
+            ops += n * (sz * (butterfly_ops(itxfm.iwht4_1d, 0)
+                              + butterfly_ops(itxfm.iwht4_1d, 1))
+                        + 2 * sz * sz)
+            continue
+        dc = root & (e == 1) & ((ty == 0) | (tx == 3))
+        ops += int(dc.sum()) * 6
+        for typ in range(4):
+            n = int((root & ~dc & ((ty == typ) if tx < 3 else True)).sum())
+            ka, kb = itxfm._TYPE_AB[typ] if tx < 3 else ("dct", "dct")
+            ops += n * (sz * (butterfly_ops(itxfm._1D[(tx, ka)])
+                              + butterfly_ops(itxfm._1D[(tx, kb)]))
+                        + 4 * sz * sz)
+            if tx == 3:
+                break
+    return nbytes, ops
+
+
+def residual_phase(torch, np, calls):
+    """residual_plane on the real inputs of bench_1080p frames 0 and 1
+    (three planes each): the kernel against the plain version on the
+    card, bit for bit, with timings and the bound terms."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    if len(calls) != 6:
+        raise RuntimeError(f"frames 0-1 ran {len(calls)} residual calls, "
+                           "expected 6")
+    err = nonzero = 0
+    ms = plain_ms = 0.0
+    nbytes = nops = 0
+    shapes = []
+    for args in calls:
+        coef, eob4, txsz4, txtype4, lossless, bpp = args
+        out = R.residual_plane(*args)
+        want, t = host_ms(torch, lambda: R.residual_plane_plain(*args))
+        plain_ms += t
+        err = max(err, int((out.long() - want.long()).abs().max()))
+        if not torch.equal(out, want):
+            raise RuntimeError(f"residual_plane on {tuple(coef.shape)}: "
+                               f"kernel != plain (max |diff| {err})")
+        nonzero += int(out.count_nonzero())
+        call_ms = cuda_ms(lambda: R.residual_plane(*args), 50)
+        ms += call_ms
+        b, o = residual_work(np, coef, eob4, txsz4, txtype4, lossless)
+        nbytes += b
+        nops += o
+        shapes.append(f"{tuple(coef.shape)} {coef.dtype} "
+                      f"{int(eob4.gt(0).sum())} coded cells: {call_ms:.4f} ms")
+    if not nonzero:
+        raise RuntimeError("the residuals are zero everywhere")
+    nf = len(calls) // 3
+    bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
+    say("kernels", f"residual_plane on bench_1080p frames 0-1 "
+        f"({'; '.join(shapes)}): ms/frame={ms / nf:.4f} plain_ms/frame="
+        f"{plain_ms / nf:.2f} bound_ms/frame={bound_ms:.6f} ({bound_by}, "
+        f"{nbytes / nf:.0f} B, {nops / nf:.0f} ops); exact vs plain")
+    return {"name": "residual_plane", "route": "cuda", "source": ITXFM_SRC,
+            "replaces": ITXFM_REPLACES, "launches": None,
+            "max_abs_err": err, "ms": ms / nf, "plain_ms": plain_ms / nf,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": "frame (3 planes), mean of bench_1080p frames 0 and 1",
+            "bytes_needed": nbytes / nf, "ops": nops / nf}
+
+
+def intra_work(np, plane, slab, L, sizes, caps):
+    """(bytes, operations, real blocks) one _intra_scan call must move
+    and do: the new plane written once; the old plane read only where no
+    intra block writes, the residual only where one does; the slab rows
+    of real blocks and the weight matrices of the (size, mode) pairs
+    they use read once; per real block, the dot product (one multiply
+    and one add per edge entry) or TM (3 operations) and the rounding,
+    residual add and clip (4) of each pixel."""
+    from ffmpeg_hybrid_tpu_torch.ops import intra_tables as it
+    buf = slab.cpu().numpy().astype(np.int64)
+    H, W = plane.shape
+    covered = np.zeros((H, W), bool)
+    nbytes = 2 * H * W * 4     # the output, and the plane or the residual
+    ops = real_blocks = 0
+    base = 0
+    for sz, cap in zip(sizes, caps):
+        rows = buf[base:base + L * cap]
+        base += L * cap
+        rows = rows[(rows[:, 0] < H) & (rows[:, 1] < W)]
+        for py, px in rows[:, :2]:
+            covered[py:py + sz, px:px + sz] = True
+        ne = it.edge_len(sz)
+        tm = rows[:, 2] == 9
+        real_blocks += len(rows)
+        nbytes += len(rows) * 16 \
+            + len(set(rows[~tm, 2].tolist())) * ne * sz * sz * 4
+        ops += int((~tm).sum()) * sz * sz * (2 * ne + 4) \
+            + int(tm.sum()) * sz * sz * 7
+    return nbytes, ops, real_blocks, int(covered.sum())
+
+
+def intra_windows(R, args, want):
+    """The windows per level the intra kernel takes on `args`, from one
+    launch on a copy of the plane, whose result must be `want`."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
+    plane, residual, slab, L, sizes, caps, bpp = args
+    out = plane.clone()
+    windows = RC.intra(out, residual, slab, L, sizes, caps, bpp,
+                       R._const("edges", plane.device))
+    if not bool((out == want).all()):
+        raise RuntimeError(f"_intra_scan at {windows} windows per level "
+                           "!= plain")
+    return windows
+
+
+def intra_phase(torch, np, calls):
+    """_intra_scan on the real inputs of bench_1080p_lf frame 0 (Y, U,
+    V): the kernel against the plain version on the card, bit for bit,
+    with timings and the bound terms (the chain: the levels, one after
+    another); then U's slab spread so that each level spans windows."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
+    if len(calls) != 3:
+        raise RuntimeError(f"frame 0 ran {len(calls)} intra calls, "
+                           "expected Y, U and V")
+    err = 0
+    ms = plain_ms = 0.0
+    nbytes = nops = chain = 0
+    shapes = []
+    for args in calls:
+        plane, residual, slab, L, sizes, caps, bpp = args
+        out = R._intra_scan(*args)
+        want, t = host_ms(torch, lambda: R._intra_scan_plain(*args))
+        plain_ms += t
+        err = max(err, int((out - want).abs().max()))
+        if not torch.equal(out, want):
+            raise RuntimeError(f"_intra_scan on {tuple(plane.shape)}: "
+                               f"kernel != plain (max |diff| {err})")
+        changed = int((out != plane).sum())
+        if not changed:
+            raise RuntimeError("the intra wavefront changed no pixel")
+        call_ms = cuda_ms(lambda: R._intra_scan(*args), 5)
+        ms += call_ms
+        b, o, nreal, covered = intra_work(np, plane, slab, L, sizes, caps)
+        nbytes += b
+        nops += o
+        chain += L
+        windows = intra_windows(R, args, want)
+        shapes.append(f"{tuple(plane.shape)} L={L} sizes={sizes} "
+                      f"caps={caps} slab {tuple(slab.shape)} ({nreal} "
+                      f"blocks over {covered} pixels, {windows} window(s) "
+                      f"per level): {call_ms:.4f} ms")
+    # U's slab spread to more rows per level than a window's 1024
+    # threads: each level's blocks lie in two windows or more, and the
+    # windows cross the sections
+    plane, residual, slab, L, sizes, caps, bpp = calls[1]
+    wide = RC.spread_slab((slab.cpu().numpy(), L, sizes, caps),
+                          tuple((1024 // sum(caps) + 1) * c for c in caps),
+                          *plane.shape, seed=SEED)
+    args = (plane, residual, torch.as_tensor(wide[0], device=DEVICE),
+            *wide[1:], bpp)
+    windows = intra_windows(R, args, R._intra_scan_plain(*args))
+    if windows < 2:
+        raise RuntimeError(f"the spread slab took {windows} window(s)")
+    shapes.append(f"U spread to caps={wide[3]}: {windows} windows per "
+                  "level, exact vs plain")
+    bound_ms, bound_by, chain_ms = bounds(nbytes, nops, chain)
+    say("kernels", f"_intra_scan on bench_1080p_lf frame 0 "
+        f"({'; '.join(shapes)}): ms={ms:.4f} plain_ms={plain_ms:.1f} "
+        f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {nops} ops) "
+        f"chain_ms={chain_ms:.6f} ({chain} levels); exact vs plain")
+    return {"name": "_intra_scan", "route": "cuda", "source": INTRA_SRC,
+            "replaces": INTRA_REPLACES, "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": "frame (Y, U, V) of bench_1080p_lf frame 0",
+            "bytes_needed": nbytes, "ops": nops, "chain_levels": chain,
+            "chain_bound_ms": chain_ms, "spread_windows": windows}
+
+
 def read_clip(name):
     from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
     from ffmpeg_hybrid_tpu_torch.formats.superframe import split_superframe
@@ -381,11 +648,12 @@ def decode_phase(torch, name, frames, want):
     (median fps, all fps, per-stage ms/frame, launches of the
     conformance pass by kernel)."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
-    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, rac
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, rac, recon
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
     # conformance pass: the main path's run, launches counted from zero
     rac.reset_launches()
     lpf_dense.reset_launches()
+    recon.reset_launches()
     t0 = time.perf_counter()
     dec = VP9Decoder(device=DEVICE)
     n = 0
@@ -399,7 +667,7 @@ def decode_phase(torch, name, frames, want):
     if n != len(want):
         raise RuntimeError(f"{name}: decoded {n} frames, expected "
                            f"{len(want)}")
-    launches = dict(rac.LAUNCHES, **lpf_dense.LAUNCHES)
+    launches = dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **recon.LAUNCHES)
     say("decode", f"{name}: {n} frames bit-exact vs framemd5 in "
         f"{time.perf_counter() - t0:.1f} s (first pass, incl. warm-up); "
         f"kernel launches on this path: {launches}")
@@ -431,10 +699,13 @@ def decode_phase(torch, name, frames, want):
     finally:
         metrics.sync = None
         metrics.disable()
+    report = metrics.report()
     stages = {k: round(v["total_s"] * 1e3 / len(frames), 3)
-              for k, v in metrics.report().items() if "total_s" in v}
+              for k, v in report.items() if "total_s" in v}
+    levels = report.get("intra.levels", {"value": 0})["value"]
     say("decode", f"{name}: serial pass, ms/frame per stage "
-        "(synchronised): " + json.dumps(stages, sort_keys=True))
+        "(synchronised): " + json.dumps(stages, sort_keys=True)
+        + f"; intra levels per frame (Y + U + V): {levels / len(frames)}")
     return fps, fps_runs, stages, launches
 
 
@@ -488,20 +759,38 @@ def main():
                     say("build", f"{src}: {line.strip()}")
 
     clips = {c: read_clip(c) for c in CLIPS}
-    kernels = [stream_phase(rac, torch, np, "bits"),
-               stream_phase(rac, torch, np, "tree"),
-               coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
-               lpf_phase(torch, np, clips["bench_1080p_lf"][0][0])]
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, recon
+    lf_calls = capture_inputs(torch, [(lpf_dense, "lf_dense"),
+                                      (recon, "_intra_scan")],
+                              clips["bench_1080p_lf"][0][:1])
+    res_calls = capture_inputs(torch, [(recon, "residual_plane")],
+                               clips["bench_1080p"][0][:2])
+    by_name = {k["name"]: k for k in (
+        stream_phase(rac, torch, np, "bits"),
+        stream_phase(rac, torch, np, "tree"),
+        coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
+        lpf_phase(torch, lf_calls["lf_dense"]),
+        residual_phase(torch, np, res_calls["residual_plane"]),
+        intra_phase(torch, np, lf_calls["_intra_scan"]))}
+    del lf_calls, res_calls
+    main_path = {"lf_dense": "lf_dense", "residual_plane": "residual",
+                 "_intra_scan": "intra"}
     for name in CLIPS:
         frames, want = clips[name]
         fps, fps_runs, stages, launches = decode_phase(torch, name, frames,
                                                        want)
         lf = launches["lf_dense"]
-        if (lf > 0) != (name == "bench_1080p_lf"):
-            raise RuntimeError(f"{name}: lf_dense launched {lf} times")
-        if lf:
-            kernels[-1]["launches"] = lf
-            kernels[-1]["launches_per_frame"] = lf / len(frames)
+        if lf != LF_LAUNCHES[name]:
+            raise RuntimeError(f"{name}: lf_dense launched {lf} times, "
+                               f"expected {LF_LAUNCHES[name]}")
+        for kname in ("residual", "intra"):
+            if launches[kname] < 1:
+                raise RuntimeError(f"{name}: the {kname} kernel did not "
+                                   "launch on the main path")
+        for kname, key in main_path.items():
+            k = by_name[kname]
+            k["launches"] = (k["launches"] or 0) + launches[key]
+            k.setdefault("launches_by_clip", {})[name] = launches[key]
         top = sorted(((v, k) for k, v in stages.items()
                       if k.startswith(("recon.", "upload.", "intra."))),
                      reverse=True)[:5]
@@ -510,7 +799,7 @@ def main():
             "largest pass-B stages (ms/frame): "
             + ", ".join(f"{k} {v}" for v, k in top))
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": list(by_name.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,728 @@
+// VP9 inverse transforms for Hopper (sm_90a): the residual plane of one
+// plane, the CUDA counterpart of the JAX package's residual_plane and
+// _residual_for_size (ffmpeg_hybrid_tpu/ops/recon_tpu.py:54-124, over
+// the 1-D butterflies of ops/itxfm.py). Those are XLA programs, not
+// Pallas kernels; they are the residual stage of the main path.
+//
+//   residual_plane  the residual of one [H, W] plane, one launch
+//
+// Semantics. The plane is tiled by transform blocks. A 4x4 cell (y, x)
+// is the root of a block of size 4 << t when t = txsz4[y, x] is 0..3
+// and y and x are multiples of 1 << t; the block contributes when its
+// root's eob is > 0, and every pixel no block covers is 0 (the plain
+// version sums its per-size planes, so a pixel two roots cover gets
+// both). A block runs two 1-D passes: pass a over each column c of the
+// coefficient tile gives row c of a temporary, pass b over each column
+// k of the temporary gives column k of the residual. Each pass is a DCT
+// or an ADST by the root's txtype4 (1 and 3: ADST in pass a; 2 and 3:
+// ADST in pass b; 32x32 is DCT only), and its outputs wrap to int16
+// (8 bpp: dctcoef is int16_t). Then (v + (1 << (s - 1))) >> s with s =
+// 4, 5, 6, 6 by size. eob == 1 with DCT_DCT (any type at 32x32) takes
+// the DC shortcut instead: _rs(_rs(dc * 11585) * 11585), then the same
+// rounding, over the whole block. Lossless frames use the 4x4 Walsh-
+// Hadamard transform (inputs >> 2 in pass a, no final shift) on every
+// root with txsz4 == 0.
+//
+// Arithmetic. The butterflies are int32 arithmetic that wraps modulo
+// 2^32 (JAX's and PyTorch's int32, and C's int on the reference's
+// targets); signed overflow is undefined in C++, so they run on
+// uint32_t, and _rs, (v + 8192) >> 14, is an arithmetic shift of the
+// wrapped value. The butterflies below were transcribed from
+// ffmpeg_hybrid_tpu_torch/ops/itxfm.py line by line: every constant and
+// every input permutation and negated output is that file's.
+//
+// Design. One thread block of 256 threads per aligned 32x32 region;
+// every transform block lies inside exactly one region. The region's
+// sizes run in turn (4x4, 8x8, 16x16, 32x32), each as two passes
+// through shared memory: one thread per 1-D transform, which holds its
+// column in registers (the size is a template parameter, so the arrays
+// stay in registers). The region's residual accumulates in shared
+// memory and is written once, zeros included. Only the blocks that
+// exist are transformed; the plain version computes every size and
+// both transform kinds over the whole plane and selects per tile.
+//
+// What bounds it. Bytes: the coefficients (int16) and the three grids
+// are read once and the int32 residual written once, some 12.5 MB for a
+// 1088x1920 plane, 4 us at 3.35 TB/s; the butterflies are a few tens of
+// integer operations per pixel, below that. A region's work is a short
+// chain (load, two passes, store) with 8 barriers, and the 2,040
+// regions of a 1080p luma plane fill the card many times over.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+typedef uint32_t u32;
+
+// _rs: (v + (1 << 13)) >> 14, arithmetic, on the wrapped int32
+__device__ __forceinline__ u32 rs(u32 v) {
+  return static_cast<u32>(static_cast<int32_t>(v + 8192u) >> 14);
+}
+
+__device__ __forceinline__ u32 asr(u32 v, int s) {
+  return static_cast<u32>(static_cast<int32_t>(v) >> s);
+}
+
+// _wrap16: the low 16 bits, sign-extended
+__device__ __forceinline__ int32_t wrap16(u32 v) {
+  return static_cast<int16_t>(static_cast<uint16_t>(v & 0xffffu));
+}
+
+// ---------------------------------------------------------------------
+// 1-D kernels (ops/itxfm.py idct4_1d ... idct32_1d): I -> O, length N
+
+__device__ __forceinline__ void idct4(const u32* I, u32* O) {
+  const u32 i0 = I[0];
+  const u32 i1 = I[1];
+  const u32 i2 = I[2];
+  const u32 i3 = I[3];
+  u32 t0 = rs((i0 + i2) * 11585);
+  u32 t1 = rs((i0 - i2) * 11585);
+  u32 t2 = rs(i1 * 6270 - i3 * 15137);
+  u32 t3 = rs(i1 * 15137 + i3 * 6270);
+  O[0] = t0 + t3;
+  O[1] = t1 + t2;
+  O[2] = t1 - t2;
+  O[3] = t0 - t3;
+}
+
+__device__ __forceinline__ void iadst4(const u32* I, u32* O) {
+  const u32 i0 = I[0];
+  const u32 i1 = I[1];
+  const u32 i2 = I[2];
+  const u32 i3 = I[3];
+  u32 t0 = 5283 * i0 + 15212 * i2 + 9929 * i3;
+  u32 t1 = 9929 * i0 - 5283 * i2 - 15212 * i3;
+  u32 t2 = 13377 * (i0 - i2 + i3);
+  u32 t3 = 13377 * i1;
+  O[0] = rs(t0 + t3);
+  O[1] = rs(t1 + t3);
+  O[2] = rs(t2);
+  O[3] = rs(t0 + t1 - t3);
+}
+
+__device__ __forceinline__ void idct8(const u32* I, u32* O) {
+  u32 t0a = rs((I[0] + I[4]) * 11585);
+  u32 t1a = rs((I[0] - I[4]) * 11585);
+  u32 t2a = rs(I[2] * 6270 - I[6] * 15137);
+  u32 t3a = rs(I[2] * 15137 + I[6] * 6270);
+  u32 t4a = rs(I[1] * 3196 - I[7] * 16069);
+  u32 t5a = rs(I[5] * 13623 - I[3] * 9102);
+  u32 t6a = rs(I[5] * 9102 + I[3] * 13623);
+  u32 t7a = rs(I[1] * 16069 + I[7] * 3196);
+  u32 t0 = t0a + t3a;
+  u32 t1 = t1a + t2a;
+  u32 t2 = t1a - t2a;
+  u32 t3 = t0a - t3a;
+  u32 t4 = t4a + t5a;
+  u32 t5a2 = t4a - t5a;
+  u32 t7 = t7a + t6a;
+  u32 t6a2 = t7a - t6a;
+  u32 t5 = rs((t6a2 - t5a2) * 11585);
+  u32 t6 = rs((t6a2 + t5a2) * 11585);
+  O[0] = t0 + t7;
+  O[1] = t1 + t6;
+  O[2] = t2 + t5;
+  O[3] = t3 + t4;
+  O[4] = t3 - t4;
+  O[5] = t2 - t5;
+  O[6] = t1 - t6;
+  O[7] = t0 - t7;
+}
+
+__device__ __forceinline__ void iadst8(const u32* I, u32* O) {
+  u32 t0a = 16305 * I[7] + 1606 * I[0];
+  u32 t1a = 1606 * I[7] - 16305 * I[0];
+  u32 t2a = 14449 * I[5] + 7723 * I[2];
+  u32 t3a = 7723 * I[5] - 14449 * I[2];
+  u32 t4a = 10394 * I[3] + 12665 * I[4];
+  u32 t5a = 12665 * I[3] - 10394 * I[4];
+  u32 t6a = 4756 * I[1] + 15679 * I[6];
+  u32 t7a = 15679 * I[1] - 4756 * I[6];
+  u32 t0 = rs(t0a + t4a);
+  u32 t1 = rs(t1a + t5a);
+  u32 t2 = rs(t2a + t6a);
+  u32 t3 = rs(t3a + t7a);
+  u32 t4 = rs(t0a - t4a);
+  u32 t5 = rs(t1a - t5a);
+  u32 t6 = rs(t2a - t6a);
+  u32 t7 = rs(t3a - t7a);
+  t4a = 15137 * t4 + 6270 * t5;
+  t5a = 6270 * t4 - 15137 * t5;
+  t6a = 15137 * t7 - 6270 * t6;
+  t7a = 6270 * t7 + 15137 * t6;
+  u32 o0 = t0 + t2;
+  u32 o7 = (0u - (t1 + t3));
+  t2 = t0 - t2;
+  t3 = t1 - t3;
+  u32 o1 = (0u - rs(t4a + t6a));
+  u32 o6 = rs(t5a + t7a);
+  t6 = rs(t4a - t6a);
+  t7 = rs(t5a - t7a);
+  u32 o3 = (0u - rs((t2 + t3) * 11585));
+  u32 o4 = rs((t2 - t3) * 11585);
+  u32 o2 = rs((t6 + t7) * 11585);
+  u32 o5 = (0u - rs((t6 - t7) * 11585));
+  O[0] = o0;
+  O[1] = o1;
+  O[2] = o2;
+  O[3] = o3;
+  O[4] = o4;
+  O[5] = o5;
+  O[6] = o6;
+  O[7] = o7;
+}
+
+__device__ __forceinline__ void idct16(const u32* I, u32* O) {
+  u32 t0a = rs((I[0] + I[8]) * 11585);
+  u32 t1a = rs((I[0] - I[8]) * 11585);
+  u32 t2a = rs(I[4] * 6270 - I[12] * 15137);
+  u32 t3a = rs(I[4] * 15137 + I[12] * 6270);
+  u32 t4a = rs(I[2] * 3196 - I[14] * 16069);
+  u32 t7a = rs(I[2] * 16069 + I[14] * 3196);
+  u32 t5a = rs(I[10] * 13623 - I[6] * 9102);
+  u32 t6a = rs(I[10] * 9102 + I[6] * 13623);
+  u32 t8a = rs(I[1] * 1606 - I[15] * 16305);
+  u32 t15a = rs(I[1] * 16305 + I[15] * 1606);
+  u32 t9a = rs(I[9] * 12665 - I[7] * 10394);
+  u32 t14a = rs(I[9] * 10394 + I[7] * 12665);
+  u32 t10a = rs(I[5] * 7723 - I[11] * 14449);
+  u32 t13a = rs(I[5] * 14449 + I[11] * 7723);
+  u32 t11a = rs(I[13] * 15679 - I[3] * 4756);
+  u32 t12a = rs(I[13] * 4756 + I[3] * 15679);
+  u32 t0 = t0a + t3a;
+  u32 t1 = t1a + t2a;
+  u32 t2 = t1a - t2a;
+  u32 t3 = t0a - t3a;
+  u32 t4 = t4a + t5a;
+  u32 t5 = t4a - t5a;
+  u32 t6 = t7a - t6a;
+  u32 t7 = t7a + t6a;
+  u32 t8 = t8a + t9a;
+  u32 t9 = t8a - t9a;
+  u32 t10 = t11a - t10a;
+  u32 t11 = t11a + t10a;
+  u32 t12 = t12a + t13a;
+  u32 t13 = t12a - t13a;
+  u32 t14 = t15a - t14a;
+  u32 t15 = t15a + t14a;
+  t5a = rs((t6 - t5) * 11585);
+  t6a = rs((t6 + t5) * 11585);
+  t9a = rs(t14 * 6270 - t9 * 15137);
+  t14a = rs(t14 * 15137 + t9 * 6270);
+  t10a = rs((0u - (t13 * 15137 + t10 * 6270)));
+  t13a = rs(t13 * 6270 - t10 * 15137);
+  t0a = t0 + t7;
+  t1a = t1 + t6a;
+  t2a = t2 + t5a;
+  t3a = t3 + t4;
+  t4 = t3 - t4;
+  t5 = t2 - t5a;
+  t6 = t1 - t6a;
+  t7 = t0 - t7;
+  t8a = t8 + t11;
+  t9 = t9a + t10a;
+  t10 = t9a - t10a;
+  t11a = t8 - t11;
+  t12a = t15 - t12;
+  t13 = t14a - t13a;
+  t14 = t14a + t13a;
+  t15a = t15 + t12;
+  t10a = rs((t13 - t10) * 11585);
+  t13a = rs((t13 + t10) * 11585);
+  t11 = rs((t12a - t11a) * 11585);
+  t12 = rs((t12a + t11a) * 11585);
+  O[0] = t0a + t15a;
+  O[1] = t1a + t14;
+  O[2] = t2a + t13a;
+  O[3] = t3a + t12;
+  O[4] = t4 + t11;
+  O[5] = t5 + t10a;
+  O[6] = t6 + t9;
+  O[7] = t7 + t8a;
+  O[8] = t7 - t8a;
+  O[9] = t6 - t9;
+  O[10] = t5 - t10a;
+  O[11] = t4 - t11;
+  O[12] = t3a - t12;
+  O[13] = t2a - t13a;
+  O[14] = t1a - t14;
+  O[15] = t0a - t15a;
+}
+
+__device__ __forceinline__ void iadst16(const u32* I, u32* O) {
+  u32 t0 = I[15] * 16364 + I[0] * 804;
+  u32 t1 = I[15] * 804 - I[0] * 16364;
+  u32 t2 = I[13] * 15893 + I[2] * 3981;
+  u32 t3 = I[13] * 3981 - I[2] * 15893;
+  u32 t4 = I[11] * 14811 + I[4] * 7005;
+  u32 t5 = I[11] * 7005 - I[4] * 14811;
+  u32 t6 = I[9] * 13160 + I[6] * 9760;
+  u32 t7 = I[9] * 9760 - I[6] * 13160;
+  u32 t8 = I[7] * 11003 + I[8] * 12140;
+  u32 t9 = I[7] * 12140 - I[8] * 11003;
+  u32 t10 = I[5] * 8423 + I[10] * 14053;
+  u32 t11 = I[5] * 14053 - I[10] * 8423;
+  u32 t12 = I[3] * 5520 + I[12] * 15426;
+  u32 t13 = I[3] * 15426 - I[12] * 5520;
+  u32 t14 = I[1] * 2404 + I[14] * 16207;
+  u32 t15 = I[1] * 16207 - I[14] * 2404;
+  u32 t0a = rs(t0 + t8);
+  u32 t1a = rs(t1 + t9);
+  u32 t2a = rs(t2 + t10);
+  u32 t3a = rs(t3 + t11);
+  u32 t4a = rs(t4 + t12);
+  u32 t5a = rs(t5 + t13);
+  u32 t6a = rs(t6 + t14);
+  u32 t7a = rs(t7 + t15);
+  u32 t8a = rs(t0 - t8);
+  u32 t9a = rs(t1 - t9);
+  u32 t10a = rs(t2 - t10);
+  u32 t11a = rs(t3 - t11);
+  u32 t12a = rs(t4 - t12);
+  u32 t13a = rs(t5 - t13);
+  u32 t14a = rs(t6 - t14);
+  u32 t15a = rs(t7 - t15);
+  t8 = t8a * 16069 + t9a * 3196;
+  t9 = t8a * 3196 - t9a * 16069;
+  t10 = t10a * 9102 + t11a * 13623;
+  t11 = t10a * 13623 - t11a * 9102;
+  t12 = t13a * 16069 - t12a * 3196;
+  t13 = t13a * 3196 + t12a * 16069;
+  t14 = t15a * 9102 - t14a * 13623;
+  t15 = t15a * 13623 + t14a * 9102;
+  t0 = t0a + t4a;
+  t1 = t1a + t5a;
+  t2 = t2a + t6a;
+  t3 = t3a + t7a;
+  t4 = t0a - t4a;
+  t5 = t1a - t5a;
+  t6 = t2a - t6a;
+  t7 = t3a - t7a;
+  t8a = rs(t8 + t12);
+  t9a = rs(t9 + t13);
+  t10a = rs(t10 + t14);
+  t11a = rs(t11 + t15);
+  t12a = rs(t8 - t12);
+  t13a = rs(t9 - t13);
+  t14a = rs(t10 - t14);
+  t15a = rs(t11 - t15);
+  t4a = t4 * 15137 + t5 * 6270;
+  t5a = t4 * 6270 - t5 * 15137;
+  t6a = t7 * 15137 - t6 * 6270;
+  t7a = t7 * 6270 + t6 * 15137;
+  t12 = t12a * 15137 + t13a * 6270;
+  t13 = t12a * 6270 - t13a * 15137;
+  t14 = t15a * 15137 - t14a * 6270;
+  t15 = t15a * 6270 + t14a * 15137;
+  u32 o0 = t0 + t2;
+  u32 o15 = (0u - (t1 + t3));
+  t2a = t0 - t2;
+  t3a = t1 - t3;
+  u32 o3 = (0u - rs(t4a + t6a));
+  u32 o12 = rs(t5a + t7a);
+  t6 = rs(t4a - t6a);
+  t7 = rs(t5a - t7a);
+  u32 o1 = (0u - (t8a + t10a));
+  u32 o14 = t9a + t11a;
+  t10 = t8a - t10a;
+  t11 = t9a - t11a;
+  u32 o2 = rs(t12 + t14);
+  u32 o13 = (0u - rs(t13 + t15));
+  t14a = rs(t12 - t14);
+  t15a = rs(t13 - t15);
+  u32 o7 = rs((0u - (t2a + t3a)) * 11585);
+  u32 o8 = rs((t2a - t3a) * 11585);
+  u32 o4 = rs((t7 + t6) * 11585);
+  u32 o11 = rs((t7 - t6) * 11585);
+  u32 o6 = rs((t11 + t10) * 11585);
+  u32 o9 = rs((t11 - t10) * 11585);
+  u32 o5 = rs((0u - (t14a + t15a)) * 11585);
+  u32 o10 = rs((t14a - t15a) * 11585);
+  O[0] = o0;
+  O[1] = o1;
+  O[2] = o2;
+  O[3] = o3;
+  O[4] = o4;
+  O[5] = o5;
+  O[6] = o6;
+  O[7] = o7;
+  O[8] = o8;
+  O[9] = o9;
+  O[10] = o10;
+  O[11] = o11;
+  O[12] = o12;
+  O[13] = o13;
+  O[14] = o14;
+  O[15] = o15;
+}
+
+__device__ __forceinline__ void idct32(const u32* I, u32* O) {
+  u32 t0a = rs((I[0] + I[16]) * 11585);
+  u32 t1a = rs((I[0] - I[16]) * 11585);
+  u32 t2a = rs(I[8] * 6270 - I[24] * 15137);
+  u32 t3a = rs(I[8] * 15137 + I[24] * 6270);
+  u32 t4a = rs(I[4] * 3196 - I[28] * 16069);
+  u32 t7a = rs(I[4] * 16069 + I[28] * 3196);
+  u32 t5a = rs(I[20] * 13623 - I[12] * 9102);
+  u32 t6a = rs(I[20] * 9102 + I[12] * 13623);
+  u32 t8a = rs(I[2] * 1606 - I[30] * 16305);
+  u32 t15a = rs(I[2] * 16305 + I[30] * 1606);
+  u32 t9a = rs(I[18] * 12665 - I[14] * 10394);
+  u32 t14a = rs(I[18] * 10394 + I[14] * 12665);
+  u32 t10a = rs(I[10] * 7723 - I[22] * 14449);
+  u32 t13a = rs(I[10] * 14449 + I[22] * 7723);
+  u32 t11a = rs(I[26] * 15679 - I[6] * 4756);
+  u32 t12a = rs(I[26] * 4756 + I[6] * 15679);
+  u32 t16a = rs(I[1] * 804 - I[31] * 16364);
+  u32 t31a = rs(I[1] * 16364 + I[31] * 804);
+  u32 t17a = rs(I[17] * 12140 - I[15] * 11003);
+  u32 t30a = rs(I[17] * 11003 + I[15] * 12140);
+  u32 t18a = rs(I[9] * 7005 - I[23] * 14811);
+  u32 t29a = rs(I[9] * 14811 + I[23] * 7005);
+  u32 t19a = rs(I[25] * 15426 - I[7] * 5520);
+  u32 t28a = rs(I[25] * 5520 + I[7] * 15426);
+  u32 t20a = rs(I[5] * 3981 - I[27] * 15893);
+  u32 t27a = rs(I[5] * 15893 + I[27] * 3981);
+  u32 t21a = rs(I[21] * 14053 - I[11] * 8423);
+  u32 t26a = rs(I[21] * 8423 + I[11] * 14053);
+  u32 t22a = rs(I[13] * 9760 - I[19] * 13160);
+  u32 t25a = rs(I[13] * 13160 + I[19] * 9760);
+  u32 t23a = rs(I[29] * 16207 - I[3] * 2404);
+  u32 t24a = rs(I[29] * 2404 + I[3] * 16207);
+  u32 t0 = t0a + t3a;
+  u32 t1 = t1a + t2a;
+  u32 t2 = t1a - t2a;
+  u32 t3 = t0a - t3a;
+  u32 t4 = t4a + t5a;
+  u32 t5 = t4a - t5a;
+  u32 t6 = t7a - t6a;
+  u32 t7 = t7a + t6a;
+  u32 t8 = t8a + t9a;
+  u32 t9 = t8a - t9a;
+  u32 t10 = t11a - t10a;
+  u32 t11 = t11a + t10a;
+  u32 t12 = t12a + t13a;
+  u32 t13 = t12a - t13a;
+  u32 t14 = t15a - t14a;
+  u32 t15 = t15a + t14a;
+  u32 t16 = t16a + t17a;
+  u32 t17 = t16a - t17a;
+  u32 t18 = t19a - t18a;
+  u32 t19 = t19a + t18a;
+  u32 t20 = t20a + t21a;
+  u32 t21 = t20a - t21a;
+  u32 t22 = t23a - t22a;
+  u32 t23 = t23a + t22a;
+  u32 t24 = t24a + t25a;
+  u32 t25 = t24a - t25a;
+  u32 t26 = t27a - t26a;
+  u32 t27 = t27a + t26a;
+  u32 t28 = t28a + t29a;
+  u32 t29 = t28a - t29a;
+  u32 t30 = t31a - t30a;
+  u32 t31 = t31a + t30a;
+  t5a = rs((t6 - t5) * 11585);
+  t6a = rs((t6 + t5) * 11585);
+  t9a = rs(t14 * 6270 - t9 * 15137);
+  t14a = rs(t14 * 15137 + t9 * 6270);
+  t10a = rs((0u - (t13 * 15137 + t10 * 6270)));
+  t13a = rs(t13 * 6270 - t10 * 15137);
+  t17a = rs(t30 * 3196 - t17 * 16069);
+  t30a = rs(t30 * 16069 + t17 * 3196);
+  t18a = rs((0u - (t29 * 16069 + t18 * 3196)));
+  t29a = rs(t29 * 3196 - t18 * 16069);
+  t21a = rs(t26 * 13623 - t21 * 9102);
+  t26a = rs(t26 * 9102 + t21 * 13623);
+  t22a = rs((0u - (t25 * 9102 + t22 * 13623)));
+  t25a = rs(t25 * 13623 - t22 * 9102);
+  t0a = t0 + t7;
+  t1a = t1 + t6a;
+  t2a = t2 + t5a;
+  t3a = t3 + t4;
+  t4a = t3 - t4;
+  t5 = t2 - t5a;
+  t6 = t1 - t6a;
+  t7a = t0 - t7;
+  t8a = t8 + t11;
+  t9 = t9a + t10a;
+  t10 = t9a - t10a;
+  t11a = t8 - t11;
+  t12a = t15 - t12;
+  t13 = t14a - t13a;
+  t14 = t14a + t13a;
+  t15a = t15 + t12;
+  t16a = t16 + t19;
+  t17 = t17a + t18a;
+  t18 = t17a - t18a;
+  t19a = t16 - t19;
+  t20a = t23 - t20;
+  t21 = t22a - t21a;
+  t22 = t22a + t21a;
+  t23a = t23 + t20;
+  t24a = t24 + t27;
+  t25 = t25a + t26a;
+  t26 = t25a - t26a;
+  t27a = t24 - t27;
+  t28a = t31 - t28;
+  t29 = t30a - t29a;
+  t30 = t30a + t29a;
+  t31a = t31 + t28;
+  t10a = rs((t13 - t10) * 11585);
+  t13a = rs((t13 + t10) * 11585);
+  t11 = rs((t12a - t11a) * 11585);
+  t12 = rs((t12a + t11a) * 11585);
+  t18a = rs(t29 * 6270 - t18 * 15137);
+  t29a = rs(t29 * 15137 + t18 * 6270);
+  t19 = rs(t28a * 6270 - t19a * 15137);
+  t28 = rs(t28a * 15137 + t19a * 6270);
+  t20 = rs((0u - (t27a * 15137 + t20a * 6270)));
+  t27 = rs(t27a * 6270 - t20a * 15137);
+  t21a = rs((0u - (t26 * 15137 + t21 * 6270)));
+  t26a = rs(t26 * 6270 - t21 * 15137);
+  t0 = t0a + t15a;
+  t1 = t1a + t14;
+  t2 = t2a + t13a;
+  t3 = t3a + t12;
+  t4 = t4a + t11;
+  t5a = t5 + t10a;
+  t6a = t6 + t9;
+  t7 = t7a + t8a;
+  t8 = t7a - t8a;
+  t9a = t6 - t9;
+  t10 = t5 - t10a;
+  t11a = t4a - t11;
+  t12a = t3a - t12;
+  t13 = t2a - t13a;
+  t14a = t1a - t14;
+  t15 = t0a - t15a;
+  t16 = t16a + t23a;
+  t17a = t17 + t22;
+  t18 = t18a + t21a;
+  t19a = t19 + t20;
+  t20a = t19 - t20;
+  t21 = t18a - t21a;
+  t22a = t17 - t22;
+  t23 = t16a - t23a;
+  t24 = t31a - t24a;
+  t25a = t30 - t25;
+  t26 = t29a - t26a;
+  t27a = t28 - t27;
+  t28a = t28 + t27;
+  t29 = t29a + t26a;
+  t30a = t30 + t25;
+  t31 = t31a + t24a;
+  t20 = rs((t27a - t20a) * 11585);
+  t27 = rs((t27a + t20a) * 11585);
+  t21a = rs((t26 - t21) * 11585);
+  t26a = rs((t26 + t21) * 11585);
+  t22 = rs((t25a - t22a) * 11585);
+  t25 = rs((t25a + t22a) * 11585);
+  t23a = rs((t24 - t23) * 11585);
+  t24a = rs((t24 + t23) * 11585);
+  O[0] = t0 + t31;
+  O[1] = t1 + t30a;
+  O[2] = t2 + t29;
+  O[3] = t3 + t28a;
+  O[4] = t4 + t27;
+  O[5] = t5a + t26a;
+  O[6] = t6a + t25;
+  O[7] = t7 + t24a;
+  O[8] = t8 + t23a;
+  O[9] = t9a + t22;
+  O[10] = t10 + t21a;
+  O[11] = t11a + t20;
+  O[12] = t12a + t19a;
+  O[13] = t13 + t18;
+  O[14] = t14a + t17a;
+  O[15] = t15 + t16;
+  O[16] = t15 - t16;
+  O[17] = t14a - t17a;
+  O[18] = t13 - t18;
+  O[19] = t12a - t19a;
+  O[20] = t11a - t20;
+  O[21] = t10 - t21a;
+  O[22] = t9a - t22;
+  O[23] = t8 - t23a;
+  O[24] = t7 - t24a;
+  O[25] = t6a - t25;
+  O[26] = t5a - t26a;
+  O[27] = t4 - t27;
+  O[28] = t3 - t28a;
+  O[29] = t2 - t29;
+  O[30] = t1 - t30a;
+  O[31] = t0 - t31;
+}
+
+// iwht4_1d: inputs read as (0, 3, 1, 2), >> 2 in the first pass
+__device__ __forceinline__ void iwht4(const u32* X, u32* O, bool first) {
+  u32 i0 = X[0], i1 = X[3], i2 = X[1], i3 = X[2];
+  if (first) {
+    i0 = asr(i0, 2);
+    i1 = asr(i1, 2);
+    i2 = asr(i2, 2);
+    i3 = asr(i3, 2);
+  }
+  u32 t0 = i0 + i2;
+  u32 t3 = i3 - i1;
+  const u32 t4 = asr(t0 - t3, 1);
+  const u32 t1 = t4 - i1;
+  const u32 t2 = t4 - i2;
+  t0 = t0 - t1;
+  t3 = t3 + t2;
+  O[0] = t0;
+  O[1] = t1;
+  O[2] = t2;
+  O[3] = t3;
+}
+
+// One 1-D pass of size 4 << TX: DCT or ADST (the WHT when WHT).
+template <int TX, bool WHT>
+__device__ __forceinline__ void pass1d(const u32* I, u32* O, bool adst,
+                                       bool first) {
+  if constexpr (WHT) {
+    iwht4(I, O, first);
+  } else if constexpr (TX == 0) {
+    if (adst) iadst4(I, O); else idct4(I, O);
+  } else if constexpr (TX == 1) {
+    if (adst) iadst8(I, O); else idct8(I, O);
+  } else if constexpr (TX == 2) {
+    if (adst) iadst16(I, O); else idct16(I, O);
+  } else {
+    idct32(I, O);
+  }
+}
+
+__device__ __forceinline__ int ld_grid(const void* p, int esz, size_t i) {
+  if (esz == 1) return static_cast<const int8_t*>(p)[i];
+  if (esz == 2) return static_cast<const int16_t*>(p)[i];
+  return static_cast<const int32_t*>(p)[i];
+}
+
+struct Args {
+  const void* coef;     // [H, W] int16 (coef16) or int32
+  const void* eob;      // [H/4, W/4], 1/2/4-byte signed integers
+  const void* txsz;
+  const void* txtype;
+  int32_t* out;         // [H, W] int32
+  int coef16, eob_sz, txsz_sz, txtype_sz;
+  int H, W;
+};
+
+__device__ __forceinline__ u32 ld_coef(const Args& a, int y, int x) {
+  const size_t i = static_cast<size_t>(y) * a.W + x;
+  return a.coef16 ? static_cast<u32>(static_cast<int32_t>(
+                        static_cast<const int16_t*>(a.coef)[i]))
+                  : static_cast<u32>(static_cast<const int32_t*>(a.coef)[i]);
+}
+
+constexpr int kThreads = 256;
+constexpr int kRegion = 32;
+
+// The blocks of size 4 << TX in the region at (ry0, rx0): thread t
+// takes line t % SZ of root t / SZ (there are (32 / SZ)^2 roots, 1024 /
+// SZ lines, at most 256).
+template <int TX, bool WHT>
+__device__ __forceinline__ void region_size(const Args& a, int ry0, int rx0,
+                                            int32_t (*tmp)[kRegion + 1],
+                                            int32_t (*acc)[kRegion + 1]) {
+  constexpr int SZ = 4 << TX;
+  constexpr int NR = kRegion / SZ;
+  constexpr int SHIFT = WHT ? 0 : (TX == 0 ? 4 : (TX == 1 ? 5 : 6));
+  constexpr int RND = SHIFT ? 1 << (SHIFT - 1) : 0;
+  const int tid = threadIdx.x;
+  const int root = tid / SZ, line = tid % SZ;
+  const int ry = (root / NR) * SZ, rx = (root % NR) * SZ;
+  const int gy = ry0 + ry, gx = rx0 + rx;
+  bool act = false, dconly = false, adst_a = false, adst_b = false;
+  if (root < NR * NR && gy + SZ <= a.H && gx + SZ <= a.W) {
+    const size_t cell = static_cast<size_t>(gy >> 2) * (a.W >> 2) + (gx >> 2);
+    const int eob = ld_grid(a.eob, a.eob_sz, cell);
+    act = ld_grid(a.txsz, a.txsz_sz, cell) == TX && eob > 0;
+    if (!WHT) {
+      const int typ = ld_grid(a.txtype, a.txtype_sz, cell);
+      dconly = eob == 1 && (TX == 3 || typ == 0);
+      adst_a = TX < 3 && (typ == 1 || typ == 3);
+      adst_b = TX < 3 && (typ == 2 || typ == 3);
+    }
+  }
+  u32 in[SZ], o[SZ];
+  // pass a: column `line` of the coefficients -> row `line` of tmp
+  if (act && !dconly) {
+#pragma unroll
+    for (int r = 0; r < SZ; ++r) in[r] = ld_coef(a, gy + r, gx + line);
+    pass1d<TX, WHT>(in, o, adst_a, true);
+#pragma unroll
+    for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrap16(o[k]);
+  }
+  __syncthreads();
+  // pass b: column `line` of tmp -> column `line` of the residual
+  if (act) {
+    if (dconly) {
+      const u32 t = rs(rs(ld_coef(a, gy, gx) * 11585u) * 11585u);
+      const int32_t v = (static_cast<int32_t>(t) + RND) >> SHIFT;
+#pragma unroll
+      for (int c = 0; c < SZ; ++c) acc[ry + c][rx + line] += v;
+    } else {
+#pragma unroll
+      for (int c = 0; c < SZ; ++c)
+        in[c] = static_cast<u32>(tmp[ry + c][rx + line]);
+      pass1d<TX, WHT>(in, o, adst_b, false);
+#pragma unroll
+      for (int c = 0; c < SZ; ++c) {
+        acc[ry + c][rx + line] += (wrap16(o[c]) + RND) >> SHIFT;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+    residual_kernel(Args a, int lossless) {
+  __shared__ int32_t tmp[kRegion][kRegion + 1];
+  __shared__ int32_t acc[kRegion][kRegion + 1];
+  const int ry0 = blockIdx.y * kRegion, rx0 = blockIdx.x * kRegion;
+  for (int i = threadIdx.x; i < kRegion * kRegion; i += kThreads)
+    acc[i / kRegion][i % kRegion] = 0;
+  __syncthreads();
+  if (lossless) {
+    region_size<0, true>(a, ry0, rx0, tmp, acc);
+  } else {
+    region_size<0, false>(a, ry0, rx0, tmp, acc);
+    region_size<1, false>(a, ry0, rx0, tmp, acc);
+    region_size<2, false>(a, ry0, rx0, tmp, acc);
+    region_size<3, false>(a, ry0, rx0, tmp, acc);
+  }
+  for (int i = threadIdx.x; i < kRegion * kRegion; i += kThreads) {
+    const int y = ry0 + i / kRegion, x = rx0 + i % kRegion;
+    if (y < a.H && x < a.W)
+      a.out[static_cast<size_t>(y) * a.W + x] = acc[i / kRegion][i % kRegion];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The residual of one [H, W] plane into out (int32), one launch on
+// `stream`. coef: int16 (coef16 = 1) or int32; eob, txsz, txtype:
+// [H/4, W/4] grids of signed integers of eob_sz/txsz_sz/txtype_sz
+// bytes (1, 2 or 4). H and W are multiples of 4 (of 32 unless
+// lossless).
+int residual_plane(const void* coef, int coef16, const void* eob, int eob_sz,
+                   const void* txsz, int txsz_sz, const void* txtype,
+                   int txtype_sz, int32_t* out, int H, int W, int lossless,
+                   cudaStream_t stream) {
+  const auto esz_ok = [](int s) { return s == 1 || s == 2 || s == 4; };
+  if (H <= 0 || W <= 0 || H % 4 || W % 4 ||
+      (!lossless && (H % kRegion || W % kRegion)) || !esz_ok(eob_sz) ||
+      !esz_ok(txsz_sz) || !esz_ok(txtype_sz))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{coef, eob, txsz, txtype, out, coef16, eob_sz, txsz_sz, txtype_sz,
+         H, W};
+  const dim3 grid((W + kRegion - 1) / kRegion, (H + kRegion - 1) / kRegion);
+  residual_kernel<<<grid, kThreads, 0, stream>>>(a, lossless);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

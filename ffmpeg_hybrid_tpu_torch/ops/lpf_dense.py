@@ -24,6 +24,9 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _cuda
+from ._cuda import check_tensor
+
 # kernel launches of lf_dense since the last reset_launches()
 LAUNCHES = {"lf_dense": 0}
 
@@ -239,30 +242,6 @@ _SIGNATURES = {
 }
 
 
-def _launch(name, *args):
-    """Run `name` from csrc/lpf.cu on the current stream; returns the
-    number of kernels it launched."""
-    from .. import _build
-    lib = _build.load("lpf.cu", _SIGNATURES)
-    stream = torch.cuda.current_stream().cuda_stream
-    n = _c.c_int(0)
-    rc = getattr(lib, name)(*args, _c.addressof(n), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-    return n.value
-
-
-def _check(t, dtype, shape, device, name):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    return t.contiguous()
-
-
 def lf_dense(planes, vpar, hpar, sb_rows, sb_cols, sbwx, sbwy, bpp):
     """Loop-filter planes [B, Hp, Wp] int32 (Hp = sb_rows * sbwy, Wp =
     sb_cols * sbwx) with the dense grids vpar [Hp/8, Wp/4, 4] and hpar
@@ -279,15 +258,18 @@ def lf_dense(planes, vpar, hpar, sb_rows, sb_cols, sbwx, sbwy, bpp):
     if (Hp, Wp) != (sb_rows * sbwy, sb_cols * sbwx):
         raise ValueError(f"planes {Hp}x{Wp} are not {sb_rows}x{sb_cols} "
                          f"superblocks of {sbwy}x{sbwx}")
-    i32 = torch.int32
-    planes = _check(planes, i32, (B, Hp, Wp), dev, "planes")
-    vg = _check(vpar, i32, (Hp // 8, Wp // 4, 4), dev, "vpar")
-    hg = _check(hpar, i32, (Hp // 4, Wp // 8, 4), dev, "hpar")
+    i32 = (torch.int32,)
+    planes = check_tensor(planes, i32, (B, Hp, Wp), dev, "planes")
+    vg = check_tensor(vpar, i32, (Hp // 8, Wp // 4, 4), dev, "vpar")
+    hg = check_tensor(hpar, i32, (Hp // 4, Wp // 8, 4), dev, "hpar")
     # the kernel filters in place on a zero-padded copy: reads past the
     # plane see zeros, as lf_dense_plain's padding gives them
-    pad = torch.zeros((B, Hp + 16, Wp + 16), dtype=i32, device=dev)
+    pad = torch.zeros((B, Hp + 16, Wp + 16), dtype=torch.int32,
+                      device=dev)
     pad[:, 8:8 + Hp, 8:8 + Wp] = planes
-    LAUNCHES["lf_dense"] += _launch(
-        "lpf_frame", pad.data_ptr(), B, Hp + 16, Wp + 16, vg.data_ptr(),
-        Wp // 4, hg.data_ptr(), Wp // 8, sb_rows, sb_cols, sbwx, sbwy, bpp)
+    launched = _c.c_int(0)
+    _cuda.launch("lpf.cu", _SIGNATURES, "lpf_frame", pad, B, Hp + 16,
+                 Wp + 16, vg, Wp // 4, hg, Wp // 8, sb_rows, sb_cols, sbwx,
+                 sbwy, bpp, _c.addressof(launched))
+    LAUNCHES["lf_dense"] += launched.value
     return pad[:, 8:8 + Hp, 8:8 + Wp].contiguous()

@@ -30,6 +30,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import _cuda
+from ._cuda import check_tensor
+
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"decode_tree_multi": 0, "decode_bits_multi": 0,
             "decode_coeffs_multi": 0}
@@ -408,28 +411,6 @@ _SIGNATURES = {
 }
 
 
-def _launch(name, *args):
-    from .. import _build
-    lib = _build.load("rac.cu", _SIGNATURES)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-
-
-def _arg(t, dtype, shape, device, name):
-    """A kernel argument: on `device`, of `dtype` and `shape`,
-    contiguous; anything else raises."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    return t.contiguous()
-
-
 @lru_cache(maxsize=64)
 def _tree_dev(tree_bytes, shape, device):
     """A tree table on `device`, copied there once per table."""
@@ -450,15 +431,16 @@ def decode_tree_multi(data_u8, probs_u8, tree, k, max_depth=12):
     dev = data_u8.device
     S, L = data_u8.shape
     NN = probs_u8.shape[1]
-    data = _arg(data_u8, torch.uint8, (S, L), dev, "data_u8")
-    probs = _arg(probs_u8, torch.uint8, (S, NN), dev, "probs_u8")
+    u8 = (torch.uint8,)
+    data = check_tensor(data_u8, u8, (S, L), dev, "data_u8")
+    probs = check_tensor(probs_u8, u8, (S, NN), dev, "probs_u8")
     tree_h = np.ascontiguousarray(tree, np.int32)
-    tree_d = _arg(_tree_dev(tree_h.tobytes(), tree_h.shape, dev),
-                  torch.int32, (NN, 2), dev, "tree")
+    tree_d = check_tensor(_tree_dev(tree_h.tobytes(), tree_h.shape, dev),
+                          (torch.int32,), (NN, 2), dev, "tree")
     out = torch.empty((S, k), dtype=torch.int32, device=dev)
     if S and k:
-        _launch("rac_decode_tree", data.data_ptr(), S, L, probs.data_ptr(),
-                NN, tree_d.data_ptr(), k, max_depth, out.data_ptr())
+        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_tree", data, S, L,
+                     probs, NN, tree_d, k, max_depth, out)
         LAUNCHES["decode_tree_multi"] += 1
     return out
 
@@ -471,12 +453,13 @@ def decode_bits_multi(data_u8, probs_seq_u8):
     dev = data_u8.device
     S, L = data_u8.shape
     K = probs_seq_u8.shape[1]
-    data = _arg(data_u8, torch.uint8, (S, L), dev, "data_u8")
-    probs = _arg(probs_seq_u8, torch.uint8, (S, K), dev, "probs_seq_u8")
+    u8 = (torch.uint8,)
+    data = check_tensor(data_u8, u8, (S, L), dev, "data_u8")
+    probs = check_tensor(probs_seq_u8, u8, (S, K), dev, "probs_seq_u8")
     out = torch.empty((S, K), dtype=torch.int32, device=dev)
     if S and K:
-        _launch("rac_decode_bits", data.data_ptr(), S, L, probs.data_ptr(),
-                K, out.data_ptr())
+        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_bits", data, S, L,
+                     probs, K, out)
         LAUNCHES["decode_bits_multi"] += 1
     return out
 
@@ -507,21 +490,20 @@ def decode_coeffs_multi(half16, value0, rng0, bitbuf0, nbits0, probs,
     dev = half16.device
     S, Lh = half16.shape
     i32 = torch.int32
-    args = [_arg(half16, i32, (S, Lh), dev, "half16")]
+    args = [check_tensor(half16, (i32,), (S, Lh), dev, "half16")]
     for name, t in (("value0", value0), ("rng0", rng0),
                     ("bitbuf0", bitbuf0), ("nbits0", nbits0)):
-        args.append(_arg(t, i32, (S,), dev, name))
-    args.append(_arg(probs, i32, (S, 36, 11), dev, "probs"))
+        args.append(check_tensor(t, (i32,), (S,), dev, name))
+    args.append(check_tensor(probs, (i32,), (S, 36, 11), dev, "probs"))
     for name, t in (("scan", scan), ("nb0", nb0), ("nb1", nb1)):
-        args.append(_arg(t, i32, (S, n), dev, name))
-    args.append(_arg(nnz0, i32, (S,), dev, "nnz0"))
-    args.append(_arg(qmul, i32, (S, 2), dev, "qmul"))
+        args.append(check_tensor(t, (i32,), (S, n), dev, name))
+    args.append(check_tensor(nnz0, (i32,), (S,), dev, "nnz0"))
+    args.append(check_tensor(qmul, (i32,), (S, 2), dev, "qmul"))
     args.append(_band_dev(n, dev))
     coef = torch.empty((S, n), dtype=i32, device=dev)
     eob = torch.empty((S,), dtype=i32, device=dev)
     if S:
-        ptrs = [a.data_ptr() for a in args]
-        _launch("rac_decode_coeffs", ptrs[0], S, Lh, *ptrs[1:], n, bpp,
-                int(bool(is32)), coef.data_ptr(), eob.data_ptr())
+        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_coeffs", args[0],
+                     S, Lh, *args[1:], n, bpp, int(bool(is32)), coef, eob)
         LAUNCHES["decode_coeffs_multi"] += 1
     return coef, eob

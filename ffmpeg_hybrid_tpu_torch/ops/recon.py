@@ -3,21 +3,32 @@ JAX package's ops/recon_tpu.py.
 
 Architecture (the reference's accumulate-then-dispatch WebGPU idea,
 reference: vp9_webgpu.c:2956):
-  1. residual pass   — dense per-tile batched inverse transforms over the
-                       whole coefficient plane (one pass per tx size,
-                       dct/adst variants computed and selected per tile;
-                       dc-only fast path selected by eob==1)
+  1. residual pass   — the inverse transforms of every tx block of a
+                       plane (dc-only fast path by eob==1). On the card
+                       one launch of csrc/itxfm.cu per plane; the plain
+                       version, residual_plane_plain, runs dense passes
+                       over the whole plane (one per tx size, dct/adst
+                       variants computed and selected per tile)
   2. inter pass      — uniform per-4x4-cell 8-tap MC (sub-pel phases and
                        filter banks gathered per cell; bilinear expressed
                        as an 8-tap bank), compound average, +residual
-  3. intra wavefront — host-computed dependency levels; per level the
-                       tx blocks' edges are gathered and predicted with
-                       one exact float32 product (ops/intra_tables) + TM
+                       (plain PyTorch)
+  3. intra wavefront — host-computed dependency levels. On the card one
+                       launch of csrc/intra.cu per plane walks every
+                       level; the plain version, _intra_scan_plain, loops
+                       over the levels in Python, gathering each level's
+                       edges and predicting them with one exact float32
+                       product (ops/intra_tables) + TM
   4. loop filter     — pass A's per-superblock levels and edge masks
                        become dense parameter grids on the device
-                       (ops/lpf_masks), then the superblock-wavefront
-                       filter runs (ops/lpf_dense; csrc/lpf.cu on the
-                       card)
+                       (ops/lpf_masks, plain PyTorch), then the
+                       superblock-wavefront filter runs (ops/lpf_dense;
+                       csrc/lpf.cu on the card)
+
+The metadata splat, the coefficient scatter, MC and the loop-filter
+grids stay plain PyTorch on the card. Each kernel's wrapper takes its
+plain version only for tensors on the CPU and counts its launches
+(LAUNCHES here for the residual and intra kernels, lpf_dense.LAUNCHES).
 
 Frame planes stay on the device across frames (references included).
 Every stage is integer math or exact float32, so the planes equal the
@@ -41,7 +52,9 @@ from ..utils.metrics import metrics
 
 from . import itxfm
 from . import intra_tables as it
-from . import lpf_dense, lpf_masks
+from . import lpf_dense, lpf_masks, recon_cuda
+from ._cuda import check_tensor
+from .recon_cuda import LAUNCHES, reset_launches  # noqa: F401
 from ..codecs.vp9 import tables as T
 
 XP = itxfm.TORCH
@@ -162,7 +175,9 @@ def _residual_for_size(coef, eob4, txsz4, txtype4, tx, lossless, bpp):
     return res.permute(0, 2, 1, 3).reshape(H, W)
 
 
-def residual_plane(coef, eob4, txsz4, txtype4, lossless, bpp):
+def residual_plane_plain(coef, eob4, txsz4, txtype4, lossless, bpp):
+    """The plain PyTorch residual of one plane: every size over the
+    whole plane, summed."""
     if lossless:
         return _residual_for_size(coef, eob4, txsz4, txtype4, 0, True,
                                   bpp)
@@ -170,6 +185,40 @@ def residual_plane(coef, eob4, txsz4, txtype4, lossless, bpp):
     for tx in range(4):
         out = out + _residual_for_size(coef, eob4, txsz4, txtype4, tx,
                                        False, bpp)
+    return out
+
+
+_GRID_DTYPES = (torch.int8, torch.int16, torch.int32)
+
+
+def residual_plane(coef, eob4, txsz4, txtype4, lossless, bpp):
+    """The residual of one plane -> [H, W] int32. coef: [H, W] int16
+    (8 bpp uploads narrow) or int32; eob4, txsz4, txtype4: [H/4, W/4]
+    int8/int16/int32 grids. CPU tensors take residual_plane_plain; any
+    other device the kernel (csrc/itxfm.cu, one launch), which takes
+    CUDA tensors only."""
+    if coef.device.type == "cpu":
+        return residual_plane_plain(coef, eob4, txsz4, txtype4, lossless,
+                                    bpp)
+    if bpp != 8:
+        raise NotImplementedError(
+            f"{bpp}-bit residuals wait for the 10/12-bit slice")
+    if coef.dim() != 2:
+        raise ValueError(f"coef has shape {tuple(coef.shape)}, expected "
+                         "[H, W]")
+    H, W = coef.shape
+    align = 4 if lossless else 32
+    if H % align or W % align:
+        raise ValueError(f"a {H}x{W} plane is not made of {align}x{align} "
+                         "regions")
+    dev = coef.device
+    coef = check_tensor(coef, (torch.int16, torch.int32), (H, W), dev,
+                        "coef")
+    grids = [check_tensor(g, _GRID_DTYPES, (H // 4, W // 4), dev, name)
+             for g, name in ((eob4, "eob4"), (txsz4, "txsz4"),
+                             (txtype4, "txtype4"))]
+    out = torch.empty((H, W), dtype=torch.int32, device=dev)
+    recon_cuda.residual(coef, *grids, out, lossless)
     return out
 
 
@@ -516,7 +565,7 @@ def _intra_batch_apply(ext, d, sz, bpp):
     ext[d["dest"]] = out
 
 
-def _intra_scan(plane, residual, packed, L, sizes, caps, bpp):
+def _intra_scan_plain(plane, residual, packed, L, sizes, caps, bpp):
     """The whole intra wavefront of one plane: a Python loop over the
     dependency levels.
 
@@ -561,6 +610,39 @@ def _intra_scan(plane, residual, packed, L, sizes, caps, bpp):
             level = {k: v[i * cap:(i + 1) * cap] for k, v in d.items()}
             _intra_batch_apply(ext, level, sz, bpp)
     return ext[:HW].view(H, W)
+
+
+def _intra_scan(plane, residual, packed, L, sizes, caps, bpp):
+    """The intra wavefront of one plane (the slab layout of
+    _intra_scan_plain) -> a new [H, W] int32 plane; `plane` is not
+    modified. CPU tensors take _intra_scan_plain; any other device the
+    kernel (csrc/intra.cu, one launch on a copy of the plane), which
+    takes CUDA tensors only."""
+    if plane.device.type == "cpu":
+        return _intra_scan_plain(plane, residual, packed, L, sizes, caps,
+                                 bpp)
+    if not 8 <= bpp <= 12:
+        raise ValueError(f"bpp={bpp}")
+    if len(sizes) != len(caps) or not sizes or len(set(sizes)) != len(
+            sizes) or not set(sizes) <= set(recon_cuda.INTRA_SIZES) \
+            or min(caps) < 1 or L < 1:
+        raise ValueError(f"slab sections sizes={sizes} caps={caps} L={L}")
+    if plane.dim() != 2:
+        raise ValueError(f"plane has shape {tuple(plane.shape)}, expected "
+                         "[H, W]")
+    dev = plane.device
+    H, W = plane.shape
+    i32 = (torch.int32,)
+    residual = check_tensor(residual, i32, (H, W), dev, "residual")
+    if packed.dim() != 2 or packed.shape[0] < L * sum(caps):
+        raise ValueError(f"slab has shape {tuple(packed.shape)}, expected "
+                         f"[>= {L * sum(caps)}, 8]")
+    packed = check_tensor(packed, (torch.int16,), (packed.shape[0], 8),
+                          dev, "slab")
+    out = check_tensor(plane, i32, (H, W), dev, "plane").clone()
+    recon_cuda.intra(out, residual, packed, L, sizes, caps, bpp,
+                     _const("edges", dev))
+    return out
 
 
 def _pad_to_bucket(n, base=8, mult=4):
@@ -673,6 +755,7 @@ def run_intra_plane(s, plane_dev, residual_dev, levels, slab=None,
             slab_dev = torch.from_numpy(buf).to(plane_dev.device)
     metrics.add("intra.ncalls", 1)
     metrics.add("intra.nrows", buf.shape[0])
+    metrics.add("intra.levels", L)
     with metrics.timer("intra.level_dispatch"):
         plane_dev = _intra_scan(plane_dev, residual_dev, slab_dev, L,
                                 sizes, caps, bpp)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from ffmpeg_hybrid_tpu.ops import lpf_dense as JD
 from ffmpeg_hybrid_tpu.ops import lpf_masks as JM
 from ffmpeg_hybrid_tpu.ops.lpf_tpu import filter_lanes_jnp
+from ffmpeg_hybrid_tpu_torch.ops import _cuda
 from ffmpeg_hybrid_tpu_torch.ops import lpf_dense as PD
 from ffmpeg_hybrid_tpu_torch.ops import lpf_masks as PM
 
@@ -218,11 +219,11 @@ def test_lf_dense_on_the_card_goes_to_the_kernel(monkeypatch):
     never to the plain version; the counter moves only on a launch."""
     calls = []
 
-    def no_card(name, *args):
+    def no_card(source, signatures, name, *args):
         calls.append(name)
         raise RuntimeError("no card")
 
-    monkeypatch.setattr(PD, "_launch", no_card)
+    monkeypatch.setattr(_cuda, "launch", no_card)
     monkeypatch.setattr(PD, "lf_dense_plain", None)
     PD.reset_launches()
     meta = dict(dtype=torch.int32, device="meta")

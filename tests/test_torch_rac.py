@@ -219,15 +219,15 @@ def test_non_cpu_tensors_launch_the_kernel(monkeypatch):
     """A tensor off the CPU goes to the kernel launch (which raises
     here), never to the plain version; the counters move only on a
     launch."""
-    from ffmpeg_hybrid_tpu_torch.ops import rac
+    from ffmpeg_hybrid_tpu_torch.ops import _cuda, rac
 
     calls = []
 
-    def no_card(name, *args):
+    def no_card(source, signatures, name, *args):
         calls.append(name)
         raise RuntimeError("no card")
 
-    monkeypatch.setattr(rac, "_launch", no_card)
+    monkeypatch.setattr(_cuda, "launch", no_card)
     rac.reset_launches()
     meta = dict(device="meta")
     u8 = torch.zeros((2, 8), dtype=torch.uint8, **meta)
