@@ -25,12 +25,14 @@ Phases, one status line each; any failure exits non-zero:
                  grids of all three planes of bench_1080p frames 0 (a
                  keyframe) and 1 (an inter frame), as recon_frame hands
                  them over;
-               - _intra_scan (csrc/intra.cu) on the planes, residuals
-                 and slabs of bench_1080p_lf frame 0 (Y, U, V), as
-                 recon_frame hands them over, with the windows each
-                 level took; then on U's slab spread to more rows per
-                 level than a window holds, so that every level spans
-                 two windows or more;
+               - _intra_scan_planes (csrc/intra.cu) on the planes,
+                 residuals and slabs of bench_1080p_lf frame 0 and
+                 bench_1080p frame 0 (a keyframe), Y, U and V in one
+                 launch as recon_frame hands them over, with each
+                 plane's time alone (us per level) and the windows each
+                 level took; then with U's slab spread to more rows per
+                 level than a window holds, so that every level of U
+                 spans two windows or more;
                each with its time, bound terms and the plain version's
                time on the same inputs
   4. decode    each clip through VP9Decoder(device="cuda")
@@ -38,8 +40,9 @@ Phases, one status line each; any failure exits non-zero:
                frames of vectors/bench_1080p.ivf (no loop filter: the
                loop-filter kernel must not launch) and all 6 of
                vectors/bench_1080p_lf.ivf (every frame filtered: it
-               must, 744 times); the residual and intra kernels must
-               launch on both; then five timed pipelined passes (median
+               must, 744 times); the residual kernel must launch on
+               both, the intra kernel once per frame with intra blocks;
+               then five timed pipelined passes (median
                fps and its spread) and a serial pass with the stage
                timers synchronised to the card (per-stage times and the
                intra levels per frame)
@@ -323,10 +326,16 @@ def capture_inputs(torch, targets, packets):
     calls = {name: [] for _mod, name in targets}
     reals = {name: getattr(mod, name) for mod, name in targets}
 
+    def copy(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(copy(x) for x in a)
+        return a
+
     def wrap(name):
         def capture(*args):
-            calls[name].append([a.clone() if torch.is_tensor(a) else a
-                                for a in args])
+            calls[name].append([copy(a) for a in args])
             return reals[name](*args)
         return capture
 
@@ -518,114 +527,159 @@ def residual_phase(torch, np, calls):
             "bytes_needed": nbytes / nf, "ops": nops / nf}
 
 
-def intra_work(np, plane, slab, L, sizes, caps):
-    """(bytes, operations, real blocks) one _intra_scan call must move
-    and do: the new plane written once; the old plane read only where no
-    intra block writes, the residual only where one does; the slab rows
-    of real blocks and the weight matrices of the (size, mode) pairs
-    they use read once; per real block, the dot product (one multiply
-    and one add per edge entry) or TM (3 operations) and the rounding,
-    residual add and clip (4) of each pixel."""
+def intra_work(np, jobs):
+    """(bytes, operations, real blocks, covered pixels) one
+    _intra_scan_planes call on `jobs` must move and do: each new plane
+    written once; the old plane read only where no intra block writes,
+    the residual only where one does; the slab rows of real blocks (a
+    slab that two planes share, once) and, once per (size, mode) pair
+    used, its tap words (directional modes) or its weight column (the DC
+    family) from the tap table. Operations: per pixel of a directional
+    block a multiply and an add per tap (at most three) and TM's 3, then
+    the rounding, residual add and clip (4); per DC-family block the
+    multiply-adds of its column and the rounding (2), then per pixel the
+    residual add and clip (2)."""
     from ffmpeg_hybrid_tpu_torch.ops import intra_tables as it
-    buf = slab.cpu().numpy().astype(np.int64)
-    H, W = plane.shape
-    covered = np.zeros((H, W), bool)
-    nbytes = 2 * H * W * 4     # the output, and the plane or the residual
-    ops = real_blocks = 0
-    base = 0
-    for sz, cap in zip(sizes, caps):
-        rows = buf[base:base + L * cap]
-        base += L * cap
-        rows = rows[(rows[:, 0] < H) & (rows[:, 1] < W)]
-        for py, px in rows[:, :2]:
-            covered[py:py + sz, px:px + sz] = True
-        ne = it.edge_len(sz)
-        tm = rows[:, 2] == 9
-        real_blocks += len(rows)
-        nbytes += len(rows) * 16 \
-            + len(set(rows[~tm, 2].tolist())) * ne * sz * sz * 4
-        ops += int((~tm).sum()) * sz * sz * (2 * ne + 4) \
-            + int(tm.sum()) * sz * sz * 7
-    return nbytes, ops, real_blocks, int(covered.sum())
-
-
-def intra_windows(R, args, want):
-    """The windows per level the intra kernel takes on `args`, from one
-    launch on a copy of the plane, whose result must be `want`."""
     from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
-    plane, residual, slab, L, sizes, caps, bpp = args
-    out = plane.clone()
-    windows = RC.intra(out, residual, slab, L, sizes, caps, bpp,
-                       R._const("edges", plane.device))
-    if not bool((out == want).all()):
-        raise RuntimeError(f"_intra_scan at {windows} windows per level "
-                           "!= plain")
+    table, toff = RC.tap_table(), RC.tap_offsets()
+    nbytes = ops = real_blocks = covered_px = 0
+    pairs, slabs = set(), set()
+    for plane, _residual, slab, L, sizes, caps in jobs:
+        buf = slab.cpu().numpy().astype(np.int64)
+        H, W = plane.shape
+        covered = np.zeros((H, W), bool)
+        nbytes += 2 * H * W * 4
+        new_slab = slab.data_ptr() not in slabs
+        slabs.add(slab.data_ptr())
+        base = 0
+        for sz, cap in zip(sizes, caps):
+            rows = buf[base:base + L * cap]
+            base += L * cap
+            rows = rows[(rows[:, 0] < H) & (rows[:, 1] < W)]
+            for py, px in rows[:, :2]:
+                covered[py:py + sz, px:px + sz] = True
+            real_blocks += len(rows)
+            nbytes += len(rows) * 16 if new_slab else 0
+            part = table[toff[sz]:]
+            npx = sz * sz
+            for m, n in zip(*np.unique(rows[:, 2], return_counts=True)):
+                kind, o = int(part[m]) >> 24, int(part[m]) & 0xffffff
+                if kind == RC.TAPS:
+                    words = part[o:o + npx].astype(np.int64)
+                    ops += int(n) * (2 * int((words >> 27).sum()) + 4 * npx)
+                    held = 4 * npx
+                elif kind == RC.COLUMN:
+                    col = part[o:o + it.edge_len(sz)]
+                    ops += int(n) * (2 * int(np.count_nonzero(col)) + 2
+                                     + 2 * npx)
+                    held = 4 * len(col)
+                else:
+                    ops += int(n) * 7 * npx
+                    held = 0
+                if (sz, int(m)) not in pairs:
+                    pairs.add((sz, int(m)))
+                    nbytes += held
+        covered_px += int(covered.sum())
+    return nbytes, ops, real_blocks, covered_px
+
+
+def intra_windows(torch, jobs, bpp, wants):
+    """The windows per level the intra kernel takes on each of `jobs`,
+    from one launch on copies of the planes, whose results must be
+    `wants`."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
+    outs = [job[0].clone() for job in jobs]
+    windows = RC.intra([(o, *job[1:]) for o, job in zip(outs, jobs)], bpp,
+                       R._const("edges", outs[0].device))
+    for out, want in zip(outs, wants):
+        if not torch.equal(out, want):
+            raise RuntimeError(f"_intra_scan_planes at {windows} windows "
+                               "per level != plain")
     return windows
 
 
 def intra_phase(torch, np, calls):
-    """_intra_scan on the real inputs of bench_1080p_lf frame 0 (Y, U,
-    V): the kernel against the plain version on the card, bit for bit,
-    with timings and the bound terms (the chain: the levels, one after
-    another); then U's slab spread so that each level spans windows."""
+    """_intra_scan_planes on the real inputs of bench_1080p_lf frame 0
+    and bench_1080p frame 0 (a keyframe), Y, U and V in one launch as
+    recon_frame hands them over: the kernel against the plain version on
+    the card, bit for bit, with the launch's time, each plane's time
+    alone (us per level), the windows per level, and the bound terms
+    (bench_1080p_lf frame 0; the chain: the longest plane's levels);
+    then Y, U's slab spread so that every level spans two windows or
+    more, and V, in one launch."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
     from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
-    if len(calls) != 3:
-        raise RuntimeError(f"frame 0 ran {len(calls)} intra calls, "
-                           "expected Y, U and V")
     err = 0
-    ms = plain_ms = 0.0
-    nbytes = nops = chain = 0
-    shapes = []
-    for args in calls:
-        plane, residual, slab, L, sizes, caps, bpp = args
-        out = R._intra_scan(*args)
-        want, t = host_ms(torch, lambda: R._intra_scan_plain(*args))
-        plain_ms += t
-        err = max(err, int((out - want).abs().max()))
-        if not torch.equal(out, want):
-            raise RuntimeError(f"_intra_scan on {tuple(plane.shape)}: "
-                               f"kernel != plain (max |diff| {err})")
-        changed = int((out != plane).sum())
-        if not changed:
-            raise RuntimeError("the intra wavefront changed no pixel")
-        call_ms = cuda_ms(lambda: R._intra_scan(*args), 5)
-        ms += call_ms
-        b, o, nreal, covered = intra_work(np, plane, slab, L, sizes, caps)
-        nbytes += b
-        nops += o
-        chain += L
-        windows = intra_windows(R, args, want)
-        shapes.append(f"{tuple(plane.shape)} L={L} sizes={sizes} "
-                      f"caps={caps} slab {tuple(slab.shape)} ({nreal} "
-                      f"blocks over {covered} pixels, {windows} window(s) "
-                      f"per level): {call_ms:.4f} ms")
+    per_clip = {}
+    for clip, (jobs, bpp) in calls.items():
+        if len(jobs) != 3:
+            raise RuntimeError(f"{clip} frame 0 handed {len(jobs)} planes "
+                               "to the intra stage, expected Y, U and V")
+        outs = R._intra_scan_planes(jobs, bpp)
+        wants, plain_ms = host_ms(torch, lambda: [
+            R._intra_scan_plain(*job, bpp) for job in jobs])
+        for out, want, job in zip(outs, wants, jobs):
+            err = max(err, int((out - want).abs().max()))
+            if not torch.equal(out, want):
+                raise RuntimeError(f"_intra_scan_planes on {clip} "
+                                   f"{tuple(job[0].shape)}: kernel != plain"
+                                   f" (max |diff| {err})")
+            if not int((out != job[0]).sum()):
+                raise RuntimeError("the intra wavefront changed no pixel")
+        ms = cuda_ms(lambda: R._intra_scan_planes(jobs, bpp), 5)
+        alone = [cuda_ms(lambda: R._intra_scan(*job, bpp), 5)
+                 for job in jobs]
+        windows = intra_windows(torch, jobs, bpp, wants)
+        nbytes, nops, nreal, covered = intra_work(np, jobs)
+        chain = max(job[3] for job in jobs)
+        planes = [f"{name} {tuple(job[0].shape)} L={job[3]} sizes={job[4]}"
+                  f" caps={job[5]} {w} window(s) per level: alone "
+                  f"{t:.4f} ms = {t * 1e3 / job[3]:.3f} us per level"
+                  for name, job, w, t in zip("YUV", jobs, windows, alone)]
+        say("kernels", f"_intra_scan_planes on {clip} frame 0 ({nreal} "
+            f"blocks over {covered} pixels; {'; '.join(planes)}): one "
+            f"launch of the three planes ms={ms:.4f} (sum of the planes "
+            f"alone {sum(alone):.4f}) plain_ms={plain_ms:.1f}; exact vs "
+            "plain")
+        per_clip[clip] = {
+            "ms": ms, "plain_ms": plain_ms, "plane_ms_alone": alone,
+            "us_per_level": [t * 1e3 / job[3] for t, job in zip(alone,
+                                                                jobs)],
+            "levels": [job[3] for job in jobs], "windows": windows,
+            "bytes_needed": nbytes, "ops": nops, "chain_levels": chain}
     # U's slab spread to more rows per level than a window's 1024
-    # threads: each level's blocks lie in two windows or more, and the
-    # windows cross the sections
-    plane, residual, slab, L, sizes, caps, bpp = calls[1]
+    # threads, launched between Y and V: each of U's levels lies in two
+    # windows or more, and the windows cross the sections
+    jobs, bpp = calls["bench_1080p_lf"]
+    plane, residual, slab, L, sizes, caps = jobs[1]
     wide = RC.spread_slab((slab.cpu().numpy(), L, sizes, caps),
                           tuple((1024 // sum(caps) + 1) * c for c in caps),
                           *plane.shape, seed=SEED)
-    args = (plane, residual, torch.as_tensor(wide[0], device=DEVICE),
-            *wide[1:], bpp)
-    windows = intra_windows(R, args, R._intra_scan_plain(*args))
-    if windows < 2:
-        raise RuntimeError(f"the spread slab took {windows} window(s)")
-    shapes.append(f"U spread to caps={wide[3]}: {windows} windows per "
-                  "level, exact vs plain")
-    bound_ms, bound_by, chain_ms = bounds(nbytes, nops, chain)
-    say("kernels", f"_intra_scan on bench_1080p_lf frame 0 "
-        f"({'; '.join(shapes)}): ms={ms:.4f} plain_ms={plain_ms:.1f} "
-        f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {nops} ops) "
-        f"chain_ms={chain_ms:.6f} ({chain} levels); exact vs plain")
-    return {"name": "_intra_scan", "route": "cuda", "source": INTRA_SRC,
-            "replaces": INTRA_REPLACES, "launches": None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "per": "frame (Y, U, V) of bench_1080p_lf frame 0",
-            "bytes_needed": nbytes, "ops": nops, "chain_levels": chain,
-            "chain_bound_ms": chain_ms, "spread_windows": windows}
+    spread = [jobs[0], (plane, residual, torch.as_tensor(
+        wide[0], device=DEVICE), *wide[1:]), jobs[2]]
+    windows = intra_windows(torch, spread, bpp, [
+        R._intra_scan_plain(*job, bpp) for job in spread])
+    if windows[1] < 2:
+        raise RuntimeError(f"the spread slab took {windows[1]} window(s)")
+    say("kernels", f"_intra_scan_planes with U spread to caps={wide[3]}: "
+        f"windows per level {windows} (Y, U, V), exact vs plain")
+    lf = per_clip["bench_1080p_lf"]
+    bound_ms, bound_by, chain_ms = bounds(lf["bytes_needed"], lf["ops"],
+                                          lf["chain_levels"])
+    say("kernels", f"_intra_scan_planes on bench_1080p_lf frame 0: "
+        f"ms={lf['ms']:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        f"{lf['bytes_needed']} B, {lf['ops']} ops) chain_ms={chain_ms:.6f} "
+        f"({lf['chain_levels']} levels, the longest plane)")
+    return {"name": "_intra_scan_planes", "route": "cuda",
+            "source": INTRA_SRC, "replaces": INTRA_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": lf["ms"],
+            "plain_ms": lf["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": "frame (Y, U, V in one launch) of bench_1080p_lf frame 0",
+            "bytes_needed": lf["bytes_needed"], "ops": lf["ops"],
+            "chain_levels": lf["chain_levels"], "chain_bound_ms": chain_ms,
+            "spread_windows": windows[1], "by_clip": per_clip}
 
 
 def read_clip(name):
@@ -703,10 +757,12 @@ def decode_phase(torch, name, frames, want):
     stages = {k: round(v["total_s"] * 1e3 / len(frames), 3)
               for k, v in report.items() if "total_s" in v}
     levels = report.get("intra.levels", {"value": 0})["value"]
+    intra_frames = report.get("intra.ncalls", {"value": 0})["value"]
     say("decode", f"{name}: serial pass, ms/frame per stage "
         "(synchronised): " + json.dumps(stages, sort_keys=True)
-        + f"; intra levels per frame (Y + U + V): {levels / len(frames)}")
-    return fps, fps_runs, stages, launches
+        + f"; intra levels per frame (Y + U + V): {levels / len(frames)}; "
+        f"{intra_frames} of {len(frames)} frames have intra blocks")
+    return fps, fps_runs, stages, launches, intra_frames
 
 
 def main():
@@ -761,36 +817,44 @@ def main():
     clips = {c: read_clip(c) for c in CLIPS}
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, recon
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_dense"),
-                                      (recon, "_intra_scan")],
+                                      (recon, "_intra_scan_planes")],
                               clips["bench_1080p_lf"][0][:1])
-    res_calls = capture_inputs(torch, [(recon, "residual_plane")],
+    res_calls = capture_inputs(torch, [(recon, "residual_plane"),
+                                       (recon, "_intra_scan_planes")],
                                clips["bench_1080p"][0][:2])
+    intra_calls = {"bench_1080p_lf": lf_calls["_intra_scan_planes"][0],
+                   "bench_1080p": res_calls["_intra_scan_planes"][0]}
     by_name = {k["name"]: k for k in (
         stream_phase(rac, torch, np, "bits"),
         stream_phase(rac, torch, np, "tree"),
         coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
         lpf_phase(torch, lf_calls["lf_dense"]),
         residual_phase(torch, np, res_calls["residual_plane"]),
-        intra_phase(torch, np, lf_calls["_intra_scan"]))}
-    del lf_calls, res_calls
+        intra_phase(torch, np, intra_calls))}
+    del lf_calls, res_calls, intra_calls
     main_path = {"lf_dense": "lf_dense", "residual_plane": "residual",
-                 "_intra_scan": "intra"}
+                 "_intra_scan_planes": "intra"}
     for name in CLIPS:
         frames, want = clips[name]
-        fps, fps_runs, stages, launches = decode_phase(torch, name, frames,
-                                                       want)
+        fps, fps_runs, stages, launches, intra_frames = decode_phase(
+            torch, name, frames, want)
         lf = launches["lf_dense"]
         if lf != LF_LAUNCHES[name]:
             raise RuntimeError(f"{name}: lf_dense launched {lf} times, "
                                f"expected {LF_LAUNCHES[name]}")
-        for kname in ("residual", "intra"):
-            if launches[kname] < 1:
-                raise RuntimeError(f"{name}: the {kname} kernel did not "
-                                   "launch on the main path")
+        if launches["residual"] < 1:
+            raise RuntimeError(f"{name}: the residual kernel did not launch "
+                               "on the main path")
+        if not 0 < intra_frames == launches["intra"]:
+            raise RuntimeError(f"{name}: the intra kernel launched "
+                               f"{launches['intra']} times for "
+                               f"{intra_frames} frames with intra blocks")
         for kname, key in main_path.items():
             k = by_name[kname]
             k["launches"] = (k["launches"] or 0) + launches[key]
             k.setdefault("launches_by_clip", {})[name] = launches[key]
+        by_name["_intra_scan_planes"].setdefault(
+            "frames_with_intra_by_clip", {})[name] = intra_frames
         top = sorted(((v, k) for k, v in stages.items()
                       if k.startswith(("recon.", "upload.", "intra."))),
                      reverse=True)[:5]

@@ -13,9 +13,11 @@ reference: vp9_webgpu.c:2956):
                        filter banks gathered per cell; bilinear expressed
                        as an 8-tap bank), compound average, +residual
                        (plain PyTorch)
-  3. intra wavefront — host-computed dependency levels. On the card one
-                       launch of csrc/intra.cu per plane walks every
-                       level; the plain version, _intra_scan_plain, loops
+  3. intra wavefront — host-computed dependency levels, after the
+                       three planes' residual and inter passes. On the
+                       card one launch of csrc/intra.cu per frame walks
+                       every level of the three planes side by side;
+                       the plain version, _intra_scan_plain, loops
                        over the levels in Python, gathering each level's
                        edges and predicting them with one exact float32
                        product (ops/intra_tables) + TM
@@ -612,37 +614,51 @@ def _intra_scan_plain(plane, residual, packed, L, sizes, caps, bpp):
     return ext[:HW].view(H, W)
 
 
-def _intra_scan(plane, residual, packed, L, sizes, caps, bpp):
-    """The intra wavefront of one plane (the slab layout of
-    _intra_scan_plain) -> a new [H, W] int32 plane; `plane` is not
-    modified. CPU tensors take _intra_scan_plain; any other device the
-    kernel (csrc/intra.cu, one launch on a copy of the plane), which
-    takes CUDA tensors only."""
-    if plane.device.type == "cpu":
-        return _intra_scan_plain(plane, residual, packed, L, sizes, caps,
-                                 bpp)
+def _intra_scan_planes(jobs, bpp):
+    """The intra wavefronts of a frame's planes: jobs [(plane, residual,
+    packed, L, sizes, caps)], each in the slab layout of
+    _intra_scan_plain -> a new [H, W] int32 plane per job; no plane is
+    modified. CPU tensors take _intra_scan_plain, one call per plane; any
+    other device the kernel (csrc/intra.cu: one launch for all the
+    planes, side by side, on copies), which takes CUDA tensors only."""
+    if not jobs:
+        return []
+    if jobs[0][0].device.type == "cpu":
+        return [_intra_scan_plain(*job, bpp) for job in jobs]
     if not 8 <= bpp <= 12:
         raise ValueError(f"bpp={bpp}")
-    if len(sizes) != len(caps) or not sizes or len(set(sizes)) != len(
-            sizes) or not set(sizes) <= set(recon_cuda.INTRA_SIZES) \
-            or min(caps) < 1 or L < 1:
-        raise ValueError(f"slab sections sizes={sizes} caps={caps} L={L}")
-    if plane.dim() != 2:
-        raise ValueError(f"plane has shape {tuple(plane.shape)}, expected "
-                         "[H, W]")
-    dev = plane.device
-    H, W = plane.shape
+    if len(jobs) > recon_cuda.INTRA_MAX_PLANES:
+        raise ValueError(f"{len(jobs)} planes, the kernel takes at most "
+                         f"{recon_cuda.INTRA_MAX_PLANES}")
+    dev = jobs[0][0].device
     i32 = (torch.int32,)
-    residual = check_tensor(residual, i32, (H, W), dev, "residual")
-    if packed.dim() != 2 or packed.shape[0] < L * sum(caps):
-        raise ValueError(f"slab has shape {tuple(packed.shape)}, expected "
-                         f"[>= {L * sum(caps)}, 8]")
-    packed = check_tensor(packed, (torch.int16,), (packed.shape[0], 8),
-                          dev, "slab")
-    out = check_tensor(plane, i32, (H, W), dev, "plane").clone()
-    recon_cuda.intra(out, residual, packed, L, sizes, caps, bpp,
-                     _const("edges", dev))
-    return out
+    checked = []
+    for plane, residual, packed, L, sizes, caps in jobs:
+        if len(sizes) != len(caps) or not sizes or len(set(sizes)) != len(
+                sizes) or not set(sizes) <= set(recon_cuda.INTRA_SIZES) \
+                or min(caps) < 1 or L < 1:
+            raise ValueError(f"slab sections sizes={sizes} caps={caps} "
+                             f"L={L}")
+        if plane.dim() != 2:
+            raise ValueError(f"plane has shape {tuple(plane.shape)}, "
+                             "expected [H, W]")
+        H, W = plane.shape
+        residual = check_tensor(residual, i32, (H, W), dev, "residual")
+        if packed.dim() != 2 or packed.shape[0] < L * sum(caps):
+            raise ValueError(f"slab has shape {tuple(packed.shape)}, "
+                             f"expected [>= {L * sum(caps)}, 8]")
+        packed = check_tensor(packed, (torch.int16,), (packed.shape[0], 8),
+                              dev, "slab")
+        out = check_tensor(plane, i32, (H, W), dev, "plane").clone()
+        checked.append((out, residual, packed, L, sizes, caps))
+    recon_cuda.intra(checked, bpp, _const("edges", dev))
+    return [job[0] for job in checked]
+
+
+def _intra_scan(plane, residual, packed, L, sizes, caps, bpp):
+    """_intra_scan_planes for one plane -> its new [H, W] int32 plane."""
+    return _intra_scan_planes([(plane, residual, packed, L, sizes, caps)],
+                              bpp)[0]
 
 
 def _pad_to_bucket(n, base=8, mult=4):
@@ -738,28 +754,32 @@ def pack_intra_slab(levels, Hp, Wp):
     return buf, L, sizes, caps
 
 
-def run_intra_plane(s, plane_dev, residual_dev, levels, slab=None,
-                    slab_dev=None):
-    """Run the intra wavefront of one plane. slab: prepacked
-    pack_intra_slab result (else packed here); slab_dev: the slab
-    buffer already on the device (U's reused by V)."""
-    bpp = s.header.bpp
-    if slab is None:
-        with metrics.timer("intra.pack"):
-            slab = pack_intra_slab(levels, *plane_dev.shape)
-    if slab is None:
-        return plane_dev, None
-    buf, L, sizes, caps = slab
-    if slab_dev is None:
-        with metrics.timer("intra.upload"):
-            slab_dev = torch.from_numpy(buf).to(plane_dev.device)
+def run_intra(s, planes, residuals):
+    """The intra wavefronts of a frame's three planes, one
+    _intra_scan_planes call (V takes U's slab: the same schedule) ->
+    the three planes; one without intra blocks passes unchanged."""
+    pre = s.pre
+    jobs, which = [], []
+    for plane_idx, (plane, residual) in enumerate(zip(planes, residuals)):
+        k = min(plane_idx, 1)
+        slab = pre["slabs"][k]
+        if slab is None:
+            continue
+        buf, L, sizes, caps = slab
+        jobs.append((plane, residual, pre["dev"]["slabs"][k], L, sizes,
+                     caps))
+        which.append(plane_idx)
+        metrics.add("intra.nrows", buf.shape[0])
+        metrics.add("intra.levels", L)
+    out = list(planes)
+    if not jobs:
+        return out
     metrics.add("intra.ncalls", 1)
-    metrics.add("intra.nrows", buf.shape[0])
-    metrics.add("intra.levels", L)
     with metrics.timer("intra.level_dispatch"):
-        plane_dev = _intra_scan(plane_dev, residual_dev, slab_dev, L,
-                                sizes, caps, bpp)
-    return plane_dev, slab_dev
+        for plane_idx, plane in zip(which,
+                                    _intra_scan_planes(jobs, s.header.bpp)):
+            out[plane_idx] = plane
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1113,8 +1133,7 @@ def precompute_host(s):
     h = s.header
     pre = {"levels": [None, None], "pairs": [None] * 3,
            "pairs_merged": None, "slabs": [None, None]}
-    # slab straight from the native flat schedule when available; recon
-    # only reads pre["levels"] when the slab is missing
+    # slab straight from the native flat schedule when available
     Hy, Wy = s.sb_rows * 64, s.sb_cols * 64
     dims = ((Hy, Wy), (Hy >> h.ss_v, Wy >> h.ss_h))
     done_fast = False
@@ -1325,7 +1344,7 @@ def recon_frame(s):
             flat_c = scat(dev["cp"], 1, Lc)
             flat_e = _scatter_pairs16(dev["ep"], 1, Le)
 
-    outs = []
+    outs, residuals = [], []
     for plane_idx in range(3):
         if plane_idx == 0:
             coef, eob4 = s.coef_y, s.eob_y
@@ -1384,13 +1403,12 @@ def recon_frame(s):
                 coef_dev, eob_dev, grids[1], grids[2], bool(h.lossless),
                 bpp)
 
-        with metrics.timer("recon.intra_run"):
-            # V reuses U's slab (identical schedule)
-            k = min(plane_idx, 1)
-            plane_dev, _sd = run_intra_plane(
-                s, plane_dev, residual, pre["levels"][k],
-                pre["slabs"][k], dev["slabs"][k])
         outs.append(plane_dev)
+        residuals.append(residual)
+
+    # the three planes' wavefronts in one call
+    with metrics.timer("recon.intra_run"):
+        outs = run_intra(s, outs, residuals)
 
     if h.filter_level:
         outs = _loop_filter(s, outs, dev)

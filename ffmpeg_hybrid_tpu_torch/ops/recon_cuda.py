@@ -2,8 +2,8 @@
 csrc/intra.cu): their ctypes signatures, the launch counters and the
 host side of the intra kernel's tables. The wrappers that choose between
 a kernel and its plain version are ops/recon.py's residual_plane and
-_intra_scan; they call these only with tensors off the CPU, and these
-raise for anything but CUDA tensors.
+_intra_scan_planes; they call these only with tensors off the CPU, and
+these raise for anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -19,8 +19,14 @@ from . import intra_tables as it
 # kernel launches since the last reset_launches()
 LAUNCHES = {"residual": 0, "intra": 0}
 
-# the block sizes the intra weight table holds, in its order
+# the block sizes the intra tap table holds, in its order
 INTRA_SIZES = (4, 8, 16, 32)
+# planes one intra launch takes (a cluster of thread blocks each)
+INTRA_MAX_PLANES = 3
+# ints per plane of the intra kernel's slab layout (intra_meta, padded)
+INTRA_META_LEN = 1 + 5 * len(INTRA_SIZES)
+# how the tap table holds a mode's predictor (csrc/intra.cu reads these)
+TAPS, COLUMN, TM = 0, 1, 2
 
 _c = ctypes
 _P, _I = _c.c_void_p, _c.c_int
@@ -29,10 +35,10 @@ _SIGNATURES = {
     # bytes, out, H, W, lossless, stream
     "itxfm.cu": {"residual_plane": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                                     _I, _I, _P]},
-    # plane, residual, slab, weights, edges, H, W, L, bpp, nsec, meta,
-    # slab rows, windows (out), stream
-    "intra.cu": {"intra_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                                _c.c_longlong, _P, _P]},
+    # plane, residual, slab of three planes, taps, edges, n, dims, meta,
+    # bpp, windows (out), stream
+    "intra.cu": {"intra_scan": [_P] * 9 + [_P, _P, _I, _P, _P, _I, _P,
+                                           _P]},
 }
 
 
@@ -52,56 +58,112 @@ def residual(coef, eob4, txsz4, txtype4, out, lossless):
     LAUNCHES["residual"] += 1
 
 
-def weight_offsets():
-    """{sz: offset of that size's [15, ne, sz*sz] block in
-    weight_table()}."""
-    offs, o = {}, 0
-    for sz in INTRA_SIZES:
-        offs[sz] = o
-        o += 15 * it.edge_len(sz) * sz * sz
-    return offs
+def _tap_word(col):
+    """One pixel's weight column of a directional mode as one int32: up
+    to three taps at bits 9c..9c+8, each an edge index (7 bits) and a
+    weight code (2 bits, weight 16 * (code + 1)), and their count at bits
+    27-28."""
+    idx = np.flatnonzero(col)
+    if not 1 <= len(idx) <= 3 or idx[-1] >= 128:
+        raise ValueError(f"a column with taps at {idx.tolist()}")
+    word = len(idx) << 27
+    for c, j in enumerate(idx):
+        w = int(col[j])
+        if w not in (16, 32, 48, 64):
+            raise ValueError(f"weight {w} has no tap code")
+        word |= (int(j) | (w // 16 - 1) << 7) << (9 * c)
+    return word
 
 
-def weight_table():
-    """Every size's predictor weights (ops/intra_tables.build_all), int32,
-    concatenated in INTRA_SIZES order."""
-    return np.concatenate([it.build_all(sz).reshape(-1)
-                           for sz in INTRA_SIZES]).astype(np.int32)
+def _size_taps(sz):
+    """The tap table's part for one block size, from its weights
+    (ops/intra_tables.build_all): 16 ints of descriptors, one per mode,
+    kind << 24 | offset of the mode's data from the part's start; then
+    each mode's data: a tap word per pixel (TAPS), or the one weight
+    column that every pixel of the block shares (COLUMN, zero-padded to a
+    multiple of 4), or nothing (TM). Every part and every mode's data
+    start at a multiple of 4 ints, so the kernel reads 4 tap words as one
+    int4."""
+    W = it.build_all(sz)
+    desc, data, o = np.zeros(16, np.int64), [], 16
+    for m in range(15):
+        w = W[m]
+        if m == it.TM:
+            desc[m] = TM << 24
+            continue
+        if (w == w[:, :1]).all():
+            kind, vals = COLUMN, np.pad(w[:, 0], (0, -len(w) % 4))
+        else:
+            kind, vals = TAPS, [_tap_word(w[:, p]) for p in range(w.shape[1])]
+        desc[m] = kind << 24 | o
+        data.append(vals)
+        o += len(vals)
+    return np.concatenate([desc] + data).astype(np.int32)
 
 
 @lru_cache(maxsize=None)
-def _weights_on(device):
-    return torch.as_tensor(weight_table(), device=device)
+def _tap_parts():
+    return tuple(_size_taps(sz) for sz in INTRA_SIZES)
+
+
+def tap_offsets():
+    """{sz: offset of that size's part in tap_table()}."""
+    offs, o = {}, 0
+    for sz, part in zip(INTRA_SIZES, _tap_parts()):
+        offs[sz] = o
+        o += len(part)
+    return offs
+
+
+def tap_table():
+    """The predictors of every size in the form csrc/intra.cu reads
+    (_size_taps), int32, concatenated in INTRA_SIZES order."""
+    return np.concatenate(_tap_parts())
+
+
+@lru_cache(maxsize=None)
+def _taps_on(device):
+    return torch.as_tensor(tap_table(), device=device)
 
 
 def intra_meta(sizes, caps, L):
     """The slab layout as csrc/intra.cu reads it: rows of one level, then
-    per section sz, cap, first slab row, edge length and weight
-    offset."""
-    woff = weight_offsets()
+    per section sz, cap, first slab row, edge length and the offset of
+    the size's part of the tap table."""
+    toff = tap_offsets()
     meta = [sum(caps)]
     base = 0
     for sz, cap in zip(sizes, caps):
-        meta += [sz, cap, base, it.edge_len(sz), woff[sz]]
+        meta += [sz, cap, base, it.edge_len(sz), toff[sz]]
         base += L * cap
     return np.asarray(meta, np.int32)
 
 
-def intra(plane, residual_, slab, L, sizes, caps, bpp, edges):
-    """csrc/intra.cu on checked, contiguous tensors: the wavefront of
-    one plane, in place on `plane` [H, W] int32, with the [15, 4] int32
-    EDGES table `edges`. Returns the windows the kernel took each level
-    in (the rows of a level whose edge vectors fit its shared memory at
+def intra(jobs, bpp, edges):
+    """csrc/intra.cu on checked, contiguous tensors: the wavefronts of up
+    to INTRA_MAX_PLANES planes in one launch, side by side, each in place
+    on its plane. jobs: [(plane [H, W] int32, residual [H, W] int32, slab
+    [tot, 8] int16, L, sizes, caps)]; edges: the [15, 4] int32 EDGES
+    table. Returns per plane the windows the kernel took each level in
+    (the rows of a level whose edge vectors fit its shared memory at
     once)."""
-    H, W = plane.shape
-    meta = intra_meta(sizes, caps, L)
-    windows = _c.c_int(0)
-    _cuda.launch("intra.cu", _SIGNATURES["intra.cu"], "intra_scan", plane,
-                 residual_, slab, _weights_on(plane.device), edges, H, W, L,
-                 bpp, len(sizes), meta.ctypes.data, slab.shape[0],
-                 _c.addressof(windows))
+    n = len(jobs)
+    if not 1 <= n <= INTRA_MAX_PLANES:
+        raise ValueError(f"{n} planes for one intra launch")
+    ptrs = [None] * (3 * INTRA_MAX_PLANES)
+    dims = np.zeros((n, 5), np.int32)
+    meta = np.zeros((n, INTRA_META_LEN), np.int32)
+    for j, (plane, residual_, slab, L, sizes, caps) in enumerate(jobs):
+        ptrs[3 * j:3 * j + 3] = plane, residual_, slab
+        dims[j] = (*plane.shape, L, len(sizes), slab.shape[0])
+        m = intra_meta(sizes, caps, L)
+        meta[j, :len(m)] = m
+    windows = (_c.c_int * n)()
+    _cuda.launch("intra.cu", _SIGNATURES["intra.cu"], "intra_scan", *ptrs,
+                 _taps_on(jobs[0][0].device), edges, n, dims.ctypes.data,
+                 meta.ctypes.data, bpp, _c.addressof(windows))
     LAUNCHES["intra"] += 1
-    return windows.value
+    return list(windows)
 
 
 def spread_slab(slab, caps_to, Hp, Wp, seed=0):

@@ -237,22 +237,28 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
                                           ((16, 32), (8, 8), 1)])
 def test_intra_meta_describes_the_slab_and_the_table(sizes, caps, L):
     """The layout the intra kernel reads: sections start where
-    pack_intra_slab puts them, and each size's weights where the table
-    holds them."""
+    pack_intra_slab puts them, and each size's part of the tap table
+    where the table holds it (16 ints of mode descriptors, then 8
+    directional modes of a tap word per pixel and 6 DC-family columns
+    padded to a multiple of 4)."""
     meta = RC.intra_meta(sizes, caps, L)
-    table = RC.weight_table()
-    assert len(meta) == 1 + 5 * len(sizes)
+    table = RC.tap_table()
+    assert len(meta) == 1 + 5 * len(sizes) <= RC.INTRA_META_LEN
     assert meta[0] == sum(caps)
     base = 0
     for k, (sz, cap) in enumerate(zip(sizes, caps)):
-        s_sz, s_cap, s_base, s_ne, s_woff = meta[1 + 5 * k:6 + 5 * k]
+        s_sz, s_cap, s_base, s_ne, s_toff = meta[1 + 5 * k:6 + 5 * k]
         assert (s_sz, s_cap, s_base, s_ne) == (sz, cap, base,
                                                it.edge_len(sz))
-        w = it.build_all(sz)
-        assert np.array_equal(table[s_woff:s_woff + w.size], w.reshape(-1))
+        assert s_toff == RC.tap_offsets()[sz]
+        desc = table[s_toff:s_toff + 15]
+        assert desc[it.TM] == RC.TM << 24
+        ends = [16] + [d & 0xffffff for d in desc if d >> 24 != RC.TM]
+        assert ends == sorted(ends)
+        part = 16 + 8 * sz * sz + 6 * (-(-s_ne // 4) * 4)
+        nxt = [o for o in RC.tap_offsets().values() if o > s_toff]
+        assert s_toff + part == (min(nxt) if nxt else len(table))
         base += L * cap
-    assert len(table) == sum(15 * it.edge_len(s) * s * s
-                             for s in RC.INTRA_SIZES)
 
 
 @pytest.mark.parametrize("case", INTRA_CASES, ids=str)
@@ -322,21 +328,65 @@ def test_residual_kernel_matches_plain_on_the_card():
     assert RC.LAUNCHES["residual"] == len(cases)
 
 
+def _frame_jobs(case, keyframe_slabs, dev):
+    """Y, U and V of one keyframe (V on U's slab) as intra jobs, with
+    seeded planes and residuals."""
+    txfmmode, seed, _k = case
+    rng = np.random.RandomState(seed + 7)
+    jobs = []
+    for plane_idx in range(3):
+        (buf, L, sizes, caps), shape = keyframe_slabs[(txfmmode, seed)][
+            min(plane_idx, 1)]
+        plane = rng.randint(0, 256, shape).astype(np.int32)
+        residual = rng.randint(-300, 300, shape).astype(np.int32)
+        jobs.append((_t(plane).to(dev), _t(residual).to(dev),
+                     _t(buf).to(dev), L, sizes, caps))
+    return jobs
+
+
+def _held_to_plain(jobs):
+    """One launch of the intra kernel on `jobs`, each plane equal to its
+    plain version, the inputs unchanged."""
+    before = [j[0].clone() for j in jobs]
+    got = P._intra_scan_planes(jobs, 8)
+    for out, job, b in zip(got, jobs, before):
+        want = P._intra_scan_plain(*job, 8)
+        assert torch.equal(out, want)
+        assert torch.equal(job[0], b)
+
+
 @pytest.mark.cuda
 def test_intra_kernel_matches_plain_on_the_card(keyframe_slabs):
+    """Y, U and V of each keyframe in one launch."""
     dev = _card()
     RC.reset_launches()
-    for case in INTRA_CASES:
-        plane, residual, (buf, L, sizes, caps) = _intra_inputs(
-            case, keyframe_slabs)
-        args = (_t(plane), _t(residual), _t(buf))
-        want = P._intra_scan_plain(*args, L, sizes, caps, 8)
-        pd = args[0].to(dev)
-        got = P._intra_scan(pd, *(a.to(dev) for a in args[1:]), L, sizes,
-                            caps, 8)
-        assert torch.equal(got.cpu(), want), case
-        assert torch.equal(pd.cpu(), args[0])     # input not modified
-    assert RC.LAUNCHES["intra"] == len(INTRA_CASES)
+    cases = [c for c in INTRA_CASES if c[2] == 0]
+    for case in cases:
+        _held_to_plain(_frame_jobs(case, keyframe_slabs, dev))
+    assert RC.LAUNCHES["intra"] == len(cases)
+
+
+@pytest.mark.cuda
+def test_intra_kernel_planes_of_one_launch_differ(keyframe_slabs):
+    """The planes of one launch differ in shape, L, sizes and caps (one
+    of them spread over several windows per level): each block walks
+    its own."""
+    dev = _card()
+    a = _frame_jobs(INTRA_CASES[0], keyframe_slabs, dev)
+    b = _frame_jobs(INTRA_CASES[2], keyframe_slabs, dev)
+    plane, residual, (buf, L, sizes, caps) = _intra_inputs(INTRA_CASES[3],
+                                                           keyframe_slabs)
+    wide = RC.spread_slab((buf, L, sizes, caps),
+                          tuple((1024 // sum(caps) + 1) * c for c in caps),
+                          *plane.shape, seed=3)
+    spread = (_t(plane).to(dev), _t(residual).to(dev), _t(wide[0]).to(dev),
+              *wide[1:])
+    jobs = [b[0], a[1], spread]
+    assert len({(j[3], j[4], j[5]) for j in jobs}) == 3
+    assert len({tuple(j[0].shape) for j in jobs}) == 2
+    RC.reset_launches()
+    _held_to_plain(jobs)
+    assert RC.LAUNCHES["intra"] == 1
 
 
 @pytest.mark.cuda
@@ -356,8 +406,9 @@ def test_intra_kernel_matches_plain_when_a_level_spans_windows(
         args = [_t(a).to(dev) for a in (plane, residual, buf)]
         want = P._intra_scan_plain(*args, L, sizes, caps, 8)
         got = args[0].clone()
-        windows = RC.intra(got, args[1], args[2], L, sizes, caps, 8, edges)
-        assert windows > 1, case
+        windows = RC.intra([(got, args[1], args[2], L, sizes, caps)], 8,
+                           edges)
+        assert windows[0] > 1, case
         assert torch.equal(got, want), case
 
 
