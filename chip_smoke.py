@@ -18,9 +18,13 @@ Phases, one status line each; any failure exits non-zero:
                  coefficients and eob;
                with times, launches and token rates beside the native
                C pass A's rate on the same frame;
-               - lf_dense (csrc/lpf.cu) on the whole of
+               - lf_frame_ (csrc/lpf.cu) on the whole of
                  bench_1080p_lf frame 0: its Y and U+V planes as
-                 reconstructed before the loop filter, and their grids;
+                 reconstructed before the loop filter, and their grids,
+                 both sets in one launch and each set alone (us per
+                 wave); then the race stress: 50 launches on those
+                 inputs and 10 on a full-size random-grid frame with
+                 every edge position active, each bit-exact;
                - residual_plane (csrc/itxfm.cu) on the coefficients and
                  grids of all three planes of bench_1080p frames 0 (a
                  keyframe) and 1 (an inter frame), as recon_frame hands
@@ -40,7 +44,7 @@ Phases, one status line each; any failure exits non-zero:
                frames of vectors/bench_1080p.ivf (no loop filter: the
                loop-filter kernel must not launch) and all 6 of
                vectors/bench_1080p_lf.ivf (every frame filtered: it
-               must, 744 times); the residual kernel must launch on
+               must, once per frame); the residual kernel must launch on
                both, the intra kernel once per frame with intra blocks;
                then five timed pipelined passes (median
                fps and its spread) and a serial pass with the stage
@@ -71,9 +75,12 @@ ITXFM_SRC = PKG + "/csrc/itxfm.cu"
 ITXFM_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:54"
 INTRA_SRC = PKG + "/csrc/intra.cu"
 INTRA_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:706"
-# loop-filter launches of the bench_1080p_lf conformance pass (124 per
-# frame: 62 waves x 2 plane sets)
-LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 744}
+# loop-filter launches of the conformance passes: one per filtered frame
+# (Y and U+V in one launch)
+LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6}
+# race stress of the loop-filter kernel: launches on bench_1080p_lf frame
+# 0's inputs, and on a full-size random-grid frame
+LF_STRESS = (50, 10)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s;
 # int32 outside the tensor cores, 64 lanes per SM against float32's 128
@@ -361,58 +368,144 @@ def host_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def lpf_phase(torch, calls):
-    """lf_dense on one frame's real inputs (bench_1080p_lf frame 0
-    reconstructed on the card up to the loop filter, the filter's planes
-    and grids as the decoder hands them over): the kernel against the
-    plain version on each plane set, with timings."""
+def random_lf_frame(torch, np, seed, sb_rows=17, sb_cols=30, bpp=8):
+    """A 4:2:0 frame of sb_rows x sb_cols superblocks (1920x1088 by
+    default) for the loop filter, on the card: smooth random planes (so
+    the wide filters fire) under random grids with every V and H edge
+    position active, wd drawn from 4, 8 and 16, E, I, H over their
+    ranges. Returns the lf_frame_ arguments."""
+    rng = np.random.RandomState(seed)
+
+    def planes(B, Hp, Wp):
+        base = rng.randint(0, 1 << bpp, (B, 1, 1))
+        walk = np.cumsum(rng.randint(-2, 3, (B, Hp, Wp)), axis=2) // 3
+        return np.clip(base + walk, 0, (1 << bpp) - 1).astype(np.int32)
+
+    def grid(rows, cols):
+        g = np.zeros((rows, cols, 4), np.int32)
+        g[..., 0] = rng.choice([4, 8, 16], (rows, cols))
+        g[..., 1] = rng.randint(1, 194, (rows, cols))
+        g[..., 2] = rng.randint(1, 64, (rows, cols))
+        g[..., 3] = rng.randint(0, 4, (rows, cols))
+        return g
+
+    Hy, Wy = 64 * sb_rows, 64 * sb_cols
+    arrays = [planes(1, Hy, Wy)[0], *planes(2, Hy // 2, Wy // 2),
+              grid(Hy // 8, Wy // 4), grid(Hy // 4, Wy // 8),
+              grid(Hy // 16, Wy // 8), grid(Hy // 8, Wy // 16)]
+    return [torch.as_tensor(a, device=DEVICE) for a in arrays] + [
+        sb_rows, sb_cols, 1, 1, bpp, True, True]
+
+
+def lf_run(torch, LD, args):
+    """(work planes, run(do_y, do_uv), restore): run() copies the planes
+    of the lf_frame_ arguments `args` into the work planes and filters
+    them in place with one launch; restore() is its copy alone."""
+    planes, rest = args[:3], list(args[3:])
+    work = [p.clone() for p in planes]
+
+    def restore():
+        for w, p in zip(work, planes):
+            w.copy_(p)
+
+    def run(do_y=True, do_uv=True):
+        restore()
+        LD.lf_frame_(*work, *rest[:-2], do_y, do_uv)
+    return work, run, restore
+
+
+def lf_stress(torch, LD, args, want, n):
+    """n launches on the inputs `args`, each held to `want` bit for bit
+    (a missing fence in a dataflow kernel can pass once and fail the
+    next time)."""
+    work, run, _restore = lf_run(torch, LD, args)
+    for i in range(n):
+        run()
+        for w, ref in zip(work, want):
+            if not torch.equal(w, ref):
+                raise RuntimeError(f"lf_frame_ launch {i} of {n} != plain "
+                                   f"(max |diff| {int((w - ref).abs().max())})")
+
+
+def lpf_phase(torch, np, calls):
+    """lf_frame_ on one frame's real inputs (bench_1080p_lf frame 0
+    reconstructed on the card up to the loop filter, its planes and grids
+    as the decoder hands them over): the kernel, Y and U+V in one launch,
+    against the plain version; its time (CUDA events, the planes' restore
+    copy subtracted) in one launch and for each set alone, in us per
+    wave; the bound terms (the chain: the longer set's serial positions,
+    since the sets run side by side); then the race stress (LF_STRESS)."""
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense as LD
-    real = LD.lf_dense
-    if len(calls) != 2:
+    if len(calls) != 1:
         raise RuntimeError(f"frame 0 ran {len(calls)} loop-filter calls, "
-                           "expected Y and U+V")
-    err = 0
-    plain_ms = 0.0
-    ms = 0.0
-    nbytes = nops = chain = 0
-    shapes = []
-    for args in calls:
-        planes, vg, hg, sb_rows, sb_cols = args[:5]
-        out = real(*args)
-        want, t = host_ms(torch, lambda: LD.lf_dense_plain(*args))
-        plain_ms += t
-        err = max(err, int((out - want).abs().max()))
-        if not torch.equal(out, want):
-            raise RuntimeError(f"lf_dense on {tuple(planes.shape)}: kernel "
-                               f"!= plain (max |diff| {err})")
-        changed = int((want != planes).sum())
-        if not changed:
-            raise RuntimeError("the loop filter changed no sample")
-        set_ms = cuda_ms(lambda: real(*args), 20)
-        ms += set_ms
-        # each plane read and written once, each grid read once; the
-        # operations are the edge decision (LF_DECISION_OPS) of every
-        # lane of every active edge, a floor of what the filter does
-        nbytes += 2 * planes.numel() * 4 + (vg.numel() + hg.numel()) * 4
-        active = int((vg[..., 0] > 0).sum()) + int((hg[..., 0] > 0).sum())
-        nops += active * 8 * planes.shape[0] * LF_DECISION_OPS
-        nwaves = 2 * (sb_rows - 1) + sb_cols
-        chain += nwaves * (vg.shape[1] // sb_cols + hg.shape[0] // sb_rows)
-        shapes.append(f"{tuple(planes.shape)} V{tuple(vg.shape)} "
-                      f"H{tuple(hg.shape)}: {changed} samples changed, "
-                      f"{set_ms:.4f} ms")
+                           "expected one for Y and U+V")
+    args = calls[0]
+    planes, (Vy, Hy, Vu, Hu) = args[:3], args[3:7]
+    sb_rows, sb_cols, _ss_h, _ss_v, bpp, do_y, do_uv = args[7:]
+    if not (do_y and do_uv):
+        raise RuntimeError("bench_1080p_lf frame 0 filters only "
+                           f"{'Y' if do_y else 'U+V'}")
+    want = [p.clone() for p in planes]
+    _none, plain_ms = host_ms(torch, lambda: LD.lf_frame_plain_(
+        *want, *args[3:]))
+    work, run, restore = lf_run(torch, LD, args)
+    run()
+    err = max(int((w - ref).abs().max()) for w, ref in zip(work, want))
+    if err:
+        raise RuntimeError(f"lf_frame_: kernel != plain (max |diff| {err})")
+    changed = [int((ref != p).sum()) for ref, p in zip(want, planes)]
+    if not all(changed):
+        raise RuntimeError(f"the loop filter changed {changed} samples")
+    copy_ms = cuda_ms(restore, 20)
+    ms = cuda_ms(run, 20) - copy_ms
+    y_ms = cuda_ms(lambda: run(True, False), 20) - copy_ms
+    uv_ms = cuda_ms(lambda: run(False, True), 20) - copy_ms
+    nwaves = 2 * (sb_rows - 1) + sb_cols
+    # each plane read and written once, each grid read once; the
+    # operations are the edge decision (LF_DECISION_OPS) of every lane of
+    # every active edge, a floor of what the filter does
+    nbytes = sum(2 * p.numel() * 4 for p in planes) + sum(
+        g.numel() * 4 for g in (Vy, Hy, Vu, Hu))
+    nops = sum((int((V[..., 0] > 0).sum()) + int((H[..., 0] > 0).sum()))
+               * 8 * B * LF_DECISION_OPS
+               for V, H, B in ((Vy, Hy, 1), (Vu, Hu, 2)))
+    chain = nwaves * max(V.shape[1] // sb_cols + H.shape[0] // sb_rows
+                         for V, H in ((Vy, Hy), (Vu, Hu)))
     bound_ms, bound_by, chain_ms = bounds(nbytes, nops, chain)
-    say("kernels", f"lf_dense on bench_1080p_lf frame 0 ({'; '.join(shapes)})"
-        f": ms={ms:.4f} (Y + U+V, wrapper with its padded copies) "
-        f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by}, "
-        f"{nbytes} B, {nops} ops) chain_ms={chain_ms:.6f} ({chain} serial "
-        "positions); exact vs plain")
+    say("kernels", f"lf_frame_ on bench_1080p_lf frame 0 (Y "
+        f"{tuple(planes[0].shape)}, U+V 2 x {tuple(planes[1].shape)}; "
+        f"{changed} samples changed): one launch of both sets ms={ms:.4f} "
+        f"= {ms * 1e3 / nwaves:.3f} us per wave ({nwaves} waves); alone Y "
+        f"{y_ms:.4f} ms = {y_ms * 1e3 / nwaves:.3f} us per wave, U+V "
+        f"{uv_ms:.4f} ms = {uv_ms * 1e3 / nwaves:.3f} us per wave (restore "
+        f"copy {copy_ms:.4f} ms subtracted) plain_ms={plain_ms:.1f} "
+        f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {nops} ops) "
+        f"chain_ms={chain_ms:.6f} ({chain} serial positions); exact vs "
+        "plain")
+    t0 = time.perf_counter()
+    lf_stress(torch, LD, args, want, LF_STRESS[0])
+    rand = random_lf_frame(torch, np, SEED)
+    rand_want = [p.clone() for p in rand[:3]]
+    LD.lf_frame_plain_(*rand_want, *rand[3:])
+    rand_changed = [int((ref != p).sum()) for ref, p in zip(rand_want,
+                                                           rand[:3])]
+    lf_stress(torch, LD, rand, rand_want, LF_STRESS[1])
+    say("kernels", f"lf_frame_ race stress: {LF_STRESS[0]} launches on "
+        f"bench_1080p_lf frame 0 and {LF_STRESS[1]} on a "
+        f"{tuple(rand[0].shape)} random-grid frame (every position active,"
+        f" wd 4/8/16; {rand_changed} samples changed) bit-exact vs plain, "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"name": "lf_dense", "route": "cuda", "source": LPF_SRC,
             "replaces": LPF_REPLACES, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "bytes_needed": nbytes, "ops": nops, "chain_positions": chain,
-            "chain_bound_ms": chain_ms}
+            "per": "frame (Y and U+V in one launch) of bench_1080p_lf "
+                   "frame 0",
+            "ms_y_alone": y_ms, "ms_uv_alone": uv_ms, "waves": nwaves,
+            "us_per_wave": ms * 1e3 / nwaves, "bytes_needed": nbytes,
+            "ops": nops, "chain_positions": chain,
+            "chain_bound_ms": chain_ms,
+            "stress_launches": sum(LF_STRESS)}
 
 
 class _CountOps:
@@ -816,7 +909,7 @@ def main():
 
     clips = {c: read_clip(c) for c in CLIPS}
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, recon
-    lf_calls = capture_inputs(torch, [(lpf_dense, "lf_dense"),
+    lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
                                       (recon, "_intra_scan_planes")],
                               clips["bench_1080p_lf"][0][:1])
     res_calls = capture_inputs(torch, [(recon, "residual_plane"),
@@ -828,7 +921,7 @@ def main():
         stream_phase(rac, torch, np, "bits"),
         stream_phase(rac, torch, np, "tree"),
         coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
-        lpf_phase(torch, lf_calls["lf_dense"]),
+        lpf_phase(torch, np, lf_calls["lf_frame_"]),
         residual_phase(torch, np, res_calls["residual_plane"]),
         intra_phase(torch, np, intra_calls))}
     del lf_calls, res_calls, intra_calls

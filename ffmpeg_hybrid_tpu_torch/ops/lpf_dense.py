@@ -13,9 +13,12 @@ edges in serial row order: the order of ff_vp9_loopfilter_sb
 (vp9lpf.c:183-230), which 4px-offset edges (4x4-transform interiors)
 need, since edge e writes [e-2, e+1] and edge e+4 reads e.
 
-`lf_dense` launches the CUDA kernel (csrc/lpf.cu) for planes on the
-card and takes the plain PyTorch version, `lf_dense_plain`, for planes
-on the CPU. It counts its kernel launches (one per wave) in LAUNCHES.
+`lf_frame_` filters a frame's Y and U+V in place: for planes on the card
+with one launch of the CUDA kernel (csrc/lpf.cu: a persistent grid that
+takes superblocks in the order of `schedule`, each one waiting for the
+superblocks it depends on), for planes on the CPU with the plain
+PyTorch version, `lf_dense_plain`, per plane set. `lf_dense` is one
+plane set on a copy. Kernel launches are counted in LAUNCHES.
 """
 from __future__ import annotations
 
@@ -229,47 +232,154 @@ def lf_dense_plain(planes, vpar, hpar, sb_rows, sb_cols, sbwx, sbwy, bpp):
     return pad[:, 8:8 + Hp, 8:8 + Wp].clone()
 
 
+def lf_frame_plain_(y, u, v, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h, ss_v,
+                    bpp, do_y=True, do_uv=True):
+    """The plain version of lf_frame_: lf_dense_plain on Y, then on
+    stacked U+V, each result copied back into its planes."""
+    for planes, V, H, sbwx, sbwy in _plane_sets(y, u, v, Vy, Hy, Vu, Hu,
+                                                ss_h, ss_v, do_y, do_uv):
+        out = lf_dense_plain(torch.stack(planes), V, H, sb_rows, sb_cols,
+                             sbwx, sbwy, bpp)
+        for p, o in zip(planes, out):
+            p.copy_(o)
+
+
 # ---------------------------------------------------------------------------
-# wrapper: plain version on the CPU, CUDA kernel on the card
+# the kernel's order of work
+
+def schedule(sb_rows, sb_cols, nsets):
+    """The order in which csrc/lpf.cu filters the superblocks of `nsets`
+    plane sets of sb_rows x sb_cols: [T, 8] int32, row t for ticket t:
+    (set, r, c, its flag, the flags it waits for (dep0, dep1; -1 for
+    none), wave, 0). Tickets run wave by wave (2r + c), the sets
+    interleaved; SB (r, c) waits for (r, c-1) and for (r-1, c+1), or
+    (r-1, c) in the last column, so every earlier ticket comes before it
+    or is independent of it."""
+    R, C = sb_rows, sb_cols
+    rows = []
+    for w in range(2 * (R - 1) + C):
+        for r in range(max(0, (w - C + 2) // 2), min(R - 1, w // 2) + 1):
+            c = w - 2 * r
+            for s in range(nsets):
+                f = (s * R + r) * C     # flag of (s, r, 0)
+                left = f + c - 1 if c else -1
+                up = f - C + min(c + 1, C - 1) if r else -1
+                rows.append((s, r, c, f + c, left, up, w, 0))
+    return np.asarray(rows, np.int32).reshape(-1, 8)
+
+
+class _Schedule:
+    """schedule() on a device, with the kernel's state: a ready flag per
+    ticket and two counters, zero before the first launch. Each launch
+    takes a new epoch, which its superblocks write to their flags, so
+    the flags need no reset between launches."""
+
+    def __init__(self, dev, sb_rows, sb_cols, nsets):
+        table = schedule(sb_rows, sb_cols, nsets)
+        self.ntickets = len(table)
+        self.table = torch.as_tensor(table, device=dev)
+        self.state = torch.zeros(self.ntickets + 2, dtype=torch.int32,
+                                 device=dev)
+        self.epoch = 0
+
+    def next_epoch(self):
+        if self.epoch == 0x7fffffff:    # flags may hold any epoch: clear
+            self.state.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_SCHEDULES = {}
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on the CPU, CUDA kernel on the card
+
+# the superblock spans (sbwx, sbwy) the kernel takes: luma and 4:4:4
+# chroma, 4:2:0, 4:4:0 and 4:2:2 chroma
+_SPANS = ((64, 64), (32, 32), (64, 32), (32, 64))
 
 _c = ctypes
 _SIGNATURES = {
-    # pad, B, PH, PW, vgrid, vgw, hgrid, hgw, sb_rows, sb_cols, sbwx,
-    # sbwy, bpp, launches (out), stream
-    "lpf_frame": [_c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
-                  _c.c_int, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
-                  _c.c_int, _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p],
+    # per set (two): plane 0, plane 1, vgrid, hgrid; nsets, dims,
+    # sb_rows, sb_cols, schedule, tickets, state, epoch, bpp, stream
+    "lpf_frame": [_c.c_void_p] * 8 + [
+        _c.c_int, _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p, _c.c_int,
+        _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p],
 }
+
+
+def _plane_sets(y, u, v, Vy, Hy, Vu, Hu, ss_h, ss_v, do_y, do_uv):
+    """[(planes, V, H, sbwx, sbwy)] of the frame's sets to filter."""
+    return ([((y,), Vy, Hy, 64, 64)] if do_y else []) + \
+        ([((u, v), Vu, Hu, 64 >> ss_h, 64 >> ss_v)] if do_uv else [])
+
+
+def _launch(sets, sb_rows, sb_cols, bpp):
+    """One launch of csrc/lpf.cu on the plane sets [(planes, V, H, sbwx,
+    sbwy)], each plane filtered in place, after checking every tensor."""
+    if bpp not in (8, 10, 12):
+        raise ValueError(f"bpp={bpp}")
+    dev = sets[0][0][0].device
+    i32 = (torch.int32,)
+    ptrs, dims = [], []
+    for planes, V, H, sbwx, sbwy in sets:
+        if (sbwx, sbwy) not in _SPANS or len(planes) not in (1, 2):
+            raise ValueError(f"{len(planes)} planes of {sbwx}x{sbwy} "
+                             "superblocks: the kernel takes 1 or 2 planes "
+                             f"of one of {_SPANS}")
+        Hp, Wp = sb_rows * sbwy, sb_cols * sbwx
+        for k, p in enumerate(planes):
+            check_tensor(p, i32, (Hp, Wp), dev, f"plane {k}")
+            if not p.is_contiguous():
+                raise ValueError(f"plane {k} is not contiguous: the kernel "
+                                 "filters it in place")
+        ptrs += [planes[0], planes[1] if len(planes) == 2 else None,
+                 check_tensor(V, i32, (Hp // 8, Wp // 4, 4), dev, "vpar"),
+                 check_tensor(H, i32, (Hp // 4, Wp // 8, 4), dev, "hpar")]
+        dims += [len(planes), sbwx, sbwy]
+    ptrs += [None] * (8 - len(ptrs))
+    dims = np.asarray(dims + [0] * (6 - len(dims)), np.int32)
+    key = (dev, sb_rows, sb_cols, len(sets))
+    sch = _SCHEDULES.get(key)
+    if sch is None:
+        sch = _SCHEDULES[key] = _Schedule(dev, sb_rows, sb_cols, len(sets))
+    _cuda.launch("lpf.cu", _SIGNATURES, "lpf_frame", *ptrs, len(sets),
+                 dims.ctypes.data, sb_rows, sb_cols, sch.table, sch.ntickets,
+                 sch.state, sch.next_epoch(), bpp)
+    LAUNCHES["lf_dense"] += 1
+
+
+def lf_frame_(y, u, v, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h, ss_v, bpp,
+              do_y=True, do_uv=True):
+    """Loop-filter a frame's planes IN PLACE: y [sb_rows * 64, sb_cols *
+    64] int32 with its grids Vy, Hy if do_y; u and v [sb_rows * (64 >>
+    ss_v), sb_cols * (64 >> ss_h)] int32 with Vu, Hu if do_uv (grids as
+    lf_dense takes them). The caller owns the planes: recon_frame hands
+    over the planes it has just reconstructed, and nothing reads them
+    unfiltered afterwards. CPU planes take lf_frame_plain_; planes on the
+    card the kernel, one launch for both sets, which runs U+V beside Y."""
+    sets = _plane_sets(y, u, v, Vy, Hy, Vu, Hu, ss_h, ss_v, do_y, do_uv)
+    if not sets:
+        return
+    if sets[0][0][0].device.type == "cpu":
+        lf_frame_plain_(y, u, v, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h,
+                        ss_v, bpp, do_y, do_uv)
+        return
+    _launch(sets, sb_rows, sb_cols, bpp)
 
 
 def lf_dense(planes, vpar, hpar, sb_rows, sb_cols, sbwx, sbwy, bpp):
     """Loop-filter planes [B, Hp, Wp] int32 (Hp = sb_rows * sbwy, Wp =
     sb_cols * sbwx) with the dense grids vpar [Hp/8, Wp/4, 4] and hpar
     [Hp/4, Wp/8, 4] int32. Returns the filtered planes; the input is
-    not modified. CPU tensors take lf_dense_plain, any other device the
-    kernel (one launch per wave)."""
+    not modified. CPU tensors take lf_dense_plain; any other device the
+    kernel of lf_frame_ on a copy, as one plane set."""
     if planes.device.type == "cpu":
         return lf_dense_plain(planes, vpar, hpar, sb_rows, sb_cols, sbwx,
                               sbwy, bpp)
-    if sbwx % 8 or sbwy % 8 or bpp not in (8, 10, 12):
-        raise ValueError(f"unsupported SB span {sbwx}x{sbwy} or bpp={bpp}")
-    dev = planes.device
-    B, Hp, Wp = planes.shape
-    if (Hp, Wp) != (sb_rows * sbwy, sb_cols * sbwx):
-        raise ValueError(f"planes {Hp}x{Wp} are not {sb_rows}x{sb_cols} "
-                         f"superblocks of {sbwy}x{sbwx}")
-    i32 = (torch.int32,)
-    planes = check_tensor(planes, i32, (B, Hp, Wp), dev, "planes")
-    vg = check_tensor(vpar, i32, (Hp // 8, Wp // 4, 4), dev, "vpar")
-    hg = check_tensor(hpar, i32, (Hp // 4, Wp // 8, 4), dev, "hpar")
-    # the kernel filters in place on a zero-padded copy: reads past the
-    # plane see zeros, as lf_dense_plain's padding gives them
-    pad = torch.zeros((B, Hp + 16, Wp + 16), dtype=torch.int32,
-                      device=dev)
-    pad[:, 8:8 + Hp, 8:8 + Wp] = planes
-    launched = _c.c_int(0)
-    _cuda.launch("lpf.cu", _SIGNATURES, "lpf_frame", pad, B, Hp + 16,
-                 Wp + 16, vg, Wp // 4, hg, Wp // 8, sb_rows, sb_cols, sbwx,
-                 sbwy, bpp, _c.addressof(launched))
-    LAUNCHES["lf_dense"] += launched.value
-    return pad[:, 8:8 + Hp, 8:8 + Wp].contiguous()
+    out = planes.clone(memory_format=torch.contiguous_format)
+    _launch([(tuple(out.unbind(0)), vpar, hpar, sbwx, sbwy)], sb_rows,
+            sb_cols, bpp)
+    return out

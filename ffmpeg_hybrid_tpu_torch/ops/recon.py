@@ -24,8 +24,9 @@ reference: vp9_webgpu.c:2956):
   4. loop filter     — pass A's per-superblock levels and edge masks
                        become dense parameter grids on the device
                        (ops/lpf_masks, plain PyTorch), then the
-                       superblock-wavefront filter runs (ops/lpf_dense;
-                       csrc/lpf.cu on the card)
+                       superblock-wavefront filter runs in place on Y
+                       and U+V (ops/lpf_dense; on the card one launch
+                       of csrc/lpf.cu per frame)
 
 The metadata splat, the coefficient scatter, MC and the loop-filter
 grids stay plain PyTorch on the card. Each kernel's wrapper takes its
@@ -1284,8 +1285,9 @@ def upload_job(s):
 
 def _loop_filter(s, outs, dev):
     """The loop filter on the device: dense parameter grids from the
-    uploaded levels and masks, then the wavefront filter on Y and on
-    stacked U+V. Returns the filtered [y, u, v]."""
+    uploaded levels and masks, then the wavefront filter on Y and U+V,
+    in place on the planes this frame has just reconstructed (one
+    lf_frame_ call). Returns them, filtered."""
     h = s.header
     y_any, uv_any = s.pre["lf_masks"][:2]
     if not (y_any or uv_any):
@@ -1294,16 +1296,11 @@ def _loop_filter(s, outs, dev):
         Vy, Hy, Vu, Hu = lpf_masks.grids_device(
             dev["lfl"], dev["lfm"], dev["lfluts"], s.sb_rows, s.sb_cols,
             h.ss_h, h.ss_v)
-    y, u, v = outs
     with metrics.timer("recon.lf"):
-        if y_any:
-            y = lpf_dense.lf_dense(y[None], Vy, Hy, s.sb_rows, s.sb_cols,
-                                   64, 64, h.bpp)[0]
-        if uv_any:
-            u, v = lpf_dense.lf_dense(torch.stack([u, v]), Vu, Hu,
-                                      s.sb_rows, s.sb_cols, 64 >> h.ss_h,
-                                      64 >> h.ss_v, h.bpp).unbind(0)
-    return [y, u, v]
+        lpf_dense.lf_frame_(*outs, Vy, Hy, Vu, Hu, s.sb_rows, s.sb_cols,
+                            h.ss_h, h.ss_v, h.bpp, bool(y_any),
+                            bool(uv_any))
+    return outs
 
 
 def recon_frame(s):
