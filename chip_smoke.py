@@ -37,19 +37,31 @@ Phases, one status line each; any failure exits non-zero:
                  level took; then with U's slab spread to more rows per
                  level than a window holds, so that every level of U
                  spans two windows or more;
+               - _grids_from_records (csrc/splat.cu) on the records of
+                 bench_1080p frames 0-1 and bench_1080p_lf frame 0 as
+                 recon_frame hands them over, then on those records with
+                 MVs drawn from a seed under the three other chroma
+                 subsamplings, all 14 grids bit for bit with dtypes;
+               - grids_device (csrc/lf_grids.cu) on the levels and masks
+                 of bench_1080p_lf frame 0 under all four subsamplings;
                each with its time, bound terms and the plain version's
-               time on the same inputs
+               time on the same inputs (the last two timed on the card's
+               clock with torch.profiler, since their wrappers' host
+               work outlasts their kernels)
   4. decode    each clip through VP9Decoder(device="cuda")
                .decode_stream, every MD5 against its framemd5: all 30
                frames of vectors/bench_1080p.ivf (no loop filter: the
                loop-filter kernel must not launch) and all 6 of
                vectors/bench_1080p_lf.ivf (every frame filtered: it
-               must, once per frame); the residual kernel must launch on
-               both, the intra kernel once per frame with intra blocks;
-               then five timed pipelined passes (median
-               fps and its spread) and a serial pass with the stage
-               timers synchronised to the card (per-stage times and the
-               intra levels per frame)
+               must, once per frame, as must the loop-filter grids
+               kernel); the residual kernel must launch on both, the
+               intra kernel once per frame with intra blocks, the splat
+               kernel once per frame; then five timed pipelined passes
+               (median fps and its spread, and beside each pass its host
+               pass A and pass B ms per frame from the unsynchronised
+               stage timers) and a serial pass with the stage timers
+               synchronised to the card (per-stage times and the intra
+               levels per frame)
   5. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
@@ -75,9 +87,14 @@ ITXFM_SRC = PKG + "/csrc/itxfm.cu"
 ITXFM_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:54"
 INTRA_SRC = PKG + "/csrc/intra.cu"
 INTRA_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:706"
-# loop-filter launches of the conformance passes: one per filtered frame
-# (Y and U+V in one launch)
+SPLAT_SRC = PKG + "/csrc/splat.cu"
+SPLAT_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:873"
+LF_GRIDS_SRC = PKG + "/csrc/lf_grids.cu"
+LF_GRIDS_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_masks.py:172"
+# loop-filter launches of the conformance passes, of the filter and of
+# its grids: one per filtered frame (Y and U+V in one launch)
 LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6}
+SUBSAMPLINGS = ((1, 1), (1, 0), (0, 1), (0, 0))
 # race stress of the loop-filter kernel: launches on bench_1080p_lf frame
 # 0's inputs, and on a full-size random-grid frame
 LF_STRESS = (50, 10)
@@ -94,6 +111,13 @@ SEED = 20261016
 # integer operations of one lane's loop-filter edge decision (fm: seven
 # differences, absolutes and compares, the weighted p0/q0 term, the ands)
 LF_DECISION_OPS = 30
+# integer operations of one cell's splat thread, a floor: its quadrant
+# (4), mode and transform type (4), the inter, comp and ref tests and
+# clamps (8)
+SPLAT_CELL_OPS = 16
+# integer operations of one loop-filter grid quad's thread, a floor: its
+# superblock and position (4), three mask bits (6), the width (2)
+LF_GRID_OPS = 12
 DEVICE = "cuda"
 # timed pipelined passes over the clip (the fps is their median)
 WINDOWS = 5
@@ -125,6 +149,32 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps, names):
+    """(mean device ms, device operations) per call of fn over reps calls:
+    the kernels and memsets whose names hold one of `names`, from
+    torch.profiler. A wrapper whose host work outlasts its kernels reads
+    as its host time under CUDA events; this reads the card's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = ops = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(k in e.key
+                                                    for k in names):
+            us += getattr(e, "self_device_time_total", None) \
+                or getattr(e, "self_cuda_time_total", 0)
+            ops += e.count
+    if not us:
+        raise RuntimeError(f"the profiler saw no device time of {names}")
+    return us / 1e3 / reps, ops / reps
 
 
 def bounds(nbytes, nops, chain):
@@ -775,6 +825,141 @@ def intra_phase(torch, np, calls):
             "spread_windows": windows[1], "by_clip": per_clip}
 
 
+def max_diff(outs, wants):
+    """Largest |difference| over pairs of integer or bool tensors; raises
+    if a pair differs in dtype or shape."""
+    err = 0
+    for out, want in zip(outs, wants):
+        if out.dtype != want.dtype or out.shape != want.shape:
+            raise RuntimeError(f"{out.dtype} {tuple(out.shape)} != "
+                               f"{want.dtype} {tuple(want.shape)}")
+        err = max(err, int((out.long() - want.long()).abs().max()))
+    return err
+
+
+def splat_phase(torch, np, calls):
+    """_grids_from_records on the records of bench_1080p frames 0-1 and
+    bench_1080p_lf frame 0 as recon_frame hands them over ({clip: [args,
+    ...]}), then on each with MVs drawn from SEED under the three other
+    subsamplings: the kernel against the plain version on the card, all
+    14 grids bit for bit with their dtypes; its device time per frame
+    (device_ms: the memset and both passes), the wrapper's call under
+    CUDA events and the plain version's time, on the clips' own
+    subsampling; the bound: the records read and the grids written once,
+    and SPLAT_CELL_OPS a cell."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    rng = np.random.RandomState(SEED)
+    err = 0
+    ms = call_ms = plain_ms = nbytes = nops = 0.0
+    shapes = []
+    real = [(clip, args) for clip, cl in calls.items() for args in cl]
+    for clip, args in real:
+        recs, r4, c4, ss_h, ss_v = args
+        if (ss_h, ss_v) != (1, 1):
+            raise RuntimeError(f"{clip} is not 4:2:0")
+        seeded = recs.clone()
+        seeded[:, 18:34] = torch.as_tensor(rng.randint(
+            -301, 302, (recs.shape[0], 16)), dtype=torch.int16,
+            device=DEVICE)
+        for rr, ss in [(recs, (1, 1))] + [(seeded, ss)
+                                          for ss in SUBSAMPLINGS[1:]]:
+            outs = R._grids_from_records(rr, r4, c4, *ss)
+            wants, t = host_ms(torch, lambda: R._grids_from_records_plain(
+                rr, r4, c4, *ss))
+            e = max_diff(outs, wants)
+            err = max(err, e)
+            if e:
+                raise RuntimeError(f"_grids_from_records on {clip} under "
+                                   f"{ss}: kernel != plain (max |diff| {e})")
+            if rr is recs:
+                plain_ms += t
+
+                def call():
+                    R._grids_from_records(recs, r4, c4, ss_h, ss_v)
+                kernel_ms, dev_ops = device_ms(torch, call, 50,
+                                               ("splat_", "Memset"))
+                ms += kernel_ms
+                call_ms += cuda_ms(call, 50)
+                nbytes += recs.numel() * 2 + sum(
+                    o.numel() * o.element_size() for o in outs)
+                nops += SPLAT_CELL_OPS * (r4 * c4 + outs[8].numel())
+                shapes.append(f"{clip} {tuple(recs.shape)} records, "
+                              f"{r4}x{c4} cells: {kernel_ms:.5f} ms on "
+                              f"the card in {dev_ops:g} device ops")
+    nf = len(real)
+    bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
+    say("kernels", f"_grids_from_records on {'; '.join(shapes)}: "
+        f"ms/frame={ms / nf:.5f} (the wrapper's call, host-bound under "
+        f"CUDA events, {call_ms / nf:.4f}) plain_ms/frame="
+        f"{plain_ms / nf:.2f} bound_ms/frame={bound_ms:.6f} ({bound_by}, "
+        f"{nbytes / nf:.0f} B, {nops / nf:.0f} ops); exact vs plain (14 "
+        "grids, dtypes), also with seeded MVs under 4:2:2, 4:4:0 and "
+        "4:4:4")
+    return {"name": "_grids_from_records", "route": "cuda",
+            "source": SPLAT_SRC, "replaces": SPLAT_REPLACES,
+            "launches": None, "max_abs_err": err, "ms": ms / nf,
+            "plain_ms": plain_ms / nf, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": "frame (memset, index and gather passes), mean of "
+                   "bench_1080p frames 0-1 and bench_1080p_lf frame 0",
+            "call_ms": call_ms / nf, "bytes_needed": nbytes / nf,
+            "ops": nops / nf}
+
+
+def lf_grids_phase(torch, np, calls):
+    """grids_device on the levels and masks of bench_1080p_lf frame 0 as
+    the decoder hands them over, under all four subsamplings: the kernel
+    against the plain version on the card, bit for bit; its device time
+    (device_ms), the wrapper's call under CUDA events and the plain
+    version's time, under the clip's own subsampling; the bound: the
+    levels, masks and tables read and the four grids written once, and
+    LF_GRID_OPS a quad."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_masks as LM
+    if len(calls) != 1:
+        raise RuntimeError(f"frame 0 ran {len(calls)} grids calls")
+    lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v = calls[0]
+    if (ss_h, ss_v) != (1, 1):
+        raise RuntimeError("bench_1080p_lf is not 4:2:0")
+    err = 0
+    for ss in SUBSAMPLINGS:
+        outs = LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, *ss)
+        wants, t = host_ms(torch, lambda: LM.grids_device_plain(
+            lfl, lfm, luts, sb_rows, sb_cols, *ss))
+        e = max_diff(outs, wants)
+        err = max(err, e)
+        if e:
+            raise RuntimeError(f"grids_device under {ss}: kernel != plain "
+                               f"(max |diff| {e})")
+        if ss == (ss_h, ss_v):
+            plain_ms, grids = t, outs
+    active = [int((g[..., 0] > 0).sum()) for g in grids]
+    if not all(active):
+        raise RuntimeError(f"grids with no edge: {active} active")
+    def call():
+        LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v)
+    ms, _ops = device_ms(torch, call, 50, ("lf_grids_kernel",))
+    call_ms = cuda_ms(call, 50)
+    quads = sum(g.numel() // 4 for g in grids)
+    nbytes = lfl.numel() * 2 + (lfm.numel() + luts.numel()) * 4 + quads * 16
+    bound_ms, bound_by, _chain = bounds(nbytes, LF_GRID_OPS * quads, 0)
+    say("kernels", f"grids_device on bench_1080p_lf frame 0 ({sb_rows}x"
+        f"{sb_cols} superblocks; grids {[tuple(g.shape) for g in grids]}, "
+        f"{active} active edges): ms={ms:.5f} on the card (the wrapper's "
+        f"call, host-bound under CUDA events, {call_ms:.4f}) "
+        f"plain_ms={plain_ms:.2f} "
+        f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
+        f"{LF_GRID_OPS * quads} ops); exact vs plain under 4:2:0, 4:2:2, "
+        "4:4:0 and 4:4:4")
+    return {"name": "grids_device", "route": "cuda", "source": LF_GRIDS_SRC,
+            "replaces": LF_GRIDS_REPLACES, "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": "frame (both plane sets in one launch) of "
+                   "bench_1080p_lf frame 0",
+            "call_ms": call_ms, "bytes_needed": nbytes,
+            "ops": LF_GRID_OPS * quads}
+
+
 def read_clip(name):
     from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
     from ffmpeg_hybrid_tpu_torch.formats.superframe import split_superframe
@@ -793,47 +978,81 @@ def read_clip(name):
 def decode_phase(torch, name, frames, want):
     """Conformance, then timing, of one clip on the main path. Returns
     (median fps, all fps, per-stage ms/frame, launches of the
-    conformance pass by kernel)."""
+    conformance pass by kernel, frames with intra blocks, host ms/frame
+    of pass A and pass B beside each timed pass)."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
-    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, rac, recon
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
-    # conformance pass: the main path's run, launches counted from zero
+    # conformance pass: the main path's run, launches counted from zero,
+    # with every kernel's plain version set to raise
     rac.reset_launches()
     lpf_dense.reset_launches()
+    lpf_masks.reset_launches()
     recon.reset_launches()
+    plains = [(mod, fn) for mod, fns in (
+        (recon, ("_grids_from_records_plain", "residual_plane_plain",
+                 "_intra_scan_plain")),
+        (lpf_masks, ("grids_device_plain",)),
+        (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")))
+        for fn in fns]
+    saved = [getattr(mod, fn) for mod, fn in plains]
+
+    def plain_called(*_a, **_k):
+        raise RuntimeError("a plain version ran on the card's main path")
+
     t0 = time.perf_counter()
-    dec = VP9Decoder(device=DEVICE)
-    n = 0
-    for f in dec.decode_stream(iter(frames)):
-        if f.dev is None or f.dev[0].device.type != DEVICE:
-            raise RuntimeError(f"frame {n} was not reconstructed on the card")
-        got = hashlib.md5(f.to_bytes()).hexdigest()
-        if got != want[n]:
-            raise RuntimeError(f"{name} frame {n}: md5 {got} != {want[n]}")
-        n += 1
+    try:
+        for mod, fn in plains:
+            setattr(mod, fn, plain_called)
+        dec = VP9Decoder(device=DEVICE)
+        n = 0
+        for f in dec.decode_stream(iter(frames)):
+            if f.dev is None or f.dev[0].device.type != DEVICE:
+                raise RuntimeError(f"frame {n} was not reconstructed on "
+                                   "the card")
+            got = hashlib.md5(f.to_bytes()).hexdigest()
+            if got != want[n]:
+                raise RuntimeError(f"{name} frame {n}: md5 {got} != "
+                                   f"{want[n]}")
+            n += 1
+    finally:
+        for (mod, fn), real in zip(plains, saved):
+            setattr(mod, fn, real)
     if n != len(want):
         raise RuntimeError(f"{name}: decoded {n} frames, expected "
                            f"{len(want)}")
-    launches = dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **recon.LAUNCHES)
+    launches = dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **lpf_masks.LAUNCHES,
+                    **recon.LAUNCHES)
     say("decode", f"{name}: {n} frames bit-exact vs framemd5 in "
         f"{time.perf_counter() - t0:.1f} s (first pass, incl. warm-up); "
         f"kernel launches on this path: {launches}")
     # timed pipelined passes (frames stay on the device): the host clock
-    # spreads on a host-bound path, so report the median of WINDOWS
-    fps_runs = []
-    for _ in range(WINDOWS):
-        dec = VP9Decoder(device=DEVICE)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = list(dec.decode_stream(iter(frames)))
-        torch.cuda.synchronize()
-        fps_runs.append(len(outs) / (time.perf_counter() - t0))
+    # spreads on a host-bound path, so report the median of WINDOWS; the
+    # unsynchronised stage timers give each pass's host pass A and pass B
+    # (its enqueue, and the waits the card imposes on it)
+    fps_runs, host = [], []
+    metrics.enable()
+    try:
+        for _ in range(WINDOWS):
+            metrics.reset()
+            dec = VP9Decoder(device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = list(dec.decode_stream(iter(frames)))
+            torch.cuda.synchronize()
+            fps_runs.append(len(outs) / (time.perf_counter() - t0))
+            report = metrics.report()
+            host.append(tuple(report[k]["total_s"] * 1e3 / len(outs)
+                              for k in ("decode.pass_a", "decode.pass_b")))
+    finally:
+        metrics.disable()
     fps = sorted(fps_runs)[len(fps_runs) // 2]
     say("decode", f"{name}: timed pipelined passes of {len(frames)} "
         "frames: median "
         f"{fps:.3f} fps over {WINDOWS} (min {min(fps_runs):.3f}, max "
-        f"{max(fps_runs):.3f}; all: "
-        + ", ".join(f"{v:.3f}" for v in fps_runs) + ")")
+        f"{max(fps_runs):.3f}); by pass: "
+        + ", ".join(f"{v:.3f} fps (host pass A {a:.3f}, pass B {b:.3f} "
+                    "ms/frame)" for v, (a, b) in zip(fps_runs, host)))
     # serial pass with every stage timer synchronised to the card
     metrics.enable()
     metrics.reset()
@@ -855,7 +1074,7 @@ def decode_phase(torch, name, frames, want):
         "(synchronised): " + json.dumps(stages, sort_keys=True)
         + f"; intra levels per frame (Y + U + V): {levels / len(frames)}; "
         f"{intra_frames} of {len(frames)} frames have intra blocks")
-    return fps, fps_runs, stages, launches, intra_frames
+    return fps, fps_runs, stages, launches, intra_frames, host
 
 
 def main():
@@ -908,33 +1127,45 @@ def main():
                     say("build", f"{src}: {line.strip()}")
 
     clips = {c: read_clip(c) for c in CLIPS}
-    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, recon
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, recon
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
-                                      (recon, "_intra_scan_planes")],
+                                      (recon, "_intra_scan_planes"),
+                                      (recon, "_grids_from_records"),
+                                      (lpf_masks, "grids_device")],
                               clips["bench_1080p_lf"][0][:1])
     res_calls = capture_inputs(torch, [(recon, "residual_plane"),
-                                       (recon, "_intra_scan_planes")],
+                                       (recon, "_intra_scan_planes"),
+                                       (recon, "_grids_from_records")],
                                clips["bench_1080p"][0][:2])
     intra_calls = {"bench_1080p_lf": lf_calls["_intra_scan_planes"][0],
                    "bench_1080p": res_calls["_intra_scan_planes"][0]}
+    splat_calls = {"bench_1080p": res_calls["_grids_from_records"],
+                   "bench_1080p_lf": lf_calls["_grids_from_records"]}
     by_name = {k["name"]: k for k in (
         stream_phase(rac, torch, np, "bits"),
         stream_phase(rac, torch, np, "tree"),
         coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
         lpf_phase(torch, np, lf_calls["lf_frame_"]),
         residual_phase(torch, np, res_calls["residual_plane"]),
-        intra_phase(torch, np, intra_calls))}
-    del lf_calls, res_calls, intra_calls
+        intra_phase(torch, np, intra_calls),
+        splat_phase(torch, np, splat_calls),
+        lf_grids_phase(torch, np, lf_calls["grids_device"]))}
+    del lf_calls, res_calls, intra_calls, splat_calls
     main_path = {"lf_dense": "lf_dense", "residual_plane": "residual",
-                 "_intra_scan_planes": "intra"}
+                 "_intra_scan_planes": "intra",
+                 "_grids_from_records": "splat", "grids_device": "lf_grids"}
     for name in CLIPS:
         frames, want = clips[name]
-        fps, fps_runs, stages, launches, intra_frames = decode_phase(
+        fps, fps_runs, stages, launches, intra_frames, host = decode_phase(
             torch, name, frames, want)
-        lf = launches["lf_dense"]
-        if lf != LF_LAUNCHES[name]:
-            raise RuntimeError(f"{name}: lf_dense launched {lf} times, "
-                               f"expected {LF_LAUNCHES[name]}")
+        for key in ("lf_dense", "lf_grids"):
+            if launches[key] != LF_LAUNCHES[name]:
+                raise RuntimeError(f"{name}: {key} launched {launches[key]}"
+                                   f" times, expected {LF_LAUNCHES[name]}")
+        if launches["splat"] != len(want):
+            raise RuntimeError(f"{name}: the splat kernel launched "
+                               f"{launches['splat']} times for {len(want)} "
+                               "frames")
         if launches["residual"] < 1:
             raise RuntimeError(f"{name}: the residual kernel did not launch "
                                "on the main path")
@@ -948,12 +1179,14 @@ def main():
             k.setdefault("launches_by_clip", {})[name] = launches[key]
         by_name["_intra_scan_planes"].setdefault(
             "frames_with_intra_by_clip", {})[name] = intra_frames
+        med = sorted(range(WINDOWS), key=fps_runs.__getitem__)[WINDOWS // 2]
         top = sorted(((v, k) for k, v in stages.items()
                       if k.startswith(("recon.", "upload.", "intra."))),
                      reverse=True)[:5]
         say("decode", f"{name}: median {fps:.3f} fps (min "
-            f"{min(fps_runs):.3f}, max {max(fps_runs):.3f}) on {card}; "
-            "largest pass-B stages (ms/frame): "
+            f"{min(fps_runs):.3f}, max {max(fps_runs):.3f}; its pass's host "
+            f"pass A {host[med][0]:.3f}, pass B {host[med][1]:.3f} ms/frame)"
+            f" on {card}; largest pass-B stages (ms/frame): "
             + ", ".join(f"{k} {v}" for v, k in top))
 
     print(json.dumps({"kernels": list(by_name.values())}))

@@ -4,10 +4,13 @@ level outputs — the counterpart of the JAX package's ops/lpf_masks.py.
 Pass A builds, per superblock, the 8x8 filter-level grid and the four
 32-word edge masks (vp9_entropy_block.h mask_edges; the walker
 semantics live in native/vp9_lpf.c lf_cols/lf_rows, behavioral
-reference ff_vp9_loopfilter_sb, vp9lpf.c:183-230). This module
-evaluates the walker's decision tree as tensor ops: masks and levels go
+reference ff_vp9_loopfilter_sb, vp9lpf.c:183-230). Masks and levels go
 to the device in the frame's one flat upload, and `grids_device` turns
-them into the dense V/H parameter grids that ops/lpf_dense.py consumes.
+them into the dense V/H parameter grids that ops/lpf_dense.py consumes:
+on the card with one launch of the CUDA kernel (csrc/lf_grids.cu, a
+thread per output edge), on the CPU with the plain version,
+`grids_device_plain`, which evaluates the walker's decision tree as
+tensor ops. Kernel launches are counted in LAUNCHES.
 
 Walker semantics being reproduced (native/vp9_lpf.c):
 
@@ -28,8 +31,25 @@ Walker semantics being reproduced (native/vp9_lpf.c):
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from . import _cuda
+from ._cuda import check_tensor
+
+# kernel launches of grids_device since the last reset_launches()
+LAUNCHES = {"lf_grids": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# lfl, lfm, luts, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h, ss_v, stream
+_SIGNATURES = {"lf_grids": [_P] * 7 + [_I] * 4 + [_P]}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _params(wd, L, lim, mblim):
@@ -136,10 +156,43 @@ def dense_grids(level, cmask, rmask, lim, mblim, ss_h, ss_v, sb_rows,
     return V, Hg
 
 
+def grid_shapes(sb_rows, sb_cols, ss_h, ss_v):
+    """The shapes of (Vy, Hy, Vuv, Huv) for a frame of sb_rows x sb_cols
+    superblocks whose chroma planes have subsampling (ss_h, ss_v)."""
+    return [(sb_rows * (8 >> sv), sb_cols * (16 >> sh), 4)
+            if v else (sb_rows * (16 >> sv), sb_cols * (8 >> sh), 4)
+            for sh, sv in ((0, 0), (ss_h, ss_v)) for v in (True, False)]
+
+
 def grids_device(lfl, lfm, lfluts, sb_rows, sb_cols, ss_h, ss_v):
     """Grids from the uploaded level/mask/LUT tensors. lfl: [nSB*64]
     int16 levels; lfm: [nSB*128] int32 masks; lfluts: [128] int32
-    (lim ++ mblim). Returns (Vy, Hy, Vuv, Huv)."""
+    (lim ++ mblim). Returns (Vy, Hy, Vuv, Huv), int32 in
+    grid_shapes(). CPU tensors take grids_device_plain; any other device
+    the kernel (csrc/lf_grids.cu, one launch for both plane sets), which
+    takes CUDA tensors only."""
+    if lfl.device.type == "cpu":
+        return grids_device_plain(lfl, lfm, lfluts, sb_rows, sb_cols,
+                                  ss_h, ss_v)
+    if ss_h not in (0, 1) or ss_v not in (0, 1) or sb_rows < 1 \
+            or sb_cols < 1:
+        raise ValueError(f"{sb_rows}x{sb_cols} superblocks under "
+                         f"subsampling ({ss_h}, {ss_v})")
+    nSB, dev = sb_rows * sb_cols, lfl.device
+    args = [check_tensor(t, (dt,), (n,), dev, name) for t, dt, n, name in (
+        (lfl, torch.int16, nSB * 64, "lfl"),
+        (lfm, torch.int32, nSB * 128, "lfm"),
+        (lfluts, torch.int32, 128, "lfluts"))]
+    outs = [torch.empty(sh, dtype=torch.int32, device=dev)
+            for sh in grid_shapes(sb_rows, sb_cols, ss_h, ss_v)]
+    _cuda.launch("lf_grids.cu", _SIGNATURES, "lf_grids", *args, *outs,
+                 sb_rows, sb_cols, ss_h, ss_v)
+    LAUNCHES["lf_grids"] += 1
+    return tuple(outs)
+
+
+def grids_device_plain(lfl, lfm, lfluts, sb_rows, sb_cols, ss_h, ss_v):
+    """The plain PyTorch grids_device: dense_grids on each plane set."""
     nSB = sb_rows * sb_cols
     level = lfl.to(torch.int32).reshape(nSB, 8, 8)
     m = lfm.reshape(nSB, 2, 2, 8, 4)

@@ -3,6 +3,13 @@ JAX package's ops/recon_tpu.py.
 
 Architecture (the reference's accumulate-then-dispatch WebGPU idea,
 reference: vp9_webgpu.c:2956):
+  0. splat           — pass A's block records become the per-4x4-cell
+                       grids (inter, tx size and type, comp, filter,
+                       refs, MVs) of Y and chroma. On the card one call
+                       of csrc/splat.cu per frame (an index pass, then a
+                       gather pass); the plain version,
+                       _grids_from_records_plain, scatters and gathers
+                       in eager ops
   1. residual pass   — the inverse transforms of every tx block of a
                        plane (dc-only fast path by eob==1). On the card
                        one launch of csrc/itxfm.cu per plane; the plain
@@ -23,15 +30,16 @@ reference: vp9_webgpu.c:2956):
                        product (ops/intra_tables) + TM
   4. loop filter     — pass A's per-superblock levels and edge masks
                        become dense parameter grids on the device
-                       (ops/lpf_masks, plain PyTorch), then the
+                       (ops/lpf_masks; on the card one launch of
+                       csrc/lf_grids.cu per frame), then the
                        superblock-wavefront filter runs in place on Y
                        and U+V (ops/lpf_dense; on the card one launch
                        of csrc/lpf.cu per frame)
 
-The metadata splat, the coefficient scatter, MC and the loop-filter
-grids stay plain PyTorch on the card. Each kernel's wrapper takes its
-plain version only for tensors on the CPU and counts its launches
-(LAUNCHES here for the residual and intra kernels, lpf_dense.LAUNCHES).
+The coefficient scatter and MC stay plain PyTorch on the card. Each
+kernel's wrapper takes its plain version only for tensors on the CPU
+and counts its launches (LAUNCHES here for the splat, residual and
+intra kernels, lpf_masks.LAUNCHES, lpf_dense.LAUNCHES).
 
 Frame planes stay on the device across frames (references included).
 Every stage is integer math or exact float32, so the planes equal the
@@ -805,7 +813,7 @@ def _rdiv4(s):
     return torch.where(s >= 0, (s + 2) // 4, -((-s + 2) // 4))
 
 
-def _grids_from_records(recs, r4, c4, ss_h, ss_v):
+def _grids_from_records_plain(recs, r4, c4, ss_h, ss_v):
     """recs: [N, 36] int16 block records (pad rows have bs == -1; the
     LAST row must always be a pad row). Returns the dense per-cell grids
     for the Y plane ([r4, c4]) and the chroma planes ([r4u, c4u])."""
@@ -931,6 +939,26 @@ def _grids_from_records(recs, r4, c4, ss_h, ss_v):
     return (inter4, txsz4, txtype4, comp4, filter4, refsel, mv16,
             inter4uv, uvtx4, torch.zeros_like(uvtx4), comp_uv, filt_uv,
             refsel_uv, uvmv)
+
+
+def _grids_from_records(recs, r4, c4, ss_h, ss_v):
+    """The 14 per-cell grids of a frame's block records recs [N, 36]
+    (the last row a pad row): Y [r4, c4], chroma [r4 >> ss_v, c4 >>
+    ss_h]. CPU tensors take _grids_from_records_plain; any other device
+    the kernel (csrc/splat.cu, one call), which takes int16 CUDA records
+    only. Both give the same shapes and dtypes."""
+    if recs.device.type == "cpu":
+        return _grids_from_records_plain(recs, r4, c4, ss_h, ss_v)
+    if recs.dim() != 2 or recs.shape[0] < 1:
+        raise ValueError(f"recs has shape {tuple(recs.shape)}, expected "
+                         "[N >= 1, 36]")
+    if ss_h not in (0, 1) or ss_v not in (0, 1) or r4 < 1 or c4 < 1 \
+            or r4 % (1 << ss_v) or c4 % (1 << ss_h):
+        raise ValueError(f"a {r4}x{c4} cell grid under subsampling "
+                         f"({ss_h}, {ss_v})")
+    recs = check_tensor(recs, (torch.int16,), (recs.shape[0], 36),
+                        recs.device, "recs")
+    return recon_cuda.splat(recs, r4, c4, ss_h, ss_v)
 
 
 def _records_from_blocks(s):

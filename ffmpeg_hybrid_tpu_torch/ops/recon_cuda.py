@@ -1,7 +1,8 @@
-"""Launchers of pass B's residual and intra kernels (csrc/itxfm.cu,
-csrc/intra.cu): their ctypes signatures, the launch counters and the
-host side of the intra kernel's tables. The wrappers that choose between
-a kernel and its plain version are ops/recon.py's residual_plane and
+"""Launchers of pass B's splat, residual and intra kernels
+(csrc/splat.cu, csrc/itxfm.cu, csrc/intra.cu): their ctypes signatures,
+the launch counters and the host side of the kernels' tables. The
+wrappers that choose between a kernel and its plain version are
+ops/recon.py's _grids_from_records, residual_plane and
 _intra_scan_planes; they call these only with tensors off the CPU, and
 these raise for anything but CUDA tensors.
 """
@@ -15,9 +16,25 @@ import torch
 
 from . import _cuda
 from . import intra_tables as it
+from ..codecs.vp9 import tables as T
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"residual": 0, "intra": 0}
+LAUNCHES = {"residual": 0, "intra": 0, "splat": 0}
+
+# the splat's outputs in _grids_from_records' order: (dtype, chroma
+# plane, trailing dimensions)
+_SPLAT_GRIDS = ((torch.bool, False, ()), (torch.int32, False, ()),
+               (torch.int32, False, ()), (torch.bool, False, ()),
+               (torch.int32, False, ()), (torch.int32, False, (2,)),
+               (torch.int32, False, (2, 2)),
+               (torch.bool, True, ()), (torch.int32, True, ()),
+               (torch.int32, True, ()), (torch.bool, True, ()),
+               (torch.int32, True, ()), (torch.int32, True, (2,)),
+               (torch.int32, True, (2, 2)))
+# the splat's tables, passed by value: block sizes in 8 px units, the
+# intra transform type of each mode
+_SPLAT_BWH = np.ascontiguousarray(T.BWH_TAB[1], dtype=np.int32)
+_SPLAT_ITT = np.ascontiguousarray(T.INTRA_TXFM_TYPE, dtype=np.int32)
 
 # the block sizes the intra tap table holds, in its order
 INTRA_SIZES = (4, 8, 16, 32)
@@ -39,6 +56,10 @@ _SIGNATURES = {
     # bpp, windows (out), stream
     "intra.cu": {"intra_scan": [_P] * 9 + [_P, _P, _I, _P, _P, _I, _P,
                                            _P]},
+    # recs, N, bidx (scratch), 14 grids, r4, c4, ss_h, ss_v, bwh, itt
+    # (host), stream
+    "splat.cu": {"splat": [_P, _I, _P] + [_P] * len(_SPLAT_GRIDS)
+                 + [_I] * 4 + [_P, _P, _P]},
 }
 
 
@@ -56,6 +77,23 @@ def residual(coef, eob4, txsz4, txtype4, out, lossless):
                  eob4.element_size(), txsz4, txsz4.element_size(), txtype4,
                  txtype4.element_size(), out, H, W, int(lossless))
     LAUNCHES["residual"] += 1
+
+
+def splat(recs, r4, c4, ss_h, ss_v):
+    """csrc/splat.cu on checked, contiguous records recs [N, 36] int16
+    (the last row a pad row): the 14 grids of _grids_from_records, Y
+    [r4, c4] and chroma [r4 >> ss_v, c4 >> ss_h], in its order, shapes
+    and dtypes. One call: the index grid's memset and two launches."""
+    dev = recs.device
+    planes = ((r4, c4), (r4 >> ss_v, c4 >> ss_h))
+    outs = [torch.empty(planes[uv] + trail, dtype=dt, device=dev)
+            for dt, uv, trail in _SPLAT_GRIDS]
+    bidx = torch.empty(r4 * c4, dtype=torch.int32, device=dev)
+    _cuda.launch("splat.cu", _SIGNATURES["splat.cu"], "splat", recs,
+                 recs.shape[0], bidx, *outs, r4, c4, ss_h, ss_v,
+                 _SPLAT_BWH.ctypes.data, _SPLAT_ITT.ctypes.data)
+    LAUNCHES["splat"] += 1
+    return tuple(outs)
 
 
 def _tap_word(col):

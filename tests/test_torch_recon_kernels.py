@@ -179,7 +179,7 @@ def test_wrappers_on_cpu_take_the_plain_versions(keyframe_slabs):
     targs = (_t(plane), _t(residual), _t(buf), L, sizes, caps, 8)
     assert torch.equal(P._intra_scan(*targs), P._intra_scan_plain(*targs))
     assert P.LAUNCHES is RC.LAUNCHES
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0}
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
 
 
 def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
@@ -228,7 +228,7 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
     with pytest.raises(ValueError):
         P._intra_scan(plane, plane, slab, 2, (4, 64), (8, 8), 8)
     assert calls == ["residual_plane", "intra_scan"]
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0}
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
 
 
 @pytest.mark.parametrize("sizes,caps,L", [((4,), (256,), 3700),
@@ -298,7 +298,7 @@ def test_decode_on_cpu_launches_no_kernel():
     finally:
         metrics.disable()
     assert len(frames) == 2
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0}
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
     assert rep["intra.levels"]["value"] > 0
 
 
@@ -425,6 +425,7 @@ def test_bench_1080p_on_the_card_never_calls_the_plain_versions(
 
     monkeypatch.setattr(P, "residual_plane_plain", plain_called)
     monkeypatch.setattr(P, "_intra_scan_plain", plain_called)
+    monkeypatch.setattr(P, "_grids_from_records_plain", plain_called)
     _info, pkts = read_ivf(os.path.join(VEC, "bench_1080p.ivf"))
     frames = (fd for pts, data in pkts
               for _p, fd in split_superframe(data, pts))
@@ -438,3 +439,4 @@ def test_bench_1080p_on_the_card_never_calls_the_plain_versions(
     assert got == want
     assert RC.LAUNCHES["residual"] == 9
     assert RC.LAUNCHES["intra"] > 0
+    assert RC.LAUNCHES["splat"] == 3

@@ -1,0 +1,348 @@
+"""The block-record splat of the port (ops/recon.py _grids_from_records,
+its kernel csrc/splat.cu behind ops/recon_cuda.splat) against the JAX
+package's ops/recon_tpu.py _grids_from_records on the same numpy
+records (CPU-JAX, as tests/conftest.py sets it). Every comparison is
+exact, dtypes included.
+
+The kernel runs only on the card, so `_splat_model` below restates its
+per-thread arithmetic in numpy (a warp per record walking its cells in
+the index pass, a thread per luma or chroma cell in the gather pass) and
+is held to the JAX function here; a `cuda` test holds the kernel to the
+plain version on the card."""
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from ffmpeg_hybrid_tpu.ops import recon_tpu as J
+from ffmpeg_hybrid_tpu_torch.codecs.vp9 import tables as T
+from ffmpeg_hybrid_tpu_torch.ops import _cuda
+from ffmpeg_hybrid_tpu_torch.ops import recon as P
+from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
+
+from test_torch_recon import _pass_a_job, _t
+
+SUBSAMPLINGS = [(1, 1), (1, 0), (0, 1), (0, 0)]
+BWH = np.asarray(T.BWH_TAB[1], np.int64)
+ITT = np.asarray(T.INTRA_TXFM_TYPE, np.int64)
+
+
+@pytest.fixture(scope="module")
+def real_records():
+    """The records of a mini_encoder inter frame (sub-8x8 inter leaves,
+    compound, intra) with the MV fields drawn at random, so that the
+    chroma averaging sees odd and negative sums; and its cell grid."""
+    job = _pass_a_job(30)[1]
+    recs = job.pre["recs"].copy()
+    recs[:, 18:34] = np.random.RandomState(30).randint(-301, 302,
+                                                       (len(recs), 16))
+    valid = recs[recs[:, 3] >= 0]
+    assert (valid[:, 3] >= 10).any() and (valid[:, 14] != 0).any()
+    assert (valid[:, 6] != 0).any()
+    return recs, job.txsz4.shape
+
+
+def _tile(rng, r, c, size, out):
+    """Leaves of a random partition of the size x size (8 px units)
+    square at (r, c), as (row, col, bs)."""
+    sq = {8: 0, 4: 3, 2: 6, 1: 9}[size]
+    pick = min(rng.randint(6), 3)        # split half the time
+    if size == 1:
+        out.append((r, c, int(rng.choice([9, 10, 11, 12]))))
+    elif pick == 0:
+        out.append((r, c, sq))
+    elif pick == 1:                      # two wide halves
+        out += [(r, c, sq + 1), (r + size // 2, c, sq + 1)]
+    elif pick == 2:                      # two tall halves
+        out += [(r, c, sq + 2), (r, c + size // 2, sq + 2)]
+    else:
+        for dr in (0, size // 2):
+            for dc in (0, size // 2):
+                _tile(rng, r + dr, c + dc, size // 2, out)
+
+
+def synthetic_records(seed):
+    """Records over a 3 x 4 superblock area whose cell grid (22 x 28)
+    ends inside the last superblock row and column, so blocks reach past
+    r4/c4; one superblock left empty (its cells read the last row); two
+    leaves repeated at other rows with other fields (the index max picks
+    the higher row); three pad rows inside the array and one last; every
+    field but the geometry drawn at random, modes past 13 and refs
+    outside 0..2 included for the clamps."""
+    rng = np.random.RandomState(seed)
+    leaves = []
+    for sr in range(3):
+        for sc in range(4):
+            if (sr, sc) != (0, 1):
+                _tile(rng, sr * 8, sc * 8, 8, leaves)
+    L = len(leaves)
+    n = L + 6
+    recs = rng.randint(-300, 301, (n, 36)).astype(np.int16)
+    rows = rng.permutation(n - 1)
+    geo = np.asarray(leaves + [leaves[k] for k in rng.choice(L, 2)],
+                     np.int16)
+    recs[rows[:L + 2], 0:2] = geo[:, :2]
+    recs[rows[:L + 2], 3] = geo[:, 2]
+    recs[rows[L + 2:], 3] = -1
+    recs[-1, 3] = -1
+    recs[:, 6] = rng.randint(0, 2, n)                 # intra
+    recs[:, 7] = rng.randint(0, 4, n)                 # tx
+    recs[:, 9:13] = rng.randint(-1, 16, (n, 4))       # modes
+    recs[:, 14] = rng.randint(0, 2, n)                # comp
+    recs[:, 15:17] = rng.randint(-1, 4, (n, 2))       # refs
+    return recs, (22, 28)
+
+
+def _all_cases(real):
+    """The real records under every subsampling, then synthetic ones."""
+    recs, (r4, c4) = real
+    out = [(recs, r4, c4, ss) for ss in SUBSAMPLINGS]
+    for k, ss in enumerate(SUBSAMPLINGS):
+        srecs, (sr4, sc4) = synthetic_records(k)
+        out.append((srecs, sr4, sc4, ss))
+    return out
+
+
+_JDTYPE = {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32}
+
+
+def _same_typed(want, got):
+    """JAX arrays against tensors: shapes, dtypes and values."""
+    assert len(want) == len(got) == 14
+    for k, (a, b) in enumerate(zip(want, got)):
+        a = np.asarray(a)
+        assert _JDTYPE[a.dtype] == b.dtype, k
+        assert a.shape == tuple(b.shape), k
+        assert np.array_equal(a, b.numpy()), (k, np.argwhere(a != b.numpy())
+                                              [:4])
+
+
+def _jax(recs, r4, c4, ss):
+    return J._grids_from_records(jnp.asarray(recs), r4, c4, *ss)
+
+
+@pytest.mark.parametrize("k", range(8), ids=[
+    f"{src}-ss{h}{v}" for src in ("real", "synth")
+    for h, v in SUBSAMPLINGS])
+def test_wrapper_on_cpu_matches_jax(k, real_records):
+    """CPU records take the plain version, equal to JAX's, dtypes
+    included, on real and synthetic records under every subsampling;
+    nothing counts a launch."""
+    recs, r4, c4, ss = _all_cases(real_records)[k]
+    RC.reset_launches()
+    got = P._grids_from_records(_t(recs), r4, c4, *ss)
+    _same_typed(_jax(recs, r4, c4, ss), got)
+    assert RC.LAUNCHES["splat"] == 0
+
+
+# ---------------------------------------------------------------------------
+# numpy model of csrc/splat.cu's threads
+
+
+def _rdiv(s, d):
+    return (s + d // 2) // d if s >= 0 else -((-s + d // 2) // d)
+
+
+def _uv_mv(bs, m0, m1, m2, m3, udy, udx, ss_h, ss_v):
+    """uv_mv of csrc/splat.cu, branch for branch."""
+    if ss_v:
+        if udx == 0:
+            if bs == 10:
+                return _rdiv(m0 + m2, 2)
+            if bs == 11:
+                return _rdiv(m0 + m1, 2) if ss_h else m0
+            if bs == 12:
+                return _rdiv(m0 + m1 + m2 + m3, 4) if ss_h \
+                    else _rdiv(m0 + m2, 2)
+            return m0
+        return {10: _rdiv(m0 + m2, 2), 11: m1,
+                12: _rdiv(m1 + m3, 2)}.get(bs, m0)
+    if ss_h:
+        if udy == 0:
+            return _rdiv(m0 + m1, 2) if bs in (11, 12) else m0
+        return {10: _rdiv(m0 + m2, 2), 11: _rdiv(m0 + m1, 2),
+                12: _rdiv(m1 + m2, 2)}.get(bs, m0)
+    if udy == 0:
+        return m1 if udx and bs in (11, 12) else m0
+    if udx == 0:
+        return m2 if bs in (10, 12) else m0
+    return {10: m2, 11: m1, 12: m3}.get(bs, m0)
+
+
+def _splat_model(recs, r4, c4, ss_h, ss_v):
+    """The kernel's threads in numpy: (a) the index grid, -1 then a warp
+    per record (lane k of its w4 * h4 cells: y = r0 + k / w4, x = c0 +
+    k % w4, dropped off the grid, max of the record index); (b) a thread
+    per luma cell, then one per chroma cell reading luma cell (i << ss_v,
+    j << ss_h), each resolving -1 to the last row."""
+    recs = recs.astype(np.int64)
+    N = len(recs)
+    bidx = np.full(r4 * c4, -1, np.int64)
+    for b in range(N):
+        bs = recs[b, 3]
+        if bs < 0:
+            continue
+        bsc = min(bs, 12)
+        w4, h4 = (min(int(BWH[bsc, e]) * 2, 16) for e in (0, 1))
+        r0, c0 = recs[b, 0] * 2, recs[b, 1] * 2
+        for lane in range(32):
+            for k in range(lane, w4 * h4, 32):
+                y, x = r0 + k // w4, c0 + k % w4
+                if 0 <= y < r4 and 0 <= x < c4:
+                    bidx[y * c4 + x] = max(bidx[y * c4 + x], b)
+
+    def record(cell):
+        return recs[bidx[cell] if bidx[cell] >= 0 else N - 1]
+
+    r4u, c4u = r4 >> ss_v, c4 >> ss_h
+    y = [np.zeros(r4 * c4 * n, t) for t, n in
+         ((bool, 1), (np.int32, 1), (np.int32, 1), (bool, 1),
+          (np.int32, 1), (np.int32, 2), (np.int32, 4))]
+    uv = [np.zeros(r4u * c4u * n, t) for t, n in
+          ((bool, 1), (np.int32, 1), (np.int32, 1), (bool, 1),
+           (np.int32, 1), (np.int32, 2), (np.int32, 4))]
+    for idx in range(r4 * c4 + r4u * c4u):
+        if idx < r4 * c4:
+            i, j = divmod(idx, c4)
+            rec = record(idx)
+            bs = rec[3]
+            intra, inter = rec[6] != 0 and bs >= 0, rec[6] == 0 and bs >= 0
+            tx = rec[7]
+            q = ((i - rec[0] * 2) & 1) * 2 + ((j - rec[1] * 2) & 1)
+            sub8 = bs > 9
+            mode = rec[9 + (q if sub8 and tx == 0 else 0)]
+            comp = rec[14] != 0 and inter
+            y[0][idx], y[1][idx] = inter, tx
+            y[2][idx] = ITT[min(max(mode, 0), 13)] if intra else 0
+            y[3][idx], y[4][idx] = comp, rec[17]
+            y[5][2 * idx:2 * idx + 2] = (min(max(rec[15], 0), 2),
+                                         min(max(rec[16] if comp else 0, 0),
+                                             2))
+            mv = 18 + (q if sub8 else 0) * 4
+            y[6][4 * idx:4 * idx + 4] = rec[mv:mv + 4]
+            continue
+        u = idx - r4 * c4
+        i, j = divmod(u, c4u)
+        rec = record((i << ss_v) * c4 + (j << ss_h))
+        bs = rec[3]
+        inter = rec[6] == 0 and bs >= 0
+        comp = rec[14] != 0 and inter
+        uv[0][u], uv[1][u], uv[3][u], uv[4][u] = inter, rec[8], comp, rec[17]
+        uv[5][2 * u:2 * u + 2] = (min(max(rec[15], 0), 2),
+                                  min(max(rec[16] if comp else 0, 0), 2))
+        udy = min(max(i - ((rec[0] * 2) >> ss_v), 0), 1)
+        udx = min(max(j - ((rec[1] * 2) >> ss_h), 0), 1)
+        uv[6][4 * u:4 * u + 4] = [
+            _uv_mv(bs, *(rec[18 + qq * 4 + c] for qq in range(4)), udy, udx,
+                   ss_h, ss_v) for c in range(4)]
+    shapes = [()] * 5 + [(2,), (2, 2)]
+    return ([a.reshape((r4, c4) + s) for a, s in zip(y, shapes)]
+            + [a.reshape((r4u, c4u) + s) for a, s in zip(uv, shapes)])
+
+
+@pytest.mark.parametrize("k", range(8), ids=[
+    f"{src}-ss{h}{v}" for src in ("real", "synth")
+    for h, v in SUBSAMPLINGS])
+def test_kernel_model_matches_jax(k, real_records):
+    recs, r4, c4, ss = _all_cases(real_records)[k]
+    want = _jax(recs, r4, c4, ss)
+    got = _splat_model(recs, r4, c4, *ss)
+    for n, (a, b) in enumerate(zip(want, got)):
+        a = np.asarray(a)
+        assert a.shape == b.shape and a.dtype == b.dtype, n
+        assert np.array_equal(a, b), (n, np.argwhere(a != b)[:4])
+
+
+def test_synthetic_records_reach_every_rule():
+    """The synthetic records hold sub-8x8 blocks, drop cells past the
+    grid, leave cells to the last row and cover some cells twice."""
+    for seed in range(4):
+        recs, (r4, c4) = synthetic_records(seed)
+        valid = recs[recs[:, 3] >= 0]
+        assert (valid[:, 3] > 9).any()
+        bwh = BWH[valid[:, 3]]
+        assert ((valid[:, 0] + bwh[:, 1]) * 2 > r4).any()
+        assert ((valid[:, 1] + bwh[:, 0]) * 2 > c4).any()
+        assert len({(r[0], r[1], r[3]) for r in valid}) < len(valid)
+        # the empty superblock's cells: not inter, and read the last row
+        grids = _splat_model(recs, r4, c4, 0, 0)
+        assert not grids[0][:16, 16:].any()
+        assert (grids[6][:16, 16:] == recs[-1, 18:22].reshape(2, 2)).all()
+
+
+# ---------------------------------------------------------------------------
+# the wrapper off the CPU
+
+
+def test_wrapper_off_cpu_goes_to_the_kernel(monkeypatch, real_records):
+    """Records off the CPU reach one launch of csrc/splat.cu with the
+    outputs in _grids_from_records' order, shapes and dtypes (those of
+    the plain version), never the plain version; wrong dtypes and shapes
+    raise before any launch; the counter moves only on a launch."""
+    recs, (r4, c4) = real_records
+    calls = []
+
+    def no_card(source, signatures, name, *args):
+        calls.append(name)
+        raise RuntimeError("no card")
+
+    def recorded(source, signatures, name, *args):
+        calls.append((source, name, args))
+
+    monkeypatch.setattr(_cuda, "launch", no_card)
+    monkeypatch.setattr(P, "_grids_from_records_plain", None)
+    RC.reset_launches()
+    meta = torch.zeros(recs.shape, dtype=torch.int16, device="meta")
+    with pytest.raises(RuntimeError, match="no card"):
+        P._grids_from_records(meta, r4, c4, 1, 1)
+    with pytest.raises(TypeError):
+        P._grids_from_records(meta.to(torch.int32), r4, c4, 1, 1)
+    with pytest.raises(ValueError):
+        P._grids_from_records(meta[:, :35], r4, c4, 1, 1)
+    with pytest.raises(ValueError):
+        P._grids_from_records(meta[0], r4, c4, 1, 1)
+    with pytest.raises(ValueError):
+        P._grids_from_records(meta, r4 + 1, c4, 1, 1)
+    with pytest.raises(ValueError):
+        P._grids_from_records(meta, r4, c4, 2, 1)
+    assert calls == ["splat"]
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
+    calls.clear()
+    monkeypatch.setattr(_cuda, "launch", recorded)
+    plain = J._grids_from_records(jnp.asarray(recs), r4, c4, 1, 0)
+    for n, ss in enumerate(SUBSAMPLINGS):
+        outs = P._grids_from_records(meta, r4, c4, *ss)
+        source, name, args = calls[n]
+        assert (source, name) == ("splat.cu", "splat")
+        assert args[0] is meta and args[1] == len(recs)
+        assert args[2].shape == (r4 * c4,) and args[2].dtype == torch.int32
+        assert all(a is b for a, b in zip(args[3:17], outs))
+        assert args[17:21] == (r4, c4, *ss)
+        assert list((ctypes.c_int * 26).from_address(args[21])) \
+            == BWH.reshape(-1).tolist()
+        assert list((ctypes.c_int * 14).from_address(args[22])) \
+            == ITT.tolist()
+        if ss == (1, 0):
+            for a, b in zip(plain, outs):
+                a = np.asarray(a)
+                assert a.shape == tuple(b.shape)
+                assert _JDTYPE[a.dtype] == b.dtype
+    assert RC.LAUNCHES["splat"] == len(SUBSAMPLINGS)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain(real_records):
+    """csrc/splat.cu on the card against the plain version on the CPU,
+    on real and synthetic records under every subsampling: one launch a
+    call, bit for bit, dtypes included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for recs, r4, c4, ss in _all_cases(real_records):
+        want = P._grids_from_records_plain(_t(recs), r4, c4, *ss)
+        RC.reset_launches()
+        got = P._grids_from_records(_t(recs).cuda(), r4, c4, *ss)
+        assert RC.LAUNCHES["splat"] == 1
+        for n, (a, b) in enumerate(zip(want, got)):
+            assert a.dtype == b.dtype and torch.equal(a, b.cpu()), (ss, n)
