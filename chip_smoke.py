@@ -25,10 +25,17 @@ Phases, one status line each; any failure exits non-zero:
                  wave); then the race stress: 50 launches on those
                  inputs and 10 on a full-size random-grid frame with
                  every edge position active, each bit-exact;
-               - residual_plane (csrc/itxfm.cu) on the coefficients and
-                 grids of all three planes of bench_1080p frames 0 (a
-                 keyframe) and 1 (an inter frame), as recon_frame hands
-                 them over;
+               - scatter_coef and residual_planes (csrc/itxfm.cu: the
+                 coefficient scatter, then the three planes' residuals
+                 in one launch) on the pair rows and grids of
+                 bench_1080p frames 0 (a keyframe) and 1 (an inter
+                 frame) and bench_1080p_lf frame 0, as recon_frame hands
+                 them over, and on a seeded full-size lossless frame;
+               - mc_planes (csrc/mc.cu: the inter pass of the three
+                 planes in one launch) on bench_1080p frames 1-2's own
+                 inputs, and on a seeded full-size frame with MVs out
+                 to 150 px, every filter bank, every inter cell
+                 compound and out-of-range values in the other cells;
                - _intra_scan_planes (csrc/intra.cu) on the planes,
                  residuals and slabs of bench_1080p_lf frame 0 and
                  bench_1080p frame 0 (a keyframe), Y, U and V in one
@@ -51,12 +58,14 @@ Phases, one status line each; any failure exits non-zero:
   4. decode    each clip through VP9Decoder(device="cuda")
                .decode_stream, every MD5 against its framemd5: all 30
                frames of vectors/bench_1080p.ivf (no loop filter: the
-               loop-filter kernel must not launch) and all 6 of
+               loop-filter kernel must not launch), all 6 of
                vectors/bench_1080p_lf.ivf (every frame filtered: it
                must, once per frame, as must the loop-filter grids
-               kernel); the residual kernel must launch on both, the
-               intra kernel once per frame with intra blocks, the splat
-               kernel once per frame; then five timed pipelined passes
+               kernel) and all 12 of vectors/bench_4k.ivf (3840x2160;
+               its keyframe filtered); the scatter, residual and splat
+               kernels must launch once per frame, the MC kernel once
+               per frame with inter blocks, the intra kernel once per
+               frame with intra blocks; then five timed pipelined passes
                (median fps and its spread, and beside each pass its host
                pass A and pass B ms per frame from the unsynchronised
                stage timers) and a serial pass with the stage timers
@@ -77,7 +86,7 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLIPS = ("bench_1080p", "bench_1080p_lf")
+CLIPS = ("bench_1080p", "bench_1080p_lf", "bench_4k")
 PKG = "ffmpeg_hybrid_tpu_torch"
 KERNEL_SRC = PKG + "/csrc/rac.cu"
 PALLAS_SRC = "ffmpeg_hybrid_tpu/ops/rac_pallas.py"
@@ -85,6 +94,9 @@ LPF_SRC = PKG + "/csrc/lpf.cu"
 LPF_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_dense.py:77"
 ITXFM_SRC = PKG + "/csrc/itxfm.cu"
 ITXFM_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:54"
+SCATTER_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:1037"
+MC_SRC = PKG + "/csrc/mc.cu"
+MC_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:131"
 INTRA_SRC = PKG + "/csrc/intra.cu"
 INTRA_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:706"
 SPLAT_SRC = PKG + "/csrc/splat.cu"
@@ -93,7 +105,7 @@ LF_GRIDS_SRC = PKG + "/csrc/lf_grids.cu"
 LF_GRIDS_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_masks.py:172"
 # loop-filter launches of the conformance passes, of the filter and of
 # its grids: one per filtered frame (Y and U+V in one launch)
-LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6}
+LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6, "bench_4k": 1}
 SUBSAMPLINGS = ((1, 1), (1, 0), (0, 1), (0, 0))
 # race stress of the loop-filter kernel: launches on bench_1080p_lf frame
 # 0's inputs, and on a full-size random-grid frame
@@ -118,6 +130,15 @@ SPLAT_CELL_OPS = 16
 # integer operations of one loop-filter grid quad's thread, a floor: its
 # superblock and position (4), three mask bits (6), the width (2)
 LF_GRID_OPS = 12
+# integer operations of one scatter row's thread, a floor: its position
+# (3), the two bounds tests (2)
+SCATTER_ROW_OPS = 5
+# multiply-adds of one cell's MC for one reference: 11 x 4 horizontal
+# values and 4 x 4 vertical ones, 8 taps each
+MC_CELL_MACS = 480
+# bytes of one cell's grids that MC reads: inter4 and comp (bool), filt
+# (int32), refsel (2 x int32), mv16 (4 x int32)
+MC_CELL_BYTES = 30
 DEVICE = "cuda"
 # timed pipelined passes over the clip (the fps is their median)
 WINDOWS = 5
@@ -625,49 +646,267 @@ def residual_work(np, coef, eob4, txsz4, txtype4, lossless):
     return nbytes, ops
 
 
-def residual_phase(torch, np, calls):
-    """residual_plane on the real inputs of bench_1080p frames 0 and 1
-    (three planes each): the kernel against the plain version on the
-    card, bit for bit, with timings and the bound terms."""
+def lossless_pairs_frame(np, rng, shapes):
+    """A seeded lossless frame of planes `shapes` in the form recon_frame
+    hands to scatter_coef and residual_planes: merged pair rows (in a
+    random order, with pad rows among them and rows past the end) and
+    per plane its tx size and type grids; 4x4 blocks everywhere, eobs 0,
+    1, 2 and 16."""
+    planes, geoms, cpos, cval, epos, evals = [], [], [], [], [], []
+    cbase = ebase = 0
+    for H, W in shapes:
+        r4, c4 = H // 4, W // 4
+        eob = rng.choice([0, 0, 1, 2, 16], (r4, c4)).astype(np.int32)
+        coef = rng.randint(-600, 600, (H, W)) * np.repeat(np.repeat(
+            eob > 0, 4, 0), 4, 1)
+        geoms.append(((H, W), (r4, c4), cbase, ebase))
+        cy, cx = np.nonzero(coef)
+        cpos.append(cbase + cy * W + cx)
+        cval.append(coef[cy, cx])
+        ey, ex = np.nonzero(eob)
+        epos.append(ebase + ey * c4 + ex)
+        evals.append(eob[ey, ex])
+        planes.append((np.zeros((r4, c4), np.int32),
+                       np.zeros((r4, c4), np.int32)))
+        cbase += H * W
+        ebase += r4 * c4
+
+    def rows(pos, val, end):
+        pos, val = np.concatenate(pos), np.concatenate(val)
+        n = len(pos)
+        out = np.zeros((n + 2048, 3), np.int16)
+        out[:n, 0], out[:n, 1], out[:n, 2] = pos >> 16, pos & 0xffff, val
+        out[n:n + 1024, 0] = -1                       # pad rows
+        past = end + rng.randint(0, 1 << 20, 1024)
+        out[n + 1024:, 0], out[n + 1024:, 1] = past >> 16, past & 0xffff
+        return out[rng.permutation(len(out))]
+
+    return (rows(cpos, cval, cbase), rows(epos, evals, ebase), geoms,
+            planes)
+
+
+def residual_phase(torch, np, scatter_calls, residual_calls):
+    """scatter_coef and residual_planes (csrc/itxfm.cu) on the real
+    inputs of bench_1080p frames 0 and 1 and bench_1080p_lf frame 0
+    ({clip: [args, ...]}, three planes a frame), then on a seeded
+    full-size lossless frame: each kernel against its plain version on
+    the card, bit for bit; their device times per frame on the card's
+    clock (device_ms: the memset pair and the scatter launch; the one
+    residual launch), the wrappers' calls under CUDA events and the
+    plain versions' times; the bounds: the pair rows read and the two
+    dense buffers written once, SCATTER_ROW_OPS a row; and
+    residual_work over the three planes. Returns the two kernels'
+    rows."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
-    if len(calls) != 6:
-        raise RuntimeError(f"frames 0-1 ran {len(calls)} residual calls, "
-                           "expected 6")
+    frames = []
+    for clip, calls in scatter_calls.items():
+        if len(calls) != len(residual_calls[clip]):
+            raise RuntimeError(f"{clip}: {len(calls)} scatter calls, "
+                               f"{len(residual_calls[clip])} residual calls")
+        frames += [(clip, sc, rc) for sc, rc in zip(calls,
+                                                    residual_calls[clip])]
+    rng = np.random.RandomState(SEED + 7)
+    cp, ep, geoms, grids = lossless_pairs_frame(
+        np, rng, ((1088, 1920), (544, 960), (544, 960)))
+    Lc = sum(sh[0] * sh[1] for sh, _e, _b, _eb in geoms)
+    Le = sum(e[0] * e[1] for _sh, e, _b, _eb in geoms)
+    cp_d, ep_d = (torch.as_tensor(a, device=DEVICE) for a in (cp, ep))
+    flat_c, flat_e = R.scatter_coef(cp_d, ep_d, Lc, Le)
+    seeded_jobs = [R._slice_plane(flat_c[None], flat_e[None], bc, be, sh[0],
+                                  sh[1], esh[0], esh[1]) + tuple(
+        torch.as_tensor(g, device=DEVICE) for g in gr)
+        for (sh, esh, bc, be), gr in zip(geoms, grids)]
+    frames.append(("seeded lossless", (cp_d, ep_d, Lc, Le),
+                   (seeded_jobs, True, 8)))
     err = nonzero = 0
-    ms = plain_ms = 0.0
-    nbytes = nops = 0
+    sc = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    rs = dict(sc)
     shapes = []
-    for args in calls:
-        coef, eob4, txsz4, txtype4, lossless, bpp = args
-        out = R.residual_plane(*args)
-        want, t = host_ms(torch, lambda: R.residual_plane_plain(*args))
-        plain_ms += t
-        err = max(err, int((out.long() - want.long()).abs().max()))
-        if not torch.equal(out, want):
-            raise RuntimeError(f"residual_plane on {tuple(coef.shape)}: "
-                               f"kernel != plain (max |diff| {err})")
-        nonzero += int(out.count_nonzero())
-        call_ms = cuda_ms(lambda: R.residual_plane(*args), 50)
-        ms += call_ms
-        b, o = residual_work(np, coef, eob4, txsz4, txtype4, lossless)
-        nbytes += b
-        nops += o
-        shapes.append(f"{tuple(coef.shape)} {coef.dtype} "
-                      f"{int(eob4.gt(0).sum())} coded cells: {call_ms:.4f} ms")
+    nreal = 0
+    for clip, sargs, (jobs, lossless, bpp) in frames:
+        cp, ep, nc, ne = sargs
+        got = R.scatter_coef(*sargs)
+        wide = cp.shape[1] == 4
+        scat = R._scatter_pairs32 if wide else R._scatter_pairs16
+        want, t_sc = host_ms(torch, lambda: (scat(cp, 1, nc)[0],
+                                             R._scatter_pairs16(ep, 1, ne)[0]))
+        e = max_diff(got, want)
+        err = max(err, e)
+        if e:
+            raise RuntimeError(f"scatter_coef on {clip}: kernel != plain "
+                               f"(max |diff| {e})")
+        outs = R.residual_planes(jobs, lossless, bpp)
+        wants, t_res = host_ms(torch, lambda: [
+            R.residual_plane_plain(*job, lossless, bpp) for job in jobs])
+        e = max_diff(outs, wants)
+        err = max(err, e)
+        if e:
+            raise RuntimeError(f"residual_planes on {clip}: kernel != plain "
+                               f"(max |diff| {e})")
+        nonzero += sum(int(o.count_nonzero()) for o in outs)
+        if clip == "seeded lossless":
+            continue
+        nreal += 1
+
+        def scatter():
+            R.scatter_coef(*sargs)
+
+        def residual():
+            R.residual_planes(jobs, lossless, bpp)
+        k_sc, _n = device_ms(torch, scatter, 50, ("scatter_kernel",
+                                                  "Memset"))
+        k_res, _n = device_ms(torch, residual, 50, ("residual_kernel",))
+        sc["ms"] += k_sc
+        rs["ms"] += k_res
+        sc["call_ms"] += cuda_ms(scatter, 50)
+        rs["call_ms"] += cuda_ms(residual, 50)
+        sc["plain_ms"] += t_sc
+        rs["plain_ms"] += t_res
+        sc["bytes"] += (cp.numel() + ep.numel()) * 2 + nc * (
+            4 if wide else 2) + ne * 2
+        sc["ops"] += SCATTER_ROW_OPS * (cp.shape[0] + ep.shape[0])
+        for job in jobs:
+            b, o = residual_work(np, *job, lossless)
+            rs["bytes"] += b
+            rs["ops"] += o
+        shapes.append(f"{clip} {cp.shape[0]} + {ep.shape[0]} rows, "
+                      f"{sum(int(j[1].gt(0).sum()) for j in jobs)} coded "
+                      f"cells: scatter {k_sc:.5f} ms, residual {k_res:.5f} "
+                      "ms")
     if not nonzero:
         raise RuntimeError("the residuals are zero everywhere")
-    nf = len(calls) // 3
-    bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
-    say("kernels", f"residual_plane on bench_1080p frames 0-1 "
-        f"({'; '.join(shapes)}): ms/frame={ms / nf:.4f} plain_ms/frame="
-        f"{plain_ms / nf:.2f} bound_ms/frame={bound_ms:.6f} ({bound_by}, "
-        f"{nbytes / nf:.0f} B, {nops / nf:.0f} ops); exact vs plain")
-    return {"name": "residual_plane", "route": "cuda", "source": ITXFM_SRC,
-            "replaces": ITXFM_REPLACES, "launches": None,
-            "max_abs_err": err, "ms": ms / nf, "plain_ms": plain_ms / nf,
+    rows = []
+    for name, d, what in (("scatter_coef", sc, "a memset pair and one "
+                           "scatter launch"),
+                          ("residual_planes", rs, "one launch of the three "
+                           "planes")):
+        bound_ms, bound_by, _chain = bounds(d["bytes"] / nreal,
+                                            d["ops"] / nreal, 0)
+        say("kernels", f"{name} on {'; '.join(shapes)}: ms/frame="
+            f"{d['ms'] / nreal:.5f} on the card ({what}; the wrapper's call "
+            f"under CUDA events {d['call_ms'] / nreal:.4f}) plain_ms/frame="
+            f"{d['plain_ms'] / nreal:.2f} bound_ms/frame={bound_ms:.6f} "
+            f"({bound_by}, {d['bytes'] / nreal:.0f} B, "
+            f"{d['ops'] / nreal:.0f} ops); exact vs plain, also on a seeded "
+            "1920x1088 lossless frame")
+        rows.append({
+            "name": name, "route": "cuda", "source": ITXFM_SRC,
+            "replaces": SCATTER_REPLACES if name == "scatter_coef"
+            else ITXFM_REPLACES, "launches": None, "max_abs_err": err,
+            "ms": d["ms"] / nreal, "plain_ms": d["plain_ms"] / nreal,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "per": "frame (3 planes), mean of bench_1080p frames 0 and 1",
-            "bytes_needed": nbytes / nf, "ops": nops / nf}
+            "per": f"frame ({what}), mean of bench_1080p frames 0-1 and "
+                   "bench_1080p_lf frame 0",
+            "call_ms": d["call_ms"] / nreal,
+            "bytes_needed": d["bytes"] / nreal, "ops": d["ops"] / nreal})
+    return rows
+
+
+def mc_work(np, job, has_comp):
+    """(bytes, operations) one plane of an mc_planes call must move and
+    do: the output written once; per pixel of an inter cell its residual
+    and one reference pixel per reference read; MC_CELL_BYTES of grids a
+    cell (no comp byte without has_comp); MC_CELL_MACS multiply-adds (two
+    operations each) per inter cell and reference."""
+    residual, inter4, comp = job[:3]
+    H, W = residual.shape
+    inter = inter4.cpu().numpy()
+    cmp = inter & comp.cpu().numpy() if has_comp else np.zeros_like(inter)
+    refs = int(inter.sum()) + int(cmp.sum())
+    nbytes = H * W * 4 + int(inter.sum()) * 16 * 4 + refs * 16 * 4 \
+        + inter.size * (MC_CELL_BYTES - (0 if has_comp else 1))
+    return nbytes, refs * MC_CELL_MACS * 2
+
+
+def mc_frame(torch, np, rng, shapes, visible):
+    """A seeded frame for mc_planes, on the card: per plane (Y, U, V of
+    `shapes`, the visible sizes `visible`) random references and
+    residual; 90% inter cells, every one compound, with MVs out to 150
+    px and every filter bank; the other cells carry out-of-range refsel,
+    filter and MV values."""
+    jobs = []
+    for i, ((H, W), (w, h)) in enumerate(zip(shapes, visible)):
+        mvs = 1 if i else 2
+        r4, c4 = H // 4, W // 4
+        inter = rng.rand(r4, c4) < 0.9
+        lim = 150 * 16 // mvs
+        mv16 = rng.randint(-lim, lim + 1, (r4, c4, 2, 2)).astype(np.int32)
+        refsel = rng.randint(0, 3, (r4, c4, 2)).astype(np.int32)
+        filt = rng.randint(0, 4, (r4, c4)).astype(np.int32)
+        off = ~inter
+        refsel[off] = rng.choice([-9, 7], (int(off.sum()), 2))
+        filt[off] = 9
+        mv16[off] = rng.choice([-32768, 32767], (int(off.sum()), 2, 2))
+        arrays = [rng.randint(-300, 300, (H, W)).astype(np.int32), inter,
+                  inter.copy(), filt, refsel, mv16]
+        refs = tuple(torch.as_tensor(rng.randint(0, 256, (H, W)).astype(
+            np.int32), device=DEVICE) for _ in range(3))
+        jobs.append(tuple(torch.as_tensor(a, device=DEVICE) for a in arrays)
+                    + (refs, w, h, mvs, mvs))
+    return jobs
+
+
+def mc_phase(torch, np, calls):
+    """mc_planes (csrc/mc.cu) on the real inputs of bench_1080p frames 1
+    and 2 (three planes in one launch each), then on a seeded full-size
+    frame (mc_frame): the kernel against the plain version on the card,
+    bit for bit; its device time per frame on the card's clock
+    (device_ms), the wrapper's call under CUDA events and the plain
+    version's time; the bound from mc_work over the three planes."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    if len(calls) != 2:
+        raise RuntimeError(f"frames 1-2 ran {len(calls)} MC calls, "
+                           "expected 2")
+    rng = np.random.RandomState(SEED + 11)
+    seeded = mc_frame(torch, np, rng, ((1088, 1920), (544, 960), (544, 960)),
+                      ((1920, 1080), (960, 540), (960, 540)))
+    err = 0
+    ms = call_ms = plain_ms = nbytes = nops = 0.0
+    shapes = []
+    for which, (jobs, bpp, has_comp) in [("bench_1080p", c) for c in calls] \
+            + [("seeded", (seeded, 8, True))]:
+        outs = R.mc_planes(jobs, bpp, has_comp)
+        wants, t = host_ms(torch, lambda: R.mc_planes_plain(jobs, bpp,
+                                                            has_comp))
+        e = max_diff(outs, wants)
+        err = max(err, e)
+        if e:
+            raise RuntimeError(f"mc_planes on {which}: kernel != plain "
+                               f"(max |diff| {e})")
+        if which == "seeded":
+            continue
+
+        def call():
+            R.mc_planes(jobs, bpp, has_comp)
+        k_ms, _n = device_ms(torch, call, 50, ("mc_kernel",))
+        ms += k_ms
+        call_ms += cuda_ms(call, 50)
+        plain_ms += t
+        inter = sum(int(j[1].sum()) for j in jobs)
+        comp = sum(int((j[1] & j[2]).sum()) for j in jobs) if has_comp \
+            else 0
+        for job in jobs:
+            b, o = mc_work(np, job, has_comp)
+            nbytes += b
+            nops += o
+        shapes.append(f"{inter} inter cells ({comp} compound): "
+                      f"{k_ms:.5f} ms")
+    nf = len(calls)
+    bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
+    say("kernels", f"mc_planes on bench_1080p frames 1-2 ({'; '.join(shapes)}"
+        f"): ms/frame={ms / nf:.5f} on the card (the wrapper's call under "
+        f"CUDA events {call_ms / nf:.4f}) plain_ms/frame={plain_ms / nf:.2f} "
+        f"bound_ms/frame={bound_ms:.6f} ({bound_by}, {nbytes / nf:.0f} B, "
+        f"{nops / nf:.0f} ops); exact vs plain, also on a seeded 1920x1088 "
+        "frame (MVs to 150 px, every bank, every inter cell compound)")
+    return {"name": "mc_planes", "route": "cuda", "source": MC_SRC,
+            "replaces": MC_REPLACES, "launches": None, "max_abs_err": err,
+            "ms": ms / nf, "plain_ms": plain_ms / nf, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": "frame (Y, U, V in one launch), mean of bench_1080p "
+                   "frames 1 and 2",
+            "call_ms": call_ms / nf, "bytes_needed": nbytes / nf,
+            "ops": nops / nf}
 
 
 def intra_work(np, jobs):
@@ -978,8 +1217,9 @@ def read_clip(name):
 def decode_phase(torch, name, frames, want):
     """Conformance, then timing, of one clip on the main path. Returns
     (median fps, all fps, per-stage ms/frame, launches of the
-    conformance pass by kernel, frames with intra blocks, host ms/frame
-    of pass A and pass B beside each timed pass)."""
+    conformance pass by kernel, frames with intra blocks, frames with
+    inter blocks, host ms/frame of pass A and pass B beside each timed
+    pass)."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
@@ -991,7 +1231,8 @@ def decode_phase(torch, name, frames, want):
     recon.reset_launches()
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
-                 "_intra_scan_plain")),
+                 "_intra_scan_plain", "mc_planes_plain", "_scatter_pairs16",
+                 "_scatter_pairs32")),
         (lpf_masks, ("grids_device_plain",)),
         (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")))
         for fn in fns]
@@ -1070,11 +1311,13 @@ def decode_phase(torch, name, frames, want):
               for k, v in report.items() if "total_s" in v}
     levels = report.get("intra.levels", {"value": 0})["value"]
     intra_frames = report.get("intra.ncalls", {"value": 0})["value"]
+    inter_frames = report.get("recon.mc", {"count": 0})["count"]
     say("decode", f"{name}: serial pass, ms/frame per stage "
         "(synchronised): " + json.dumps(stages, sort_keys=True)
         + f"; intra levels per frame (Y + U + V): {levels / len(frames)}; "
-        f"{intra_frames} of {len(frames)} frames have intra blocks")
-    return fps, fps_runs, stages, launches, intra_frames, host
+        f"{intra_frames} of {len(frames)} frames have intra blocks, "
+        f"{inter_frames} inter blocks")
+    return fps, fps_runs, stages, launches, intra_frames, inter_frames, host
 
 
 def main():
@@ -1131,44 +1374,58 @@ def main():
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
                                       (recon, "_intra_scan_planes"),
                                       (recon, "_grids_from_records"),
+                                      (recon, "scatter_coef"),
+                                      (recon, "residual_planes"),
                                       (lpf_masks, "grids_device")],
                               clips["bench_1080p_lf"][0][:1])
-    res_calls = capture_inputs(torch, [(recon, "residual_plane"),
+    res_calls = capture_inputs(torch, [(recon, "scatter_coef"),
+                                       (recon, "residual_planes"),
+                                       (recon, "mc_planes"),
                                        (recon, "_intra_scan_planes"),
                                        (recon, "_grids_from_records")],
-                               clips["bench_1080p"][0][:2])
+                               clips["bench_1080p"][0][:3])
     intra_calls = {"bench_1080p_lf": lf_calls["_intra_scan_planes"][0],
                    "bench_1080p": res_calls["_intra_scan_planes"][0]}
-    splat_calls = {"bench_1080p": res_calls["_grids_from_records"],
+    splat_calls = {"bench_1080p": res_calls["_grids_from_records"][:2],
                    "bench_1080p_lf": lf_calls["_grids_from_records"]}
+    scatter_calls = {"bench_1080p": res_calls["scatter_coef"][:2],
+                     "bench_1080p_lf": lf_calls["scatter_coef"]}
+    residual_calls = {"bench_1080p": res_calls["residual_planes"][:2],
+                      "bench_1080p_lf": lf_calls["residual_planes"]}
     by_name = {k["name"]: k for k in (
         stream_phase(rac, torch, np, "bits"),
         stream_phase(rac, torch, np, "tree"),
         coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
         lpf_phase(torch, np, lf_calls["lf_frame_"]),
-        residual_phase(torch, np, res_calls["residual_plane"]),
+        *residual_phase(torch, np, scatter_calls, residual_calls),
+        mc_phase(torch, np, res_calls["mc_planes"]),
         intra_phase(torch, np, intra_calls),
         splat_phase(torch, np, splat_calls),
         lf_grids_phase(torch, np, lf_calls["grids_device"]))}
-    del lf_calls, res_calls, intra_calls, splat_calls
-    main_path = {"lf_dense": "lf_dense", "residual_plane": "residual",
+    del lf_calls, res_calls, intra_calls, splat_calls, scatter_calls, \
+        residual_calls
+    main_path = {"lf_dense": "lf_dense", "residual_planes": "residual",
+                 "scatter_coef": "scatter", "mc_planes": "mc",
                  "_intra_scan_planes": "intra",
                  "_grids_from_records": "splat", "grids_device": "lf_grids"}
     for name in CLIPS:
         frames, want = clips[name]
-        fps, fps_runs, stages, launches, intra_frames, host = decode_phase(
-            torch, name, frames, want)
+        (fps, fps_runs, stages, launches, intra_frames, inter_frames,
+         host) = decode_phase(torch, name, frames, want)
         for key in ("lf_dense", "lf_grids"):
             if launches[key] != LF_LAUNCHES[name]:
                 raise RuntimeError(f"{name}: {key} launched {launches[key]}"
                                    f" times, expected {LF_LAUNCHES[name]}")
-        if launches["splat"] != len(want):
-            raise RuntimeError(f"{name}: the splat kernel launched "
-                               f"{launches['splat']} times for {len(want)} "
-                               "frames")
-        if launches["residual"] < 1:
-            raise RuntimeError(f"{name}: the residual kernel did not launch "
-                               "on the main path")
+        for key in ("splat", "scatter", "residual"):
+            if launches[key] != len(want):
+                raise RuntimeError(f"{name}: the {key} kernel launched "
+                                   f"{launches[key]} times for {len(want)} "
+                                   "frames")
+        if launches["mc"] != inter_frames or (inter_frames == 0) != (
+                name == "bench_1080p_lf"):
+            raise RuntimeError(f"{name}: the MC kernel launched "
+                               f"{launches['mc']} times for {inter_frames} "
+                               "frames with inter blocks")
         if not 0 < intra_frames == launches["intra"]:
             raise RuntimeError(f"{name}: the intra kernel launched "
                                f"{launches['intra']} times for "

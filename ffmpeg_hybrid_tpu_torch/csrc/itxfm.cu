@@ -1,27 +1,33 @@
-// VP9 inverse transforms for Hopper (sm_90a): the residual plane of one
-// plane, the CUDA counterpart of the JAX package's residual_plane and
-// _residual_for_size (ffmpeg_hybrid_tpu/ops/recon_tpu.py:54-124, over
-// the 1-D butterflies of ops/itxfm.py). Those are XLA programs, not
+// VP9 inverse transforms for Hopper (sm_90a): the residuals of a frame's
+// planes and the coefficient scatter before them, the CUDA counterparts
+// of the JAX package's residual_plane and _residual_for_size
+// (ffmpeg_hybrid_tpu/ops/recon_tpu.py:55-124, over the 1-D butterflies of
+// ops/itxfm.py) and of _scatter_pairs16/_scatter_pairs32 with
+// _slice_plane (1037-1058, 1143-1148). Those are XLA programs, not
 // Pallas kernels; they are the residual stage of the main path.
 //
-//   residual_plane  the residual of one [H, W] plane, one launch
+//   scatter_pairs    the dense coefficient and eob buffers of a frame's
+//                    pair rows: a memset pair and one launch
+//   residual_planes  the residuals of up to three planes, one launch
 //
-// Semantics. The plane is tiled by transform blocks. A 4x4 cell (y, x)
-// is the root of a block of size 4 << t when t = txsz4[y, x] is 0..3
-// and y and x are multiples of 1 << t; the block contributes when its
-// root's eob is > 0, and every pixel no block covers is 0 (the plain
-// version sums its per-size planes, so a pixel two roots cover gets
-// both). A block runs two 1-D passes: pass a over each column c of the
-// coefficient tile gives row c of a temporary, pass b over each column
-// k of the temporary gives column k of the residual. Each pass is a DCT
-// or an ADST by the root's txtype4 (1 and 3: ADST in pass a; 2 and 3:
-// ADST in pass b; 32x32 is DCT only), and its outputs wrap to int16
-// (8 bpp: dctcoef is int16_t). Then (v + (1 << (s - 1))) >> s with s =
-// 4, 5, 6, 6 by size. eob == 1 with DCT_DCT (any type at 32x32) takes
-// the DC shortcut instead: _rs(_rs(dc * 11585) * 11585), then the same
-// rounding, over the whole block. Lossless frames use the 4x4 Walsh-
-// Hadamard transform (inputs >> 2 in pass a, no final shift) on every
-// root with txsz4 == 0.
+// Semantics. Pair rows carry a position (pos-hi << 16 | pos-lo) and a
+// value; a row whose position is negative (a pad row) or past the
+// buffer is dropped, every other position is 0. A plane is tiled by
+// transform blocks. A 4x4 cell (y, x) is the root of a block of size
+// 4 << t when t = txsz4[y, x] is 0..3 and y and x are multiples of
+// 1 << t; the block contributes when its root's eob is > 0, and every
+// pixel no block covers is 0 (the plain version sums its per-size
+// planes, so a pixel two roots cover gets both). A block runs two 1-D
+// passes: pass a over each column c of the coefficient tile gives row c
+// of a temporary, pass b over each column k of the temporary gives
+// column k of the residual. Each pass is a DCT or an ADST by the root's
+// txtype4 (1 and 3: ADST in pass a; 2 and 3: ADST in pass b; 32x32 is
+// DCT only), and its outputs wrap to int16 (8 bpp: dctcoef is int16_t).
+// Then (v + (1 << (s - 1))) >> s with s = 4, 5, 6, 6 by size. eob == 1
+// with DCT_DCT (any type at 32x32) takes the DC shortcut instead:
+// _rs(_rs(dc * 11585) * 11585), then the same rounding, over the whole
+// block. Lossless frames use the 4x4 Walsh-Hadamard transform (inputs
+// >> 2 in pass a, no final shift) on every root with txsz4 == 0.
 //
 // Arithmetic. The butterflies are int32 arithmetic that wraps modulo
 // 2^32 (JAX's and PyTorch's int32, and C's int on the reference's
@@ -31,22 +37,30 @@
 // ffmpeg_hybrid_tpu_torch/ops/itxfm.py line by line: every constant and
 // every input permutation and negated output is that file's.
 //
-// Design. One thread block of 256 threads per aligned 32x32 region;
+// Design. The scatter: cudaMemsetAsync of both buffers, then a thread
+// per row (coefficient rows, then eob rows) in one launch. The rows come
+// in an order unrelated to the planes' regions (raster order of block
+// roots, or decode order), so they land in the dense buffers that the
+// residual reads. The residual: one thread block of 256 threads per
+// aligned 32x32 region, the regions of the three planes in one grid;
 // every transform block lies inside exactly one region. The region's
-// sizes run in turn (4x4, 8x8, 16x16, 32x32), each as two passes
-// through shared memory: one thread per 1-D transform, which holds its
-// column in registers (the size is a template parameter, so the arrays
-// stay in registers). The region's residual accumulates in shared
-// memory and is written once, zeros included. Only the blocks that
-// exist are transformed; the plain version computes every size and
-// both transform kinds over the whole plane and selects per tile.
+// first two warps read its 64 cells once into shared memory and vote on
+// the sizes present and on whether a size has a block that is not
+// DC-only; a region with no coded block writes zeros and leaves. Each
+// size present runs as two passes through shared memory (pass a, and
+// its barrier, only where some block of the size needs it): one thread
+// per 1-D transform holds its column in registers, and at 32x32 two
+// lanes share each column, one the even inputs (idct16), one the odd
+// (idct32_odd), joined by one exchange of 16 values, so 64 threads work
+// the one block. The residual accumulates in shared memory and is
+// written once, an int4 a thread, zeros included.
 //
-// What bounds it. Bytes: the coefficients (int16) and the three grids
-// are read once and the int32 residual written once, some 12.5 MB for a
-// 1088x1920 plane, 4 us at 3.35 TB/s; the butterflies are a few tens of
-// integer operations per pixel, below that. A region's work is a short
-// chain (load, two passes, store) with 8 barriers, and the 2,040
-// regions of a 1080p luma plane fill the card many times over.
+// What bounds it. Bytes: the scatter reads the pair rows and writes the
+// two dense buffers once, some 8 MB for a 1080p frame (2.4 us at 3.35
+// TB/s); the residual reads the grids and the first eob coefficients of
+// each coded block and writes the int32 residual once, some 16 MB (4.8
+// us). The butterflies are a few tens of integer operations per pixel,
+// below that.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -357,55 +371,28 @@ __device__ __forceinline__ void iadst16(const u32* I, u32* O) {
   O[15] = o15;
 }
 
-__device__ __forceinline__ void idct32(const u32* I, u32* O) {
-  u32 t0a = rs((I[0] + I[16]) * 11585);
-  u32 t1a = rs((I[0] - I[16]) * 11585);
-  u32 t2a = rs(I[8] * 6270 - I[24] * 15137);
-  u32 t3a = rs(I[8] * 15137 + I[24] * 6270);
-  u32 t4a = rs(I[4] * 3196 - I[28] * 16069);
-  u32 t7a = rs(I[4] * 16069 + I[28] * 3196);
-  u32 t5a = rs(I[20] * 13623 - I[12] * 9102);
-  u32 t6a = rs(I[20] * 9102 + I[12] * 13623);
-  u32 t8a = rs(I[2] * 1606 - I[30] * 16305);
-  u32 t15a = rs(I[2] * 16305 + I[30] * 1606);
-  u32 t9a = rs(I[18] * 12665 - I[14] * 10394);
-  u32 t14a = rs(I[18] * 10394 + I[14] * 12665);
-  u32 t10a = rs(I[10] * 7723 - I[22] * 14449);
-  u32 t13a = rs(I[10] * 14449 + I[22] * 7723);
-  u32 t11a = rs(I[26] * 15679 - I[6] * 4756);
-  u32 t12a = rs(I[26] * 4756 + I[6] * 15679);
-  u32 t16a = rs(I[1] * 804 - I[31] * 16364);
-  u32 t31a = rs(I[1] * 16364 + I[31] * 804);
-  u32 t17a = rs(I[17] * 12140 - I[15] * 11003);
-  u32 t30a = rs(I[17] * 11003 + I[15] * 12140);
-  u32 t18a = rs(I[9] * 7005 - I[23] * 14811);
-  u32 t29a = rs(I[9] * 14811 + I[23] * 7005);
-  u32 t19a = rs(I[25] * 15426 - I[7] * 5520);
-  u32 t28a = rs(I[25] * 5520 + I[7] * 15426);
-  u32 t20a = rs(I[5] * 3981 - I[27] * 15893);
-  u32 t27a = rs(I[5] * 15893 + I[27] * 3981);
-  u32 t21a = rs(I[21] * 14053 - I[11] * 8423);
-  u32 t26a = rs(I[21] * 8423 + I[11] * 14053);
-  u32 t22a = rs(I[13] * 9760 - I[19] * 13160);
-  u32 t25a = rs(I[13] * 13160 + I[19] * 9760);
-  u32 t23a = rs(I[29] * 16207 - I[3] * 2404);
-  u32 t24a = rs(I[29] * 2404 + I[3] * 16207);
-  u32 t0 = t0a + t3a;
-  u32 t1 = t1a + t2a;
-  u32 t2 = t1a - t2a;
-  u32 t3 = t0a - t3a;
-  u32 t4 = t4a + t5a;
-  u32 t5 = t4a - t5a;
-  u32 t6 = t7a - t6a;
-  u32 t7 = t7a + t6a;
-  u32 t8 = t8a + t9a;
-  u32 t9 = t8a - t9a;
-  u32 t10 = t11a - t10a;
-  u32 t11 = t11a + t10a;
-  u32 t12 = t12a + t13a;
-  u32 t13 = t12a - t13a;
-  u32 t14 = t15a - t14a;
-  u32 t15 = t15a + t14a;
+// The odd half of idct32: I holds its odd inputs (I[k] is input 2k +
+// 1), D gets Y[0..15], with which idct32's outputs are O[k] = E[k] +
+// Y[k] and O[31 - k] = E[k] - Y[k] for k < 16, E being idct16 of the
+// even inputs. These are the odd-input lines of ops/itxfm.py's
+// idct32_1d, which uses no even value before that last step.
+__device__ __forceinline__ void idct32_odd(const u32* I, u32* D) {
+  u32 t16a = rs(I[0] * 804 - I[15] * 16364);
+  u32 t31a = rs(I[0] * 16364 + I[15] * 804);
+  u32 t17a = rs(I[8] * 12140 - I[7] * 11003);
+  u32 t30a = rs(I[8] * 11003 + I[7] * 12140);
+  u32 t18a = rs(I[4] * 7005 - I[11] * 14811);
+  u32 t29a = rs(I[4] * 14811 + I[11] * 7005);
+  u32 t19a = rs(I[12] * 15426 - I[3] * 5520);
+  u32 t28a = rs(I[12] * 5520 + I[3] * 15426);
+  u32 t20a = rs(I[2] * 3981 - I[13] * 15893);
+  u32 t27a = rs(I[2] * 15893 + I[13] * 3981);
+  u32 t21a = rs(I[10] * 14053 - I[5] * 8423);
+  u32 t26a = rs(I[10] * 8423 + I[5] * 14053);
+  u32 t22a = rs(I[6] * 9760 - I[9] * 13160);
+  u32 t25a = rs(I[6] * 13160 + I[9] * 9760);
+  u32 t23a = rs(I[14] * 16207 - I[1] * 2404);
+  u32 t24a = rs(I[14] * 2404 + I[1] * 16207);
   u32 t16 = t16a + t17a;
   u32 t17 = t16a - t17a;
   u32 t18 = t19a - t18a;
@@ -422,12 +409,6 @@ __device__ __forceinline__ void idct32(const u32* I, u32* O) {
   u32 t29 = t28a - t29a;
   u32 t30 = t31a - t30a;
   u32 t31 = t31a + t30a;
-  t5a = rs((t6 - t5) * 11585);
-  t6a = rs((t6 + t5) * 11585);
-  t9a = rs(t14 * 6270 - t9 * 15137);
-  t14a = rs(t14 * 15137 + t9 * 6270);
-  t10a = rs((0u - (t13 * 15137 + t10 * 6270)));
-  t13a = rs(t13 * 6270 - t10 * 15137);
   t17a = rs(t30 * 3196 - t17 * 16069);
   t30a = rs(t30 * 16069 + t17 * 3196);
   t18a = rs((0u - (t29 * 16069 + t18 * 3196)));
@@ -436,22 +417,6 @@ __device__ __forceinline__ void idct32(const u32* I, u32* O) {
   t26a = rs(t26 * 9102 + t21 * 13623);
   t22a = rs((0u - (t25 * 9102 + t22 * 13623)));
   t25a = rs(t25 * 13623 - t22 * 9102);
-  t0a = t0 + t7;
-  t1a = t1 + t6a;
-  t2a = t2 + t5a;
-  t3a = t3 + t4;
-  t4a = t3 - t4;
-  t5 = t2 - t5a;
-  t6 = t1 - t6a;
-  t7a = t0 - t7;
-  t8a = t8 + t11;
-  t9 = t9a + t10a;
-  t10 = t9a - t10a;
-  t11a = t8 - t11;
-  t12a = t15 - t12;
-  t13 = t14a - t13a;
-  t14 = t14a + t13a;
-  t15a = t15 + t12;
   t16a = t16 + t19;
   t17 = t17a + t18a;
   t18 = t17a - t18a;
@@ -468,10 +433,6 @@ __device__ __forceinline__ void idct32(const u32* I, u32* O) {
   t29 = t30a - t29a;
   t30 = t30a + t29a;
   t31a = t31 + t28;
-  t10a = rs((t13 - t10) * 11585);
-  t13a = rs((t13 + t10) * 11585);
-  t11 = rs((t12a - t11a) * 11585);
-  t12 = rs((t12a + t11a) * 11585);
   t18a = rs(t29 * 6270 - t18 * 15137);
   t29a = rs(t29 * 15137 + t18 * 6270);
   t19 = rs(t28a * 6270 - t19a * 15137);
@@ -480,22 +441,6 @@ __device__ __forceinline__ void idct32(const u32* I, u32* O) {
   t27 = rs(t27a * 6270 - t20a * 15137);
   t21a = rs((0u - (t26 * 15137 + t21 * 6270)));
   t26a = rs(t26 * 6270 - t21 * 15137);
-  t0 = t0a + t15a;
-  t1 = t1a + t14;
-  t2 = t2a + t13a;
-  t3 = t3a + t12;
-  t4 = t4a + t11;
-  t5a = t5 + t10a;
-  t6a = t6 + t9;
-  t7 = t7a + t8a;
-  t8 = t7a - t8a;
-  t9a = t6 - t9;
-  t10 = t5 - t10a;
-  t11a = t4a - t11;
-  t12a = t3a - t12;
-  t13 = t2a - t13a;
-  t14a = t1a - t14;
-  t15 = t0a - t15a;
   t16 = t16a + t23a;
   t17a = t17 + t22;
   t18 = t18a + t21a;
@@ -520,38 +465,22 @@ __device__ __forceinline__ void idct32(const u32* I, u32* O) {
   t25 = rs((t25a + t22a) * 11585);
   t23a = rs((t24 - t23) * 11585);
   t24a = rs((t24 + t23) * 11585);
-  O[0] = t0 + t31;
-  O[1] = t1 + t30a;
-  O[2] = t2 + t29;
-  O[3] = t3 + t28a;
-  O[4] = t4 + t27;
-  O[5] = t5a + t26a;
-  O[6] = t6a + t25;
-  O[7] = t7 + t24a;
-  O[8] = t8 + t23a;
-  O[9] = t9a + t22;
-  O[10] = t10 + t21a;
-  O[11] = t11a + t20;
-  O[12] = t12a + t19a;
-  O[13] = t13 + t18;
-  O[14] = t14a + t17a;
-  O[15] = t15 + t16;
-  O[16] = t15 - t16;
-  O[17] = t14a - t17a;
-  O[18] = t13 - t18;
-  O[19] = t12a - t19a;
-  O[20] = t11a - t20;
-  O[21] = t10 - t21a;
-  O[22] = t9a - t22;
-  O[23] = t8 - t23a;
-  O[24] = t7 - t24a;
-  O[25] = t6a - t25;
-  O[26] = t5a - t26a;
-  O[27] = t4 - t27;
-  O[28] = t3 - t28a;
-  O[29] = t2 - t29;
-  O[30] = t1 - t30a;
-  O[31] = t0 - t31;
+  D[0] = t31;
+  D[1] = t30a;
+  D[2] = t29;
+  D[3] = t28a;
+  D[4] = t27;
+  D[5] = t26a;
+  D[6] = t25;
+  D[7] = t24a;
+  D[8] = t23a;
+  D[9] = t22;
+  D[10] = t21a;
+  D[11] = t20;
+  D[12] = t19a;
+  D[13] = t18;
+  D[14] = t17a;
+  D[15] = t16;
 }
 
 // iwht4_1d: inputs read as (0, 3, 1, 2), >> 2 in the first pass
@@ -576,7 +505,7 @@ __device__ __forceinline__ void iwht4(const u32* X, u32* O, bool first) {
   O[3] = t3;
 }
 
-// One 1-D pass of size 4 << TX: DCT or ADST (the WHT when WHT).
+// One 1-D pass of size 4 << TX (TX < 3): DCT or ADST (the WHT when WHT).
 template <int TX, bool WHT>
 __device__ __forceinline__ void pass1d(const u32* I, u32* O, bool adst,
                                        bool first) {
@@ -586,10 +515,23 @@ __device__ __forceinline__ void pass1d(const u32* I, u32* O, bool adst,
     if (adst) iadst4(I, O); else idct4(I, O);
   } else if constexpr (TX == 1) {
     if (adst) iadst8(I, O); else idct8(I, O);
-  } else if constexpr (TX == 2) {
-    if (adst) iadst16(I, O); else idct16(I, O);
   } else {
-    idct32(I, O);
+    if (adst) iadst16(I, O); else idct16(I, O);
+  }
+}
+
+// Half `half` of a 32-point DCT by a pair of neighbouring lanes: lane
+// half 0 takes the even inputs (idct16), lane half 1 the odd ones
+// (idct32_odd); one exchange of their 16 values gives lane 0 outputs
+// 0-15 and lane 1 outputs 31 down to 16: O[j] is output j for lane 0 and
+// output 31 - j for lane 1. Both lanes of every pair of a warp call it.
+__device__ __forceinline__ void idct32_pair(const u32* I, u32* O, int half) {
+  u32 mine[16];
+  if (half) idct32_odd(I, mine); else idct16(I, mine);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const u32 other = __shfl_xor_sync(0xffffffffu, mine[j], 1);
+    O[j] = half ? other - mine[j] : mine[j] + other;
   }
 }
 
@@ -599,7 +541,12 @@ __device__ __forceinline__ int ld_grid(const void* p, int esz, size_t i) {
   return static_cast<const int32_t*>(p)[i];
 }
 
-struct Args {
+constexpr int kMaxPlanes = 3;
+constexpr int kThreads = 256;
+constexpr int kRegion = 32;
+constexpr int kRegionCells = kRegion / 4;   // cells a side of a region
+
+struct Plane {
   const void* coef;     // [H, W] int16 (coef16) or int32
   const void* eob;      // [H/4, W/4], 1/2/4-byte signed integers
   const void* txsz;
@@ -607,96 +554,206 @@ struct Args {
   int32_t* out;         // [H, W] int32
   int coef16, eob_sz, txsz_sz, txtype_sz;
   int H, W;
+  int regions_x;        // regions a row
+  int region0;          // the plane's first block in the grid
 };
 
-__device__ __forceinline__ u32 ld_coef(const Args& a, int y, int x) {
-  const size_t i = static_cast<size_t>(y) * a.W + x;
-  return a.coef16 ? static_cast<u32>(static_cast<int32_t>(
-                        static_cast<const int16_t*>(a.coef)[i]))
-                  : static_cast<u32>(static_cast<const int32_t*>(a.coef)[i]);
+struct Args {
+  Plane p[kMaxPlanes];
+  int n;
+  int lossless;
+};
+
+// A region's 64 cells, as its first two warps read them.
+struct Cells {
+  int eob[kRegionCells * kRegionCells];
+  int tx[kRegionCells * kRegionCells];
+  int type[kRegionCells * kRegionCells];
+};
+
+__device__ __forceinline__ u32 ld_coef(const Plane& p, int y, int x) {
+  const size_t i = static_cast<size_t>(y) * p.W + x;
+  return p.coef16 ? static_cast<u32>(static_cast<int32_t>(
+                        static_cast<const int16_t*>(p.coef)[i]))
+                  : static_cast<u32>(static_cast<const int32_t*>(p.coef)[i]);
 }
 
-constexpr int kThreads = 256;
-constexpr int kRegion = 32;
-
-// The blocks of size 4 << TX in the region at (ry0, rx0): thread t
-// takes line t % SZ of root t / SZ (there are (32 / SZ)^2 roots, 1024 /
-// SZ lines, at most 256).
+// The blocks of size 4 << TX in the region at (ry0, rx0), whose roots the
+// vote found: thread t takes line t % SZ of root t / SZ ((32 / SZ)^2
+// roots, 1024 / SZ lines); at 32x32 the one root's 32 lines take two
+// lanes each (idct32_pair). Pass a runs only when some root of the size
+// is not DC-only (`full`), with its barrier.
 template <int TX, bool WHT>
-__device__ __forceinline__ void region_size(const Args& a, int ry0, int rx0,
+__device__ __forceinline__ void region_size(const Plane& p, const Cells& cl,
+                                            int ry0, int rx0, bool full,
                                             int32_t (*tmp)[kRegion + 1],
                                             int32_t (*acc)[kRegion + 1]) {
   constexpr int SZ = 4 << TX;
   constexpr int NR = kRegion / SZ;
   constexpr int SHIFT = WHT ? 0 : (TX == 0 ? 4 : (TX == 1 ? 5 : 6));
   constexpr int RND = SHIFT ? 1 << (SHIFT - 1) : 0;
+  constexpr bool PAIR = TX == 3;
   const int tid = threadIdx.x;
-  const int root = tid / SZ, line = tid % SZ;
+  const int root = PAIR ? tid / (2 * SZ) : tid / SZ;
+  const int line = PAIR ? (tid >> 1) % SZ : tid % SZ;
+  const int half = PAIR ? tid & 1 : 0;
   const int ry = (root / NR) * SZ, rx = (root % NR) * SZ;
   const int gy = ry0 + ry, gx = rx0 + rx;
   bool act = false, dconly = false, adst_a = false, adst_b = false;
-  if (root < NR * NR && gy + SZ <= a.H && gx + SZ <= a.W) {
-    const size_t cell = static_cast<size_t>(gy >> 2) * (a.W >> 2) + (gx >> 2);
-    const int eob = ld_grid(a.eob, a.eob_sz, cell);
-    act = ld_grid(a.txsz, a.txsz_sz, cell) == TX && eob > 0;
+  if (root < NR * NR && gy + SZ <= p.H && gx + SZ <= p.W) {
+    const int c = (ry >> 2) * kRegionCells + (rx >> 2);
+    act = cl.tx[c] == TX && cl.eob[c] > 0;
     if (!WHT) {
-      const int typ = ld_grid(a.txtype, a.txtype_sz, cell);
-      dconly = eob == 1 && (TX == 3 || typ == 0);
-      adst_a = TX < 3 && (typ == 1 || typ == 3);
-      adst_b = TX < 3 && (typ == 2 || typ == 3);
+      dconly = cl.eob[c] == 1 && (TX == 3 || cl.type[c] == 0);
+      adst_a = TX < 3 && (cl.type[c] == 1 || cl.type[c] == 3);
+      adst_b = TX < 3 && (cl.type[c] == 2 || cl.type[c] == 3);
     }
   }
-  u32 in[SZ], o[SZ];
+  constexpr int NIN = PAIR ? SZ / 2 : SZ;   // inputs a thread holds
+  u32 in[NIN], o[NIN];
   // pass a: column `line` of the coefficients -> row `line` of tmp
-  if (act && !dconly) {
+  if (full) {
+    if (act && !dconly) {
+      if constexpr (PAIR) {
 #pragma unroll
-    for (int r = 0; r < SZ; ++r) in[r] = ld_coef(a, gy + r, gx + line);
-    pass1d<TX, WHT>(in, o, adst_a, true);
+        for (int r = 0; r < NIN; ++r)
+          in[r] = ld_coef(p, gy + 2 * r + half, gx + line);
+        idct32_pair(in, o, half);
 #pragma unroll
-    for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrap16(o[k]);
+        for (int j = 0; j < NIN; ++j)
+          tmp[ry + line][rx + (half ? SZ - 1 - j : j)] = wrap16(o[j]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < SZ; ++r) in[r] = ld_coef(p, gy + r, gx + line);
+        pass1d<TX, WHT>(in, o, adst_a, true);
+#pragma unroll
+        for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrap16(o[k]);
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
   // pass b: column `line` of tmp -> column `line` of the residual
   if (act) {
     if (dconly) {
-      const u32 t = rs(rs(ld_coef(a, gy, gx) * 11585u) * 11585u);
+      const u32 t = rs(rs(ld_coef(p, gy, gx) * 11585u) * 11585u);
       const int32_t v = (static_cast<int32_t>(t) + RND) >> SHIFT;
 #pragma unroll
-      for (int c = 0; c < SZ; ++c) acc[ry + c][rx + line] += v;
+      for (int c = 0; c < NIN; ++c) acc[ry + c + half * NIN][rx + line] += v;
+    } else if constexpr (PAIR) {
+#pragma unroll
+      for (int c = 0; c < NIN; ++c)
+        in[c] = static_cast<u32>(tmp[ry + 2 * c + half][rx + line]);
+      idct32_pair(in, o, half);
+#pragma unroll
+      for (int j = 0; j < NIN; ++j)
+        acc[ry + (half ? SZ - 1 - j : j)][rx + line] +=
+            (wrap16(o[j]) + RND) >> SHIFT;
     } else {
 #pragma unroll
       for (int c = 0; c < SZ; ++c)
         in[c] = static_cast<u32>(tmp[ry + c][rx + line]);
       pass1d<TX, WHT>(in, o, adst_b, false);
 #pragma unroll
-      for (int c = 0; c < SZ; ++c) {
+      for (int c = 0; c < SZ; ++c)
         acc[ry + c][rx + line] += (wrap16(o[c]) + RND) >> SHIFT;
-      }
     }
   }
   __syncthreads();
 }
 
+// The vote's bits: size t present at bit t, some root of size t not
+// DC-only at bit 4 + t.
+__device__ __forceinline__ unsigned cell_vote(const Plane& p, Cells& cl,
+                                              int ry0, int rx0, int lossless,
+                                              int c) {
+  const int cy = c / kRegionCells, cx = c % kRegionCells;
+  const int gy = ry0 + 4 * cy, gx = rx0 + 4 * cx;
+  int eob = 0, tx = -1, typ = 0;
+  if (gy < p.H && gx < p.W) {
+    const size_t g = static_cast<size_t>(gy >> 2) * (p.W >> 2) + (gx >> 2);
+    eob = ld_grid(p.eob, p.eob_sz, g);
+    tx = ld_grid(p.txsz, p.txsz_sz, g);
+    typ = ld_grid(p.txtype, p.txtype_sz, g);
+  }
+  cl.eob[c] = eob;
+  cl.tx[c] = tx;
+  cl.type[c] = typ;
+  if (eob <= 0 || tx < 0 || tx > (lossless ? 0 : 3)) return 0;
+  const int k = 1 << tx;
+  if (cy % k || cx % k || gy + 4 * k > p.H || gx + 4 * k > p.W) return 0;
+  const bool dconly = !lossless && eob == 1 && (tx == 3 || typ == 0);
+  return (1u << tx) | (dconly ? 0u : 16u << tx);
+}
+
 __global__ void __launch_bounds__(kThreads)
-    residual_kernel(Args a, int lossless) {
+    residual_kernel(const __grid_constant__ Args a) {
   __shared__ int32_t tmp[kRegion][kRegion + 1];
   __shared__ int32_t acc[kRegion][kRegion + 1];
-  const int ry0 = blockIdx.y * kRegion, rx0 = blockIdx.x * kRegion;
-  for (int i = threadIdx.x; i < kRegion * kRegion; i += kThreads)
-    acc[i / kRegion][i % kRegion] = 0;
-  __syncthreads();
-  if (lossless) {
-    region_size<0, true>(a, ry0, rx0, tmp, acc);
-  } else {
-    region_size<0, false>(a, ry0, rx0, tmp, acc);
-    region_size<1, false>(a, ry0, rx0, tmp, acc);
-    region_size<2, false>(a, ry0, rx0, tmp, acc);
-    region_size<3, false>(a, ry0, rx0, tmp, acc);
+  __shared__ Cells cl;
+  __shared__ unsigned votes[2];
+  int pi = 0;
+  while (pi + 1 < a.n && static_cast<int>(blockIdx.x) >= a.p[pi + 1].region0)
+    ++pi;
+  const Plane& p = a.p[pi];
+  const int region = blockIdx.x - p.region0;
+  const int ry0 = (region / p.regions_x) * kRegion;
+  const int rx0 = (region % p.regions_x) * kRegion;
+  const int tid = threadIdx.x;
+  // each thread owns 4 neighbouring pixels of the region: one int4 store
+  const int oy = tid / (kRegion / 4), ox = (tid % (kRegion / 4)) * 4;
+  if (tid < kRegionCells * kRegionCells) {
+    const unsigned v = __reduce_or_sync(
+        0xffffffffu, cell_vote(p, cl, ry0, rx0, a.lossless, tid));
+    if ((tid & 31) == 0) votes[tid >> 5] = v;
   }
-  for (int i = threadIdx.x; i < kRegion * kRegion; i += kThreads) {
-    const int y = ry0 + i / kRegion, x = rx0 + i % kRegion;
-    if (y < a.H && x < a.W)
-      a.out[static_cast<size_t>(y) * a.W + x] = acc[i / kRegion][i % kRegion];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[oy][ox + k] = 0;
+  __syncthreads();
+  const unsigned vote = votes[0] | votes[1];
+  if (vote) {
+    if (a.lossless) {
+      region_size<0, true>(p, cl, ry0, rx0, true, tmp, acc);
+    } else {
+      if (vote & 1u) region_size<0, false>(p, cl, ry0, rx0, vote & 16u, tmp, acc);
+      if (vote & 2u) region_size<1, false>(p, cl, ry0, rx0, vote & 32u, tmp, acc);
+      if (vote & 4u) region_size<2, false>(p, cl, ry0, rx0, vote & 64u, tmp, acc);
+      if (vote & 8u) region_size<3, false>(p, cl, ry0, rx0, vote & 128u, tmp, acc);
+    }
+  }
+  const int y = ry0 + oy, x = rx0 + ox;
+  if (y < p.H && x < p.W)
+    *reinterpret_cast<int4*>(p.out + static_cast<size_t>(y) * p.W + x) =
+        make_int4(acc[oy][ox], acc[oy][ox + 1], acc[oy][ox + 2],
+                  acc[oy][ox + 3]);
+}
+
+// The coefficient and eob scatter: a thread per row of cp, then of ep.
+// Position (pos-hi << 16) | (pos-lo & 0xffff); rows whose position is
+// negative (pad rows) or past the buffer are dropped.
+__global__ void __launch_bounds__(kThreads)
+    scatter_kernel(const int16_t* __restrict__ cp, int ncp, int wide,
+                   const int16_t* __restrict__ ep, int nep, void* flat_c,
+                   int nc, int16_t* __restrict__ flat_e, int ne) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const auto pos_of = [](const int16_t* r) {
+    return static_cast<int32_t>(
+        (static_cast<uint32_t>(static_cast<int32_t>(r[0])) << 16) |
+        static_cast<uint16_t>(r[1]));
+  };
+  if (i < ncp) {
+    const int16_t* r = cp + static_cast<size_t>(i) * (wide ? 4 : 3);
+    const int32_t pos = pos_of(r);
+    if (pos < 0 || pos >= nc) return;
+    if (wide)
+      static_cast<int32_t*>(flat_c)[pos] = static_cast<int32_t>(
+          (static_cast<uint32_t>(static_cast<int32_t>(r[2])) << 16) |
+          static_cast<uint16_t>(r[3]));
+    else
+      static_cast<int16_t*>(flat_c)[pos] = r[2];
+  } else if (i - ncp < nep) {
+    const int16_t* r = ep + static_cast<size_t>(i - ncp) * 3;
+    const int32_t pos = pos_of(r);
+    if (pos >= 0 && pos < ne) flat_e[pos] = r[2];
   }
 }
 
@@ -704,24 +761,69 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// The residual of one [H, W] plane into out (int32), one launch on
-// `stream`. coef: int16 (coef16 = 1) or int32; eob, txsz, txtype:
-// [H/4, W/4] grids of signed integers of eob_sz/txsz_sz/txtype_sz
-// bytes (1, 2 or 4). H and W are multiples of 4 (of 32 unless
-// lossless).
-int residual_plane(const void* coef, int coef16, const void* eob, int eob_sz,
-                   const void* txsz, int txsz_sz, const void* txtype,
-                   int txtype_sz, int32_t* out, int H, int W, int lossless,
-                   cudaStream_t stream) {
+// The residuals of n (1-3) planes in one launch on `stream`. ptrs: 5
+// device pointers a plane: coef (int16 or int32 [H, W]), eob, txsz,
+// txtype ([H/4, W/4] signed integers of 1, 2 or 4 bytes), out (int32
+// [H, W]). dims: 6 ints a plane: H, W (multiples of 4, of 32 unless
+// lossless), coef16, and the byte sizes of eob, txsz and txtype.
+int residual_planes(const void* const* ptrs, const int* dims, int n,
+                    int lossless, cudaStream_t stream) {
   const auto esz_ok = [](int s) { return s == 1 || s == 2 || s == 4; };
-  if (H <= 0 || W <= 0 || H % 4 || W % 4 ||
-      (!lossless && (H % kRegion || W % kRegion)) || !esz_ok(eob_sz) ||
-      !esz_ok(txsz_sz) || !esz_ok(txtype_sz))
+  if (n < 1 || n > kMaxPlanes || !ptrs || !dims)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{coef, eob, txsz, txtype, out, coef16, eob_sz, txsz_sz, txtype_sz,
-         H, W};
-  const dim3 grid((W + kRegion - 1) / kRegion, (H + kRegion - 1) / kRegion);
-  residual_kernel<<<grid, kThreads, 0, stream>>>(a, lossless);
+  Args a{};
+  a.n = n;
+  a.lossless = lossless != 0;
+  int regions = 0;
+  for (int i = 0; i < n; ++i) {
+    const void* const* q = ptrs + 5 * i;
+    const int* d = dims + 6 * i;
+    Plane& p = a.p[i];
+    p.coef = q[0];
+    p.eob = q[1];
+    p.txsz = q[2];
+    p.txtype = q[3];
+    p.out = static_cast<int32_t*>(const_cast<void*>(q[4]));
+    p.H = d[0];
+    p.W = d[1];
+    p.coef16 = d[2] != 0;
+    p.eob_sz = d[3];
+    p.txsz_sz = d[4];
+    p.txtype_sz = d[5];
+    if (p.H <= 0 || p.W <= 0 || p.H % 4 || p.W % 4 ||
+        (!lossless && (p.H % kRegion || p.W % kRegion)) ||
+        !esz_ok(p.eob_sz) || !esz_ok(p.txsz_sz) || !esz_ok(p.txtype_sz))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.regions_x = (p.W + kRegion - 1) / kRegion;
+    p.region0 = regions;
+    regions += p.regions_x * ((p.H + kRegion - 1) / kRegion);
+  }
+  residual_kernel<<<regions, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense coefficient and eob buffers of pair rows, on `stream`: both
+// are zero-filled, then one launch scatters cp ([ncp, 3] int16 rows
+// (pos-hi, pos-lo, value) into int16 flat_c, or [ncp, 4] rows (pos-hi,
+// pos-lo, value-hi, value-lo) into int32 flat_c when cp_cols is 4) and ep
+// ([nep, 3] int16 rows into int16 flat_e). nc and ne: the buffers'
+// lengths.
+int scatter_pairs(const int16_t* cp, int ncp, int cp_cols, const int16_t* ep,
+                  int nep, void* flat_c, int nc, int16_t* flat_e, int ne,
+                  cudaStream_t stream) {
+  if (ncp < 0 || nep < 0 || nc < 0 || ne < 0 || (cp_cols != 3 && cp_cols != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int wide = cp_cols == 4;
+  cudaError_t err = cudaMemsetAsync(
+      flat_c, 0, static_cast<size_t>(nc) * (wide ? 4 : 2), stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(flat_e, 0, static_cast<size_t>(ne) * 2, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(ncp) + nep;
+  if (rows)
+    scatter_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),
+                     kThreads, 0, stream>>>(cp, ncp, wide, ep, nep, flat_c, nc,
+                                            flat_e, ne);
   return static_cast<int>(cudaGetLastError());
 }
 

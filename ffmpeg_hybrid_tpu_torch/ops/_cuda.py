@@ -3,6 +3,8 @@ and the launch of an entry point of a csrc/ library on the current
 stream."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 
@@ -20,19 +22,41 @@ def check_tensor(t, dtypes, shape, device, name):
     return t.contiguous()
 
 
+def _tensors(args):
+    for a in args:
+        if torch.is_tensor(a):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from (x for x in a if torch.is_tensor(x))
+
+
+def _arg(a, keep):
+    """A tensor as its device pointer; a list or tuple of tensors (or
+    None) as a host array of their device pointers."""
+    if torch.is_tensor(a):
+        return a.data_ptr()
+    if isinstance(a, (list, tuple)):
+        arr = (ctypes.c_void_p * len(a))(
+            *(x.data_ptr() if torch.is_tensor(x) else x for x in a))
+        keep.append(arr)
+        return ctypes.addressof(arr)
+    return a
+
+
 def launch(source, signatures, name, *args):
     """Run the C entry point `name` of csrc/`source` (built and loaded
     with the ctypes `signatures`) on the current CUDA stream. Tensors
-    among `args` pass as device pointers and must lie on a CUDA device;
-    raises if the entry point returns a CUDA error."""
-    for a in args:
-        if torch.is_tensor(a) and a.device.type != "cuda":
+    among `args` pass as device pointers, and lists of tensors as host
+    arrays of device pointers; every tensor must lie on a CUDA device.
+    Raises if the entry point returns a CUDA error."""
+    for a in _tensors(args):
+        if a.device.type != "cuda":
             raise ValueError(f"{name}: a tensor on {a.device}, not a CUDA "
                              "device")
     from .. import _build
     lib = _build.load(source, signatures)
-    rc = getattr(lib, name)(*(a.data_ptr() if torch.is_tensor(a) else a
-                              for a in args),
+    keep = []
+    rc = getattr(lib, name)(*(_arg(a, keep) for a in args),
                             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -10,16 +10,23 @@ reference: vp9_webgpu.c:2956):
                        gather pass); the plain version,
                        _grids_from_records_plain, scatters and gathers
                        in eager ops
-  1. residual pass   — the inverse transforms of every tx block of a
-                       plane (dc-only fast path by eob==1). On the card
-                       one launch of csrc/itxfm.cu per plane; the plain
-                       version, residual_plane_plain, runs dense passes
-                       over the whole plane (one per tx size, dct/adst
-                       variants computed and selected per tile)
+  1. residual pass   — the coefficient pairs scattered into dense
+                       buffers (on the card csrc/itxfm.cu's scatter: a
+                       memset pair and one launch per frame; the plain
+                       version, _scatter_pairs16/_scatter_pairs32), then
+                       the inverse transforms of every tx block of the
+                       three planes (dc-only fast path by eob==1). On the
+                       card one launch of csrc/itxfm.cu per frame; the
+                       plain version, residual_plane_plain, runs dense
+                       passes over a whole plane (one per tx size,
+                       dct/adst variants computed and selected per tile)
   2. inter pass      — uniform per-4x4-cell 8-tap MC (sub-pel phases and
                        filter banks gathered per cell; bilinear expressed
-                       as an 8-tap bank), compound average, +residual
-                       (plain PyTorch)
+                       as an 8-tap bank), compound average, +residual. On
+                       the card one launch of csrc/mc.cu per frame with
+                       inter blocks, for the three planes; the plain
+                       version, mc_planes_plain, is _mc_cells and the
+                       apply per plane
   3. intra wavefront — host-computed dependency levels, after the
                        three planes' residual and inter passes. On the
                        card one launch of csrc/intra.cu per frame walks
@@ -36,10 +43,10 @@ reference: vp9_webgpu.c:2956):
                        and U+V (ops/lpf_dense; on the card one launch
                        of csrc/lpf.cu per frame)
 
-The coefficient scatter and MC stay plain PyTorch on the card. Each
-kernel's wrapper takes its plain version only for tensors on the CPU
-and counts its launches (LAUNCHES here for the splat, residual and
-intra kernels, lpf_masks.LAUNCHES, lpf_dense.LAUNCHES).
+Every stage runs a kernel on the card. Each kernel's wrapper takes its
+plain version only for tensors on the CPU and counts its launches
+(LAUNCHES here for the splat, scatter, residual, MC and intra kernels,
+lpf_masks.LAUNCHES, lpf_dense.LAUNCHES).
 
 Frame planes stay on the device across frames (references included).
 Every stage is integer math or exact float32, so the planes equal the
@@ -202,35 +209,50 @@ def residual_plane_plain(coef, eob4, txsz4, txtype4, lossless, bpp):
 _GRID_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
-def residual_plane(coef, eob4, txsz4, txtype4, lossless, bpp):
-    """The residual of one plane -> [H, W] int32. coef: [H, W] int16
-    (8 bpp uploads narrow) or int32; eob4, txsz4, txtype4: [H/4, W/4]
-    int8/int16/int32 grids. CPU tensors take residual_plane_plain; any
-    other device the kernel (csrc/itxfm.cu, one launch), which takes
-    CUDA tensors only."""
-    if coef.device.type == "cpu":
-        return residual_plane_plain(coef, eob4, txsz4, txtype4, lossless,
-                                    bpp)
+def residual_planes(jobs, lossless, bpp):
+    """The residuals of a frame's planes: jobs [(coef, eob4, txsz4,
+    txtype4)], each as residual_plane takes them -> an [H, W] int32
+    residual a job. CPU tensors take residual_plane_plain, one call a
+    plane; any other device the kernel (csrc/itxfm.cu, one launch for
+    all the planes), which takes CUDA tensors only."""
+    if not jobs:
+        return []
+    if jobs[0][0].device.type == "cpu":
+        return [residual_plane_plain(*job, lossless, bpp) for job in jobs]
     if bpp != 8:
         raise NotImplementedError(
             f"{bpp}-bit residuals wait for the 10/12-bit slice")
-    if coef.dim() != 2:
-        raise ValueError(f"coef has shape {tuple(coef.shape)}, expected "
-                         "[H, W]")
-    H, W = coef.shape
+    if len(jobs) > recon_cuda.RESIDUAL_MAX_PLANES:
+        raise ValueError(f"{len(jobs)} planes, the kernel takes at most "
+                         f"{recon_cuda.RESIDUAL_MAX_PLANES}")
+    dev = jobs[0][0].device
     align = 4 if lossless else 32
-    if H % align or W % align:
-        raise ValueError(f"a {H}x{W} plane is not made of {align}x{align} "
-                         "regions")
-    dev = coef.device
-    coef = check_tensor(coef, (torch.int16, torch.int32), (H, W), dev,
-                        "coef")
-    grids = [check_tensor(g, _GRID_DTYPES, (H // 4, W // 4), dev, name)
-             for g, name in ((eob4, "eob4"), (txsz4, "txsz4"),
-                             (txtype4, "txtype4"))]
-    out = torch.empty((H, W), dtype=torch.int32, device=dev)
-    recon_cuda.residual(coef, *grids, out, lossless)
-    return out
+    checked, outs = [], []
+    for coef, eob4, txsz4, txtype4 in jobs:
+        if coef.dim() != 2:
+            raise ValueError(f"coef has shape {tuple(coef.shape)}, "
+                             "expected [H, W]")
+        H, W = coef.shape
+        if H % align or W % align:
+            raise ValueError(f"a {H}x{W} plane is not made of {align}x"
+                             f"{align} regions")
+        coef = check_tensor(coef, (torch.int16, torch.int32), (H, W), dev,
+                            "coef")
+        grids = [check_tensor(g, _GRID_DTYPES, (H // 4, W // 4), dev, name)
+                 for g, name in ((eob4, "eob4"), (txsz4, "txsz4"),
+                                 (txtype4, "txtype4"))]
+        checked.append((coef, *grids))
+        outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
+    recon_cuda.residual(checked, outs, lossless)
+    return outs
+
+
+def residual_plane(coef, eob4, txsz4, txtype4, lossless, bpp):
+    """The residual of one plane -> [H, W] int32. coef: [H, W] int16
+    (8 bpp uploads narrow) or int32; eob4, txsz4, txtype4: [H/4, W/4]
+    int8/int16/int32 grids. residual_planes of this one plane."""
+    return residual_planes([(coef, eob4, txsz4, txtype4)], lossless,
+                           bpp)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +273,10 @@ def _mc_cells(refstack, mv16, refsel, comp, filt, inter_mask, w, h, bpp,
     """
     dev = refstack.device
     mv16 = mv16.to(torch.int32)
-    refsel = refsel.long()
-    # JAX clamps an out-of-range table gather; make that explicit
+    # JAX clamps out-of-range gathers where torch raises: keep the plane
+    # and table indices in range (only cells that are not inter carry
+    # such values, and the apply masks those cells)
+    refsel = refsel.long().clamp(0, 2)
     filt = filt.long().clamp(0, 3)
     r4, c4 = mv16.shape[:2]
     Hp, Wp = refstack.shape[1:]
@@ -300,37 +324,79 @@ def _mc_cells(refstack, mv16, refsel, comp, filt, inter_mask, w, h, bpp,
     return out.permute(0, 2, 1, 3).reshape(r4 * 4, c4 * 4)
 
 
-def _recon_plane_inter(coef, eob4, inter4, txsz4, txtype4, comp, filt,
-                       refsel, mv16, ref0, ref1, ref2, w, hh, lossless,
-                       bpp, mvsx=2, mvsy=2, has_comp=True):
-    """Fused inter pass: residual transforms + per-cell MC + apply.
-    has_comp=False (pass A saw no compound block) skips the second
-    reference pass."""
-    H, W = coef.shape
-    with metrics.timer("recon.residual"):
-        residual = residual_plane(coef, eob4, txsz4, txtype4, lossless,
-                                  bpp)
-    with metrics.timer("recon.mc"):
-        refstack = torch.stack([ref0, ref1, ref2], dim=0)
-        mc = _mc_cells(refstack, mv16, refsel, comp, filt, inter4, w, hh,
-                       bpp, mvsx, mvsy, has_comp=has_comp)
+def mc_planes_plain(jobs, bpp, has_comp):
+    """The plain inter pass of a frame's planes, _mc_cells and the apply
+    per plane: jobs as mc_planes takes them -> per job the plane
+    clip(mc + residual) on inter cells (inter4 repeated 4x4) and 0
+    elsewhere."""
     maxp = (1 << bpp) - 1
-    mh, mw = mc.shape
-    mcfull = (mc + residual[:mh, :mw]).clamp(0, maxp)
-    mask = inter4.bool().repeat_interleave(4, 0).repeat_interleave(4, 1)
-    plane = torch.zeros((H, W), dtype=torch.int32, device=coef.device)
-    plane[:mh, :mw] = torch.where(mask, mcfull, plane[:mh, :mw])
-    return plane, residual
+    outs = []
+    for residual, inter4, comp, filt, refsel, mv16, refs, w, h, mvsx, \
+            mvsy in jobs:
+        mc = _mc_cells(torch.stack(list(refs), dim=0), mv16, refsel, comp,
+                       filt, inter4, w, h, bpp, mvsx, mvsy,
+                       has_comp=has_comp)
+        mh, mw = mc.shape
+        mcfull = (mc + residual[:mh, :mw]).clamp(0, maxp)
+        mask = inter4.bool().repeat_interleave(4, 0).repeat_interleave(4, 1)
+        plane = torch.zeros(residual.shape, dtype=torch.int32,
+                            device=residual.device)
+        plane[:mh, :mw] = torch.where(mask, mcfull, plane[:mh, :mw])
+        outs.append(plane)
+    return outs
 
 
-def _recon_plane_intra_only(coef, eob4, txsz4, txtype4, lossless, bpp):
-    """Keyframe/intra-only plane: residual only."""
-    H, W = coef.shape
-    with metrics.timer("recon.residual"):
-        residual = residual_plane(coef, eob4, txsz4, txtype4, lossless,
-                                  bpp)
-    return (torch.zeros((H, W), dtype=torch.int32, device=coef.device),
-            residual)
+def mc_planes(jobs, bpp, has_comp):
+    """The inter pass of a frame's planes -> an [H, W] int32 plane a job.
+    jobs: [(residual [H, W] int32, inter4 [H/4, W/4] bool, comp bool,
+    filt int32, refsel [H/4, W/4, 2] int32, mv16 [H/4, W/4, 2, 2] int32
+    (1/16 pel, this plane's units before the mvsx/mvsy scale), refs (the
+    three reference planes, [Hr, Wr] int32 each), w, h (the plane's
+    visible size), mvsx, mvsy)]. has_comp=False (the frame has no
+    compound block) leaves comp unread. CPU tensors take
+    mc_planes_plain; any other device the kernel (csrc/mc.cu, one launch
+    for all the planes), which takes CUDA tensors only."""
+    if not jobs:
+        return []
+    if jobs[0][0].device.type == "cpu":
+        return mc_planes_plain(jobs, bpp, has_comp)
+    if not 8 <= bpp <= 12:
+        raise ValueError(f"bpp={bpp}")
+    if len(jobs) > recon_cuda.MC_MAX_PLANES:
+        raise ValueError(f"{len(jobs)} planes, the kernel takes at most "
+                         f"{recon_cuda.MC_MAX_PLANES}")
+    dev = jobs[0][0].device
+    i32 = (torch.int32,)
+    checked, outs = [], []
+    for residual, inter4, comp, filt, refsel, mv16, refs, w, h, mvsx, \
+            mvsy in jobs:
+        if residual.dim() != 2 or residual.shape[0] % 4 \
+                or residual.shape[1] % 4:
+            raise ValueError(f"residual has shape {tuple(residual.shape)}, "
+                             "expected [H, W] in 4x4 cells")
+        H, W = residual.shape
+        cells = (H // 4, W // 4)
+        residual = check_tensor(residual, i32, (H, W), dev, "residual")
+        inter4 = check_tensor(inter4, (torch.bool,), cells, dev, "inter4")
+        comp = check_tensor(comp, (torch.bool,), cells, dev, "comp") \
+            if has_comp else None
+        filt = check_tensor(filt, i32, cells, dev, "filt")
+        refsel = check_tensor(refsel, i32, cells + (2,), dev, "refsel")
+        mv16 = check_tensor(mv16, i32, cells + (2, 2), dev, "mv16")
+        if len(refs) != 3 or refs[0].dim() != 2:
+            raise ValueError("expected three [Hr, Wr] reference planes")
+        refs = tuple(check_tensor(r, i32, refs[0].shape, dev, f"ref{i}")
+                     for i, r in enumerate(refs))
+        Hr, Wr = refs[0].shape
+        if not (1 <= w <= Wr and 1 <= h <= Hr) or mvsx not in (1, 2) \
+                or mvsy not in (1, 2):
+            raise ValueError(f"visible size {w}x{h} in {Wr}x{Hr} "
+                             f"references, MV scale ({mvsx}, {mvsy})")
+        checked.append((residual, inter4, comp, filt, refsel, mv16, refs,
+                        w, h, mvsx, mvsy))
+        outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
+    recon_cuda.mc(checked, outs, bpp, has_comp)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -1025,6 +1091,34 @@ def _scatter_pairs32(pv, H, W):
     return out[:n].view(H, W)
 
 
+def scatter_coef(cp, ep, nc, ne):
+    """The dense coefficients [nc] and eob cells [ne] of pair rows: cp
+    [N, 3] int16 rows (pos-hi, pos-lo, value) -> int16 coefficients, or
+    [N, 4] rows (pos-hi, pos-lo, value-hi, value-lo) -> int32; ep [M, 3]
+    int16 rows -> int16 eob cells. A row with a negative position (a pad
+    row) or one past the end is dropped; every other position is 0. CPU
+    tensors take _scatter_pairs16/_scatter_pairs32; any other device the
+    kernel (csrc/itxfm.cu: a memset pair and one launch), which takes
+    CUDA tensors only."""
+    wide = cp.dim() == 2 and cp.shape[1] == 4
+    if cp.device.type == "cpu":
+        scat = _scatter_pairs32 if wide else _scatter_pairs16
+        return scat(cp, 1, nc)[0], _scatter_pairs16(ep, 1, ne)[0]
+    if not (0 < nc < 1 << 31 and 0 < ne < 1 << 31):
+        raise ValueError(f"buffers of {nc} and {ne} entries")
+    if cp.dim() != 2 or ep.dim() != 2:
+        raise ValueError("pair rows are [N, 3 or 4] and [M, 3]")
+    dev = cp.device
+    cp = check_tensor(cp, (torch.int16,), (cp.shape[0], 4 if wide else 3),
+                      dev, "cp")
+    ep = check_tensor(ep, (torch.int16,), (ep.shape[0], 3), dev, "ep")
+    flat_c = torch.empty(nc, dtype=torch.int32 if wide else torch.int16,
+                         device=dev)
+    flat_e = torch.empty(ne, dtype=torch.int16, device=dev)
+    recon_cuda.scatter(cp, ep, flat_c, flat_e)
+    return flat_c, flat_e
+
+
 def _fill_pairs(out, pos, val, n):
     out[:n, 0] = pos >> 16
     out[:n, 1] = pos & 0xffff
@@ -1358,50 +1452,48 @@ def recon_frame(s):
         ((recs_host[:, 6] == 0) & (recs_host[:, 3] >= 0)).any())
     has_comp = bool((recs_host[:, 14] != 0).any())
 
+    planes_cf = ((s.coef_y, s.eob_y), (s.coef_u, s.eob_u),
+                 (s.coef_v, s.eob_v))
     merged = pre.get("pairs_merged")
-    if merged is not None:
-        cp_m, ep_m, geoms_m = merged
-        with metrics.timer("recon.scatter_coef"):
-            scat = _scatter_pairs32 if cp_m.shape[1] == 4 \
-                else _scatter_pairs16
+    with metrics.timer("recon.scatter_coef"):
+        if merged is not None:
+            _cp, _ep, geoms_m = merged
             Lc = sum(sh[0] * sh[1] for sh, _e, _b, _eb in geoms_m)
             Le = sum(e[0] * e[1] for _sh, e, _b, _eb in geoms_m)
-            flat_c = scat(dev["cp"], 1, Lc)
-            flat_e = _scatter_pairs16(dev["ep"], 1, Le)
-
-    outs, residuals = [], []
-    for plane_idx in range(3):
-        if plane_idx == 0:
-            coef, eob4 = s.coef_y, s.eob_y
-            grids = (inter4_d, txsz4_d, txtype4_d, comp4_d, filt4_d,
-                     refsel_d, mv16_d)
-            mvsx = mvsy = 2
+            flat_c, flat_e = scatter_coef(dev["cp"], dev["ep"], Lc, Le)
+            coefs = [_slice_plane(flat_c[None], flat_e[None], bc, be, sh[0],
+                                  sh[1], esh[0], esh[1])
+                     for sh, esh, bc, be in geoms_m]
         else:
-            coef = s.coef_u if plane_idx == 1 else s.coef_v
-            eob4 = s.eob_u if plane_idx == 1 else s.eob_v
-            grids = (inter4uv_d, uvtx4_d, txtypeuv_d, compuv_d, filtuv_d,
-                     refseluv_d, uvmv_d)
-            mvsx = 1 << (1 - h.ss_h)
-            mvsy = 1 << (1 - h.ss_v)
+            coefs = []
+            for (coef, eob4), (cp_d, ep_d) in zip(planes_cf, dev["pairs"]):
+                flat_c, flat_e = scatter_coef(cp_d, ep_d, coef.size,
+                                              eob4.size)
+                coefs.append((flat_c.view(coef.shape),
+                              flat_e.view(eob4.shape)))
 
-        with metrics.timer("recon.scatter_coef"):
-            if merged is not None:
-                sh, esh, bc, be = geoms_m[plane_idx]
-                coef_dev, eob_dev = _slice_plane(
-                    flat_c, flat_e, bc, be, sh[0], sh[1], esh[0],
-                    esh[1])
-            else:
-                cp_d, ep_d = dev["pairs"][plane_idx]
-                scat = _scatter_pairs32 if cp_d.shape[1] == 4 \
-                    else _scatter_pairs16
-                coef_dev = scat(cp_d, *coef.shape)
-                eob_dev = _scatter_pairs16(ep_d, *eob4.shape)
+    grids = ((inter4_d, txsz4_d, txtype4_d, comp4_d, filt4_d, refsel_d,
+              mv16_d),
+             (inter4uv_d, uvtx4_d, txtypeuv_d, compuv_d, filtuv_d,
+              refseluv_d, uvmv_d))
+    plane_grids = (grids[0], grids[1], grids[1])
+    with metrics.timer("recon.residual"):
+        residuals = residual_planes(
+            [(coef, eob, g[1], g[2])
+             for (coef, eob), g in zip(coefs, plane_grids)],
+            bool(h.lossless), bpp)
 
-        if has_inter_frame:
+    if has_inter_frame:
+        jobs = []
+        for plane_idx, (residual, g) in enumerate(zip(residuals,
+                                                      plane_grids)):
             w, hh = cur.size
+            mvsx = mvsy = 2
             if plane_idx:
                 w = (w + h.ss_h) >> h.ss_h
                 hh = (hh + h.ss_v) >> h.ss_v
+                mvsx = 1 << (1 - h.ss_h)
+                mvsy = 1 << (1 - h.ss_v)
             # reference planes stay on the device across frames
             refplanes = []
             for i in range(3):
@@ -1415,21 +1507,15 @@ def recon_frame(s):
                         rf.planes[plane_idx], dtype=torch.int32,
                         device=device))
             z = next(p for p in refplanes if p is not None)
-            refplanes = [p if p is not None else z for p in refplanes]
-            (inter4_p, txsz4_p, txtype4_p, comp4_p, filt4_p, refsel_p,
-             mv16_p) = grids
-            plane_dev, residual = _recon_plane_inter(
-                coef_dev, eob_dev, inter4_p, txsz4_p, txtype4_p,
-                comp4_p, filt4_p, refsel_p, mv16_p,
-                refplanes[0], refplanes[1], refplanes[2], w, hh,
-                bool(h.lossless), bpp, mvsx, mvsy, has_comp=has_comp)
-        else:
-            plane_dev, residual = _recon_plane_intra_only(
-                coef_dev, eob_dev, grids[1], grids[2], bool(h.lossless),
-                bpp)
-
-        outs.append(plane_dev)
-        residuals.append(residual)
+            refplanes = tuple(p if p is not None else z for p in refplanes)
+            inter4_p, _tx, _tt, comp_p, filt_p, refsel_p, mv16_p = g
+            jobs.append((residual, inter4_p, comp_p, filt_p, refsel_p,
+                         mv16_p, refplanes, w, hh, mvsx, mvsy))
+        with metrics.timer("recon.mc"):
+            outs = mc_planes(jobs, bpp, has_comp)
+    else:
+        outs = [torch.zeros(r.shape, dtype=torch.int32, device=device)
+                for r in residuals]
 
     # the three planes' wavefronts in one call
     with metrics.timer("recon.intra_run"):

@@ -1,10 +1,10 @@
-"""Launchers of pass B's splat, residual and intra kernels
-(csrc/splat.cu, csrc/itxfm.cu, csrc/intra.cu): their ctypes signatures,
-the launch counters and the host side of the kernels' tables. The
-wrappers that choose between a kernel and its plain version are
-ops/recon.py's _grids_from_records, residual_plane and
-_intra_scan_planes; they call these only with tensors off the CPU, and
-these raise for anything but CUDA tensors.
+"""Launchers of pass B's splat, coefficient scatter, residual, MC and
+intra kernels (csrc/splat.cu, csrc/itxfm.cu, csrc/mc.cu, csrc/intra.cu):
+their ctypes signatures, the launch counters and the host side of the
+kernels' tables. The wrappers that choose between a kernel and its plain
+version are ops/recon.py's _grids_from_records, scatter_coef,
+residual_planes, mc_planes and _intra_scan_planes; they call these only
+with tensors off the CPU, and these raise for anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from . import intra_tables as it
 from ..codecs.vp9 import tables as T
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"residual": 0, "intra": 0, "splat": 0}
+LAUNCHES = {"residual": 0, "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
 
 # the splat's outputs in _grids_from_records' order: (dtype, chroma
 # plane, trailing dimensions)
@@ -36,6 +36,9 @@ _SPLAT_GRIDS = ((torch.bool, False, ()), (torch.int32, False, ()),
 _SPLAT_BWH = np.ascontiguousarray(T.BWH_TAB[1], dtype=np.int32)
 _SPLAT_ITT = np.ascontiguousarray(T.INTRA_TXFM_TYPE, dtype=np.int32)
 
+# planes one residual launch and one MC launch take
+RESIDUAL_MAX_PLANES = MC_MAX_PLANES = 3
+
 # the block sizes the intra tap table holds, in its order
 INTRA_SIZES = (4, 8, 16, 32)
 # planes one intra launch takes (a cluster of thread blocks each)
@@ -48,10 +51,14 @@ TAPS, COLUMN, TM = 0, 1, 2
 _c = ctypes
 _P, _I = _c.c_void_p, _c.c_int
 _SIGNATURES = {
-    # coef, coef16, eob, eob bytes, txsz, txsz bytes, txtype, txtype
-    # bytes, out, H, W, lossless, stream
-    "itxfm.cu": {"residual_plane": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                                    _I, _I, _P]},
+    # pointers (5 a plane), dims (6 a plane), planes, lossless, stream;
+    # cp, rows, columns, ep, rows, flat coef, length, flat eob, length,
+    # stream
+    "itxfm.cu": {"residual_planes": [_P, _P, _I, _I, _P],
+                 "scatter_pairs": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _P]},
+    # pointers (10 a plane), dims (8 a plane), planes, bpp, has_comp,
+    # stream
+    "mc.cu": {"mc_planes": [_P, _P, _I, _I, _I, _P]},
     # plane, residual, slab of three planes, taps, edges, n, dims, meta,
     # bpp, windows (out), stream
     "intra.cu": {"intra_scan": [_P] * 9 + [_P, _P, _I, _P, _P, _I, _P,
@@ -68,15 +75,57 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def residual(coef, eob4, txsz4, txtype4, out, lossless):
-    """csrc/itxfm.cu on checked, contiguous tensors: coef [H, W] int16 or
-    int32, grids [H/4, W/4] int8/int16/int32, out [H, W] int32."""
-    H, W = coef.shape
-    _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], "residual_plane",
-                 coef, int(coef.dtype == torch.int16), eob4,
-                 eob4.element_size(), txsz4, txsz4.element_size(), txtype4,
-                 txtype4.element_size(), out, H, W, int(lossless))
+def residual(jobs, outs, lossless):
+    """csrc/itxfm.cu on checked, contiguous tensors: the residuals of up
+    to RESIDUAL_MAX_PLANES planes in one launch. jobs: [(coef [H, W]
+    int16 or int32, eob4, txsz4, txtype4 [H/4, W/4] int8/int16/int32)];
+    outs: the [H, W] int32 residuals, one a job."""
+    n = len(jobs)
+    if not 1 <= n <= RESIDUAL_MAX_PLANES or len(outs) != n:
+        raise ValueError(f"{n} planes for one residual launch")
+    ptrs = []
+    dims = np.zeros((n, 6), np.int32)
+    for j, ((coef, eob4, txsz4, txtype4), out) in enumerate(zip(jobs, outs)):
+        ptrs += [coef, eob4, txsz4, txtype4, out]
+        dims[j] = (*coef.shape, int(coef.dtype == torch.int16),
+                   eob4.element_size(), txsz4.element_size(),
+                   txtype4.element_size())
+    _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], "residual_planes",
+                 ptrs, dims.ctypes.data, n, int(lossless))
     LAUNCHES["residual"] += 1
+
+
+def scatter(cp, ep, flat_c, flat_e):
+    """csrc/itxfm.cu's scatter on checked, contiguous tensors: cp [N, 3]
+    (or [N, 4], int32 values) and ep [M, 3] int16 pair rows into the
+    zero-filled flat_c [nc] (int16, or int32 for four columns) and
+    flat_e [ne] int16. One call: a memset pair and one launch."""
+    _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], "scatter_pairs", cp,
+                 cp.shape[0], cp.shape[1], ep, ep.shape[0], flat_c,
+                 flat_c.numel(), flat_e, flat_e.numel())
+    LAUNCHES["scatter"] += 1
+
+
+def mc(jobs, outs, bpp, has_comp):
+    """csrc/mc.cu on checked, contiguous tensors: the inter pass of up to
+    MC_MAX_PLANES planes in one launch. jobs: [(residual [H, W] int32,
+    inter4 bool, comp bool (None without has_comp), filt int32 [H/4,
+    W/4], refsel int32 [H/4, W/4, 2], mv16 int32 [H/4, W/4, 2, 2], refs
+    (three int32 [Hr, Wr]), w, h, mvsx, mvsy)]; outs: the [H, W] int32
+    planes, one a job."""
+    n = len(jobs)
+    if not 1 <= n <= MC_MAX_PLANES or len(outs) != n:
+        raise ValueError(f"{n} planes for one MC launch")
+    ptrs = []
+    dims = np.zeros((n, 8), np.int32)
+    for j, (job, out) in enumerate(zip(jobs, outs)):
+        residual_, inter4, comp, filt, refsel, mv16, refs, w, h, mvsx, \
+            mvsy = job
+        ptrs += [*refs, residual_, out, inter4, comp, filt, refsel, mv16]
+        dims[j] = (*out.shape, *refs[0].shape, w, h, mvsx, mvsy)
+    _cuda.launch("mc.cu", _SIGNATURES["mc.cu"], "mc_planes", ptrs,
+                 dims.ctypes.data, n, bpp, int(has_comp))
+    LAUNCHES["mc"] += 1
 
 
 def splat(recs, r4, c4, ss_h, ss_v):

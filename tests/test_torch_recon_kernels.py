@@ -179,7 +179,8 @@ def test_wrappers_on_cpu_take_the_plain_versions(keyframe_slabs):
     targs = (_t(plane), _t(residual), _t(buf), L, sizes, caps, 8)
     assert torch.equal(P._intra_scan(*targs), P._intra_scan_plain(*targs))
     assert P.LAUNCHES is RC.LAUNCHES
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
+                           "scatter": 0, "mc": 0}
 
 
 def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
@@ -227,8 +228,9 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
         P._intra_scan(plane, plane, slab[:31], 2, (4, 8), (8, 8), 8)
     with pytest.raises(ValueError):
         P._intra_scan(plane, plane, slab, 2, (4, 64), (8, 8), 8)
-    assert calls == ["residual_plane", "intra_scan"]
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
+    assert calls == ["residual_planes", "intra_scan"]
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
+                           "scatter": 0, "mc": 0}
 
 
 @pytest.mark.parametrize("sizes,caps,L", [((4,), (256,), 3700),
@@ -298,7 +300,8 @@ def test_decode_on_cpu_launches_no_kernel():
     finally:
         metrics.disable()
     assert len(frames) == 2
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0}
+    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
+                           "scatter": 0, "mc": 0}
     assert rep["intra.levels"]["value"] > 0
 
 
@@ -426,6 +429,8 @@ def test_bench_1080p_on_the_card_never_calls_the_plain_versions(
     monkeypatch.setattr(P, "residual_plane_plain", plain_called)
     monkeypatch.setattr(P, "_intra_scan_plain", plain_called)
     monkeypatch.setattr(P, "_grids_from_records_plain", plain_called)
+    for name in ("mc_planes_plain", "_scatter_pairs16", "_scatter_pairs32"):
+        monkeypatch.setattr(P, name, plain_called)
     _info, pkts = read_ivf(os.path.join(VEC, "bench_1080p.ivf"))
     frames = (fd for pts, data in pkts
               for _p, fd in split_superframe(data, pts))
@@ -437,6 +442,8 @@ def test_bench_1080p_on_the_card_never_calls_the_plain_versions(
            VP9Decoder(device=dev).decode_stream(itertools.islice(frames,
                                                                  3))]
     assert got == want
-    assert RC.LAUNCHES["residual"] == 9
+    assert RC.LAUNCHES["residual"] == 3
+    assert RC.LAUNCHES["scatter"] == 3
+    assert RC.LAUNCHES["mc"] == 2
     assert RC.LAUNCHES["intra"] > 0
     assert RC.LAUNCHES["splat"] == 3
