@@ -33,9 +33,13 @@ Phases, one status line each; any failure exits non-zero:
                  them over, and on a seeded full-size lossless frame;
                - mc_planes (csrc/mc.cu: the inter pass of the three
                  planes in one launch) on bench_1080p frames 1-2's own
-                 inputs, and on a seeded full-size frame with MVs out
-                 to 150 px, every filter bank, every inter cell
-                 compound and out-of-range values in the other cells;
+                 inputs, and on two seeded full-size frames with MVs
+                 out to 150 px, every filter bank and out-of-range
+                 values in the cells that are not inter: one motion a
+                 cell, every inter cell compound; one motion a tile,
+                 every phase, compound cells sharing reference 1's;
+                 each timed, with the share of its tiles that take the
+                 window path;
                - _intra_scan_planes (csrc/intra.cu) on the planes,
                  residuals and slabs of bench_1080p_lf frame 0 and
                  bench_1080p frame 0 (a keyframe), Y, U and V in one
@@ -846,25 +850,113 @@ def mc_frame(torch, np, rng, shapes, visible):
     return jobs
 
 
+def mc_tile_frame(torch, np, rng, shapes, visible):
+    """mc_frame's sibling: per 16 x 16 tile one motion a reference (a
+    plane, an MV out to 150 px, every phase with 0 one time in four on
+    each axis) and one filter bank; 90% inter cells, half of them
+    compound and sharing the tile's reference-1 motion; the other cells
+    carry out-of-range refsel, filter and MV values."""
+    jobs = []
+    for i, ((H, W), (w, h)) in enumerate(zip(shapes, visible)):
+        mvs = 1 if i else 2
+        r4, c4 = H // 4, W // 4
+        tr, tc = -(-r4 // 4), -(-c4 // 4)
+
+        def cells(a):
+            return np.repeat(np.repeat(a, 4, 0), 4, 1)[:r4, :c4]
+
+        lim = 150 * 16
+        v = rng.randint(-lim, lim + 1, (tr, tc, 2, 2))
+        v = np.where(rng.rand(tr, tc, 2, 2) < 0.25, v & ~15, v)
+        mv16 = cells(v // mvs).astype(np.int32)
+        refsel = cells(rng.randint(0, 3, (tr, tc, 2))).astype(np.int32)
+        filt = cells(rng.randint(0, 4, (tr, tc))).astype(np.int32)
+        inter = rng.rand(r4, c4) < 0.9
+        comp = inter & (rng.rand(r4, c4) < 0.5)
+        off = ~inter
+        refsel[off] = rng.choice([-9, 7], (int(off.sum()), 2))
+        filt[off] = 9
+        mv16[off] = rng.choice([-32768, 32767], (int(off.sum()), 2, 2))
+        arrays = [rng.randint(-300, 300, (H, W)).astype(np.int32), inter,
+                  comp, filt, refsel, mv16]
+        refs = tuple(torch.as_tensor(rng.randint(0, 256, (H, W)).astype(
+            np.int32), device=DEVICE) for _ in range(3))
+        jobs.append(tuple(torch.as_tensor(a, device=DEVICE) for a in arrays)
+                    + (refs, w, h, mvs, mvs))
+    return jobs
+
+
+def mc_seeded(torch, np):
+    """chip_smoke.py's two seeded 1920x1088 MC frames, on the card:
+    (mc_frame's, mc_tile_frame's)."""
+    rng = np.random.RandomState(SEED + 11)
+    shapes = ((1088, 1920), (544, 960), (544, 960))
+    visible = ((1920, 1080), (960, 540), (960, 540))
+    return (mc_frame(torch, np, rng, shapes, visible),
+            mc_tile_frame(torch, np, rng, shapes, visible))
+
+
+def mc_paths(np, jobs, has_comp):
+    """What csrc/mc.cu's warps do on `jobs`, counted on the host from the
+    grids: {tiles, passes (a reference of a tile with a cell that uses
+    it), window (passes whose cells share one motion), mx0 and my0
+    (window passes at phase 0 on that axis)}."""
+    n = dict.fromkeys(("tiles", "passes", "window", "mx0", "my0"), 0)
+    for _res, inter4, comp, filt, refsel, mv16, _r, _w, _h, mvsx, \
+            mvsy in jobs:
+        inter = inter4.cpu().numpy()
+        r4, c4 = inter.shape
+        tr, tc = -(-r4 // 4), -(-c4 // 4)
+
+        def tiles(a):
+            a = np.pad(a, [(0, 4 * tr - r4), (0, 4 * tc - c4)]
+                       + [(0, 0)] * (a.ndim - 2))
+            return a.reshape(tr, 4, tc, 4, *a.shape[2:]).swapaxes(
+                1, 2).reshape(tr, tc, 16, *a.shape[2:])
+
+        n["tiles"] += tr * tc
+        cmp = inter & comp.cpu().numpy() if has_comp else inter & False
+        mv = mv16.cpu().numpy().astype(np.int64)
+        sel = refsel.cpu().numpy()
+        bank = tiles(np.clip(filt.cpu().numpy(), 0, 3))
+        for ri, act in enumerate((inter, cmp)):
+            act = tiles(act)
+            key = np.stack([tiles(np.clip(sel[..., ri], 0, 2)),
+                            tiles(mv[..., ri, 0] * mvsx),
+                            tiles(mv[..., ri, 1] * mvsy), bank], -1)
+            used = act.any(-1)
+            lead = np.take_along_axis(key, act.argmax(-1)[..., None, None],
+                                      2)
+            one = (~act | (key == lead).all(-1)).all(-1) & used
+            n["passes"] += int(used.sum())
+            n["window"] += int(one.sum())
+            n["mx0"] += int((one & (lead[:, :, 0, 1] & 15 == 0)).sum())
+            n["my0"] += int((one & (lead[:, :, 0, 2] & 15 == 0)).sum())
+    return n
+
+
 def mc_phase(torch, np, calls):
     """mc_planes (csrc/mc.cu) on the real inputs of bench_1080p frames 1
-    and 2 (three planes in one launch each), then on a seeded full-size
-    frame (mc_frame): the kernel against the plain version on the card,
-    bit for bit; its device time per frame on the card's clock
-    (device_ms), the wrapper's call under CUDA events and the plain
-    version's time; the bound from mc_work over the three planes."""
+    and 2 (three planes in one launch each), then on two seeded full-size
+    frames, one motion a cell (mc_frame) and one a tile (mc_tile_frame):
+    the kernel against the plain version on the card, bit for bit; its
+    device time per frame on the card's clock (device_ms) on every input,
+    the wrapper's call under CUDA events and the plain version's time;
+    the bound from mc_work over the three planes; the share of each
+    input's tile passes that take the window path, and its phase-0
+    skips."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
     if len(calls) != 2:
         raise RuntimeError(f"frames 1-2 ran {len(calls)} MC calls, "
                            "expected 2")
-    rng = np.random.RandomState(SEED + 11)
-    seeded = mc_frame(torch, np, rng, ((1088, 1920), (544, 960), (544, 960)),
-                      ((1920, 1080), (960, 540), (960, 540)))
+    seeded, tiled = mc_seeded(torch, np)
     err = 0
     ms = call_ms = plain_ms = nbytes = nops = 0.0
-    shapes = []
-    for which, (jobs, bpp, has_comp) in [("bench_1080p", c) for c in calls] \
-            + [("seeded", (seeded, 8, True))]:
+    notes, seeded_ms = [], {}
+    for which, (jobs, bpp, has_comp) in \
+            [("bench_1080p", c) for c in calls] \
+            + [("seeded_cells", (seeded, 8, True)),
+               ("seeded_tiles", (tiled, 8, True))]:
         outs = R.mc_planes(jobs, bpp, has_comp)
         wants, t = host_ms(torch, lambda: R.mc_planes_plain(jobs, bpp,
                                                             has_comp))
@@ -873,32 +965,46 @@ def mc_phase(torch, np, calls):
         if e:
             raise RuntimeError(f"mc_planes on {which}: kernel != plain "
                                f"(max |diff| {e})")
-        if which == "seeded":
-            continue
 
         def call():
             R.mc_planes(jobs, bpp, has_comp)
         k_ms, _n = device_ms(torch, call, 50, ("mc_kernel",))
-        ms += k_ms
-        call_ms += cuda_ms(call, 50)
-        plain_ms += t
+        b = o = 0
+        for job in jobs:
+            jb, jo = mc_work(np, job, has_comp)
+            b += jb
+            o += jo
+        paths = mc_paths(np, jobs, has_comp)
         inter = sum(int(j[1].sum()) for j in jobs)
         comp = sum(int((j[1] & j[2]).sum()) for j in jobs) if has_comp \
             else 0
-        for job in jobs:
-            b, o = mc_work(np, job, has_comp)
-            nbytes += b
-            nops += o
-        shapes.append(f"{inter} inter cells ({comp} compound): "
-                      f"{k_ms:.5f} ms")
+        say("kernels", f"mc_planes on {which} ({inter} inter cells, {comp} "
+            f"compound): {k_ms:.5f} ms on the card, bound "
+            f"{bounds(b, o, 0)[0]:.6f}; {paths['window']} of "
+            f"{paths['passes']} tile passes "
+            f"({paths['window'] / max(paths['passes'], 1):.4f}) take the "
+            f"window path, {paths['mx0']} of them skip the horizontal "
+            f"pass and {paths['my0']} the vertical ({paths['tiles']} "
+            "tiles)")
+        if which != "bench_1080p":
+            seeded_ms[which] = k_ms
+            continue
+        ms += k_ms
+        call_ms += cuda_ms(call, 50)
+        plain_ms += t
+        nbytes += b
+        nops += o
+        notes.append(f"{inter} inter cells ({comp} compound): "
+                     f"{k_ms:.5f} ms")
     nf = len(calls)
     bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
-    say("kernels", f"mc_planes on bench_1080p frames 1-2 ({'; '.join(shapes)}"
+    say("kernels", f"mc_planes on bench_1080p frames 1-2 ({'; '.join(notes)}"
         f"): ms/frame={ms / nf:.5f} on the card (the wrapper's call under "
         f"CUDA events {call_ms / nf:.4f}) plain_ms/frame={plain_ms / nf:.2f} "
         f"bound_ms/frame={bound_ms:.6f} ({bound_by}, {nbytes / nf:.0f} B, "
-        f"{nops / nf:.0f} ops); exact vs plain, also on a seeded 1920x1088 "
-        "frame (MVs to 150 px, every bank, every inter cell compound)")
+        f"{nops / nf:.0f} ops); exact vs plain, also on the seeded "
+        "1920x1088 frames of a motion a cell (MVs to 150 px, every bank, "
+        "every inter cell compound) and a motion a tile")
     return {"name": "mc_planes", "route": "cuda", "source": MC_SRC,
             "replaces": MC_REPLACES, "launches": None, "max_abs_err": err,
             "ms": ms / nf, "plain_ms": plain_ms / nf, "bound_ms": bound_ms,
@@ -906,7 +1012,7 @@ def mc_phase(torch, np, calls):
             "per": "frame (Y, U, V in one launch), mean of bench_1080p "
                    "frames 1 and 2",
             "call_ms": call_ms / nf, "bytes_needed": nbytes / nf,
-            "ops": nops / nf}
+            "ops": nops / nf, "seeded_ms": seeded_ms}
 
 
 def intra_work(np, jobs):

@@ -21,38 +21,87 @@
 // each pass rounds as (acc + 64) >> 7 and clips to [0, 2^bpp - 1]. The
 // plane is clip(prediction + residual) on inter cells and 0 elsewhere.
 //
-// Design. One thread block of 256 threads per 16 x 16 pixel tile of a
-// plane (4 x 4 cells); the tiles of the three planes make one grid, the
-// planes' descriptors sit in the kernel's parameters. A thread owns one
-// output pixel; the 16 threads of a cell load its 121-pixel patch into
-// shared memory through the read-only path (the cells of one block share
-// their motion, so their patches overlap in L1), compute its 44
-// horizontal values (up to 3 each) into shared memory, then each its own
-// pixel's vertical pass. The second reference runs only in tiles that
-// hold a compound cell, and a tile without an inter cell writes zeros
-// and leaves. The epilogue adds the residual, clips, selects by inter4
-// and writes the plane once. A cell that is not inter reads no motion,
-// reference or filter (those grid values may be out of range there). The
-// taps sit in __constant__ memory; each thread reads its cell's 16.
+// Design. A warp per 16 x 16 pixel tile of a plane, kWarps neighbouring
+// tiles a block (raster order; the tiles of the three planes make one
+// grid, the planes' descriptors sit in the kernel's parameters), and no
+// barrier wider than a warp: each warp owns a slice of shared memory and
+// synchronises with __syncwarp alone, so a tile that waits on memory
+// stalls only itself, and kWarps x kMinBlocks = 24 tiles reside on an
+// SM (80 registers a thread). A lane owns two 4-pixel quads of the
+// tile, rows lane / 4 and lane / 4 + 8 at columns 4 (lane % 4) to +3,
+// and their two cells. It loads its cells' inter, comp (with has_comp),
+// filt, refsel (int2) and mv (int4) at once; a tile without an inter
+// cell writes zeros and leaves. The inter quads' residuals then go into
+// the warp's slice by cp.async, in flight with the reference's pixels,
+// and the second reference runs only where the warp holds a compound
+// cell. For each reference the warp votes on the motion (plane, mvx,
+// mvy, bank) of the cells that use it, the inter cells, then the
+// compound ones. A cell that does not use it contributes nothing, so
+// the out-of-range values such cells carry never enter a key, an
+// address or a product.
+//  - One motion: the warp copies one window of the reference into its
+//    slice (cp.async, a row a step, consecutive lanes on consecutive
+//    columns), the tile's 16 + 7 rows and columns around its displaced
+//    origin (clamped as a cell's patch is), runs the horizontal pass
+//    over it into shared memory and the vertical pass into registers.
+//    At phase 0 every bank's taps are {0, 0, 0, 128, 0, 0, 0, 0}, and
+//    (128 v + 64) >> 7 = v, so the pass is the clip alone: mx == 0 drops
+//    the window's column halo and the horizontal pass (the vertical pass
+//    clips the window as it reads it), my == 0 its row halo and the
+//    vertical pass.
+//  - More than one: the warp walks the cells that use the reference,
+//    32 / kCellLanes at a time and kCellLanes lanes a cell: the cell's
+//    11 x 11 patch, its 44 horizontal values and its 16 pixels, in the
+//    warp's slice; the predictions go into a 16 x 16 tile there, read
+//    back by quad.
+// The epilogue averages compound cells, adds the residual, clips,
+// selects by inter and writes each quad once as an int4. The taps come
+// from __constant__ memory: one phase a warp on the window path, and on
+// the walk one a cell in flight, so a read serialises at most 32 /
+// kCellLanes ways; a copy per block into shared memory would need a
+// block-wide barrier.
 //
 // What bounds it. Bytes: each output pixel written once (4 B), and per
 // pixel of an inter cell its residual and a reference pixel per
 // reference (4 B each), plus the grids (some 30 B a cell): about 43 MB
 // for a 1080p frame of single-reference cells, 55 MB with every cell
 // compound, 13-16 us at 3.35 TB/s. The operations, 480 multiply-adds a
-// cell a reference, are below that at the int32 rate.
+// cell a reference, are below that at the int32 rate. The first design
+// (a 256-thread block per tile, a thread per pixel, 59 registers) was
+// held back by latency, not bytes: 4 tiles resided on an SM, so a 1080p
+// frame's 12,240 tiles ran in 23.2 waves, each a chain of dependent
+// steps behind two block-wide votes and two barriers (the inter byte,
+// the compound byte, the grids, the patches, then the residual): 0.105
+// ms a frame, 4.5 us a wave, some four device-memory round trips.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxPlanes = 3;
-constexpr int kThreads = 256;
-constexpr int kTile = 16;                  // pixels a side of a block's tile
-constexpr int kTileCells = kTile / 4;      // cells a side of a tile
-constexpr int kCells = kTileCells * kTileCells;
-constexpr int kPatch = 11;                 // source rows and columns a cell
-constexpr int kHVals = kPatch * 4;         // horizontal-pass values a cell
+constexpr int kWarps = 4;         // tiles a block, a warp each
+constexpr int kMinBlocks = 6;     // blocks an SM holds (__launch_bounds__)
+constexpr int kCellLanes = 16;    // lanes a cell on the per-cell walk
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 16;                  // pixels a side of a tile
+constexpr int kWin = kTile + 7;            // window rows and columns
+constexpr int kWinStride = 24;             // ints a window row
+constexpr int kPatch = 11;                 // patch rows and columns a cell
+constexpr int kHVals = kPatch * 4;         // horizontal values a cell
+constexpr int kStep = 32 / kCellLanes;     // cells a step of the walk
+// A warp's slice of shared memory, in ints. The window path: the window
+// [kWin][kWinStride] at 0 and its horizontal values [kWin][kTile] at
+// kHv. The walk: kStep patches and kStep cells' horizontal values from
+// 0, the tile's prediction [kTile][kTile] at kPred. Both: the tile's
+// residual [kTile][kTile] at kRes.
+constexpr int kHv = kWin * kWinStride;
+constexpr int kRes = kHv + kWin * kTile;
+constexpr int kSlice = kRes + kTile * kTile;
+constexpr int kCellHv = kStep * kPatch * kPatch;
+constexpr int kPred = (kCellHv + kStep * kHVals + 3) & ~3;
+static_assert(kPred + kTile * kTile <= kRes, "the walk outgrows a slice");
+static_assert(32 % kCellLanes == 0 && kCellLanes <= 16, "kCellLanes");
 
 // The 8-tap filters [bank][phase][tap]: banks 0-2 are tables.py's
 // SUBPEL_FILTERS in its order (smooth, regular, sharp), bank 3 the
@@ -147,91 +196,353 @@ struct Plane {
   int w, h;                // the visible size
   int mvsx, mvsy;
   int tiles_x;             // tiles a row
-  int tile0;               // the plane's first block in the grid
+  int tile0;               // the plane's first tile in the grid
 };
 
 struct Args {
   Plane p[kMaxPlanes];
   int n;
+  int tiles;               // of all the planes
   int maxp;
   int has_comp;
+};
+
+// One reference's motion of a cell: plane, MV (1/16 pel, scaled) and
+// filter bank.
+struct Motion {
+  int ref, mvx, mvy, bank;
 };
 
 __device__ __forceinline__ int clip(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    mc_kernel(const __grid_constant__ Args a) {
-  __shared__ int32_t patch[kCells][kPatch * kPatch];
-  __shared__ int32_t hval[kCells][kHVals];
-  int pi = 0;
-  while (pi + 1 < a.n && static_cast<int>(blockIdx.x) >= a.p[pi + 1].tile0)
-    ++pi;
-  const Plane& p = a.p[pi];
-  const int tile = blockIdx.x - p.tile0;
-  const int t = threadIdx.x;
-  const int py = t / kTile, px = t % kTile;   // the thread's pixel in the tile
-  const int y = (tile / p.tiles_x) * kTile + py;
-  const int x = (tile % p.tiles_x) * kTile + px;
-  const int cell = (py >> 2) * kTileCells + (px >> 2);
-  const int rank = (py & 3) * 4 + (px & 3);    // the thread's rank in its cell
-  const bool inside = y < p.H && x < p.W;
-  const size_t g = static_cast<size_t>(y >> 2) * (p.W >> 2) + (x >> 2);
-  const bool inter = inside && p.inter[g] != 0;
-  const bool comp = inter && a.has_comp && p.comp[g] != 0;
-  const size_t pix = static_cast<size_t>(y) * p.W + x;
-  if (!__syncthreads_or(inter)) {
-    if (inside) p.out[pix] = 0;
-    return;
+__device__ __forceinline__ bool same(const Motion& a, const Motion& b) {
+  return a.ref == b.ref && a.mvx == b.mvx && a.mvy == b.mvy &&
+         a.bank == b.bank;
+}
+
+// One 8-tap pass of 8 consecutive values, rounded and clipped.
+__device__ __forceinline__ int tap8(const int* t, const int* v, int maxp) {
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc += t[k] * v[k];
+  return clip((acc + 64) >> 7, 0, maxp);
+}
+
+// Copies from device memory into shared memory, of 4 bytes and of 16
+// (both aligned to their size), as cp.async: a copy holds no register
+// while in flight, so a lane keeps all its copies in flight at once (a
+// load into a register, then a store, measured slower: the stores wait
+// on the loads); copies_done waits for the lane's own.
+__device__ __forceinline__ void copy4(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy16(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 4 values of shared memory, clipped to [0, maxp] where `clipped`.
+__device__ __forceinline__ int4 load4(const int32_t* src, bool clipped,
+                                      int maxp) {
+  int4 v = *reinterpret_cast<const int4*>(src);
+  if (clipped)
+    v = make_int4(clip(v.x, 0, maxp), clip(v.y, 0, maxp),
+                  clip(v.z, 0, maxp), clip(v.w, 0, maxp));
+  return v;
+}
+
+// The window path: the prediction of the lane's two quads from one
+// motion m shared by every cell of the tile at (y0, x0) that uses it.
+__device__ __forceinline__ void window_pass(const Plane& p, int maxp,
+                                            int32_t* s, int lane,
+                                            const Motion& m, int y0, int x0,
+                                            int v[2][4]) {
+  const int mx = m.mvx & 15, my = m.mvy & 15;
+  const int rows = my ? kWin : kTile;
+  const int wy = y0 + (m.mvy >> 4) - (my ? 3 : 0);
+  const int wx = x0 + (m.mvx >> 4) - (mx ? 3 : 0);
+  const int32_t* ref = p.ref[m.ref];
+  int32_t* hv = s + kHv;
+  // the window, a row a step, consecutive lanes on consecutive columns:
+  // into s when a horizontal pass follows; else into hv, two rows a step,
+  // where the vertical pass clips it as it reads
+  if (mx) {
+    const int32_t* src = ref + clip(wx + lane, 0, p.w - 1);
+    if (lane < kWin) {
+#pragma unroll
+      for (int r = 0; r < kWin; ++r)
+        if (r < rows)
+          copy4(s + r * kWinStride + lane,
+                src + static_cast<size_t>(clip(wy + r, 0, p.h - 1)) *
+                          p.ref_w);
+    }
+  } else {
+    const int c = lane & 15, r0 = lane >> 4;
+    const int32_t* src = ref + clip(wx + c, 0, p.w - 1);
+#pragma unroll
+    for (int i = 0; i < (kWin + 1) / 2; ++i)
+      if (r0 + 2 * i < rows)
+        copy4(hv + (r0 + 2 * i) * kTile + c,
+              src + static_cast<size_t>(clip(wy + r0 + 2 * i, 0, p.h - 1)) *
+                        p.ref_w);
   }
-  const int nref = __syncthreads_or(comp) ? 2 : 1;
-  const int bank = inter ? clip(p.filt[g], 0, 3) : 0;
-  int pred = 0;
-  for (int ri = 0; ri < nref; ++ri) {
-    const bool act = ri == 0 ? inter : comp;
-    int mx = 0, my = 0;
-    if (act) {
-      const int mvx = p.mv[g * 4 + ri * 2] * p.mvsx;
-      const int mvy = p.mv[g * 4 + ri * 2 + 1] * p.mvsy;
-      const int iy = (y & ~3) + (mvy >> 4) - 3;
-      const int ix = (x & ~3) + (mvx >> 4) - 3;
+  copies_done();
+  __syncwarp();
+  if (mx) {
+    // horizontal pass: a lane a (row, quad) of 4 values, read as three
+    // int4; rows r and r + 2 share a quarter-warp, so the 8 lanes' reads
+    // fall on 32 different banks
+    int t[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t[k] = kFtab[m.bank][mx][k];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int j = lane + 32 * i;
+      const int g = j >> 2, qc = j & 3;
+      const int r = (g & ~3) | ((g & 1) << 1) | ((g >> 1) & 1);
+      if (r < rows) {
+        const int4* src = reinterpret_cast<const int4*>(
+            s + r * kWinStride + 4 * qc);
+        const int4 a = src[0], b = src[1], c = src[2];
+        const int w[12] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                           c.x, c.y, c.z, c.w};
+        *reinterpret_cast<int4*>(hv + r * kTile + 4 * qc) = make_int4(
+            tap8(t, w, maxp), tap8(t, w + 1, maxp), tap8(t, w + 2, maxp),
+            tap8(t, w + 3, maxp));
+      }
+    }
+    __syncwarp();
+  }
+  const int q = lane & 3;
+  int t[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[k] = kFtab[m.bank][my][k];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int y = (lane >> 2) + 8 * k;
+    if (my) {
+      int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int tap = 0; tap < 8; ++tap) {
+        const int4 h4 = load4(hv + (y + tap) * kTile + 4 * q, !mx, maxp);
+        acc[0] += t[tap] * h4.x;
+        acc[1] += t[tap] * h4.y;
+        acc[2] += t[tap] * h4.z;
+        acc[3] += t[tap] * h4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[k][i] = clip((acc[i] + 64) >> 7, 0, maxp);
+    } else {
+      const int4 h4 = load4(hv + y * kTile + 4 * q, !mx, maxp);
+      v[k][0] = h4.x;
+      v[k][1] = h4.y;
+      v[k][2] = h4.z;
+      v[k][3] = h4.w;
+    }
+  }
+}
+
+// The per-cell walk: the prediction of the lane's two quads for
+// reference ri, from the cells of `cells` (bit 4 i + j: cell (i, j) of
+// the tile whose first cell is (cy0, cx0)), kStep cells a step.
+__device__ __forceinline__ void cell_pass(const Plane& p, int maxp,
+                                          int32_t* s, int lane, int ri,
+                                          unsigned cells, int cy0, int cx0,
+                                          int v[2][4]) {
+  const int grp = lane / kCellLanes, rank = lane % kCellLanes;
+  int32_t* patch = s + grp * kPatch * kPatch;
+  int32_t* hval = s + kCellHv + grp * kHVals;
+  int32_t* pred = s + kPred;
+  while (cells) {
+    int c = -1;
+#pragma unroll
+    for (int i = 0; i < kStep; ++i) {
+      const int b = cells ? __ffs(cells) - 1 : -1;
+      if (i == grp) c = b;
+      cells &= cells - 1;
+    }
+    int bank = 0, mx = 0, my = 0;
+    if (c >= 0) {
+      const size_t g = static_cast<size_t>(cy0 + (c >> 2)) * (p.W >> 2) +
+                       cx0 + (c & 3);
+      const int mvx = __ldg(p.mv + g * 4 + ri * 2) * p.mvsx;
+      const int mvy = __ldg(p.mv + g * 4 + ri * 2 + 1) * p.mvsy;
+      const int32_t* ref = p.ref[clip(__ldg(p.refsel + g * 2 + ri), 0, 2)];
+      bank = clip(__ldg(p.filt + g), 0, 3);
       mx = mvx & 15;
       my = mvy & 15;
-      const int32_t* ref = p.ref[clip(p.refsel[g * 2 + ri], 0, 2)];
-      for (int j = rank; j < kPatch * kPatch; j += 16) {
-        const int sy = clip(iy + j / kPatch, 0, p.h - 1);
-        const int sx = clip(ix + j % kPatch, 0, p.w - 1);
-        patch[cell][j] = __ldg(ref + static_cast<size_t>(sy) * p.ref_w + sx);
+      const int iy = (cy0 + (c >> 2)) * 4 + (mvy >> 4) - 3;
+      const int ix = (cx0 + (c & 3)) * 4 + (mvx >> 4) - 3;
+      // a row a step, the lane on columns rank, rank + kCellLanes, ...
+      for (int c = rank; c < kPatch; c += kCellLanes) {
+        const int32_t* src = ref + clip(ix + c, 0, p.w - 1);
+#pragma unroll
+        for (int r = 0; r < kPatch; ++r)
+          copy4(patch + r * kPatch + c,
+                src + static_cast<size_t>(clip(iy + r, 0, p.h - 1)) * p.ref_w);
       }
     }
-    __syncthreads();
-    if (act) {
+    copies_done();
+    __syncwarp();
+    if (c >= 0) {
       // horizontal pass: row j / 4 of the patch, output column j % 4
-      int taps[8];
+      int t[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) taps[k] = kFtab[bank][mx][k];
-      for (int j = rank; j < kHVals; j += 16) {
-        const int32_t* src = &patch[cell][(j >> 2) * kPatch + (j & 3)];
+      for (int k = 0; k < 8; ++k) t[k] = kFtab[bank][mx][k];
+      for (int j = rank; j < kHVals; j += kCellLanes)
+        hval[j] = tap8(t, patch + (j >> 2) * kPatch + (j & 3), maxp);
+    }
+    __syncwarp();
+    if (c >= 0) {
+      // vertical pass: the lane's pixels of the cell
+      int t[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) t[k] = kFtab[bank][my][k];
+      for (int px = rank; px < 16; px += kCellLanes) {
         int acc = 0;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) acc += taps[k] * src[k];
-        hval[cell][j] = clip((acc + 64) >> 7, 0, a.maxp);
+        for (int k = 0; k < 8; ++k) acc += t[k] * hval[px + 4 * k];
+        pred[((c >> 2) * 4 + (px >> 2)) * kTile + (c & 3) * 4 + (px & 3)] =
+            clip((acc + 64) >> 7, 0, maxp);
       }
     }
-    __syncthreads();
-    if (act) {
-      // vertical pass: the thread's own pixel
-      const int32_t* src = &hval[cell][(py & 3) * 4 + (px & 3)];
-      int acc = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc += kFtab[bank][my][k] * src[k * 4];
-      const int v = clip((acc + 64) >> 7, 0, a.maxp);
-      pred = ri == 0 ? v : (pred + v + 1) >> 1;
-    }
   }
-  if (inside)
-    p.out[pix] = inter ? clip(pred + p.residual[pix], 0, a.maxp) : 0;
+  __syncwarp();
+  const int q = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int4 p4 = *reinterpret_cast<const int4*>(
+        pred + ((lane >> 2) + 8 * k) * kTile + 4 * q);
+    v[k][0] = p4.x;
+    v[k][1] = p4.y;
+    v[k][2] = p4.z;
+    v[k][3] = p4.w;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    mc_kernel(const __grid_constant__ Args a) {
+  __shared__ __align__(16) int32_t smem[kWarps * kSlice];
+  const int lane = threadIdx.x & 31;
+  const int tile_g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (tile_g >= a.tiles) return;
+  int pi = 0;
+  while (pi + 1 < a.n && tile_g >= a.p[pi + 1].tile0) ++pi;
+  const Plane& p = a.p[pi];
+  int32_t* s = smem + (threadIdx.x >> 5) * kSlice;
+  const int tile = tile_g - p.tile0;
+  const int y0 = (tile / p.tiles_x) * kTile, x0 = (tile % p.tiles_x) * kTile;
+  const int x = x0 + 4 * (lane & 3);
+  // every grid load first, then the residuals of the inter quads into
+  // the slice, in flight with the reference's
+  bool qin[2], inter[2], comp[2];
+  int4 mv[2];
+  int2 rs[2];
+  int filt[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int y = y0 + (lane >> 2) + 8 * k;
+    qin[k] = y < p.H && x < p.W;
+    inter[k] = comp[k] = false;
+    mv[k] = make_int4(0, 0, 0, 0);
+    rs[k] = make_int2(0, 0);
+    filt[k] = 0;
+    if (qin[k]) {
+      const size_t g = static_cast<size_t>(y >> 2) * (p.W >> 2) + (x >> 2);
+      inter[k] = __ldg(p.inter + g) != 0;
+      if (a.has_comp) comp[k] = __ldg(p.comp + g) != 0;
+      filt[k] = __ldg(p.filt + g);
+      rs[k] = __ldg(reinterpret_cast<const int2*>(p.refsel) + g);
+      mv[k] = __ldg(reinterpret_cast<const int4*>(p.mv) + g);
+    }
+    comp[k] = comp[k] && inter[k];
+  }
+  if (!__any_sync(kFull, inter[0] || inter[1])) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (qin[k])
+        *reinterpret_cast<int4*>(
+            p.out + static_cast<size_t>(y0 + (lane >> 2) + 8 * k) * p.W + x) =
+            make_int4(0, 0, 0, 0);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (inter[k])
+      copy16(s + kRes + ((lane >> 2) + 8 * k) * kTile + 4 * (lane & 3),
+             p.residual + static_cast<size_t>(y0 + (lane >> 2) + 8 * k) * p.W +
+                 x);
+  const int nref = __any_sync(kFull, comp[0] || comp[1]) ? 2 : 1;
+  int pred[2][4];
+  for (int ri = 0; ri < nref; ++ri) {
+    if (ri) __syncwarp();   // reference 0's reads of the slice are done
+    bool act[2];
+    Motion m[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      act[k] = ri ? comp[k] : inter[k];
+      m[k] = act[k] ? Motion{clip(ri ? rs[k].y : rs[k].x, 0, 2),
+                             (ri ? mv[k].z : mv[k].x) * p.mvsx,
+                             (ri ? mv[k].w : mv[k].y) * p.mvsy,
+                             clip(filt[k], 0, 3)}
+                    : Motion{0, 0, 0, 0};
+    }
+    // the vote: the first lane that uses the reference leads
+    const unsigned by0 = __ballot_sync(kFull, act[0]);
+    const unsigned by1 = __ballot_sync(kFull, act[1]);
+    const int src = __ffs(by0 | by1) - 1;
+    const Motion mine = act[0] ? m[0] : m[1];
+    const Motion lead{__shfl_sync(kFull, mine.ref, src),
+                      __shfl_sync(kFull, mine.mvx, src),
+                      __shfl_sync(kFull, mine.mvy, src),
+                      __shfl_sync(kFull, mine.bank, src)};
+    int v[2][4];
+    if (__all_sync(kFull, (!act[0] || same(m[0], lead)) &&
+                              (!act[1] || same(m[1], lead)))) {
+      window_pass(p, a.maxp, s, lane, lead, y0, x0, v);
+    } else {
+      // cell (i, j) of the tile is lane 16 i + j's first cell for i < 2,
+      // lane 16 (i - 2) + j's second for i >= 2
+      const unsigned cells = (by0 & 0xf) | (by0 >> 16 & 0xf) << 4 |
+                             (by1 & 0xf) << 8 | (by1 >> 16 & 0xf) << 12;
+      cell_pass(p, a.maxp, s, lane, ri, cells, y0 >> 2, x0 >> 2, v);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pred[k][i] = ri == 0 ? v[k][i]
+                   : act[k]  ? (pred[k][i] + v[k][i] + 1) >> 1
+                             : pred[k][i];
+  }
+  copies_done();
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (!qin[k]) continue;
+    int4 o = make_int4(0, 0, 0, 0);
+    if (inter[k]) {
+      const int4 res = *reinterpret_cast<const int4*>(
+          s + kRes + ((lane >> 2) + 8 * k) * kTile + 4 * (lane & 3));
+      o = make_int4(clip(pred[k][0] + res.x, 0, a.maxp),
+                    clip(pred[k][1] + res.y, 0, a.maxp),
+                    clip(pred[k][2] + res.z, 0, a.maxp),
+                    clip(pred[k][3] + res.w, 0, a.maxp));
+    }
+    *reinterpret_cast<int4*>(
+        p.out + static_cast<size_t>(y0 + (lane >> 2) + 8 * k) * p.W + x) = o;
+  }
 }
 
 }  // namespace
@@ -240,11 +551,12 @@ extern "C" {
 
 // The inter pass of n (1-3) planes in one launch on `stream`. ptrs: 10
 // device pointers a plane: ref0, ref1, ref2 (int32 [Hr, Wr]), residual
-// and out (int32 [H, W]), inter4 and comp (bool [H/4, W/4]; comp may be
-// null when has_comp is 0), filt (int32 [H/4, W/4]), refsel (int32
-// [H/4, W/4, 2]), mv16 (int32 [H/4, W/4, 2, 2]). dims: 8 ints a plane:
-// H, W (multiples of 4), Hr, Wr, w, h (the visible size, 1 <= w <= Wr, 1
-// <= h <= Hr), mvsx, mvsy. bpp: 8-12.
+// and out (int32 [H, W], 16-byte aligned), inter4 and comp (bool [H/4,
+// W/4]; comp may be null when has_comp is 0), filt (int32 [H/4, W/4]),
+// refsel (int32 [H/4, W/4, 2], 8-byte aligned), mv16 (int32 [H/4, W/4,
+// 2, 2], 16-byte aligned). dims: 8 ints a plane: H, W (multiples of 4),
+// Hr, Wr, w, h (the visible size, 1 <= w <= Wr, 1 <= h <= Hr), mvsx,
+// mvsy. bpp: 8-12.
 int mc_planes(const void* const* ptrs, const int* dims, int n, int bpp,
               int has_comp, cudaStream_t stream) {
   if (n < 1 || n > kMaxPlanes || bpp < 8 || bpp > 12 || !ptrs || !dims)
@@ -273,14 +585,20 @@ int mc_planes(const void* const* ptrs, const int* dims, int n, int bpp,
     p.h = d[5];
     p.mvsx = d[6];
     p.mvsy = d[7];
+    const auto misaligned = [](const void* ptr, uintptr_t to) {
+      return reinterpret_cast<uintptr_t>(ptr) % to != 0;
+    };
     if (p.H <= 0 || p.W <= 0 || p.H % 4 || p.W % 4 || p.w < 1 ||
-        p.w > d[3] || p.h < 1 || p.h > d[2] || (has_comp && !p.comp))
+        p.w > d[3] || p.h < 1 || p.h > d[2] || (has_comp && !p.comp) ||
+        misaligned(p.residual, 16) || misaligned(p.out, 16) ||
+        misaligned(p.mv, 16) || misaligned(p.refsel, 8))
       return static_cast<int>(cudaErrorInvalidValue);
     p.tiles_x = (p.W + kTile - 1) / kTile;
     p.tile0 = tiles;
     tiles += p.tiles_x * ((p.H + kTile - 1) / kTile);
   }
-  mc_kernel<<<tiles, kThreads, 0, stream>>>(a);
+  a.tiles = tiles;
+  mc_kernel<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -355,7 +355,9 @@ def mc_planes(jobs, bpp, has_comp):
     visible size), mvsx, mvsy)]. has_comp=False (the frame has no
     compound block) leaves comp unread. CPU tensors take
     mc_planes_plain; any other device the kernel (csrc/mc.cu, one launch
-    for all the planes), which takes CUDA tensors only."""
+    for all the planes), which takes CUDA tensors only: it reads the
+    residual, the output and mv16 as 16-byte vectors and refsel as 8-byte
+    pairs, so those must be aligned to them."""
     if not jobs:
         return []
     if jobs[0][0].device.type == "cpu":
@@ -392,9 +394,14 @@ def mc_planes(jobs, bpp, has_comp):
                 or mvsy not in (1, 2):
             raise ValueError(f"visible size {w}x{h} in {Wr}x{Hr} "
                              f"references, MV scale ({mvsx}, {mvsy})")
+        out = torch.empty((H, W), dtype=torch.int32, device=dev)
+        for t, name, size in ((residual, "residual", 16), (out, "out", 16),
+                              (mv16, "mv16", 16), (refsel, "refsel", 8)):
+            if t.data_ptr() % size:
+                raise ValueError(f"{name} is not {size}-byte aligned")
         checked.append((residual, inter4, comp, filt, refsel, mv16, refs,
                         w, h, mvsx, mvsy))
-        outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
+        outs.append(out)
     recon_cuda.mc(checked, outs, bpp, has_comp)
     return outs
 

@@ -2,12 +2,14 @@
 mc_planes, mc_planes_plain) around its CUDA kernel (csrc/mc.cu): the
 plain version of a frame's three planes against the JAX package's
 _recon_plane_inter per plane (CPU-JAX, as tests/conftest.py sets it); a
-numpy model of the kernel's threads (the tile of 16 x 16 pixels, a cell's
-16 threads, its patch and horizontal values in shared memory, the skip of
-tiles without inter cells and of the second reference without compound
-cells) held to the same function; the kernel's filter table; the
-wrapper's choice between plain version and kernel; and, on a card, the
-kernel against its plain version. Every comparison is exact."""
+numpy model of the kernel's warps (a warp per 16 x 16 tile, a lane's two
+quads and their cells, the vote on each reference's motion, the window
+of a tile of one motion with its phase-0 skips, the walk of the cells
+otherwise, shared memory starting as garbage) held to the same
+function, and the paths and traps each case reaches; the kernel's filter
+table; the wrapper's choice between plain version and kernel; and, on a
+card, the kernel against its plain version. Every comparison is
+exact."""
 import os
 import re
 
@@ -27,12 +29,14 @@ MC_CU = os.path.join(os.path.dirname(__file__), "..", "ffmpeg_hybrid_tpu_torch",
 # planes (32 x 64) show an odd 63 x 31
 FRAME = {"H": 64, "W": 128, "w": 125, "h": 61}
 # name: (largest |MV| in pixels, has_comp, missing reference, every cell
-# inter and compound)
-CASES = {"near": (12, True, False, False),
-         "far": (150, True, False, False),
-         "far_no_comp": (150, False, False, False),
-         "missing_ref": (150, True, True, False),
-         "all_compound": (150, True, False, True)}
+# inter and compound, one motion a 16 x 16 tile)
+CASES = {"near": (12, True, False, False, False),
+         "far": (150, True, False, False, False),
+         "far_no_comp": (150, False, False, False, False),
+         "missing_ref": (150, True, True, False, False),
+         "all_compound": (150, True, False, True, False),
+         "tiles": (150, True, False, False, True),
+         "tiles_no_comp": (150, False, False, False, True)}
 
 
 def _t(a):
@@ -60,12 +64,55 @@ def _residual_grids(rng, H, W):
     return coef, eob, txsz, txtype
 
 
+def _snap_phase(mv, mvs, zero):
+    """mv (1/16 pel before the scale mvs) moved to phase 0 of the scaled
+    MV where `zero`, and off it elsewhere."""
+    v = mv * mvs
+    v = np.where(zero, v & ~15, np.where(v & 15, v, v + mvs))
+    return v // mvs
+
+
+def _tile_grids(rng, r4, c4, mvs, px):
+    """(inter, comp, mv16, refsel, filt) for cells where each 16 x 16
+    tile has one motion a reference: a plane and an MV (half the tiles
+    within 12 px, half out to `px`) for each reference and one filter
+    bank; each reference's phases drawn from the four classes (mx and my
+    both 0, mx alone, my alone, neither); one tile in five with a motion
+    of its own for every cell on reference 0, its compound cells still
+    sharing reference 1's; inter cells 85%, none in one tile in twelve,
+    compound cells half of them."""
+    tr, tc = -(-r4 // 4), -(-c4 // 4)
+
+    def cells(a):
+        return np.repeat(np.repeat(a, 4, 0), 4, 1)[:r4, :c4]
+
+    lim = np.where(rng.rand(tr, tc) < 0.5, 12, px) * 16 // mvs
+    mv = np.stack([rng.randint(-lim, lim + 1) for _ in range(4)], -1)
+    cls = rng.randint(0, 4, (tr, tc, 2))
+    for ri in range(2):
+        for a in range(2):
+            mv[..., 2 * ri + a] = _snap_phase(mv[..., 2 * ri + a], mvs,
+                                              (cls[..., ri] >> a) & 1)
+    mv16 = cells(mv.reshape(tr, tc, 2, 2)).astype(np.int32)
+    refsel = cells(rng.randint(0, 3, (tr, tc, 2))).astype(np.int32)
+    filt = cells(rng.randint(0, 4, (tr, tc))).astype(np.int32)
+    mixed = cells(rng.rand(tr, tc) < 0.2)
+    lim0 = px * 16 // mvs
+    own = rng.randint(-lim0, lim0 + 1, (r4, c4, 2))
+    mv16[mixed, 0] = own[mixed]
+    refsel[mixed, 0] = rng.randint(0, 3, int(mixed.sum()))
+    inter = (rng.rand(r4, c4) < 0.85) & ~cells(rng.rand(tr, tc) < 1 / 12)
+    comp = rng.rand(r4, c4) < 0.5
+    return inter, comp, mv16, refsel, filt
+
+
 def _frame(name, seed=0):
     """One case of CASES: per plane (Y, U, V) the JAX arguments of
     _recon_plane_inter (coefficients and grids) and the MC inputs,
     numpy. Cells that are not inter carry out-of-range refsel, filter
-    and MV values."""
-    px, has_comp, missing, all_comp = CASES[name]
+    and MV values. The cases of one motion a tile draw references with
+    values out of range too, so that a pass at phase 0 shows its clip."""
+    px, has_comp, missing, all_comp, tiles = CASES[name]
     rng = np.random.RandomState(seed + sum(map(ord, name)))
     planes = []
     for i in range(3):
@@ -75,17 +122,23 @@ def _frame(name, seed=0):
         h = (FRAME["h"] + sub) >> sub
         mvs = 1 if i else 2
         r4, c4 = H // 4, W // 4
-        refs = [rng.randint(0, 256, (H, W)).astype(np.int32)
+        lo, hi = (-40, 300) if tiles else (0, 256)
+        refs = [rng.randint(lo, hi, (H, W)).astype(np.int32)
                 for _ in range(3)]
         if missing:
             refs[1] = refs[0]   # recon_frame's stand-in for an empty slot
-        inter = np.ones((r4, c4), bool) if all_comp \
-            else rng.rand(r4, c4) < 0.75
-        comp = np.ones((r4, c4), bool) if all_comp else rng.rand(r4, c4) < 0.5
-        lim = px * 16 // mvs
-        mv16 = rng.randint(-lim, lim + 1, (r4, c4, 2, 2)).astype(np.int32)
-        refsel = rng.randint(0, 3, (r4, c4, 2)).astype(np.int32)
-        filt = rng.randint(0, 4, (r4, c4)).astype(np.int32)
+        if tiles:
+            inter, comp, mv16, refsel, filt = _tile_grids(rng, r4, c4, mvs,
+                                                          px)
+        else:
+            inter = np.ones((r4, c4), bool) if all_comp \
+                else rng.rand(r4, c4) < 0.75
+            comp = np.ones((r4, c4), bool) if all_comp \
+                else rng.rand(r4, c4) < 0.5
+            lim = px * 16 // mvs
+            mv16 = rng.randint(-lim, lim + 1, (r4, c4, 2, 2)).astype(np.int32)
+            refsel = rng.randint(0, 3, (r4, c4, 2)).astype(np.int32)
+            filt = rng.randint(0, 4, (r4, c4)).astype(np.int32)
         off = ~inter
         refsel[off] = rng.choice([-9, -1, 3, 7], (int(off.sum()), 2))
         filt[off] = rng.choice([-5, 4, 9], int(off.sum()))
@@ -174,12 +227,23 @@ def test_cases_reach_what_they_claim(frames):
             & ~frames["far_no_comp"][0][0]["inter"]).any()
 
 
+def _source():
+    with open(MC_CU) as f:
+        return f.read()
+
+
 def _ftab_of_source():
-    src = open(MC_CU).read()
+    src = _source()
     body = src[src.index("kFtab[4][16][8] = {"):]
     body = re.sub(r"//[^\n]*", "", body[:body.index("};")])
     vals = [int(v) for v in re.findall(r"-?\d+", body)[3:]]
     return np.asarray(vals, np.int64).reshape(4, 16, 8)
+
+
+def _constant(name):
+    """The value of `constexpr int name = <literal>;` in csrc/mc.cu."""
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _source()).group(1))
 
 
 def test_kernel_filter_table_is_the_ports_and_jaxs():
@@ -188,89 +252,293 @@ def test_kernel_filter_table_is_the_ports_and_jaxs():
     assert np.array_equal(ftab, np.asarray(J._FTAB))
 
 
-def _mc_model(job, bpp, has_comp, ftab):
-    """csrc/mc.cu's threads on one plane, in numpy: a block per 16 x 16
-    tile, thread t at pixel (t // 16, t % 16), rank (py & 3) * 4 + (px &
-    3) in its cell; the cell's patch entries rank + 16 i in shared
-    memory, its horizontal values rank + 16 i, then the thread's own
-    vertical pass. Shared memory starts as garbage."""
-    residual, inter4, comp, filt, refsel, mv16, refs, w, h, mvsx, mvsy = (
-        x.numpy().astype(np.int64) if torch.is_tensor(x) else x for x in job)
-    refs = np.stack([r.numpy().astype(np.int64) for r in job[6]])
-    H, W = residual.shape
-    maxp = (1 << bpp) - 1
-    out = np.full((H, W), -1, np.int64)
-    t = np.arange(256)
-    py, px = t // 16, t % 16
-    cell = (py >> 2) * 4 + (px >> 2)
-    rank = (py & 3) * 4 + (px & 3)
-    garbage = np.random.RandomState(5)
-    skipped = second = 0
-    for ty in range(-(-H // 16)):
-        for tx in range(-(-W // 16)):
-            y, x = ty * 16 + py, tx * 16 + px
-            inside = (y < H) & (x < W)
+LANE = np.arange(32)
+QUAD = np.arange(4)
+
+
+class _Warp:
+    """csrc/mc.cu's warp on one tile of a plane, in numpy, a value per
+    lane: the warp's slice of shared memory, laid out as the kernel lays
+    it out and starting each tile as garbage (a warp takes its tiles in
+    turn, and a tile finds what the last one left), and the statistics
+    of the paths it took (`stats`, a dict of counts)."""
+
+    def __init__(self, job, bpp, has_comp, ftab, stats, garbage):
+        (self.residual, self.inter4, self.comp4, self.filt, self.refsel,
+         self.mv16, _r, self.w, self.h, self.mvsx, self.mvsy) = (
+            x.numpy().astype(np.int64) if torch.is_tensor(x) else x
+            for x in job)
+        self.refs = np.stack([r.numpy().astype(np.int64) for r in job[6]])
+        self.H, self.W = self.residual.shape
+        self.maxp = (1 << bpp) - 1
+        self.has_comp = bool(has_comp)
+        self.ftab = ftab
+        self.stats = stats
+        self.garbage = garbage
+        self.lanes = _constant("kCellLanes")
+        self.stride = _constant("kWinStride")
+        self.step = 32 // self.lanes
+        self.hv = 23 * self.stride
+        self.res = self.hv + 23 * 16
+        self.cell_hv = self.step * 121
+        self.pred = (self.cell_hv + self.step * 44 + 3) & ~3
+
+    def count(self, key):
+        self.stats[key] = self.stats.get(key, 0) + 1
+
+    def tile(self, ty, tx):
+        """The lane's two quads: (their rows, their column, their four
+        values each, whether each lies inside the plane)."""
+        H, W, maxp = self.H, self.W, self.maxp
+        self.s = self.garbage.randint(-999, 999, self.res + 16 * 16)
+        y0, x0 = 16 * ty, 16 * tx
+        x = x0 + 4 * (LANE & 3)
+        rows = [y0 + (LANE >> 2) + 8 * k for k in range(2)]
+        qin, inter, comp, cell = [], [], [], []
+        for y in rows:
+            ok = (y < H) & (x < W)
             gy, gx = np.minimum(y, H - 1) >> 2, np.minimum(x, W - 1) >> 2
-            inter = inside & inter4[gy, gx].astype(bool)
-            cmp = inter & bool(has_comp) & comp[gy, gx].astype(bool)
-            if not inter.any():
-                out[y[inside], x[inside]] = 0
-                skipped += 1
-                continue
-            nref = 2 if cmp.any() else 1
-            second += nref == 2
-            bank = np.where(inter, np.clip(filt[gy, gx], 0, 3), 0)
-            pred = np.zeros(256, np.int64)
-            for ri in range(nref):
-                act = inter if ri == 0 else cmp
-                patch = garbage.randint(-999, 999, (16, 121))
-                hval = garbage.randint(-999, 999, (16, 44))
-                mvx = np.where(act, mv16[gy, gx, ri, 0], 0) * mvsx
-                mvy = np.where(act, mv16[gy, gx, ri, 1], 0) * mvsy
-                iy = (y & ~3) + (mvy >> 4) - 3
-                ix = (x & ~3) + (mvx >> 4) - 3
-                mx, my = mvx & 15, mvy & 15
-                rs = np.clip(refsel[gy, gx, ri], 0, 2)
-                for i in range(8):
-                    j = rank + 16 * i
-                    ok = act & (j < 121)
-                    sy = np.clip(iy + j // 11, 0, h - 1)
-                    sx = np.clip(ix + j % 11, 0, w - 1)
-                    patch[cell[ok], j[ok]] = refs[rs[ok], sy[ok], sx[ok]]
-                for i in range(3):
-                    j = rank + 16 * i
-                    ok = act & (j < 44)
-                    base = (j >> 2) * 11 + (j & 3)
-                    acc = sum(ftab[bank, mx, k]
-                              * patch[cell, np.minimum(base + k, 120)]
-                              for k in range(8))
-                    hval[cell[ok], j[ok]] = np.clip((acc + 64) >> 7, 0,
-                                                    maxp)[ok]
-                src = (py & 3) * 4 + (px & 3)
-                acc = sum(ftab[bank, my, k] * hval[cell, src + 4 * k]
-                          for k in range(8))
-                v = np.clip((acc + 64) >> 7, 0, maxp)
-                pred = np.where(act, v if ri == 0 else (pred + v + 1) >> 1,
-                                pred)
-            val = np.where(inter, np.clip(
-                pred + residual[np.minimum(y, H - 1), np.minimum(x, W - 1)],
-                0, maxp), 0)
-            out[y[inside], x[inside]] = val[inside]
+            qin.append(ok)
+            inter.append(ok & self.inter4[gy, gx].astype(bool))
+            comp.append(inter[-1] & self.comp4[gy, gx].astype(bool)
+                        & self.has_comp)
+            cell.append((gy, gx))
+        self.count("tiles")
+        if not (inter[0] | inter[1]).any():
+            self.count("skipped")
+            return rows, x, [np.zeros((32, 4), np.int64)] * 2, qin
+        # the inter quads' residuals into the slice
+        at = [self.res + ((LANE >> 2) + 8 * k)[:, None] * 16
+              + 4 * (LANE & 3)[:, None] + QUAD for k in range(2)]
+        for k, y in enumerate(rows):
+            on = inter[k]
+            self.s[at[k][on]] = self.residual[y[on, None], x[on, None] + QUAD]
+        nref = 2 if (comp[0] | comp[1]).any() else 1
+        self.count("second" if nref == 2 else "first_only")
+        pred = [None, None]
+        paths = []
+        for ri in range(nref):
+            act = inter if ri == 0 else comp
+            keys = [self.motion(gy, gx, ri, a)
+                    for (gy, gx), a in zip(cell, act)]
+            src = np.flatnonzero(act[0] | act[1])[0]
+            k0 = 0 if act[0][src] else 1
+            lead = tuple(int(c[src]) for c in keys[k0])
+            same = all(
+                ((~a) | np.all([c == v for c, v in zip(key, lead)], 0)).all()
+                for a, key in zip(act, keys))
+            if same:
+                v = self.window(lead, y0, x0)
+                paths.append("window")
+                if ri == 0 and any(((~i) & q).any()
+                                   for i, q in zip(inter, qin)):
+                    self.count("window_beside_non_inter")
+            else:
+                cells = 0
+                for k, a in enumerate(act):
+                    for ln in np.flatnonzero(a):
+                        cells |= 1 << int(((ln >> 4) + 2 * k) * 4
+                                          + (ln & 3))
+                v = self.walk(cells, ri, y0 >> 2, x0 >> 2)
+                paths.append("cells")
+            self.count(f"{paths[-1]}{ri}")
+            for k in range(2):
+                pred[k] = v[k] if ri == 0 else np.where(
+                    act[k][:, None], (pred[k] + v[k] + 1) >> 1, pred[k])
+        if paths == ["cells", "window"]:
+            self.count("cells0_window1")
+        out = [np.where(inter[k][:, None],
+                        np.clip(pred[k] + self.s[at[k]], 0, maxp), 0)
+               for k in range(2)]
+        return rows, x, out, qin
+
+    def motion(self, gy, gx, ri, act):
+        """A lane's (plane, mvx, mvy, bank) of one of its cells for
+        reference ri; zeros where the cell does not use it."""
+        return (np.where(act, np.clip(self.refsel[gy, gx, ri], 0, 2), 0),
+                np.where(act, self.mv16[gy, gx, ri, 0], 0) * self.mvsx,
+                np.where(act, self.mv16[gy, gx, ri, 1], 0) * self.mvsy,
+                np.where(act, np.clip(self.filt[gy, gx], 0, 3), 0))
+
+    def window(self, lead, y0, x0):
+        ref, mvx, mvy, bank = lead
+        s, hv, maxp = self.s, self.hv, self.maxp
+        mx, my = mvx & 15, mvy & 15
+        nr, nc = (23 if my else 16), (23 if mx else 16)
+        wy = y0 + (mvy >> 4) - (3 if my else 0)
+        wx = x0 + (mvx >> 4) - (3 if mx else 0)
+        self.count({(0, 0): "phase00", (0, 1): "phase0x", (1, 0): "phase0y",
+                    (1, 1): "phase_xy"}[(bool(mx), bool(my))])
+        for edge, crossed in (("top", wy < 0), ("left", wx < 0),
+                              ("bottom", wy + nr > self.h),
+                              ("right", wx + nc > self.w)):
+            if crossed:
+                self.count("edge_" + edge)
+        # a row a step, lane on column; two rows a step at 16 columns
+        c = LANE if mx else LANE & 15
+        r0 = 0 if mx else LANE >> 4
+        for i in range(23):
+            r = r0 + (i if mx else 2 * i)
+            ok = (c < nc) & (r < nr)
+            val = self.refs[ref, np.clip(wy + r, 0, self.h - 1),
+                            np.clip(wx + c, 0, self.w - 1)]
+            at = r * self.stride + c if mx else hv + r * 16 + c
+            s[at[ok]] = val[ok]
+        if mx:
+            t = self.ftab[bank, mx]
+            for i in range(3):
+                j = LANE + 32 * i
+                g, qc = j >> 2, j & 3
+                r = (g & ~3) | ((g & 1) << 1) | ((g >> 1) & 1)
+                ok = r < nr
+                base = np.where(ok, r * self.stride + 4 * qc, 0)
+                w12 = s[base[:, None] + np.arange(12)]
+                o = np.stack([np.clip((w12[:, i:i + 8] @ t + 64) >> 7, 0,
+                                      maxp) for i in range(4)], 1)
+                dst = hv + r * 16 + 4 * qc
+                s[(dst[:, None] + QUAD)[ok]] = o[ok]
+        # the vertical pass reads the horizontal values, clipped where
+        # the window went in raw (mx == 0)
+        def read(at):
+            return s[at] if mx else np.clip(s[at], 0, maxp)
+
+        t = self.ftab[bank, my]
+        v = []
+        for k in range(2):
+            y = (LANE >> 2) + 8 * k
+            at = hv + 4 * (LANE & 3)[:, None] + QUAD
+            if my:
+                acc = sum(t[tap] * read(at + ((y + tap) * 16)[:, None])
+                          for tap in range(8))
+                v.append(np.clip((acc + 64) >> 7, 0, maxp))
+            else:
+                v.append(read(at + (y * 16)[:, None]))
+        return v
+
+    def walk(self, cells, ri, cy0, cx0):
+        s, maxp, n = self.s, self.maxp, self.lanes
+        grp, rank = LANE // n, LANE % n
+        while cells:
+            picked = []
+            for _ in range(self.step):
+                picked.append(((cells & -cells).bit_length() - 1)
+                              if cells else -1)
+                cells &= cells - 1
+            self.count("walk_steps")
+            todo = []
+            for gi, c in enumerate(picked):
+                if c < 0:
+                    continue
+                gy, gx = cy0 + (c >> 2), cx0 + (c & 3)
+                mvx = int(self.mv16[gy, gx, ri, 0]) * self.mvsx
+                mvy = int(self.mv16[gy, gx, ri, 1]) * self.mvsy
+                ref = int(np.clip(self.refsel[gy, gx, ri], 0, 2))
+                bank = int(np.clip(self.filt[gy, gx], 0, 3))
+                iy, ix = 4 * gy + (mvy >> 4) - 3, 4 * gx + (mvx >> 4) - 3
+                lanes = grp == gi
+                # a row a step, the lane on columns rank, rank + n, ...
+                cols = np.concatenate([np.arange(c0, 11, n)
+                                       for c0 in rank[lanes]])
+                r = np.arange(11)[:, None]
+                s[gi * 121 + r * 11 + cols] = self.refs[
+                    ref, np.clip(iy + r, 0, self.h - 1),
+                    np.clip(ix + cols, 0, self.w - 1)]
+                todo.append((gi, c, bank, mvx & 15, mvy & 15, lanes))
+            for gi, c, bank, mx, my, lanes in todo:
+                t = self.ftab[bank, mx]
+                for j0 in rank[lanes]:
+                    for j in range(j0, 44, n):
+                        src = gi * 121 + (j >> 2) * 11 + (j & 3)
+                        s[self.cell_hv + gi * 44 + j] = np.clip(
+                            (s[src:src + 8] @ t + 64) >> 7, 0, maxp)
+            for gi, c, bank, mx, my, lanes in todo:
+                t = self.ftab[bank, my]
+                for p0 in rank[lanes]:
+                    for px in range(p0, 16, n):
+                        h8 = s[self.cell_hv + gi * 44 + px
+                               + 4 * np.arange(8)]
+                        s[self.pred + ((c >> 2) * 4 + (px >> 2)) * 16
+                          + (c & 3) * 4 + (px & 3)] = np.clip(
+                            (h8 @ t + 64) >> 7, 0, maxp)
+        return [s[self.pred + ((LANE >> 2) + 8 * k)[:, None] * 16
+                  + 4 * (LANE & 3)[:, None] + QUAD] for k in range(2)]
+
+
+def _mc_model(job, bpp, has_comp, ftab, stats):
+    """csrc/mc.cu on one plane, in numpy: a _Warp per 16 x 16 tile, its
+    path statistics added to `stats`."""
+    warp = _Warp(job, bpp, has_comp, ftab, stats, np.random.RandomState(5))
+    out = np.full((warp.H, warp.W), -1, np.int64)
+    for ty in range(-(-warp.H // 16)):
+        for tx in range(-(-warp.W // 16)):
+            rows, x, vals, qin = warp.tile(ty, tx)
+            for y, v, ok in zip(rows, vals, qin):
+                out[y[ok, None], x[ok, None] + QUAD] = v[ok]
     assert (out >= 0).all()
-    return out, skipped, second
+    return out
 
 
-@pytest.mark.parametrize("name", ["far", "far_no_comp", "missing_ref"])
-def test_kernel_thread_model_matches_jax(name, frames, jax_out):
-    planes, has_comp = frames[name]
+@pytest.fixture(scope="module")
+def model_runs(frames):
+    """Per case the model's three planes and its path statistics."""
     ftab = _ftab_of_source()
-    skipped = second = 0
-    for (want, _res), job in zip(jax_out[name], _jobs(planes)):
-        got, sk, sec = _mc_model(job, 8, has_comp, ftab)
+    runs = {}
+    for name in CASES:
+        planes, has_comp = frames[name]
+        stats = {}
+        outs = [_mc_model(job, 8, has_comp, ftab, stats)
+                for job in _jobs(planes)]
+        runs[name] = (outs, stats)
+    return runs
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_thread_model_matches_jax(name, frames, jax_out, model_runs):
+    outs, stats = model_runs[name]
+    for (want, _res), got in zip(jax_out[name], outs):
         _same(want, got)
-        skipped += sk
-        second += sec
-    assert second if has_comp else not second
+    has_comp = frames[name][1]
+    assert stats.get("second", 0) if has_comp else not stats.get("second")
+
+
+def test_cases_reach_what_they_claim(frames, model_runs):
+    """The inputs exercise what the cases are for, and the model's warps
+    take every path and meet every trap of the kernel."""
+    planes, _ = frames["far"]
+    y = planes[0]
+    inter = y["inter"]
+    assert (np.abs(y["mv16"][inter]) * 2 >= 140 * 16).any()
+    assert ((y["mv16"][inter] & 15) != 0).any() and (y["mv16"][inter] < 0).any()
+    assert set(np.unique(y["filt"][inter])) == {0, 1, 2, 3}
+    assert ((y["refsel"][~inter] < 0) | (y["refsel"][~inter] > 2)).any()
+    assert planes[1]["w"] % 2 and planes[1]["h"] % 2
+    assert frames["all_compound"][0][0]["comp"].all()
+    assert (frames["far_no_comp"][0][0]["comp"]
+            & ~frames["far_no_comp"][0][0]["inter"]).any()
+    # the random-motion cases walk the cells, with the odd single-motion
+    # tile among them
+    for name in ("near", "far", "missing_ref", "all_compound"):
+        stats = model_runs[name][1]
+        assert stats["cells0"] and stats.get("cells1", 0), name
+    # one motion a tile: the window on both references, every phase
+    # class, every visible edge crossed (with columns beyond the odd
+    # visible width of the padded references), cells that are not inter
+    # beside a window, reference 0 mixed while reference 1's compound
+    # cells share one motion, the walk and the skipped tiles too
+    stats = model_runs["tiles"][1]
+    for key in ("window0", "window1", "cells0", "skipped", "phase00",
+                "phase0x", "phase0y", "phase_xy", "edge_top", "edge_left",
+                "edge_bottom", "edge_right", "window_beside_non_inter",
+                "cells0_window1"):
+        assert stats.get(key, 0) > 0, key
+    assert stats["window0"] > stats["cells0"]
+    stats = model_runs["tiles_no_comp"][1]
+    assert stats["window0"] and not stats.get("second")
+    planes = frames["tiles"][0]
+    assert all((p["refs"][0] < 0).any() and (p["refs"][0] > 255).any()
+               for p in planes)
+    for p in planes:
+        assert p["w"] < p["refs"][0].shape[1] and p["h"] < p["refs"][0].shape[0]
 
 
 def test_kernel_thread_model_skips_tiles_without_inter_cells(frames,
@@ -283,9 +551,10 @@ def test_kernel_thread_model_skips_tiles_without_inter_cells(frames,
     inter[:, :8] = False      # two 16-pixel tile columns
     planes[0]["inter"] = inter
     want = _jax_planes(planes[:1], has_comp)[0][0]
-    got, skipped, _ = _mc_model(_jobs(planes[:1])[0], 8, has_comp,
-                                _ftab_of_source())
-    assert skipped == 8
+    stats = {}
+    got = _mc_model(_jobs(planes[:1])[0], 8, has_comp, _ftab_of_source(),
+                    stats)
+    assert stats["skipped"] == 8
     _same(want, got)
 
 
@@ -326,6 +595,13 @@ def test_mc_wrapper_off_cpu_goes_to_the_kernel(monkeypatch, frames):
            (6, (job[6][0], job[6][1], job[6][2][:8]), ValueError),
            (7, FRAME["W"] + 1, ValueError),
            (9, 3, ValueError)]
+    # the kernel's vector loads: a residual, mv16 or refsel off their
+    # alignment is refused
+    for k in (0, 5, 4):
+        shape = tuple(job[k].shape)
+        bad.append((k, torch.empty(int(np.prod(shape)) + 1, dtype=torch.int32,
+                                   device="meta")[1:].view(shape),
+                    ValueError))
     for k, v, exc in bad:
         case = list(job)
         case[k] = v
