@@ -49,16 +49,20 @@ Phases, one status line each; any failure exits non-zero:
                  level than a window holds, so that every level of U
                  spans two windows or more;
                - _grids_from_records (csrc/splat.cu) on the records of
-                 bench_1080p frames 0-1 and bench_1080p_lf frame 0 as
-                 recon_frame hands them over, then on those records with
-                 MVs drawn from a seed under the three other chroma
-                 subsamplings, all 14 grids bit for bit with dtypes;
+                 bench_1080p frames 0-1, bench_1080p_lf frame 0 and
+                 bench_4k frame 1 as recon_frame hands them over, then
+                 on those records with MVs drawn from a seed under the
+                 three other chroma subsamplings, all 14 grids bit for
+                 bit with dtypes;
                - grids_device (csrc/lf_grids.cu) on the levels and masks
-                 of bench_1080p_lf frame 0 under all four subsamplings;
+                 of bench_1080p_lf frame 0 and bench_4k frame 0 under
+                 all four subsamplings;
                each with its time, bound terms and the plain version's
                time on the same inputs (the last two timed on the card's
                clock with torch.profiler, since their wrappers' host
-               work outlasts their kernels)
+               work outlasts their kernels, with their device ops per
+               call, beside an empty kernel's time in the same harness:
+               the launch floor)
   4. decode    each clip through VP9Decoder(device="cuda")
                .decode_stream, every MD5 against its framemd5: all 30
                frames of vectors/bench_1080p.ivf (no loop filter: the
@@ -81,6 +85,7 @@ Phases, one status line each; any failure exits non-zero:
 The script needs the repository around it and a CUDA device; without
 either it exits non-zero and prints no result.
 """
+import gc
 import hashlib
 import json
 import os
@@ -179,8 +184,11 @@ def cuda_ms(fn, reps):
 def device_ms(torch, fn, reps, names):
     """(mean device ms, device operations) per call of fn over reps calls:
     the kernels and memsets whose names hold one of `names`, from
-    torch.profiler. A wrapper whose host work outlasts its kernels reads
-    as its host time under CUDA events; this reads the card's own."""
+    torch.profiler: their summed device time, less the share by which
+    their intervals overlap (a programmatic dependent launch runs beside
+    the launch before it, and that time counts once). A wrapper whose
+    host work outlasts its kernels reads as its host time under CUDA
+    events; this reads the card's own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -199,7 +207,68 @@ def device_ms(torch, fn, reps, names):
             ops += e.count
     if not us:
         raise RuntimeError(f"the profiler saw no device time of {names}")
-    return us / 1e3 / reps, ops / reps
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and any(k in e.name for k in names))
+    total = sum(b - a for a, b in spans)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    share = busy / total if total > 0 else 1.0
+    return us * share / 1e3 / reps, ops / reps
+
+
+# a kernel that does nothing, one block of one warp: its device time is
+# the floor that a small kernel's time is read against
+EMPTY_CU = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_empty_build():
+    """nvcc of EMPTY_CU into the port's build directory, started:
+    (process, library path); load_empty() waits for it."""
+    from ffmpeg_hybrid_tpu_torch import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    stem = os.path.join(_build.BUILD_DIR, "empty_kernel")
+    with open(stem + ".cu", "w") as f:
+        f.write(EMPTY_CU)
+    return subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", stem + ".so",
+         stem + ".cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True), stem + ".so"
+
+
+def load_empty(build):
+    """The empty kernel's launcher fn() on the current stream, once its
+    build has ended; raises if it failed."""
+    import ctypes
+    import torch
+    proc, path = build
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc of the empty kernel failed:\n{log}")
+    lib = ctypes.CDLL(path)
+    lib.empty.argtypes = [ctypes.c_void_p]
+    lib.empty.restype = ctypes.c_int
+
+    def fn():
+        rc = lib.empty(torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"empty kernel: CUDA error {rc}")
+    return fn
+
+
+def launch_floor_ms(torch, empty, reps=50):
+    """The empty kernel's device time, in device_ms like any kernel."""
+    return device_ms(torch, empty, reps, ("empty_kernel",))[0]
 
 
 def bounds(nbytes, nops, chain):
@@ -1182,23 +1251,25 @@ def max_diff(outs, wants):
     return err
 
 
-def splat_phase(torch, np, calls):
+def splat_phase(torch, np, calls, call_4k):
     """_grids_from_records on the records of bench_1080p frames 0-1 and
     bench_1080p_lf frame 0 as recon_frame hands them over ({clip: [args,
-    ...]}), then on each with MVs drawn from SEED under the three other
+    ...]}), and on those of bench_4k frame 1 (call_4k, an inter frame),
+    then on each with MVs drawn from SEED under the three other
     subsamplings: the kernel against the plain version on the card, all
-    14 grids bit for bit with their dtypes; its device time per frame
-    (device_ms: the memset and both passes), the wrapper's call under
-    CUDA events and the plain version's time, on the clips' own
-    subsampling; the bound: the records read and the grids written once,
-    and SPLAT_CELL_OPS a cell."""
+    14 grids bit for bit with their dtypes; its device time and device
+    ops per call (device_ms), the wrapper's call under CUDA events and
+    the plain version's time, on the clips' own subsampling; the bound:
+    the records read and the grids written once, and SPLAT_CELL_OPS a
+    cell. The mean over the three 1080p frames is the kernel's line;
+    bench_4k is reported beside it."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
     rng = np.random.RandomState(SEED)
     err = 0
     ms = call_ms = plain_ms = nbytes = nops = 0.0
-    shapes = []
+    shapes, ops_per_call, k4 = [], [], {}
     real = [(clip, args) for clip, cl in calls.items() for args in cl]
-    for clip, args in real:
+    for clip, args in real + [("bench_4k", call_4k)]:
         recs, r4, c4, ss_h, ss_v = args
         if (ss_h, ss_v) != (1, 1):
             raise RuntimeError(f"{clip} is not 4:2:0")
@@ -1216,93 +1287,118 @@ def splat_phase(torch, np, calls):
             if e:
                 raise RuntimeError(f"_grids_from_records on {clip} under "
                                    f"{ss}: kernel != plain (max |diff| {e})")
-            if rr is recs:
-                plain_ms += t
+            if rr is not recs:
+                continue
 
-                def call():
-                    R._grids_from_records(recs, r4, c4, ss_h, ss_v)
-                kernel_ms, dev_ops = device_ms(torch, call, 50,
-                                               ("splat_", "Memset"))
-                ms += kernel_ms
-                call_ms += cuda_ms(call, 50)
-                nbytes += recs.numel() * 2 + sum(
-                    o.numel() * o.element_size() for o in outs)
-                nops += SPLAT_CELL_OPS * (r4 * c4 + outs[8].numel())
-                shapes.append(f"{clip} {tuple(recs.shape)} records, "
-                              f"{r4}x{c4} cells: {kernel_ms:.5f} ms on "
-                              f"the card in {dev_ops:g} device ops")
+            def call():
+                R._grids_from_records(recs, r4, c4, ss_h, ss_v)
+            kernel_ms, dev_ops = device_ms(torch, call, 50,
+                                           ("splat_", "Memset"))
+            b = recs.numel() * 2 + sum(o.numel() * o.element_size()
+                                       for o in outs)
+            o = SPLAT_CELL_OPS * (r4 * c4 + outs[8].numel())
+            ops_per_call.append(dev_ops)
+            shapes.append(f"{clip} {tuple(recs.shape)} records, {r4}x{c4} "
+                          f"cells: {kernel_ms:.5f} ms on the card in "
+                          f"{dev_ops:g} device ops")
+            if clip == "bench_4k":
+                k4 = {"ms": kernel_ms, "plain_ms": t, "device_ops": dev_ops,
+                      "bound_ms": bounds(b, o, 0)[0], "bytes_needed": b,
+                      "records": list(recs.shape), "cells": [r4, c4]}
+                continue
+            plain_ms += t
+            ms += kernel_ms
+            call_ms += cuda_ms(call, 50)
+            nbytes += b
+            nops += o
     nf = len(real)
     bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
     say("kernels", f"_grids_from_records on {'; '.join(shapes)}: "
-        f"ms/frame={ms / nf:.5f} (the wrapper's call, host-bound under "
-        f"CUDA events, {call_ms / nf:.4f}) plain_ms/frame="
-        f"{plain_ms / nf:.2f} bound_ms/frame={bound_ms:.6f} ({bound_by}, "
-        f"{nbytes / nf:.0f} B, {nops / nf:.0f} ops); exact vs plain (14 "
-        "grids, dtypes), also with seeded MVs under 4:2:2, 4:4:0 and "
-        "4:4:4")
+        f"ms/frame={ms / nf:.5f} over the 1080p frames (the wrapper's "
+        f"call, host-bound under CUDA events, {call_ms / nf:.4f}) "
+        f"plain_ms/frame={plain_ms / nf:.2f} bound_ms/frame={bound_ms:.6f} "
+        f"({bound_by}, {nbytes / nf:.0f} B, {nops / nf:.0f} ops); "
+        f"bench_4k frame 1: {k4['ms']:.5f} ms, bound {k4['bound_ms']:.6f}; "
+        "exact vs plain (14 grids, dtypes), also with seeded MVs under "
+        "4:2:2, 4:4:0 and 4:4:4")
     return {"name": "_grids_from_records", "route": "cuda",
             "source": SPLAT_SRC, "replaces": SPLAT_REPLACES,
             "launches": None, "max_abs_err": err, "ms": ms / nf,
             "plain_ms": plain_ms / nf, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "per": "frame (memset, index and gather passes), mean of "
+            "per": "frame (an index launch and a gather launch), mean of "
                    "bench_1080p frames 0-1 and bench_1080p_lf frame 0",
             "call_ms": call_ms / nf, "bytes_needed": nbytes / nf,
-            "ops": nops / nf}
+            "ops": nops / nf, "device_ops_per_call": ops_per_call,
+            "bench_4k_frame_1": k4}
 
 
-def lf_grids_phase(torch, np, calls):
-    """grids_device on the levels and masks of bench_1080p_lf frame 0 as
-    the decoder hands them over, under all four subsamplings: the kernel
-    against the plain version on the card, bit for bit; its device time
-    (device_ms), the wrapper's call under CUDA events and the plain
+def lf_grids_phase(torch, np, call, call_4k):
+    """grids_device on the levels and masks of bench_1080p_lf frame 0 and
+    of bench_4k frame 0 (its filtered keyframe) as the decoder hands
+    them over, under all four subsamplings: the kernel against the plain
+    version on the card, bit for bit; its device time and device ops per
+    call (device_ms), the wrapper's call under CUDA events and the plain
     version's time, under the clip's own subsampling; the bound: the
     levels, masks and tables read and the four grids written once, and
-    LF_GRID_OPS a quad."""
+    LF_GRID_OPS a quad. bench_1080p_lf frame 0 is the kernel's line;
+    bench_4k is reported beside it."""
     from ffmpeg_hybrid_tpu_torch.ops import lpf_masks as LM
-    if len(calls) != 1:
-        raise RuntimeError(f"frame 0 ran {len(calls)} grids calls")
-    lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v = calls[0]
-    if (ss_h, ss_v) != (1, 1):
-        raise RuntimeError("bench_1080p_lf is not 4:2:0")
     err = 0
-    for ss in SUBSAMPLINGS:
-        outs = LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, *ss)
-        wants, t = host_ms(torch, lambda: LM.grids_device_plain(
-            lfl, lfm, luts, sb_rows, sb_cols, *ss))
-        e = max_diff(outs, wants)
-        err = max(err, e)
-        if e:
-            raise RuntimeError(f"grids_device under {ss}: kernel != plain "
-                               f"(max |diff| {e})")
-        if ss == (ss_h, ss_v):
-            plain_ms, grids = t, outs
-    active = [int((g[..., 0] > 0).sum()) for g in grids]
-    if not all(active):
-        raise RuntimeError(f"grids with no edge: {active} active")
-    def call():
-        LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v)
-    ms, _ops = device_ms(torch, call, 50, ("lf_grids_kernel",))
-    call_ms = cuda_ms(call, 50)
-    quads = sum(g.numel() // 4 for g in grids)
-    nbytes = lfl.numel() * 2 + (lfm.numel() + luts.numel()) * 4 + quads * 16
-    bound_ms, bound_by, _chain = bounds(nbytes, LF_GRID_OPS * quads, 0)
-    say("kernels", f"grids_device on bench_1080p_lf frame 0 ({sb_rows}x"
-        f"{sb_cols} superblocks; grids {[tuple(g.shape) for g in grids]}, "
-        f"{active} active edges): ms={ms:.5f} on the card (the wrapper's "
-        f"call, host-bound under CUDA events, {call_ms:.4f}) "
-        f"plain_ms={plain_ms:.2f} "
-        f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
-        f"{LF_GRID_OPS * quads} ops); exact vs plain under 4:2:0, 4:2:2, "
-        "4:4:0 and 4:4:4")
+    lines, found = [], {}
+    for clip, args in (("bench_1080p_lf", call), ("bench_4k", call_4k)):
+        lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v = args
+        if (ss_h, ss_v) != (1, 1):
+            raise RuntimeError(f"{clip} is not 4:2:0")
+        for ss in SUBSAMPLINGS:
+            outs = LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, *ss)
+            wants, t = host_ms(torch, lambda: LM.grids_device_plain(
+                lfl, lfm, luts, sb_rows, sb_cols, *ss))
+            e = max_diff(outs, wants)
+            err = max(err, e)
+            if e:
+                raise RuntimeError(f"grids_device on {clip} under {ss}: "
+                                   f"kernel != plain (max |diff| {e})")
+            if ss == (ss_h, ss_v):
+                plain_ms, grids = t, outs
+        active = [int((g[..., 0] > 0).sum()) for g in grids]
+        if not all(active):
+            raise RuntimeError(f"{clip}: grids with no edge: {active} "
+                               "active")
+
+        def call_():
+            LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v)
+        ms, dev_ops = device_ms(torch, call_, 50, ("lf_grids_kernel",))
+        quads = sum(g.numel() // 4 for g in grids)
+        nbytes = lfl.numel() * 2 + (lfm.numel() + luts.numel()) * 4 \
+            + quads * 16
+        bound_ms, bound_by, _chain = bounds(nbytes, LF_GRID_OPS * quads, 0)
+        found[clip] = {"ms": ms, "plain_ms": plain_ms, "device_ops": dev_ops,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes_needed": nbytes, "ops": LF_GRID_OPS * quads,
+                       "call_ms": cuda_ms(call_, 50),
+                       "superblocks": [sb_rows, sb_cols]}
+        lines.append(f"{clip} frame 0 ({sb_rows}x{sb_cols} superblocks; "
+                     f"grids {[tuple(g.shape) for g in grids]}, {active} "
+                     f"active edges): ms={ms:.5f} on the card in "
+                     f"{dev_ops:g} device ops (the wrapper's call, "
+                     "host-bound under CUDA events, "
+                     f"{found[clip]['call_ms']:.4f}) plain_ms={plain_ms:.2f}"
+                     f" bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
+                     f"{LF_GRID_OPS * quads} ops)")
+    say("kernels", f"grids_device on {'; '.join(lines)}; exact vs plain "
+        "under 4:2:0, 4:2:2, 4:4:0 and 4:4:4")
+    k = found["bench_1080p_lf"]
     return {"name": "grids_device", "route": "cuda", "source": LF_GRIDS_SRC,
             "replaces": LF_GRIDS_REPLACES, "launches": None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None,
             "per": "frame (both plane sets in one launch) of "
                    "bench_1080p_lf frame 0",
-            "call_ms": call_ms, "bytes_needed": nbytes,
-            "ops": LF_GRID_OPS * quads}
+            "call_ms": k["call_ms"], "bytes_needed": k["bytes_needed"],
+            "ops": k["ops"], "device_ops_per_call": k["device_ops"],
+            "bench_4k_frame_0": found["bench_4k"]}
 
 
 def read_clip(name):
@@ -1376,7 +1472,11 @@ def decode_phase(torch, name, frames, want):
     # timed pipelined passes (frames stay on the device): the host clock
     # spreads on a host-bound path, so report the median of WINDOWS; the
     # unsynchronised stage timers give each pass's host pass A and pass B
-    # (its enqueue, and the waits the card imposes on it)
+    # (its enqueue, and the waits the card imposes on it). The garbage of
+    # the phases before is collected first, so that no pass of the
+    # interpreter's cyclic collector (up to 0.2 s here) lands in a timed
+    # stage.
+    gc.collect()
     fps_runs, host = [], []
     metrics.enable()
     try:
@@ -1401,6 +1501,7 @@ def decode_phase(torch, name, frames, want):
         + ", ".join(f"{v:.3f} fps (host pass A {a:.3f}, pass B {b:.3f} "
                     "ms/frame)" for v, (a, b) in zip(fps_runs, host)))
     # serial pass with every stage timer synchronised to the card
+    gc.collect()
     metrics.enable()
     metrics.reset()
     metrics.sync = torch.cuda.synchronize
@@ -1462,7 +1563,9 @@ def main():
 
     th = threading.Thread(target=build_native)
     th.start()
+    empty_build = start_empty_build()
     libs = _build.build_all()
+    empty = load_empty(empty_build)
     th.join()
     if native_err:
         raise native_err[0]
@@ -1490,6 +1593,9 @@ def main():
                                        (recon, "_intra_scan_planes"),
                                        (recon, "_grids_from_records")],
                                clips["bench_1080p"][0][:3])
+    k4_calls = capture_inputs(torch, [(recon, "_grids_from_records"),
+                                      (lpf_masks, "grids_device")],
+                              clips["bench_4k"][0][:2])
     intra_calls = {"bench_1080p_lf": lf_calls["_intra_scan_planes"][0],
                    "bench_1080p": res_calls["_intra_scan_planes"][0]}
     splat_calls = {"bench_1080p": res_calls["_grids_from_records"][:2],
@@ -1498,6 +1604,10 @@ def main():
                      "bench_1080p_lf": lf_calls["scatter_coef"]}
     residual_calls = {"bench_1080p": res_calls["residual_planes"][:2],
                       "bench_1080p_lf": lf_calls["residual_planes"]}
+    if len(lf_calls["grids_device"]) != 1 \
+            or len(k4_calls["grids_device"]) != 1:
+        raise RuntimeError("the first frames of bench_1080p_lf and bench_4k "
+                           "ran other than one grids call each")
     by_name = {k["name"]: k for k in (
         stream_phase(rac, torch, np, "bits"),
         stream_phase(rac, torch, np, "tree"),
@@ -1506,10 +1616,22 @@ def main():
         *residual_phase(torch, np, scatter_calls, residual_calls),
         mc_phase(torch, np, res_calls["mc_planes"]),
         intra_phase(torch, np, intra_calls),
-        splat_phase(torch, np, splat_calls),
-        lf_grids_phase(torch, np, lf_calls["grids_device"]))}
+        splat_phase(torch, np, splat_calls,
+                    k4_calls["_grids_from_records"][1]),
+        lf_grids_phase(torch, np, lf_calls["grids_device"][0],
+                       k4_calls["grids_device"][0]))}
+    # the launch floor, after the kernel phases: profiled before them, the
+    # empty kernel made every later profile miss some device records of
+    # the port's kernels (0.86 ops a call where 1 ran)
+    floor_ms = launch_floor_ms(torch, empty)
+    say("kernels", f"launch floor: an empty kernel (one warp) takes "
+        f"{floor_ms:.5f} ms on the card's clock (device_ms, 50 launches); "
+        + ", ".join(f"{n} {by_name[n]['ms'] / floor_ms:.1f} floors"
+                    for n in ("grids_device", "_grids_from_records")))
+    for n in ("grids_device", "_grids_from_records"):
+        by_name[n]["launch_floor_ms"] = floor_ms
     del lf_calls, res_calls, intra_calls, splat_calls, scatter_calls, \
-        residual_calls
+        residual_calls, k4_calls
     main_path = {"lf_dense": "lf_dense", "residual_planes": "residual",
                  "scatter_coef": "scatter", "mc_planes": "mc",
                  "_intra_scan_planes": "intra",

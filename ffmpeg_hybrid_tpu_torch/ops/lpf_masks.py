@@ -7,8 +7,9 @@ semantics live in native/vp9_lpf.c lf_cols/lf_rows, behavioral
 reference ff_vp9_loopfilter_sb, vp9lpf.c:183-230). Masks and levels go
 to the device in the frame's one flat upload, and `grids_device` turns
 them into the dense V/H parameter grids that ops/lpf_dense.py consumes:
-on the card with one launch of the CUDA kernel (csrc/lf_grids.cu, a
-thread per output edge), on the CPU with the plain version,
+on the card with one launch of the CUDA kernel (csrc/lf_grids.cu: a
+block per run of superblocks stages their levels and masks in shared
+memory, then writes their edges), on the CPU with the plain version,
 `grids_device_plain`, which evaluates the walker's decision tree as
 tensor ops. Kernel launches are counted in LAUNCHES.
 

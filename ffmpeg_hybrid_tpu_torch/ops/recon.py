@@ -5,9 +5,11 @@ Architecture (the reference's accumulate-then-dispatch WebGPU idea,
 reference: vp9_webgpu.c:2956):
   0. splat           — pass A's block records become the per-4x4-cell
                        grids (inter, tx size and type, comp, filter,
-                       refs, MVs) of Y and chroma. On the card one call
-                       of csrc/splat.cu per frame (an index pass, then a
-                       gather pass); the plain version,
+                       refs, MVs) of Y and chroma. On the card one
+                       call of csrc/splat.cu per frame (an index launch
+                       and a gather launch that starts while it runs,
+                       on an index grid kept from frame to frame under
+                       an epoch); the plain version,
                        _grids_from_records_plain, scatters and gathers
                        in eager ops
   1. residual pass   — the coefficient pairs scattered into dense
@@ -1018,8 +1020,9 @@ def _grids_from_records(recs, r4, c4, ss_h, ss_v):
     """The 14 per-cell grids of a frame's block records recs [N, 36]
     (the last row a pad row): Y [r4, c4], chroma [r4 >> ss_v, c4 >>
     ss_h]. CPU tensors take _grids_from_records_plain; any other device
-    the kernel (csrc/splat.cu, one call), which takes int16 CUDA records
-    only. Both give the same shapes and dtypes."""
+    the kernel (csrc/splat.cu, one call on state kept per device and
+    geometry, so one stream only: recon_cuda.SplatState), which takes
+    int16 CUDA records only. Both give the same shapes and dtypes."""
     if recs.device.type == "cpu":
         return _grids_from_records_plain(recs, r4, c4, ss_h, ss_v)
     if recs.dim() != 2 or recs.shape[0] < 1:

@@ -63,10 +63,10 @@ _SIGNATURES = {
     # bpp, windows (out), stream
     "intra.cu": {"intra_scan": [_P] * 9 + [_P, _P, _I, _P, _P, _I, _P,
                                            _P]},
-    # recs, N, bidx (scratch), 14 grids, r4, c4, ss_h, ss_v, bwh, itt
-    # (host), stream
-    "splat.cu": {"splat": [_P, _I, _P] + [_P] * len(_SPLAT_GRIDS)
-                 + [_I] * 4 + [_P, _P, _P]},
+    # recs, N, bidx, epoch (state), 14 grids, r4, c4, ss_h, ss_v, bwh,
+    # itt (host), stream
+    "splat.cu": {"splat": [_P, _I, _P, _c.c_uint]
+                 + [_P] * len(_SPLAT_GRIDS) + [_I] * 4 + [_P, _P, _P]},
 }
 
 
@@ -128,19 +128,52 @@ def mc(jobs, outs, bpp, has_comp):
     LAUNCHES["mc"] += 1
 
 
+class SplatState:
+    """csrc/splat.cu's state for one device and cell grid: the index grid
+    bidx [units], an entry an 8x8 unit, of (epoch << 32) | record entries
+    (int64 here, uint64 to the kernel), zero at first. Each call takes a
+    new epoch, so the index grid needs no reset between frames; a
+    wrapped epoch clears it. The kernel updates the state in stream
+    order, so one state serves one stream only: calls on two streams at
+    once would share its entries."""
+
+    def __init__(self, dev, units):
+        self.bidx = torch.zeros(units, dtype=torch.int64, device=dev)
+        self.epoch = 0
+
+    def next_epoch(self):
+        if self.epoch == 0xffffffff:    # entries may hold any epoch: clear
+            self.bidx.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_SPLAT_STATES = {}
+
+
 def splat(recs, r4, c4, ss_h, ss_v):
     """csrc/splat.cu on checked, contiguous records recs [N, 36] int16
     (the last row a pad row): the 14 grids of _grids_from_records, Y
     [r4, c4] and chroma [r4 >> ss_v, c4 >> ss_h], in its order, shapes
-    and dtypes. One call: the index grid's memset and two launches."""
+    and dtypes. An index launch and a gather launch that starts while it
+    runs, on the SplatState of (device, r4, c4): the current stream must
+    be the only one that runs the splat at that geometry. Records not
+    8-byte aligned (a view at an odd offset) are copied first."""
     dev = recs.device
+    if recs.data_ptr() % 8:
+        recs = recs.clone()
     planes = ((r4, c4), (r4 >> ss_v, c4 >> ss_h))
     outs = [torch.empty(planes[uv] + trail, dtype=dt, device=dev)
             for dt, uv, trail in _SPLAT_GRIDS]
-    bidx = torch.empty(r4 * c4, dtype=torch.int32, device=dev)
+    key = (dev, r4, c4)
+    st = _SPLAT_STATES.get(key)
+    if st is None:
+        st = _SPLAT_STATES[key] = SplatState(
+            dev, ((r4 + 1) // 2) * ((c4 + 1) // 2))
     _cuda.launch("splat.cu", _SIGNATURES["splat.cu"], "splat", recs,
-                 recs.shape[0], bidx, *outs, r4, c4, ss_h, ss_v,
-                 _SPLAT_BWH.ctypes.data, _SPLAT_ITT.ctypes.data)
+                 recs.shape[0], st.bidx, st.next_epoch(), *outs, r4, c4,
+                 ss_h, ss_v, _SPLAT_BWH.ctypes.data, _SPLAT_ITT.ctypes.data)
     LAUNCHES["splat"] += 1
     return tuple(outs)
 

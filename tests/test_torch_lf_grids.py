@@ -5,11 +5,16 @@ ops/lpf_masks.py grids_device on the same pass-A levels and masks
 dtypes included.
 
 The kernel runs only on the card, so `_lf_grids_model` below restates
-its per-thread arithmetic in numpy (a thread per output quad of the four
-grids in their final order: its grid, superblock and position, the mask
-bits and level cell it reads, the decision it takes) and is held to the
-JAX function here; a `cuda` test holds the kernel to the plain version
-on the card."""
+its blocks in numpy (a block per run of superblocks along a row: the
+words it stages in shared memory and the slots they land in, then its
+threads' items in the store order, each item's superblock and position,
+the mask bits and level cell it reads from the staged words, the
+decision it takes and the address it writes) and is held to the JAX
+function here; a `cuda` test holds the kernel to the plain version on
+the card."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +28,17 @@ from test_torch_lpf import GRID_CASES, _keyframe_state
 
 
 SUBSAMPLINGS = [(1, 1), (1, 0), (0, 1), (0, 0)]
+# superblock grids of one row or one column (geometry, subsampling)
+THIN = [((1, 5), (1, 1)), ((4, 1), (0, 0)), ((1, 1), (1, 0))]
+LF_GRIDS_CU = os.path.join(os.path.dirname(__file__), "..",
+                           "ffmpeg_hybrid_tpu_torch", "csrc", "lf_grids.cu")
+
+
+def _constant(name):
+    """A constexpr int of csrc/lf_grids.cu, as the kernel is built."""
+    with open(LF_GRIDS_CU) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
 
 
 def random_buffers(seed, sb_rows=2, sb_cols=3):
@@ -61,11 +77,16 @@ def grid_inputs():
         bufs = random_buffers(k)
         geo = (2, 3, *ss)
         out.append((bufs, geo, _jax_grids(bufs, geo)))
+    for k, (rc, ss) in enumerate(THIN):
+        bufs = random_buffers(10 + k, *rc)
+        geo = (*rc, *ss)
+        out.append((bufs, geo, _jax_grids(bufs, geo)))
     return out
 
 
 IDS = [f"s{c['seed']}" for c in GRID_CASES] + [
-    f"random-ss{h}{v}" for h, v in SUBSAMPLINGS]
+    f"random-ss{h}{v}" for h, v in SUBSAMPLINGS] + [
+    f"thin{r}x{c}-ss{h}{v}" for (r, c), (h, v) in THIN]
 
 
 @pytest.mark.parametrize("k", range(len(IDS)), ids=IDS)
@@ -83,92 +104,121 @@ def test_wrapper_on_cpu_matches_jax(k, grid_inputs):
 
 
 def _lf_grids_model(lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v):
-    """The kernel's threads in numpy, all at once: thread idx walks the
-    segments Vy, Hy, Vu, Hu (each rows x cols quads, row-major), takes
-    its grid row and column, its superblock and position, reads its mask
-    words and level cells and writes (wd, mblim[L], lim[L], L >> 4), or
-    zeros where wd == 0."""
-    level = lfl.astype(np.int64)
-    masks = lfm.astype(np.int64)
-    lim, mblim = luts[:64].astype(np.int64), luts[64:].astype(np.int64)
-
-    def quads(wd, L):
-        par = np.stack([wd, mblim[L & 63], lim[L & 63], L >> 4], -1)
-        return np.where((wd > 0)[:, None], par, 0).astype(np.int32)
-
-    def v_grid(sh, sv, mset):
-        Rv, Cv = 8 >> sv, 16 >> sh
-        idx = np.arange(sb_rows * Rv * sb_cols * Cv)
-        gr, gc = idx // (sb_cols * Cv), idx % (sb_cols * Cv)
-        sb = gr // Rv * sb_cols + gc // Cv
-        r, cp = gr % Rv, gc % Cv
-        cx = cp if sh else cp >> 1
-        lc = (cx & ~1) if sh else cx
-        ra = (r >> 1) * (2 << sv)
-        rb = ra + 1 + sv
-
-        def bit(row, cls):
-            return (masks[sb * 128 + mset * 64 + row * 4 + cls] >> cx) & 1
-
-        def lev(row):
-            return level[sb * 64 + row * 8 + lc]
-
-        k0a, k1a, k2a = bit(ra, 0), bit(ra, 1), bit(ra, 2)
-        k0b, k1b, k2b = bit(rb, 0), bit(rb, 1), bit(rb, 2)
-        top = np.where(k0a == 1, 16, np.where(k1a == 1, 8,
-                                              np.where(k2a == 1, 4, 0)))
-        bot = np.where(k0a == 1, np.where(k0b == 1, 16, 0),
-                       np.where(k1b == 1, 8, np.where(k2b == 1, 4, 0)))
-        odd = r & 1
-        wd = np.where(odd, bot, top)
-        L = np.where(odd & ~(k0a & k0b), lev(rb), lev(ra))
-        if not sh:
-            row = np.where(odd, rb, ra)
-            off = (cp & 1) == 1
-            wd = np.where(off, bit(row, 3) * 4, wd)
-            L = np.where(off, lev(row), L)
-        wd = np.where(gc == 0, 0, wd)
-        return quads(wd, L).reshape(sb_rows * Rv, sb_cols * Cv, 4)
-
-    def h_grid(sh, sv, mset):
-        Rh, Ch = 16 >> sv, 8 >> sh
-        idx = np.arange(sb_rows * Rh * sb_cols * Ch)
-        gr, gc = idx // (sb_cols * Ch), idx % (sb_cols * Ch)
-        sb = gr // Rh * sb_cols + gc // Ch
-        rp, c = gr % Rh, gc % Ch
-        row = rp if sv else rp >> 1
-        lr = (row & ~1) if sv else row
-        bl = (c >> 1) * (2 << sh)
-        br = bl + 1 + sh
-
-        def bit(col, cls):
-            return (masks[sb * 128 + mset * 64 + 32 + row * 4 + cls]
-                    >> col) & 1
-
-        def lev(col):
-            return level[sb * 64 + lr * 8 + col]
-
-        k0l, k1l, k2l = bit(bl, 0), bit(bl, 1), bit(bl, 2)
-        k0r, k1r, k2r = bit(br, 0), bit(br, 1), bit(br, 2)
-        left = np.where(k0l == 1, 16, np.where(k1l == 1, 8,
-                                               np.where(k2l == 1, 4, 0)))
-        right = np.where(k0l == 1, np.where(k0r == 1, 16, 0),
-                         np.where((k0r | k1r | k2r) == 1,
-                                  np.where(k1r == 1, 8, 4), 0))
-        odd = c & 1
-        wd = np.where(odd, right, left)
-        L = np.where(odd & ~(k0l & k0r), lev(br), lev(bl))
-        if not sv:
-            col = np.where(odd, br, bl)
-            off = (rp & 1) == 1
-            wd = np.where(off, bit(col, 3) * 4, wd)
-            L = np.where(off, lev(col), L)
-        wd = np.where(gr == 0, 0, wd)
-        return quads(wd, L).reshape(sb_rows * Rh, sb_cols * Ch, 4)
-
+    """The kernel's blocks in numpy. Block (bx, sbr) takes the run of
+    kSbRun superblocks from column bx * kSbRun of superblock row sbr (n
+    of them, fewer at the row's end) and stages, slot w of kStageSlots
+    per thread, its n * 64 levels (slots 0..), n * 128 mask words (from
+    kSbRun * 64) and the 128 LUT words (from kSbRun * 192) as the table
+    (mblim, lim); then item i of each grid (Vy, Hy, Vu, Hu; R rows and C
+    columns a superblock) is thread i % kThreads's, at row r = i / (n *
+    C) and run column x = i % (n * C), written at grid row sbr * R + r,
+    column bx * kSbRun * C + x. Every quad must be written exactly
+    once."""
+    run, nthreads = _constant("kSbRun"), _constant("kThreads")
+    luts = luts.astype(np.int64)
     uv = 1 if (ss_h | ss_v) else 0
-    return [v_grid(0, 0, 0), h_grid(0, 0, 0), v_grid(ss_h, ss_v, uv),
-            h_grid(ss_h, ss_v, uv)]
+    sets = [(0, 0, 0), (ss_h, ss_v, uv)]
+    dims = [(8 >> sv, 16 >> sh) if h == 0 else (16 >> sv, 8 >> sh)
+            for sh, sv, _m in sets for h in (0, 1)]
+    grids = [np.zeros((sb_rows * R, sb_cols * C, 4), np.int32)
+             for R, C in dims]
+    writes = [np.zeros(g.shape[:2], np.int64) for g in grids]
+    words = run * (64 + 128) + 128
+    slots = -(-words // nthreads)
+    for sbr in range(sb_rows):
+        for bx in range(-(-sb_cols // run)):
+            sbc0 = bx * run
+            n = min(run, sb_cols - sbc0)
+            sb0 = sbr * sb_cols + sbc0
+            lev = np.zeros(run * 64, np.int64)
+            msk = np.zeros(run * 128, np.int64)
+            tab = np.zeros((64, 2), np.int64)
+            for w in range(nthreads * slots):
+                if w < run * 64:
+                    if w < n * 64:
+                        lev[w] = lfl[sb0 * 64 + w]
+                elif w < run * 192:
+                    if w - run * 64 < n * 128:
+                        msk[w - run * 64] = lfm[sb0 * 128 + w - run * 64]
+                elif w < run * 192 + 128:
+                    lw = w - run * 192
+                    tab[lw % 64, 0 if lw >= 64 else 1] = luts[lw]
+            for g, ((sh, sv, mset), h) in enumerate(
+                    (st, h) for st in sets for h in (0, 1)):
+                R, C = dims[g]
+                i = np.arange(R * n * C)
+                r, x = i // (n * C), i % (n * C)
+                sbl, c = x // C, x % C
+                m = msk.reshape(run, 128)[sbl, mset * 64:mset * 64 + 64]
+                lv = lev.reshape(run, 64)[sbl]
+                gr, gc = sbr * R + r, sbc0 * C + x
+                wd, L = (_h_item if h else _v_item)(m, lv, r, c, sh, sv)
+                wd = np.where((gr if h else gc) == 0, 0, wd)
+                par = np.stack([wd, tab[L & 63, 0], tab[L & 63, 1], L >> 4],
+                               -1)
+                grids[g][gr, gc] = np.where((wd > 0)[:, None], par, 0)
+                np.add.at(writes[g], (gr, gc), 1)
+    assert all((w == 1).all() for w in writes)
+    return grids
+
+
+def _v_item(m, lev, r, cp, sh, sv):
+    """(wd, level) of V items at superblock rows r, columns cp, from
+    each item's staged mask words m [.., 64] (cols then rows) and levels
+    lev [.., 64]."""
+    cx = cp if sh else cp >> 1
+    lc = (cx & ~1) if sh else cx
+    ra = (r >> 1) * (2 << sv)
+    rb = ra + 1 + sv
+    k = np.arange(len(r))
+
+    def bit(row, cls):
+        return (m[k, row * 4 + cls] >> cx) & 1
+
+    k0a, k1a, k2a = bit(ra, 0), bit(ra, 1), bit(ra, 2)
+    k0b, k1b, k2b = bit(rb, 0), bit(rb, 1), bit(rb, 2)
+    top = np.where(k0a == 1, 16, np.where(k1a == 1, 8,
+                                          np.where(k2a == 1, 4, 0)))
+    bot = np.where(k0a == 1, np.where(k0b == 1, 16, 0),
+                   np.where(k1b == 1, 8, np.where(k2b == 1, 4, 0)))
+    odd = r & 1
+    wd = np.where(odd, bot, top)
+    L = np.where(odd & ~(k0a & k0b), lev[k, rb * 8 + lc], lev[k, ra * 8 + lc])
+    if not sh:
+        row = np.where(odd, rb, ra)
+        off = (cp & 1) == 1
+        wd = np.where(off, bit(row, 3) * 4, wd)
+        L = np.where(off, lev[k, row * 8 + lc], L)
+    return wd, L
+
+
+def _h_item(m, lev, rp, c, sh, sv):
+    """(wd, level) of H items at superblock rows rp, columns c."""
+    row = rp if sv else rp >> 1
+    lr = (row & ~1) if sv else row
+    bl = (c >> 1) * (2 << sh)
+    br = bl + 1 + sh
+    k = np.arange(len(rp))
+
+    def bit(col, cls):
+        return (m[k, 32 + row * 4 + cls] >> col) & 1
+
+    k0l, k1l, k2l = bit(bl, 0), bit(bl, 1), bit(bl, 2)
+    k0r, k1r, k2r = bit(br, 0), bit(br, 1), bit(br, 2)
+    left = np.where(k0l == 1, 16, np.where(k1l == 1, 8,
+                                           np.where(k2l == 1, 4, 0)))
+    right = np.where(k0l == 1, np.where(k0r == 1, 16, 0),
+                     np.where((k0r | k1r | k2r) == 1,
+                              np.where(k1r == 1, 8, 4), 0))
+    odd = c & 1
+    wd = np.where(odd, right, left)
+    L = np.where(odd & ~(k0l & k0r), lev[k, lr * 8 + br], lev[k, lr * 8 + bl])
+    if not sv:
+        col = np.where(odd, br, bl)
+        off = (rp & 1) == 1
+        wd = np.where(off, bit(col, 3) * 4, wd)
+        L = np.where(off, lev[k, lr * 8 + col], L)
+    return wd, L
 
 
 @pytest.mark.parametrize("k", range(len(IDS)), ids=IDS)

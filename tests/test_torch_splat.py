@@ -5,11 +5,17 @@ records (CPU-JAX, as tests/conftest.py sets it). Every comparison is
 exact, dtypes included.
 
 The kernel runs only on the card, so `_splat_model` below restates its
-per-thread arithmetic in numpy (a warp per record walking its cells in
-the index pass, a thread per luma or chroma cell in the gather pass) and
-is held to the JAX function here; a `cuda` test holds the kernel to the
-plain version on the card."""
+per-thread arithmetic in numpy (the index phase's records dealt to the
+blocks in turn, each group of lanes per record, each lane's 8x8 units
+and the epoch-tagged entries they leave in an index grid that lives
+from frame to frame; the gather phase's thread per luma or chroma
+cell, its unit's entry read under the epoch, the record's nine 8-byte
+words and the fields it takes from them) and is held to the JAX
+function here, also over two frames of one geometry on one state; a
+`cuda` test holds the kernel to the plain version on the card."""
 import ctypes
+import os
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +33,15 @@ from test_torch_recon import _pass_a_job, _t
 SUBSAMPLINGS = [(1, 1), (1, 0), (0, 1), (0, 0)]
 BWH = np.asarray(T.BWH_TAB[1], np.int64)
 ITT = np.asarray(T.INTRA_TXFM_TYPE, np.int64)
+SPLAT_CU = os.path.join(os.path.dirname(__file__), "..",
+                        "ffmpeg_hybrid_tpu_torch", "csrc", "splat.cu")
+
+
+def _constant(name):
+    """A constexpr int of csrc/splat.cu, as the kernel is built."""
+    with open(SPLAT_CU) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
 
 
 @pytest.fixture(scope="module")
@@ -63,10 +78,11 @@ def _tile(rng, r, c, size, out):
                 _tile(rng, r + dr, c + dc, size // 2, out)
 
 
-def synthetic_records(seed):
+def synthetic_records(seed, empty=(0, 1)):
     """Records over a 3 x 4 superblock area whose cell grid (22 x 28)
     ends inside the last superblock row and column, so blocks reach past
-    r4/c4; one superblock left empty (its cells read the last row); two
+    r4/c4; one superblock, `empty`, left empty (its cells read the last
+    row); two
     leaves repeated at other rows with other fields (the index max picks
     the higher row); three pad rows inside the array and one last; every
     field but the geometry drawn at random, modes past 13 and refs
@@ -75,7 +91,7 @@ def synthetic_records(seed):
     leaves = []
     for sr in range(3):
         for sc in range(4):
-            if (sr, sc) != (0, 1):
+            if (sr, sc) != empty:
                 _tile(rng, sr * 8, sc * 8, 8, leaves)
     L = len(leaves)
     n = L + 6
@@ -171,30 +187,73 @@ def _uv_mv(bs, m0, m1, m2, m3, udy, udx, ss_h, ss_v):
     return {10: m2, 11: m1, 12: m3}.get(bs, m0)
 
 
-def _splat_model(recs, r4, c4, ss_h, ss_v):
-    """The kernel's threads in numpy: (a) the index grid, -1 then a warp
-    per record (lane k of its w4 * h4 cells: y = r0 + k / w4, x = c0 +
-    k % w4, dropped off the grid, max of the record index); (b) a thread
-    per luma cell, then one per chroma cell reading luma cell (i << ss_v,
-    j << ss_h), each resolving -1 to the last row."""
-    recs = recs.astype(np.int64)
-    N = len(recs)
-    bidx = np.full(r4 * c4, -1, np.int64)
-    for b in range(N):
-        bs = recs[b, 3]
-        if bs < 0:
-            continue
-        bsc = min(bs, 12)
-        w4, h4 = (min(int(BWH[bsc, e]) * 2, 16) for e in (0, 1))
-        r0, c0 = recs[b, 0] * 2, recs[b, 1] * 2
-        for lane in range(32):
-            for k in range(lane, w4 * h4, 32):
-                y, x = r0 + k // w4, c0 + k % w4
-                if 0 <= y < r4 and 0 <= x < c4:
-                    bidx[y * c4 + x] = max(bidx[y * c4 + x], b)
+def _half(word, k):
+    """int16 k (0-3) of an 8-byte little-endian word."""
+    return int(np.uint16((int(word) >> (16 * k)) & 0xffff).astype(np.int16))
 
-    def record(cell):
-        return recs[bidx[cell] if bidx[cell] >= 0 else N - 1]
+
+def _field(w, f):
+    """int16 field f of a record from its words w: word f >> 2's."""
+    return _half(w[f >> 2], f & 3)
+
+
+def new_state(r4, c4):
+    """The kernel's state for one geometry: the index grid, an entry an
+    8x8 unit, zero, and the last epoch taken."""
+    return {"bidx": [0] * (((r4 + 1) // 2) * ((c4 + 1) // 2)), "epoch": 0}
+
+
+def _splat_model(recs, r4, c4, ss_h, ss_v, state=None):
+    """The kernel's threads in numpy, on `state` (a new one if None; it
+    carries the index grid to the next call). The call takes the next
+    epoch. (a) The index launch: of its B blocks (N * kGroup threads,
+    rounded up to whole blocks of kThreads), thread t of block x is lane
+    t % kGroup of group t // kGroup, which takes records x + B * (t //
+    kGroup), then on by B * kThreads / kGroup: from each record's first
+    word (row, col, bs) its units (8x8) in the frame, r8 x c8 (r4 and c4
+    halved, rounded up), lane k's k, k + kGroup, ... in row-major order,
+    each entry raised to (epoch << 32) | b. (b) The gather launch, a thread a cell: each luma cell, then each
+    chroma cell reading luma cell (i << ss_v, j << ss_h), takes its
+    unit's record if the entry is of this epoch, else the last row, as
+    its nine 8-byte words."""
+    nthreads, group = _constant("kThreads"), _constant("kGroup")
+    recs = np.ascontiguousarray(recs, dtype="<i2")
+    words = recs.view("<u8").reshape(len(recs), 9)
+    N = len(recs)
+    r8, c8 = (r4 + 1) // 2, (c4 + 1) // 2
+    if state is None:
+        state = new_state(r4, c4)
+    assert len(state["bidx"]) == r8 * c8
+    state["epoch"] += 1
+    epoch, bidx = state["epoch"], state["bidx"]
+    blocks = -(-N * group // nthreads)
+    stride = blocks * (nthreads // group)
+    for x in range(blocks):
+        for t in range(nthreads):
+            lane = t % group
+            for b in range(x + blocks * (t // group), N, stride):
+                w0 = words[b]
+                bs = _field(w0, 3)
+                if bs < 0:
+                    continue
+                bsc = min(bs, 12)
+                row, col = _field(w0, 0), _field(w0, 1)
+                y0 = max(row, 0)
+                y1 = min(row + min(int(BWH[bsc, 1]), 8), r8)
+                x0 = max(col, 0)
+                x1 = min(col + min(int(BWH[bsc, 0]), 8), c8)
+                nx = x1 - x0
+                if y0 >= y1 or nx <= 0:
+                    continue
+                for k in range(lane, (y1 - y0) * nx, group):
+                    u = (y0 + k // nx) * c8 + x0 + k % nx
+                    bidx[u] = max(bidx[u], (epoch << 32) | b)
+
+    def record(i, j):
+        """The record of luma cell (i, j), by its unit's entry."""
+        e = bidx[(i >> 1) * c8 + (j >> 1)]
+        w = words[e & 0xffffffff if e >> 32 == epoch else N - 1]
+        return [_field(w, f) for f in range(36)], w
 
     r4u, c4u = r4 >> ss_v, c4 >> ss_h
     y = [np.zeros(r4 * c4 * n, t) for t, n in
@@ -206,7 +265,7 @@ def _splat_model(recs, r4, c4, ss_h, ss_v):
     for idx in range(r4 * c4 + r4u * c4u):
         if idx < r4 * c4:
             i, j = divmod(idx, c4)
-            rec = record(idx)
+            rec, w = record(i, j)
             bs = rec[3]
             intra, inter = rec[6] != 0 and bs >= 0, rec[6] == 0 and bs >= 0
             tx = rec[7]
@@ -220,12 +279,17 @@ def _splat_model(recs, r4, c4, ss_h, ss_v):
             y[5][2 * idx:2 * idx + 2] = (min(max(rec[15], 0), 2),
                                          min(max(rec[16] if comp else 0, 0),
                                              2))
-            mv = 18 + (q if sub8 else 0) * 4
-            y[6][4 * idx:4 * idx + 4] = rec[mv:mv + 4]
+            # quadrant qv's MV fields: word 4 + qv's last two, word 5 +
+            # qv's first two
+            qv = q if sub8 else 0
+            y[6][4 * idx:4 * idx + 4] = (_half(w[4 + qv], 2),
+                                         _half(w[4 + qv], 3),
+                                         _half(w[5 + qv], 0),
+                                         _half(w[5 + qv], 1))
             continue
         u = idx - r4 * c4
         i, j = divmod(u, c4u)
-        rec = record((i << ss_v) * c4 + (j << ss_h))
+        rec, _w = record(i << ss_v, j << ss_h)
         bs = rec[3]
         inter = rec[6] == 0 and bs >= 0
         comp = rec[14] != 0 and inter
@@ -253,6 +317,38 @@ def test_kernel_model_matches_jax(k, real_records):
         a = np.asarray(a)
         assert a.shape == b.shape and a.dtype == b.dtype, n
         assert np.array_equal(a, b), (n, np.argwhere(a != b)[:4])
+
+
+@pytest.mark.parametrize("ss", SUBSAMPLINGS,
+                         ids=[f"ss{h}{v}" for h, v in SUBSAMPLINGS])
+def test_kernel_model_two_frames_on_one_state(ss):
+    """Two frames of one geometry on one state, as the decoder runs
+    them: the second leaves empty a superblock that the first covered,
+    so its cells hold the first frame's entries; read under the second
+    epoch they are no record, and both frames equal JAX's."""
+    state = new_state(22, 28)
+    for seed, empty in ((40, (2, 3)), (41, (0, 1))):
+        recs, (r4, c4) = synthetic_records(seed, empty)
+        want = _jax(recs, r4, c4, ss)
+        got = _splat_model(recs, r4, c4, *ss, state=state)
+        for n, (a, b) in enumerate(zip(want, got)):
+            assert np.array_equal(np.asarray(a), b), (n, seed)
+    stale = [e >> 32 for e in
+             np.asarray(state["bidx"], object).reshape(11, 14)[:8, 8:]
+             .ravel()]
+    assert state["epoch"] == 2 and set(stale) == {1}
+
+
+def test_splat_state_clears_on_a_wrapped_epoch():
+    """Epochs run 1, 2, ... on a zero index grid; after 2**32 - 1 the
+    grid is cleared and the next epoch is 1 again."""
+    st = RC.SplatState(torch.device("cpu"), 6)
+    assert (st.next_epoch(), st.next_epoch()) == (1, 2)
+    assert not st.bidx.any()
+    st.bidx.fill_(-5)
+    st.epoch = 0xfffffffe
+    assert st.next_epoch() == 0xffffffff and (st.bidx == -5).all()
+    assert st.next_epoch() == 1 and not st.bidx.any()
 
 
 def test_synthetic_records_reach_every_rule():
@@ -318,12 +414,18 @@ def test_wrapper_off_cpu_goes_to_the_kernel(monkeypatch, real_records):
         source, name, args = calls[n]
         assert (source, name) == ("splat.cu", "splat")
         assert args[0] is meta and args[1] == len(recs)
-        assert args[2].shape == (r4 * c4,) and args[2].dtype == torch.int32
-        assert all(a is b for a, b in zip(args[3:17], outs))
-        assert args[17:21] == (r4, c4, *ss)
-        assert list((ctypes.c_int * 26).from_address(args[21])) \
+        st = RC._SPLAT_STATES[(meta.device, r4, c4)]
+        assert args[2] is st.bidx
+        assert st.bidx.shape == (((r4 + 1) // 2) * ((c4 + 1) // 2),)
+        assert st.bidx.dtype == torch.int64
+        # one state a geometry: each call takes the next epoch
+        assert args[3] == st.epoch and (n == 0 or args[3] == epoch + 1)
+        epoch = args[3]
+        assert all(a is b for a, b in zip(args[4:18], outs))
+        assert args[18:22] == (r4, c4, *ss)
+        assert list((ctypes.c_int * 26).from_address(args[22])) \
             == BWH.reshape(-1).tolist()
-        assert list((ctypes.c_int * 14).from_address(args[22])) \
+        assert list((ctypes.c_int * 14).from_address(args[23])) \
             == ITT.tolist()
         if ss == (1, 0):
             for a, b in zip(plain, outs):
@@ -336,11 +438,17 @@ def test_wrapper_off_cpu_goes_to_the_kernel(monkeypatch, real_records):
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(real_records):
     """csrc/splat.cu on the card against the plain version on the CPU,
-    on real and synthetic records under every subsampling: one launch a
-    call, bit for bit, dtypes included."""
+    on real and synthetic records under every subsampling, then on two
+    frames of one geometry back to back (the second leaves empty a
+    superblock the first covered): one launch a call, bit for bit,
+    dtypes included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    for recs, r4, c4, ss in _all_cases(real_records):
+    cases = _all_cases(real_records) + [
+        (synthetic_records(seed, empty)[0], 22, 28, ss)
+        for ss in SUBSAMPLINGS
+        for seed, empty in ((40, (2, 3)), (41, (0, 1)))]
+    for recs, r4, c4, ss in cases:
         want = P._grids_from_records_plain(_t(recs), r4, c4, *ss)
         RC.reset_launches()
         got = P._grids_from_records(_t(recs).cuda(), r4, c4, *ss)
