@@ -13,9 +13,12 @@ Phases, one status line each; any failure exits non-zero:
                  streams, S = 64 lanes (the stream path);
                - decode_coeffs_multi on every coefficient block of
                  bench_1080p frame 0, captured by the port's
-                 pure-Python pass A and grouped by tx size (the
+                 pure-Python pass A, every lane in one launch (the
                  coefficient path), also against the host
-                 coefficients and eob;
+                 coefficients and eob; its time on the card's clock and
+                 under CUDA events, and the cycles a bool of its longest
+                 lane takes alone (a clock64 loop), a second chain
+                 bound;
                with times, launches and token rates beside the native
                C pass A's rate on the same frame;
                - lf_frame_ (csrc/lpf.cu) on the whole of
@@ -25,12 +28,16 @@ Phases, one status line each; any failure exits non-zero:
                  wave); then the race stress: 50 launches on those
                  inputs and 10 on a full-size random-grid frame with
                  every edge position active, each bit-exact;
-               - scatter_coef and residual_planes (csrc/itxfm.cu: the
-                 coefficient scatter, then the three planes' residuals
-                 in one launch) on the pair rows and grids of
-                 bench_1080p frames 0 (a keyframe) and 1 (an inter
-                 frame) and bench_1080p_lf frame 0, as recon_frame hands
-                 them over, and on a seeded full-size lossless frame;
+               - the coefficient scatter and residual_planes
+                 (csrc/itxfm.cu: the scatter, into fresh buffers with a
+                 memset pair and into the buffers recon_frame keeps from
+                 frame to frame with none, then the three planes'
+                 residuals in one launch that clears what it read, so
+                 the kept buffers read zero after it) on the pair rows
+                 and grids of bench_1080p frames 0 (a keyframe) and 1
+                 (an inter frame) and bench_1080p_lf frame 0, as
+                 recon_frame hands them over, and on a seeded full-size
+                 lossless frame;
                - mc_planes (csrc/mc.cu: the inter pass of the three
                  planes in one launch) on bench_1080p frames 1-2's own
                  inputs, and on two seeded full-size frames with MVs
@@ -78,7 +85,9 @@ Phases, one status line each; any failure exits non-zero:
                pass A and pass B ms per frame from the unsynchronised
                stage timers) and a serial pass with the stage timers
                synchronised to the card (per-stage times and the intra
-               levels per frame)
+               levels per frame), after each frame of which the kept
+               coefficient buffers must read zero; no kept buffer may
+               need a zero-fill in the whole phase
   5. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
@@ -384,7 +393,9 @@ def stream_phase(rac, torch, np, kind):
 
 
 def coef_bytes_needed(groups):
-    """Bytes decode_coeffs_multi must move for these blocks, counting
+    """Bytes the per-lane form of decode_coeffs_multi (a lane's own int32
+    tables and rows, as the kernel read them before the packed form)
+    must move for these blocks, counting
     what each lane's walk reads before its EOB (all int32): the
     halfwords holding the stream bytes it consumed, its five scalars
     (state and nnz) and dequant pair, the probability entries it read,
@@ -401,8 +412,62 @@ def coef_bytes_needed(groups):
     return total
 
 
+def coef_walk_bytes(rac, fr, groups):
+    """Bytes the packed walk (rac.decode_coeffs_frame on fr, a CoefLanes
+    of these groups) must move, each input read once and each output
+    written once: the lane table's columns the kernel reads (15 a lane)
+    and the block table's (9 a block); the halfwords holding each lane's
+    consumed stream bytes (an int32 each); of each distinct scan and
+    neighbour table the words as far as its furthest lane's walk reads
+    (eob + 1 positions), and of each distinct probability row the
+    entries its lanes read (a byte each); the token machine; every
+    coefficient output (its zeros included) and the eob."""
+    lanes = fr.lanes.cpu().numpy()
+    tab_words, prob_entries = {}, {}
+    halves = 0
+    for group, (n, _sg, _o, l0, _is32, _lh) in zip(groups.values(),
+                                                   fr.groups):
+        for s, g in enumerate(group):
+            row = lanes[l0 + s]
+            halves += -(-g["stream_bytes"] // 2)
+            t = int(row[rac.TAB_OFF])
+            tab_words[t] = max(tab_words.get(t, 0), min(n, g["eob"] + 1))
+            prob_entries.setdefault(int(row[rac.PROB_OFF]), set()).update(
+                g["prob_reads"].tolist())
+    S, B = lanes.shape[0], fr.blocks.shape[0]
+    return (4 * (15 * S + 9 * B + halves + sum(tab_words.values()))
+            + sum(len(v) for v in prob_entries.values())
+            + rac.coef_machine(8).nbytes + 4 * (fr.nout + S))
+
+
+def chain_cycles(rac, torch, fr, lane, bools):
+    """(cycles per bool, clock in Hz) of the longest lane's chain alone
+    on the card (rac.bool_chain_cycles): its halfwords staged in shared
+    memory, from its snapshot state, under the first 8 probabilities of
+    its row held in registers, its bools rounded up to a multiple of 8;
+    the clock is the kernel's cycles over its device time."""
+    row = fr.lanes[lane].cpu().tolist()
+    half = fr.half[row[rac.HALF_OFF]:row[rac.HALF_OFF] + row[rac.HALF_LEN]]
+    p8 = fr.probs[row[rac.PROB_OFF]:row[rac.PROB_OFF] + 8].to(torch.int32)
+    K = -(-bools // 8) * 8
+    args = (half, row[rac.VALUE], row[rac.RNG], row[rac.BITBUF],
+            row[rac.NBITS], p8, K)
+    rac.bool_chain_cycles(*args)         # warm-up
+    cycles = min(rac.bool_chain_cycles(*args) for _ in range(5))
+    # the clock the card runs such a kernel at: its cycles over its time
+    ms, _ops = device_ms(torch, lambda: rac.bool_chain_cycles(*args), 5,
+                         ("bool_chain_kernel",))
+    return cycles / K, cycles / (ms / 1e3)
+
+
 def coef_phase(rac, torch, np, packet):
-    """The coefficient path on every block of one frame."""
+    """The coefficient path on every block of one frame: every lane in
+    one launch (coef_path.decode_blocks on coef_path.frame_inputs), held
+    to the plain version on the same packed inputs and to the host pass
+    A; its time on the card's clock (device_ms) with its device ops, and
+    decode_blocks' call under CUDA events (the wrapper's host work
+    included); the chain bound at one cycle a bool and at the cycles a
+    bool of the longest lane takes alone (chain_cycles)."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
     from ffmpeg_hybrid_tpu_torch.ops import coef_path as CP
     t0 = time.perf_counter()
@@ -411,15 +476,17 @@ def coef_phase(rac, torch, np, packet):
     say("kernels", f"captured {len(caps)} blocks of frame 0 "
         f"({ {tx: len(g) for tx, g in sorted(groups.items())} } by tx) in "
         f"{time.perf_counter() - t0:.2f} s (pure-Python pass A)")
-    inputs = {tx: CP.lane_inputs(g, DEVICE) for tx, g in groups.items()}
+    fr = CP.frame_inputs(groups, DEVICE,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
     rac.reset_launches()
-    out = CP.decode_blocks(groups, inputs, bpp=8)
+    out = CP.decode_blocks(groups, fr, bpp=8)
     torch.cuda.synchronize()
     launches = rac.LAUNCHES["decode_coeffs_multi"]
-    if launches < len(groups):
-        raise RuntimeError("decode_coeffs_multi launched "
-                           f"{launches} < {len(groups)} kernels")
-    plain = CP.decode_blocks(groups, inputs, bpp=8,
+    if launches != 1:
+        raise RuntimeError(f"decode_coeffs_multi launched {launches} "
+                           "kernels for one frame, expected 1")
+    plain = CP.decode_blocks(groups, fr, bpp=8,
                              fn=rac.decode_coeffs_multi_plain)
     err = 0
     for tx, group in groups.items():
@@ -433,16 +500,56 @@ def coef_phase(rac, torch, np, packet):
                                    " differs from the host pass A")
     if err:
         raise RuntimeError(f"decode_coeffs_multi != plain ({err})")
-    ms = cuda_ms(lambda: CP.decode_blocks(groups, inputs, bpp=8), 20)
+    # the one-group entry (JAX-shaped: a group a call, its lanes packed
+    # on the card by rac.group_lanes): the same outputs, a launch a group
+    one = CP.decode_blocks(groups, fr, bpp=8, fn=rac.decode_coeffs_multi)
+    for tx in groups:
+        if not (torch.equal(one[tx][0], out[tx][0])
+                and torch.equal(one[tx][1], out[tx][1])):
+            raise RuntimeError(f"decode_coeffs_multi tx={tx}: the one-group "
+                               "entry differs from the frame's launch")
+
+    def run():
+        CP.decode_blocks(groups, fr, bpp=8)
+    k_ms, ops = device_ms(torch, run, 20, ("decode_coeffs_kernel",))
+    ms = cuda_ms(run, 20)
+    # the one-group entry alone, each group's arguments unpacked first:
+    # under CUDA events, and on the card's clock with all its device ops
+    # (the packing's tensor ops and the launch) and its kernel alone
+    gargs = rac.group_args(fr)
+
+    def one_group():
+        for (tx, group), a in zip(groups.items(), gargs):
+            rac.decode_coeffs_multi(*a, n=(4 << tx) ** 2, bpp=8,
+                                    is32=group[0]["is32"])
+    group_ms = cuda_ms(one_group, 20)
+    group_dev_ms, group_ops = device_ms(torch, one_group, 20, ("",))
+    group_k_ms, _ops = device_ms(torch, one_group, 20,
+                                 ("decode_coeffs_kernel",))
     t0 = time.perf_counter()
-    CP.decode_blocks(groups, inputs, bpp=8, fn=rac.decode_coeffs_multi_plain)
+    CP.decode_blocks(groups, fr, bpp=8, fn=rac.decode_coeffs_multi_plain)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     tokens = sum(c["eob"] + 1 for c in caps)
     nbools = sum(c["bools"] for c in caps)
     chain = max(c["bools"] for c in caps)
-    need = coef_bytes_needed(groups)
+    need = coef_walk_bytes(rac, fr, groups)
     bound_ms, bound_by, chain_ms = bounds(need, nbools, chain)
+    # the bound before the packed form: per-lane int32 tables and rows
+    need_before = coef_bytes_needed(groups)
+    bound_before, _by, _chain = bounds(need_before, nbools, chain)
+    # the longest lane's index in the packed order (groups in turn)
+    longest = id(max(caps, key=lambda c: c["bools"]))
+    lane = 0
+    for group in groups.values():
+        ids = [id(c) for c in group]
+        if longest in ids:
+            lane += ids.index(longest)
+            break
+        lane += len(ids)
+    cpb, clock_hz = chain_cycles(rac, torch, fr, lane, chain)
+    chain2_ms = chain * cpb / BOOST_HZ * 1e3
+    chain2_clock_ms = chain * cpb / clock_hz * 1e3
     # the native C pass A on the same packet (whole pass A: syntax walk
     # and coefficients, so it understates the C coefficient rate)
     ts = []
@@ -452,21 +559,41 @@ def coef_phase(rac, torch, np, packet):
         dec.decode_pass_a(packet)
         ts.append((time.perf_counter() - t0) * 1e3)
     native_ms = sorted(ts)[len(ts) // 2]
-    say("kernels", f"decode_coeffs_multi: {len(caps)} blocks, "
-        f"{launches} launches, ms={ms:.4f} plain_ms={plain_ms:.1f} "
-        f"tokens={tokens} tokens/s={tokens / (ms / 1e3):.4g} bytes "
-        f"needed={need} bound_ms={bound_ms:.6f}; native C "
-        f"pass A (whole frame, one host core) {native_ms:.2f} ms = "
+    say("kernels", f"decode_coeffs_multi: {len(caps)} blocks in "
+        f"{fr.blocks.shape[0]} blocks of at most "
+        f"{int(fr.blocks[:, rac.NLANES].max())} lanes, {fr.smem} B shared, "
+        f"{launches} launch, ms={k_ms:.5f} on the card's clock in {ops:.2f} "
+        f"device ops (decode_blocks under CUDA events {ms:.4f}; the "
+        f"one-group entry, a call a group, its lanes packed on the card: "
+        f"{group_ms:.4f} under CUDA events, {group_dev_ms:.4f} on the "
+        f"card's clock in {group_ops:.2f} device ops, its {len(groups)} "
+        f"launches {group_k_ms:.4f}) plain_ms="
+        f"{plain_ms:.1f} tokens={tokens} tokens/s={tokens / (k_ms / 1e3):.4g}"
+        f" bytes needed={need} bound_ms={bound_ms:.6f} (per-lane tables "
+        f"{need_before} B, {bound_before:.6f}); chain {chain} bools:"
+        f" {chain_ms:.6f} ms at a cycle a bool, {cpb:.2f} cycles a bool "
+        f"alone (clock64) = {chain2_ms:.6f} ms at 1.98 GHz, "
+        f"{chain2_clock_ms:.6f} ms at the {clock_hz / 1e9:.3f} GHz that "
+        "kernel ran at; native C pass A (whole "
+        f"frame, one host core) {native_ms:.2f} ms = "
         f"{tokens / (native_ms / 1e3):.4g} tokens/s; exact vs plain and "
         "host pass A")
     return {"name": "decode_coeffs_multi", "route": "cuda",
             "source": KERNEL_SRC, "replaces": PALLAS_SRC + ":523",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "bools": nbools,
-            "chain_bools": chain, "chain_bound_ms": chain_ms,
+            "device_ops_per_call": ops, "call_ms": ms,
+            "one_group_entry_call_ms": group_ms,
+            "one_group_entry_device_ms": group_dev_ms,
+            "one_group_entry_device_ops": group_ops,
+            "one_group_entry_kernel_ms": group_k_ms, "chain_bools": chain, "chain_bound_ms": chain_ms,
+            "cycles_per_bool": cpb, "chain_bound_measured_ms": chain2_ms,
+            "chain_kernel_clock_hz": clock_hz,
+            "chain_bound_measured_at_clock_ms": chain2_clock_ms,
             "tokens": tokens, "native_pass_a_ms": native_ms,
-            "bytes_needed": need}
+            "bytes_needed": need, "bound_ms_before": bound_before,
+            "bytes_needed_before": need_before}
 
 
 def capture_inputs(torch, targets, packets):
@@ -485,9 +612,9 @@ def capture_inputs(torch, targets, packets):
         return a
 
     def wrap(name):
-        def capture(*args):
+        def capture(*args, **kwargs):
             calls[name].append([copy(a) for a in args])
-            return reals[name](*args)
+            return reals[name](*args, **kwargs)
         return capture
 
     for mod, name in targets:
@@ -758,26 +885,63 @@ def lossless_pairs_frame(np, rng, shapes):
             planes)
 
 
+def clear_bytes(np, coef, eob4, txsz4, txtype4, lossless):
+    """Bytes a consuming residual launch writes to clear one plane
+    (csrc/itxfm.cu clear_quad): each 4-pixel quad of a transformed root
+    that is not DC-only and holds a nonzero, the first quad of each
+    DC-only root, and each nonzero eob cell."""
+    e, t, ty = (g.cpu().numpy().astype(np.int64)
+                for g in (eob4, txsz4, txtype4))
+    r4, c4 = e.shape
+    yy, xx = np.mgrid[:r4, :c4]
+    full = np.zeros((r4, c4), bool)
+    ndc = 0
+    for tx in ((0,) if lossless else range(4)):
+        k = 1 << tx
+        root = ((t == tx) & (e > 0) & (yy % k == 0) & (xx % k == 0)
+                & (yy + k <= r4) & (xx + k <= c4))
+        dc = root & (e == 1) & ((ty == 0) | (tx == 3)) & (not lossless)
+        full |= (root & ~dc)[::k, ::k].repeat(k, 0).repeat(k, 1)[:r4, :c4]
+        ndc += int(dc.sum())
+    nz = coef.cpu().numpy().reshape(coef.shape[0], c4, 4).any(-1)
+    quads = int((nz & full.repeat(4, 0)).sum()) + ndc
+    return quads * 4 * coef.element_size() + int((e != 0).sum()) * \
+        eob4.element_size()
+
+
+def rows_in(np, rows, n):
+    """Pair rows whose position lies in a buffer of n entries."""
+    r = rows.cpu().numpy().astype(np.int64)
+    pos = (r[:, 0] << 16) | (r[:, 1] & 0xffff)
+    return int(((pos >= 0) & (pos < n)).sum())
+
+
 def residual_phase(torch, np, scatter_calls, residual_calls):
-    """scatter_coef and residual_planes (csrc/itxfm.cu) on the real
-    inputs of bench_1080p frames 0 and 1 and bench_1080p_lf frame 0
-    ({clip: [args, ...]}, three planes a frame), then on a seeded
-    full-size lossless frame: each kernel against its plain version on
-    the card, bit for bit; their device times per frame on the card's
-    clock (device_ms: the memset pair and the scatter launch; the one
-    residual launch), the wrappers' calls under CUDA events and the
-    plain versions' times; the bounds: the pair rows read and the two
-    dense buffers written once, SCATTER_ROW_OPS a row; and
-    residual_work over the three planes. Returns the two kernels'
-    rows."""
+    """The coefficient scatter and the residual (csrc/itxfm.cu) on the
+    real inputs of bench_1080p frames 0 and 1 and bench_1080p_lf frame 0
+    ({clip: [args, ...]} of scatter_frame and residual_planes, three
+    planes a frame), then on a seeded full-size lossless frame: the
+    scatter into fresh buffers (scatter_coef: a memset pair and a
+    launch) and into a kept buffer set (scatter_frame: one launch), each
+    against its plain version, then the consuming residual on the kept
+    set against residual_plane_plain, bit for bit, and the set reading
+    zero after it; their device times per frame on the card's clock
+    (device_ms) with their device ops, the residual also without the
+    clear (no consume), the pair's call under CUDA events and the plain
+    versions' times; the bounds: the scatter's pair rows read and the
+    positions they name written (before: both dense buffers written
+    whole), SCATTER_ROW_OPS a row; residual_work over the three planes
+    and the bytes the clear writes (clear_bytes; before: without them).
+    Returns the two kernels' rows."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
     frames = []
     for clip, calls in scatter_calls.items():
         if len(calls) != len(residual_calls[clip]):
             raise RuntimeError(f"{clip}: {len(calls)} scatter calls, "
                                f"{len(residual_calls[clip])} residual calls")
-        frames += [(clip, sc, rc) for sc, rc in zip(calls,
-                                                    residual_calls[clip])]
+        for (bufs, cp, ep), rc in zip(calls, residual_calls[clip]):
+            frames.append((clip, (cp, ep, bufs.flat_c.numel(),
+                                  bufs.flat_e.numel()), rc[:3]))
     rng = np.random.RandomState(SEED + 7)
     cp, ep, geoms, grids = lossless_pairs_frame(
         np, rng, ((1088, 1920), (544, 960), (544, 960)))
@@ -792,23 +956,40 @@ def residual_phase(torch, np, scatter_calls, residual_calls):
     frames.append(("seeded lossless", (cp_d, ep_d, Lc, Le),
                    (seeded_jobs, True, 8)))
     err = nonzero = 0
-    sc = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
-    rs = dict(sc)
+    keys = ("ms", "ms_fresh", "ops", "ops_fresh", "call_ms", "plain_ms",
+            "bytes", "bytes_before", "int_ops")
+    sc = dict.fromkeys(keys, 0.0)
+    rs = dict.fromkeys(keys, 0.0)
     shapes = []
     nreal = 0
     for clip, sargs, (jobs, lossless, bpp) in frames:
         cp, ep, nc, ne = sargs
-        got = R.scatter_coef(*sargs)
         wide = cp.shape[1] == 4
+        got = R.scatter_coef(*sargs)
         scat = R._scatter_pairs32 if wide else R._scatter_pairs16
         want, t_sc = host_ms(torch, lambda: (scat(cp, 1, nc)[0],
                                              R._scatter_pairs16(ep, 1, ne)[0]))
         e = max_diff(got, want)
+        # the kept set: its planes are views of its buffers, in order
+        bufs = R.CoefBuffers(torch.device(DEVICE), nc, ne, wide)
+        kept = R.scatter_frame(bufs, cp, ep)
+        e = max(e, max_diff(kept, want))
         err = max(err, e)
         if e:
-            raise RuntimeError(f"scatter_coef on {clip}: kernel != plain "
+            raise RuntimeError(f"the scatter on {clip}: kernel != plain "
                                f"(max |diff| {e})")
-        outs = R.residual_planes(jobs, lossless, bpp)
+        views, bc, be = [], 0, 0
+        for coef, eob4, txsz4, txtype4 in jobs:
+            (H, W), (r4, c4) = coef.shape, eob4.shape
+            views.append(R._slice_plane(kept[0][None], kept[1][None], bc, be,
+                                        H, W, r4, c4) + (txsz4, txtype4))
+            bc += H * W
+            be += r4 * c4
+        if (bc, be) != (nc, ne):
+            raise RuntimeError(f"{clip}: planes of {bc} and {be} entries in "
+                               f"buffers of {nc} and {ne}")
+        consume = [bufs] * len(views)
+        outs = R.residual_planes(views, lossless, bpp, consume=consume)
         wants, t_res = host_ms(torch, lambda: [
             R.residual_plane_plain(*job, lossless, bpp) for job in jobs])
         e = max_diff(outs, wants)
@@ -816,63 +997,88 @@ def residual_phase(torch, np, scatter_calls, residual_calls):
         if e:
             raise RuntimeError(f"residual_planes on {clip}: kernel != plain "
                                f"(max |diff| {e})")
+        if not bufs.read_zero() or bufs.fill_cause() is not None:
+            raise RuntimeError(f"{clip}: the kept buffers do not read zero "
+                               "after the consuming residual")
         nonzero += sum(int(o.count_nonzero()) for o in outs)
         if clip == "seeded lossless":
             continue
         nreal += 1
 
-        def scatter():
+        def pair():
+            R.scatter_frame(bufs, cp, ep)
+            R.residual_planes(views, lossless, bpp, consume=consume)
+
+        def fresh():
             R.scatter_coef(*sargs)
 
         def residual():
             R.residual_planes(jobs, lossless, bpp)
-        k_sc, _n = device_ms(torch, scatter, 50, ("scatter_kernel",
-                                                  "Memset"))
-        k_res, _n = device_ms(torch, residual, 50, ("residual_kernel",))
-        sc["ms"] += k_sc
-        rs["ms"] += k_res
-        sc["call_ms"] += cuda_ms(scatter, 50)
-        rs["call_ms"] += cuda_ms(residual, 50)
-        sc["plain_ms"] += t_sc
-        rs["plain_ms"] += t_res
-        sc["bytes"] += (cp.numel() + ep.numel()) * 2 + nc * (
-            4 if wide else 2) + ne * 2
-        sc["ops"] += SCATTER_ROW_OPS * (cp.shape[0] + ep.shape[0])
+        k_sc, o_sc = device_ms(torch, pair, 50, ("scatter_kernel", "Memset"))
+        k_res, o_res = device_ms(torch, pair, 50, ("residual_kernel",))
+        k_scf, o_scf = device_ms(torch, fresh, 50, ("scatter_kernel",
+                                                    "Memset"))
+        k_res0, o_res0 = device_ms(torch, residual, 50, ("residual_kernel",))
+        if not bufs.read_zero():
+            raise RuntimeError(f"{clip}: the kept buffers do not read zero "
+                               "after the timed pairs")
+        pair_ms = cuda_ms(pair, 50)
+        for d, v in ((sc, (k_sc, k_scf, o_sc, o_scf, t_sc)),
+                     (rs, (k_res, k_res0, o_res, o_res0, t_res))):
+            for key, x in zip(("ms", "ms_fresh", "ops", "ops_fresh",
+                               "plain_ms"), v):
+                d[key] += x
+            d["call_ms"] += pair_ms
+        rows = (cp.numel() + ep.numel()) * 2
+        sc["bytes"] += rows + rows_in(np, cp, nc) * (4 if wide else 2) \
+            + rows_in(np, ep, ne) * 2
+        sc["bytes_before"] += rows + nc * (4 if wide else 2) + ne * 2
+        sc["int_ops"] += SCATTER_ROW_OPS * (cp.shape[0] + ep.shape[0])
         for job in jobs:
             b, o = residual_work(np, *job, lossless)
-            rs["bytes"] += b
-            rs["ops"] += o
+            rs["bytes_before"] += b
+            rs["bytes"] += b + clear_bytes(np, *job, lossless)
+            rs["int_ops"] += o
         shapes.append(f"{clip} {cp.shape[0]} + {ep.shape[0]} rows, "
                       f"{sum(int(j[1].gt(0).sum()) for j in jobs)} coded "
-                      f"cells: scatter {k_sc:.5f} ms, residual {k_res:.5f} "
-                      "ms")
+                      f"cells: scatter {k_sc:.5f} ms in {o_sc:.2f} ops "
+                      f"(fresh buffers {k_scf:.5f} in {o_scf:.2f}), residual "
+                      f"{k_res:.5f} ms (without the clear {k_res0:.5f})")
     if not nonzero:
         raise RuntimeError("the residuals are zero everywhere")
-    rows = []
-    for name, d, what in (("scatter_coef", sc, "a memset pair and one "
-                           "scatter launch"),
-                          ("residual_planes", rs, "one launch of the three "
-                           "planes")):
-        bound_ms, bound_by, _chain = bounds(d["bytes"] / nreal,
-                                            d["ops"] / nreal, 0)
-        say("kernels", f"{name} on {'; '.join(shapes)}: ms/frame="
-            f"{d['ms'] / nreal:.5f} on the card ({what}; the wrapper's call "
-            f"under CUDA events {d['call_ms'] / nreal:.4f}) plain_ms/frame="
-            f"{d['plain_ms'] / nreal:.2f} bound_ms/frame={bound_ms:.6f} "
-            f"({bound_by}, {d['bytes'] / nreal:.0f} B, "
-            f"{d['ops'] / nreal:.0f} ops); exact vs plain, also on a seeded "
-            "1920x1088 lossless frame")
-        rows.append({
+    out = []
+    for name, d, what in (("scatter_coef", sc, "one scatter launch into "
+                           "the kept buffers; fresh ones: a memset pair and "
+                           "one launch"),
+                          ("residual_planes", rs, "one consuming launch of "
+                           "the three planes")):
+        d = {k: v / nreal for k, v in d.items()}
+        bound_ms, bound_by, _chain = bounds(d["bytes"], d["int_ops"], 0)
+        before_ms, _by, _chain = bounds(d["bytes_before"], d["int_ops"], 0)
+        say("kernels", f"{name}: ms/frame={d['ms']:.5f} on the card in "
+            f"{d['ops']:.2f} device ops ({what}; fresh or without the clear "
+            f"{d['ms_fresh']:.5f} in {d['ops_fresh']:.2f}; the scatter and "
+            f"consuming residual pair under CUDA events {d['call_ms']:.4f}) "
+            f"plain_ms/frame={d['plain_ms']:.2f} bound_ms/frame="
+            f"{bound_ms:.6f} ({bound_by}, {d['bytes']:.0f} B, "
+            f"{d['int_ops']:.0f} ops; before {before_ms:.6f}, "
+            f"{d['bytes_before']:.0f} B); exact vs plain, also on a seeded "
+            "1920x1088 lossless frame; the kept buffers read zero")
+        out.append({
             "name": name, "route": "cuda", "source": ITXFM_SRC,
             "replaces": SCATTER_REPLACES if name == "scatter_coef"
             else ITXFM_REPLACES, "launches": None, "max_abs_err": err,
-            "ms": d["ms"] / nreal, "plain_ms": d["plain_ms"] / nreal,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
             "per": f"frame ({what}), mean of bench_1080p frames 0-1 and "
                    "bench_1080p_lf frame 0",
-            "call_ms": d["call_ms"] / nreal,
-            "bytes_needed": d["bytes"] / nreal, "ops": d["ops"] / nreal})
-    return rows
+            "device_ops_per_call": d["ops"],
+            ("ms_fresh_buffers" if name == "scatter_coef"
+             else "ms_without_clear"): d["ms_fresh"],
+            "bound_ms_before": before_ms, "pair_call_ms": d["call_ms"],
+            "bytes_needed": d["bytes"], "ops": d["int_ops"],
+            "detail": shapes})
+    return out
 
 
 def mc_work(np, job, has_comp):
@@ -1434,7 +1640,7 @@ def decode_phase(torch, name, frames, want):
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
                  "_intra_scan_plain", "mc_planes_plain", "_scatter_pairs16",
-                 "_scatter_pairs32")),
+                 "_scatter_pairs32", "_consume_plain")),
         (lpf_masks, ("grids_device_plain",)),
         (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")))
         for fn in fns]
@@ -1507,12 +1713,22 @@ def decode_phase(torch, name, frames, want):
     metrics.sync = torch.cuda.synchronize
     try:
         dec = VP9Decoder(device=DEVICE)
-        for fd in frames:
+        for k, fd in enumerate(frames):
             dec.decode(fd)
+            # the coefficient buffers kept from frame to frame read zero
+            # after every frame (the residual consumed them)
+            kept = list(dec.coef_bufs.values())
+            if not kept or not all(b.read_zero() and b.consumed
+                                   for b in kept):
+                raise RuntimeError(f"{name} frame {k}: a kept coefficient "
+                                   "buffer does not read zero")
         torch.cuda.synchronize()
     finally:
         metrics.sync = None
         metrics.disable()
+    if any(recon.COEF_FILLS.values()):
+        raise RuntimeError(f"{name}: kept coefficient buffers were "
+                           f"zero-filled: {recon.COEF_FILLS}")
     report = metrics.report()
     stages = {k: round(v["total_s"] * 1e3 / len(frames), 3)
               for k, v in report.items() if "total_s" in v}
@@ -1520,7 +1736,9 @@ def decode_phase(torch, name, frames, want):
     intra_frames = report.get("intra.ncalls", {"value": 0})["value"]
     inter_frames = report.get("recon.mc", {"count": 0})["count"]
     say("decode", f"{name}: serial pass, ms/frame per stage "
-        "(synchronised): " + json.dumps(stages, sort_keys=True)
+        "(synchronised; the kept coefficient buffers read zero after every "
+        f"frame, zero-fills {recon.COEF_FILLS}): "
+        + json.dumps(stages, sort_keys=True)
         + f"; intra levels per frame (Y + U + V): {levels / len(frames)}; "
         f"{intra_frames} of {len(frames)} frames have intra blocks, "
         f"{inter_frames} inter blocks")
@@ -1583,11 +1801,11 @@ def main():
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
                                       (recon, "_intra_scan_planes"),
                                       (recon, "_grids_from_records"),
-                                      (recon, "scatter_coef"),
+                                      (recon, "scatter_frame"),
                                       (recon, "residual_planes"),
                                       (lpf_masks, "grids_device")],
                               clips["bench_1080p_lf"][0][:1])
-    res_calls = capture_inputs(torch, [(recon, "scatter_coef"),
+    res_calls = capture_inputs(torch, [(recon, "scatter_frame"),
                                        (recon, "residual_planes"),
                                        (recon, "mc_planes"),
                                        (recon, "_intra_scan_planes"),
@@ -1600,8 +1818,8 @@ def main():
                    "bench_1080p": res_calls["_intra_scan_planes"][0]}
     splat_calls = {"bench_1080p": res_calls["_grids_from_records"][:2],
                    "bench_1080p_lf": lf_calls["_grids_from_records"]}
-    scatter_calls = {"bench_1080p": res_calls["scatter_coef"][:2],
-                     "bench_1080p_lf": lf_calls["scatter_coef"]}
+    scatter_calls = {"bench_1080p": res_calls["scatter_frame"][:2],
+                     "bench_1080p_lf": lf_calls["scatter_frame"]}
     residual_calls = {"bench_1080p": res_calls["residual_planes"][:2],
                       "bench_1080p_lf": lf_calls["residual_planes"]}
     if len(lf_calls["grids_device"]) != 1 \

@@ -132,7 +132,7 @@ class FrameJob:
     reconstruction reads. Lets pass A of the next frame run (and mutate
     the decoder) while this frame's pass B is still dispatching."""
     __slots__ = ("ready", "outputs", "refs", "lim_lut", "mblim_lut",
-                 "device", "pre", "_uv_levels") + tuple(
+                 "device", "pre", "_uv_levels", "coef_bufs") + tuple(
         a for a in (
             "header", "cur_frame_obj", "mvscale", "mvstep", "blocks",
             "block_records", "coef_y", "coef_u", "coef_v", "eob_y",
@@ -143,6 +143,10 @@ class FrameJob:
 
     def __init__(self):
         self.pre = None
+        # the dense coefficient buffers pass B scatters into (recon's
+        # CoefBuffers by key): the decoder's own, kept from frame to
+        # frame; a job made elsewhere starts with none
+        self.coef_bufs = {}
 
 
 _JOB_ATTRS = (
@@ -195,6 +199,10 @@ class VP9Decoder:
         self._slot = 0
         self._probs_pool = None
         self._counts_pool = None
+        # pass B's kept dense coefficient buffers (ops/recon.py
+        # CoefBuffers), this decoder's alone: its frames' scatters and
+        # consuming residuals alternate on them in decode order
+        self.coef_bufs = {}
 
     # -- pass A frame context API used by TileDecoder ------------------
     def counts_factory(self):
@@ -700,6 +708,7 @@ class VP9Decoder:
             job.lim_lut = self.lim_lut.copy()   # refilled per frame
             job.mblim_lut = self.mblim_lut.copy()
             job.device = self.device
+            job.coef_bufs = self.coef_bufs
             job.outputs = [] if h.invisible else [self.cur_frame_obj]
 
         # reference slot rotation (reference: vp9.c:1688-1692, 1849-1851)

@@ -7,8 +7,10 @@
 // Pallas kernels; they are the residual stage of the main path.
 //
 //   scatter_pairs    the dense coefficient and eob buffers of a frame's
-//                    pair rows: a memset pair and one launch
-//   residual_planes  the residuals of up to three planes, one launch
+//                    pair rows: one launch into buffers that read zero
+//                    (a memset pair first when the caller asks for it)
+//   residual_planes  the residuals of up to three planes, one launch;
+//                    with `consume`, it also clears what it read
 //
 // Semantics. Pair rows carry a position (pos-hi << 16 | pos-lo) and a
 // value; a row whose position is negative (a pad row) or past the
@@ -29,6 +31,36 @@
 // block. Lossless frames use the 4x4 Walsh-Hadamard transform (inputs
 // >> 2 in pass a, no final shift) on every root with txsz4 == 0.
 //
+// Consuming. FFmpeg's inverse transforms clear a block's coefficients
+// after the add, so the buffer is zero again for the next block. With
+// `consume`, residual_planes does the same for the dense buffers, which
+// then stay zero from frame to frame and need no memset before the next
+// scatter: every nonzero eob cell is set to 0 by the thread that reads
+// it; pass a flags in shared memory each 4-pixel quad in which it reads
+// a nonzero (it reads every coefficient of a root that is not DC-only),
+// a DC-only root flags the quad of its DC (which it reads alone), and
+// after the last size each thread writes zeros to its quad if flagged.
+// This rests on a precondition: every nonzero the scatter writes lies in
+// the tile of a root that the residual transforms, and a DC-only root
+// holds no nonzero but its DC. Pass A's rows meet it by construction:
+// the native packer ships the nonzeros of the tiles of roots with eob >
+// 0 (vp9_pack_pairs), whose blocks the decoder zeroes before their
+// coefficients (a DC-only block then holds its DC alone), and the
+// pure-Python pass A writes fresh zeroed planes; roots are aligned,
+// inside the superblock-padded planes, of sizes 0-3, and 4x4 on
+// lossless frames. Where an eob cell breaks it, the kernel tells: a
+// nonzero eob cell that is not a transformed root (misaligned, past the
+// plane's edge, a size past 3, a size past 0 on a lossless frame) sets
+// its plane's `strays` flag to 1, and the caller zero-fills the buffers
+// before its next scatter (ops/recon.py CoefBuffers). A frame that
+// raises between the scatter and the residual leaves them unconsumed,
+// and the caller zero-fills them too. Not detected: a nonzero
+// coefficient outside the tile of every root with eob > 0, or one past
+// the DC of a DC-only root. It is neither cleared nor flagged and stays
+// in the buffer for the later frames of that geometry; the tests hold
+// both pass A packers to the precondition on the repository's clips
+// (tests/test_torch_residual_pairs.py).
+//
 // Arithmetic. The butterflies are int32 arithmetic that wraps modulo
 // 2^32 (JAX's and PyTorch's int32, and C's int on the reference's
 // targets); signed overflow is undefined in C++, so they run on
@@ -37,11 +69,13 @@
 // ffmpeg_hybrid_tpu_torch/ops/itxfm.py line by line: every constant and
 // every input permutation and negated output is that file's.
 //
-// Design. The scatter: cudaMemsetAsync of both buffers, then a thread
-// per row (coefficient rows, then eob rows) in one launch. The rows come
-// in an order unrelated to the planes' regions (raster order of block
-// roots, or decode order), so they land in the dense buffers that the
-// residual reads. The residual: one thread block of 256 threads per
+// Design. The scatter: a thread per row (coefficient rows, then eob
+// rows) in one launch. The rows come in an order unrelated to the
+// planes' regions (raster order of block roots, or decode order), so
+// they land in dense buffers that the residual reads; on the main path
+// those buffers are kept from frame to frame and read zero, because the
+// residual before consumed them, so the launch is the scatter's only
+// device operation. The residual: one thread block of 256 threads per
 // aligned 32x32 region, the regions of the three planes in one grid;
 // every transform block lies inside exactly one region. The region's
 // first two warps read its 64 cells once into shared memory and vote on
@@ -53,14 +87,18 @@
 // lanes share each column, one the even inputs (idct16), one the odd
 // (idct32_odd), joined by one exchange of 16 values, so 64 threads work
 // the one block. The residual accumulates in shared memory and is
-// written once, an int4 a thread, zeros included.
+// written once, an int4 a thread, zeros included. The clear comes after
+// the last size's barrier, a quad a thread, so no thread of the region
+// reads a coefficient after it is cleared, and a region's roots lie in
+// the region, so no other block reads them.
 //
 // What bounds it. Bytes: the scatter reads the pair rows and writes the
-// two dense buffers once, some 8 MB for a 1080p frame (2.4 us at 3.35
-// TB/s); the residual reads the grids and the first eob coefficients of
-// each coded block and writes the int32 residual once, some 16 MB (4.8
-// us). The butterflies are a few tens of integer operations per pixel,
-// below that.
+// positions they name, some 2 MB for a 1080p frame (with the memset
+// pair, the two dense buffers too: some 8 MB, 2.4 us at 3.35 TB/s); the
+// residual reads the grids and the first eob coefficients of each coded
+// block and writes the int32 residual once, some 16 MB (4.8 us), and,
+// consuming, clears what it read. The butterflies are a few tens of
+// integer operations per pixel, below that.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -552,6 +590,7 @@ struct Plane {
   const void* txsz;
   const void* txtype;
   int32_t* out;         // [H, W] int32
+  int* strays;          // consuming: set to 1 on an untransformed eob cell
   int coef16, eob_sz, txsz_sz, txtype_sz;
   int H, W;
   int regions_x;        // regions a row
@@ -562,13 +601,17 @@ struct Args {
   Plane p[kMaxPlanes];
   int n;
   int lossless;
+  int consume;          // clear the eob cells and coefficients read
 };
 
-// A region's 64 cells, as its first two warps read them.
+// A region's 64 cells, as its first two warps read them; consuming, nz
+// flags each 4-pixel quad of coefficients that the launch read nonzero
+// (or that holds a DC-only root's DC).
 struct Cells {
   int eob[kRegionCells * kRegionCells];
   int tx[kRegionCells * kRegionCells];
   int type[kRegionCells * kRegionCells];
+  unsigned char nz[kRegion][kRegion / 4];
 };
 
 __device__ __forceinline__ u32 ld_coef(const Plane& p, int y, int x) {
@@ -584,8 +627,9 @@ __device__ __forceinline__ u32 ld_coef(const Plane& p, int y, int x) {
 // lanes each (idct32_pair). Pass a runs only when some root of the size
 // is not DC-only (`full`), with its barrier.
 template <int TX, bool WHT>
-__device__ __forceinline__ void region_size(const Plane& p, const Cells& cl,
+__device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
                                             int ry0, int rx0, bool full,
+                                            int consume,
                                             int32_t (*tmp)[kRegion + 1],
                                             int32_t (*acc)[kRegion + 1]) {
   constexpr int SZ = 4 << TX;
@@ -618,6 +662,11 @@ __device__ __forceinline__ void region_size(const Plane& p, const Cells& cl,
 #pragma unroll
         for (int r = 0; r < NIN; ++r)
           in[r] = ld_coef(p, gy + 2 * r + half, gx + line);
+        if (consume) {   // after every load is issued
+#pragma unroll
+          for (int r = 0; r < NIN; ++r)
+            if (in[r]) cl.nz[ry + 2 * r + half][(rx + line) >> 2] = 1;
+        }
         idct32_pair(in, o, half);
 #pragma unroll
         for (int j = 0; j < NIN; ++j)
@@ -625,6 +674,11 @@ __device__ __forceinline__ void region_size(const Plane& p, const Cells& cl,
       } else {
 #pragma unroll
         for (int r = 0; r < SZ; ++r) in[r] = ld_coef(p, gy + r, gx + line);
+        if (consume) {   // after every load is issued
+#pragma unroll
+          for (int r = 0; r < SZ; ++r)
+            if (in[r]) cl.nz[ry + r][(rx + line) >> 2] = 1;
+        }
         pass1d<TX, WHT>(in, o, adst_a, true);
 #pragma unroll
         for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrap16(o[k]);
@@ -635,6 +689,7 @@ __device__ __forceinline__ void region_size(const Plane& p, const Cells& cl,
   // pass b: column `line` of tmp -> column `line` of the residual
   if (act) {
     if (dconly) {
+      if (consume && line == 0 && half == 0) cl.nz[ry][rx >> 2] = 1;
       const u32 t = rs(rs(ld_coef(p, gy, gx) * 11585u) * 11585u);
       const int32_t v = (static_cast<int32_t>(t) + RND) >> SHIFT;
 #pragma unroll
@@ -661,11 +716,20 @@ __device__ __forceinline__ void region_size(const Plane& p, const Cells& cl,
   __syncthreads();
 }
 
+__device__ __forceinline__ void st_grid_zero(const void* p, int esz,
+                                             size_t i) {
+  void* q = const_cast<void*>(p);
+  if (esz == 1) static_cast<int8_t*>(q)[i] = 0;
+  else if (esz == 2) static_cast<int16_t*>(q)[i] = 0;
+  else static_cast<int32_t*>(q)[i] = 0;
+}
+
 // The vote's bits: size t present at bit t, some root of size t not
-// DC-only at bit 4 + t.
+// DC-only at bit 4 + t. Consuming, a nonzero eob cell is cleared here,
+// and one that is no transformed root counts as a stray.
 __device__ __forceinline__ unsigned cell_vote(const Plane& p, Cells& cl,
                                               int ry0, int rx0, int lossless,
-                                              int c) {
+                                              int consume, int c) {
   const int cy = c / kRegionCells, cx = c % kRegionCells;
   const int gy = ry0 + 4 * cy, gx = rx0 + 4 * cx;
   int eob = 0, tx = -1, typ = 0;
@@ -674,15 +738,37 @@ __device__ __forceinline__ unsigned cell_vote(const Plane& p, Cells& cl,
     eob = ld_grid(p.eob, p.eob_sz, g);
     tx = ld_grid(p.txsz, p.txsz_sz, g);
     typ = ld_grid(p.txtype, p.txtype_sz, g);
+    if (consume && eob) st_grid_zero(p.eob, p.eob_sz, g);
   }
   cl.eob[c] = eob;
   cl.tx[c] = tx;
   cl.type[c] = typ;
-  if (eob <= 0 || tx < 0 || tx > (lossless ? 0 : 3)) return 0;
-  const int k = 1 << tx;
-  if (cy % k || cx % k || gy + 4 * k > p.H || gx + 4 * k > p.W) return 0;
+  bool root = eob > 0 && tx >= 0 && tx <= (lossless ? 0 : 3);
+  const int k = root ? 1 << tx : 1;
+  root = root && !(cy % k || cx % k || gy + 4 * k > p.H || gx + 4 * k > p.W);
+  if (!root) {
+    if (consume && eob) *p.strays = 1;
+    return 0;
+  }
   const bool dconly = !lossless && eob == 1 && (tx == 3 || typ == 0);
   return (1u << tx) | (dconly ? 0u : 16u << tx);
+}
+
+// Consuming: the quad (oy, ox..ox+3) of the region's coefficients
+// reads 0 from here on where the launch read a nonzero in it (pass a
+// reads every coefficient of a root that is not DC-only) or where it
+// holds a DC-only root's DC; the flags say which (Cells::nz).
+__device__ __forceinline__ void clear_quad(const Plane& p, const Cells& cl,
+                                           int ry0, int rx0, int oy, int ox) {
+  const int y = ry0 + oy, x = rx0 + ox;
+  if (!cl.nz[oy][ox >> 2] || y >= p.H || x >= p.W) return;
+  const size_t i = static_cast<size_t>(y) * p.W + x;
+  void* c = const_cast<void*>(p.coef);
+  if (p.coef16)
+    *reinterpret_cast<uint2*>(static_cast<int16_t*>(c) + i) = make_uint2(0, 0);
+  else
+    *reinterpret_cast<int4*>(static_cast<int32_t*>(c) + i) =
+        make_int4(0, 0, 0, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -703,22 +789,29 @@ __global__ void __launch_bounds__(kThreads)
   const int oy = tid / (kRegion / 4), ox = (tid % (kRegion / 4)) * 4;
   if (tid < kRegionCells * kRegionCells) {
     const unsigned v = __reduce_or_sync(
-        0xffffffffu, cell_vote(p, cl, ry0, rx0, a.lossless, tid));
+        0xffffffffu, cell_vote(p, cl, ry0, rx0, a.lossless, a.consume, tid));
     if ((tid & 31) == 0) votes[tid >> 5] = v;
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) acc[oy][ox + k] = 0;
+  cl.nz[oy][ox >> 2] = 0;
   __syncthreads();
   const unsigned vote = votes[0] | votes[1];
   if (vote) {
     if (a.lossless) {
-      region_size<0, true>(p, cl, ry0, rx0, true, tmp, acc);
+      region_size<0, true>(p, cl, ry0, rx0, true, a.consume, tmp, acc);
     } else {
-      if (vote & 1u) region_size<0, false>(p, cl, ry0, rx0, vote & 16u, tmp, acc);
-      if (vote & 2u) region_size<1, false>(p, cl, ry0, rx0, vote & 32u, tmp, acc);
-      if (vote & 4u) region_size<2, false>(p, cl, ry0, rx0, vote & 64u, tmp, acc);
-      if (vote & 8u) region_size<3, false>(p, cl, ry0, rx0, vote & 128u, tmp, acc);
+      if (vote & 1u)
+        region_size<0, false>(p, cl, ry0, rx0, vote & 16u, a.consume, tmp, acc);
+      if (vote & 2u)
+        region_size<1, false>(p, cl, ry0, rx0, vote & 32u, a.consume, tmp, acc);
+      if (vote & 4u)
+        region_size<2, false>(p, cl, ry0, rx0, vote & 64u, a.consume, tmp, acc);
+      if (vote & 8u)
+        region_size<3, false>(p, cl, ry0, rx0, vote & 128u, a.consume, tmp,
+                              acc);
     }
+    if (a.consume) clear_quad(p, cl, ry0, rx0, oy, ox);
   }
   const int y = ry0 + oy, x = rx0 + ox;
   if (y < p.H && x < p.W)
@@ -766,14 +859,19 @@ extern "C" {
 // txtype ([H/4, W/4] signed integers of 1, 2 or 4 bytes), out (int32
 // [H, W]). dims: 6 ints a plane: H, W (multiples of 4, of 32 unless
 // lossless), coef16, and the byte sizes of eob, txsz and txtype.
+// strays: null, or a host array of n pointers to int flags that the
+// device can write (pinned host memory); then the launch consumes (see
+// the header): it clears the eob cells and coefficients it reads and
+// sets a plane's flag to 1 where it finds a stray.
 int residual_planes(const void* const* ptrs, const int* dims, int n,
-                    int lossless, cudaStream_t stream) {
+                    int lossless, int* const* strays, cudaStream_t stream) {
   const auto esz_ok = [](int s) { return s == 1 || s == 2 || s == 4; };
   if (n < 1 || n > kMaxPlanes || !ptrs || !dims)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.n = n;
   a.lossless = lossless != 0;
+  a.consume = strays != nullptr;
   int regions = 0;
   for (int i = 0; i < n; ++i) {
     const void* const* q = ptrs + 5 * i;
@@ -784,6 +882,7 @@ int residual_planes(const void* const* ptrs, const int* dims, int n,
     p.txsz = q[2];
     p.txtype = q[3];
     p.out = static_cast<int32_t*>(const_cast<void*>(q[4]));
+    p.strays = strays ? strays[i] : nullptr;
     p.H = d[0];
     p.W = d[1];
     p.coef16 = d[2] != 0;
@@ -792,7 +891,8 @@ int residual_planes(const void* const* ptrs, const int* dims, int n,
     p.txtype_sz = d[5];
     if (p.H <= 0 || p.W <= 0 || p.H % 4 || p.W % 4 ||
         (!lossless && (p.H % kRegion || p.W % kRegion)) ||
-        !esz_ok(p.eob_sz) || !esz_ok(p.txsz_sz) || !esz_ok(p.txtype_sz))
+        !esz_ok(p.eob_sz) || !esz_ok(p.txsz_sz) || !esz_ok(p.txtype_sz) ||
+        (a.consume && !p.strays))
       return static_cast<int>(cudaErrorInvalidValue);
     p.regions_x = (p.W + kRegion - 1) / kRegion;
     p.region0 = regions;
@@ -802,23 +902,26 @@ int residual_planes(const void* const* ptrs, const int* dims, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dense coefficient and eob buffers of pair rows, on `stream`: both
-// are zero-filled, then one launch scatters cp ([ncp, 3] int16 rows
-// (pos-hi, pos-lo, value) into int16 flat_c, or [ncp, 4] rows (pos-hi,
-// pos-lo, value-hi, value-lo) into int32 flat_c when cp_cols is 4) and ep
-// ([nep, 3] int16 rows into int16 flat_e). nc and ne: the buffers'
-// lengths.
+// The dense coefficient and eob buffers of pair rows, on `stream`: with
+// zero_fill both are zero-filled first (a memset pair), else they must
+// read zero already (a consuming residual_planes left them so); then one
+// launch scatters cp ([ncp, 3] int16 rows (pos-hi, pos-lo, value) into
+// int16 flat_c, or [ncp, 4] rows (pos-hi, pos-lo, value-hi, value-lo)
+// into int32 flat_c when cp_cols is 4) and ep ([nep, 3] int16 rows into
+// int16 flat_e). nc and ne: the buffers' lengths.
 int scatter_pairs(const int16_t* cp, int ncp, int cp_cols, const int16_t* ep,
                   int nep, void* flat_c, int nc, int16_t* flat_e, int ne,
-                  cudaStream_t stream) {
+                  int zero_fill, cudaStream_t stream) {
   if (ncp < 0 || nep < 0 || nc < 0 || ne < 0 || (cp_cols != 3 && cp_cols != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const int wide = cp_cols == 4;
-  cudaError_t err = cudaMemsetAsync(
-      flat_c, 0, static_cast<size_t>(nc) * (wide ? 4 : 2), stream);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(flat_e, 0, static_cast<size_t>(ne) * 2, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (zero_fill) {
+    cudaError_t err = cudaMemsetAsync(
+        flat_c, 0, static_cast<size_t>(nc) * (wide ? 4 : 2), stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(flat_e, 0, static_cast<size_t>(ne) * 2, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const long long rows = static_cast<long long>(ncp) + nep;
   if (rows)
     scatter_kernel<<<static_cast<unsigned>((rows + kThreads - 1) / kThreads),

@@ -5,11 +5,13 @@ lanes on the card.
 and snapshots, per transform block: the bool-decoder state at the
 block's coefficient start, its probability slice, scan and neighbour
 tables, initial nnz context and dequant pair, plus the host result
-(dequantized raster coefficients and eob). `decode_blocks(caps, device)`
-groups the blocks by transform size and re-decodes every group with
-ops/rac.decode_coeffs_multi, one lane per block. This is how the JAX
-package drives its Pallas coefficient kernel (tests/test_coef_pallas.py,
-tools/kernel_bench.py).
+(dequantized raster coefficients and eob). `frame_inputs(groups,
+device)` packs the blocks, grouped by transform size, for one launch,
+and `decode_blocks` re-decodes them all with ops/rac.decode_coeffs_frame,
+one lane per block (or per group with a function of the Pallas kernel's
+signature). This is how the JAX package drives its Pallas coefficient
+kernel (tests/test_coef_pallas.py, tools/kernel_bench.py), one call per
+size there.
 """
 from __future__ import annotations
 
@@ -106,10 +108,10 @@ def group_by_tx(caps):
     return groups
 
 
-def lane_inputs(group, device, Lw=None):
-    """decode_coeffs_multi's arguments for one same-size group, on
-    `device`. Lw bounds each lane's byte window (a block reads far fewer
-    than 4*n + 64 bytes)."""
+def _lane_host(group, Lw=None):
+    """decode_coeffs_multi's arguments for one same-size group, numpy.
+    Lw bounds each lane's byte window (a block reads far fewer than 4*n
+    + 64 bytes)."""
     n = (4 << group[0]["tx"]) ** 2
     starts = [g["snap"][1] + (1 if g["snap"][2] else 0) for g in group]
     if Lw is None:
@@ -125,17 +127,33 @@ def lane_inputs(group, device, Lw=None):
             np.stack([g["nb"][:, 1] for g in group]),
             np.asarray([g["nnz"] for g in group], np.int32),
             np.stack([g["qmul"] for g in group]))
-    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                 device=device) for a in host)
+    return tuple(np.ascontiguousarray(a, np.int32) for a in host)
+
+
+def lane_inputs(group, device, Lw=None):
+    """decode_coeffs_multi's arguments for one same-size group, on
+    `device` (the Pallas kernel's signature)."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _lane_host(group, Lw))
+
+
+def frame_inputs(groups, device, sms=rac.H100_SMS):
+    """Every group of a frame packed for one launch (rac.pack_lanes), on
+    `device`: a rac.CoefLanes, groups in the order of `groups`."""
+    parts = [(*_lane_host(g), (4 << tx) ** 2, g[0]["is32"])
+             for tx, g in groups.items()]
+    return rac.pack_lanes(parts, sms).to(device)
 
 
 def decode_blocks(groups, inputs, bpp, fn=None):
-    """Re-decode every group: {tx: (coef [S, n], eob [S])}. inputs:
-    {tx: lane_inputs(...)}; fn defaults to the decode_coeffs_multi
-    wrapper."""
-    fn = rac.decode_coeffs_multi if fn is None else fn
-    out = {}
-    for tx, group in groups.items():
-        n = (4 << tx) ** 2
-        out[tx] = fn(*inputs[tx], n=n, bpp=bpp, is32=group[0]["is32"])
-    return out
+    """Re-decode every group: {tx: (coef [S, n], eob [S])}. inputs: a
+    frame_inputs(...) of these groups. fn None: every group in one call
+    of rac.decode_coeffs_frame (one launch on the card); else fn, with
+    decode_coeffs_multi's signature (the plain version, or the one-group
+    wrapper), called per group on the lanes unpacked from inputs."""
+    if fn is None:
+        coef, eob = rac.decode_coeffs_frame(inputs, bpp)
+        return dict(zip(groups, rac.split_groups(inputs, coef, eob)))
+    return {tx: fn(*args, n=(4 << tx) ** 2, bpp=bpp, is32=group[0]["is32"])
+            for (tx, group), args in zip(groups.items(),
+                                         rac.group_args(inputs))}

@@ -19,12 +19,20 @@ The public wrapper takes the plain version for tensors on the CPU and
 launches the CUDA kernel (csrc/rac.cu) for tensors on the card; it
 counts its kernel launches in LAUNCHES.
 
+The coefficient kernel walks every lane of a frame in one launch, from a
+packed form of the frame (pack_lanes: a lane table, deduplicated scan and
+probability tables, a token machine) that decode_coeffs_frame takes;
+decode_coeffs_multi, the Pallas kernel's signature for one group of
+lanes, packs its group on the card (group_lanes, no deduplication) and
+launches the same kernel.
+
 State per lane mirrors the spec decoder (codecs/vp9/rac.py): value <
 2*range <= 510, range in [128, 255], MSB-first bit feed.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -404,10 +412,14 @@ _SIGNATURES = {
     "rac_decode_tree": [_c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p,
                         _c.c_int, _c.c_void_p, _c.c_int, _c.c_int,
                         _c.c_void_p, _c.c_void_p],
-    "rac_decode_coeffs": [_c.c_void_p, _c.c_int, _c.c_int] +
-                         [_c.c_void_p] * 11 +
-                         [_c.c_int, _c.c_int, _c.c_int] +
-                         [_c.c_void_p] * 3,
+    # lanes, blocks, nblocks, half16, tables, probs, machine, bpp, smem,
+    # coef, eob, stream
+    "rac_decode_coeffs_frame": [_c.c_void_p, _c.c_void_p, _c.c_int] +
+                               [_c.c_void_p] * 4 + [_c.c_int, _c.c_int] +
+                               [_c.c_void_p] * 3,
+    # half, len, value, rng, bitbuf, nbits, p8, K, cycles, sink, stream
+    "rac_bool_chain": [_c.c_void_p] + [_c.c_int] * 5 +
+                      [_c.c_void_p, _c.c_int] + [_c.c_void_p] * 3,
 }
 
 
@@ -464,10 +476,325 @@ def decode_bits_multi(data_u8, probs_seq_u8):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the coefficient walk of a frame in one launch: its packed form
+
+# the token machine of csrc/rac.cu's coefficient walk: states 0-10 the
+# nodes of a probability row, _SIGN the sign, then one state per extra
+# bit of cat1-cat6; a transition word holds an action, the next state,
+# a leaf's base value and energy, and whether the bit shifts into the
+# extra bits
+_SIGN, _STATES = 11, 64
+_CONT, _EOB, _ZERO, _COEF = 0, 1, 2, 3
+_LEAF, _SHIFT = 1 << 8, 1 << 9
+# cat1-cat5: (base value, extra-bit probabilities); cat6 from _CAT6_PROBS
+_CATS = ((5, (159,)), (7, (165, 145)), (11, (173, 148, 140)),
+         (19, (176, 155, 140, 135)), (35, (180, 157, 141, 134, 130)))
+
+
+def _tw(act=_CONT, nxt=0, leaf=None, shift=False):
+    w = act | nxt << 2 | (_SHIFT if shift else 0)
+    if leaf:
+        w |= _LEAF | leaf[0] << 16 | leaf[1] << 24
+    return w
+
+
 @lru_cache(maxsize=None)
-def _band_dev(n, device):
-    """band_table(n) on `device`, copied there once."""
-    return torch.as_tensor(band_table(n), device=device)
+def coef_machine(bpp):
+    """The token machine for `bpp` as csrc/rac.cu reads it: int32
+    [3 * 64], the two transition words of each state (bit 0, bit 1),
+    then each state's constant probability (the sign's and the extra
+    bits'; 0 for the nodes, whose probability is the lane's row)."""
+    trans = np.zeros((_STATES, 2), np.int64)
+    cprob = np.zeros(_STATES, np.int64)
+    cprob[_SIGN] = 128
+    first, st = [], _SIGN + 1
+    for _base, ps in _CATS + ((67, tuple(_CAT6_PROBS[bpp])),):
+        first.append(st)
+        for j, pr in enumerate(ps):
+            cprob[st + j] = pr
+            nxt = st + j + 1 if j + 1 < len(ps) else _SIGN
+            trans[st + j] = _tw(nxt=nxt, shift=True)
+        st += len(ps)
+    assert st <= _STATES
+    c1, c2, c3, c4, c5, c6 = first
+    trans[0] = (_tw(_EOB), _tw(nxt=1))                         # EOB
+    trans[1] = (_tw(_ZERO, 1), _tw(nxt=2))                     # zero
+    trans[2] = (_tw(nxt=_SIGN, leaf=(1, 1)), _tw(nxt=3))       # one
+    trans[3] = (_tw(nxt=4), _tw(nxt=6))
+    trans[4] = (_tw(nxt=_SIGN, leaf=(2, 2)), _tw(nxt=5, leaf=(3, 3)))
+    trans[5] = _tw(nxt=_SIGN, shift=True)                      # 3 or 4
+    trans[6] = (_tw(nxt=7), _tw(nxt=8))
+    trans[7] = (_tw(nxt=c1, leaf=(5, 4)), _tw(nxt=c2, leaf=(7, 4)))
+    trans[8] = (_tw(nxt=9), _tw(nxt=10))
+    trans[9] = (_tw(nxt=c3, leaf=(11, 5)), _tw(nxt=c4, leaf=(19, 5)))
+    trans[10] = (_tw(nxt=c5, leaf=(35, 5)), _tw(nxt=c6, leaf=(67, 5)))
+    trans[_SIGN] = _tw(_COEF, 0)
+    return np.concatenate([trans.reshape(-1), cprob]).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def _machine_on(bpp, device):
+    return torch.as_tensor(coef_machine(bpp), device=device)
+
+
+# the lane table's columns and the block table's, as csrc/rac.cu reads
+# them; the probability row of a lane, in bytes
+LANE_COLS, BLOCK_COLS = 16, 10
+(HALF_OFF, HALF_LEN, OUT_OFF, TX, TAB_OFF, PROB_OFF, NNZ, QDC, QAC, VALUE,
+ RNG, BITBUF, NBITS, CACHE_OFF, IS32) = range(15)
+(LANE0, NLANES, TAB_LO, TAB_HI, PROB_LO, PROB_HI, OUT_LO, OUT_HI,
+ CACHE_BYTES) = range(9)
+PROB_ROW = 36 * 11
+# shared bytes of the token machine in a block; the SMs of an H100, over
+# which pack_lanes spreads the lanes by default
+MACHINE_BYTES = _STATES * 9
+H100_SMS = 132
+# blocks (one warp each) pack_lanes aims to put on each SM: fewer lanes a
+# warp wait less on each other's tokens (measured: tools/coef_ab_torch.py)
+BLOCKS_PER_SM = 4
+
+
+def _r16(v):
+    return (v + 15) & ~15
+
+
+def _lanes_per_block(S, sms):
+    """Lanes a block (one warp, so at most 32): as few as spread S lanes
+    over BLOCKS_PER_SM blocks on each of `sms` SMs."""
+    return max(1, min(32, -(-S // (sms * BLOCKS_PER_SM)))) if S else 1
+
+
+@dataclass
+class CoefLanes:
+    """A frame's coefficient lanes in the form csrc/rac.cu's walk reads
+    (pack_lanes): lanes [S, LANE_COLS] and blocks [B, BLOCK_COLS] int32,
+    half the lanes' halfword windows end to end (int32), tables the
+    distinct scan/neighbour tables (int32 words scan | nb0 << 10 | nb1
+    << 20), probs the distinct probability rows (uint8, PROB_ROW each);
+    smem: the largest block's shared bytes; groups: (n, lanes, output
+    offset, first lane, is32, halfwords a lane) per group; nout: the
+    outputs' length."""
+    lanes: object
+    blocks: object
+    half: object
+    tables: object
+    probs: object
+    smem: int
+    groups: tuple
+    nout: int
+
+    def to(self, device):
+        """The same lanes with every array a tensor on `device`."""
+        arrs = [torch.as_tensor(a, device=device) for a in
+                (self.lanes, self.blocks, self.half, self.tables,
+                 self.probs)]
+        return CoefLanes(*arrs, self.smem, self.groups, self.nout)
+
+
+def pack_lanes(parts, sms=H100_SMS):
+    """Pack groups of lanes into one CoefLanes (numpy). parts: per group
+    decode_coeffs_multi's arguments as numpy arrays, then n and is32:
+    (half16 [S, Lh], value0, rng0, bitbuf0, nbits0 [S], probs [S, 36,
+    11], scan, nb0, nb1 [S, n], nnz0 [S], qmul [S, 2], n, is32). The
+    lanes keep their order, group after group, and so do their outputs;
+    each group's lanes share its distinct scan/neighbour tables, and all
+    lanes the frame's distinct probability rows. Blocks take
+    ceil(S / (sms * BLOCKS_PER_SM)) lanes each (at most 32, a warp), so
+    that they cover the card's SMs; each lists the ranges of tables, probability rows
+    and outputs its lanes use, and its lanes' energy caches (n bytes a
+    lane)."""
+    S = sum(len(p[0]) for p in parts)
+    lanes = np.zeros((S, LANE_COLS), np.int64)
+    halves, tables, groups = [], [], []
+    lane = out = half_off = tab_off = 0
+    probs_all = []
+    for half16, v0, r0, bb0, nb0_, probs, scan, nb0, nb1, nnz0, qmul, n, \
+            is32 in parts:
+        Sg, Lh = half16.shape
+        if n not in (16, 64, 256, 1024):
+            raise ValueError(f"unsupported block n={n}")
+        words = [np.asarray(a, np.int64).reshape(Sg, n)
+                 for a in (scan, nb0, nb1)]
+        if any(((a < 0) | (a >= n)).any() for a in words):
+            raise ValueError("a scan or neighbour entry outside the block")
+        key = words[0] | words[1] << 10 | words[2] << 20
+        uniq, inv = np.unique(key, axis=0, return_inverse=True)
+        tables.append(uniq.reshape(-1))
+        rows = lanes[lane:lane + Sg]
+        rows[:, HALF_OFF] = half_off + Lh * np.arange(Sg)
+        rows[:, HALF_LEN] = Lh
+        rows[:, OUT_OFF] = out + n * np.arange(Sg)
+        rows[:, TX] = {16: 0, 64: 1, 256: 2, 1024: 3}[n]
+        rows[:, TAB_OFF] = tab_off + n * np.asarray(inv).reshape(-1)
+        rows[:, NNZ] = nnz0
+        rows[:, QDC], rows[:, QAC] = np.asarray(qmul).reshape(Sg, 2).T
+        rows[:, VALUE], rows[:, RNG] = v0, r0
+        rows[:, BITBUF], rows[:, NBITS] = bb0, nb0_
+        rows[:, IS32] = int(bool(is32))
+        halves.append(np.asarray(half16, np.int32).reshape(-1))
+        probs_all.append(np.asarray(probs, np.int64).reshape(Sg, PROB_ROW))
+        groups.append((n, Sg, out, lane, bool(is32), Lh))
+        lane += Sg
+        out += Sg * n
+        half_off += Sg * Lh
+        tab_off += uniq.size
+    probs_all = np.concatenate(probs_all) if probs_all else \
+        np.zeros((0, PROB_ROW), np.int64)
+    if ((probs_all < 0) | (probs_all > 255)).any():
+        raise ValueError("a probability outside 0-255")
+    puniq, pinv = np.unique(probs_all, axis=0, return_inverse=True)
+    lanes[:, PROB_OFF] = PROB_ROW * np.asarray(pinv).reshape(-1)
+    n_of = 16 << (2 * lanes[:, TX])
+    lpb = _lanes_per_block(S, sms)
+    blocks = np.zeros((-(-S // lpb), BLOCK_COLS), np.int64)
+    smem = MACHINE_BYTES
+    for b, l0 in enumerate(range(0, S, lpb)):
+        l1 = min(S, l0 + lpb)
+        r, nn = lanes[l0:l1], n_of[l0:l1]
+        r[:, CACHE_OFF] = np.cumsum(nn) - nn
+        blk = blocks[b]
+        blk[LANE0], blk[NLANES] = l0, l1 - l0
+        blk[TAB_LO], blk[TAB_HI] = r[:, TAB_OFF].min(), \
+            (r[:, TAB_OFF] + nn).max()
+        blk[PROB_LO], blk[PROB_HI] = r[:, PROB_OFF].min(), \
+            r[:, PROB_OFF].max() + PROB_ROW
+        blk[OUT_LO], blk[OUT_HI] = r[0, OUT_OFF], r[-1, OUT_OFF] + nn[-1]
+        blk[CACHE_BYTES] = nn.sum()
+        smem = max(smem, MACHINE_BYTES + _r16(4 * (blk[TAB_HI] - blk[TAB_LO]))
+                   + _r16(blk[PROB_HI] - blk[PROB_LO]) + blk[CACHE_BYTES])
+    tab = np.concatenate(tables) if tables else np.zeros(0, np.int64)
+    return CoefLanes(
+        lanes.astype(np.int32), blocks.astype(np.int32),
+        np.concatenate(halves) if halves else np.zeros(0, np.int32),
+        tab.astype(np.int32), puniq.astype(np.uint8).reshape(-1), int(smem),
+        tuple(groups), out)
+
+
+def group_lanes(half16, value0, rng0, bitbuf0, nbits0, probs, scan, nb0,
+                nb1, nnz0, qmul, n, is32, sms=H100_SMS):
+    """One group of lanes (decode_coeffs_multi's arguments, int32 tensors)
+    as a CoefLanes on their own device, with no wait on the device and
+    no copy from it. Unlike pack_lanes nothing is deduplicated: each
+    lane keeps its own scan/neighbour table and probability row, at
+    offsets in lane order, and blocks take lanes as pack_lanes deals
+    them. What the shapes fix (offsets, sizes, the block table) is built
+    on the host and uploaded from pinned memory in one copy; the lanes'
+    own columns (nnz, dequant, state) are stacked into the table on the
+    device. Entries are not checked (that would wait on the device):
+    scan and neighbour entries are taken modulo n, which keeps the walk
+    inside its lane's tables, and probabilities modulo 256."""
+    dev = half16.device
+    S, Lh = half16.shape
+    lpb = _lanes_per_block(S, sms)
+    lane = np.arange(S)
+    lanes = np.zeros((S, LANE_COLS), np.int64)
+    lanes[:, HALF_OFF] = lane * Lh
+    lanes[:, HALF_LEN] = Lh
+    lanes[:, OUT_OFF] = lanes[:, TAB_OFF] = lane * n
+    lanes[:, TX] = {16: 0, 64: 1, 256: 2, 1024: 3}[n]
+    lanes[:, PROB_OFF] = lane * PROB_ROW
+    lanes[:, CACHE_OFF] = lane % lpb * n
+    lanes[:, IS32] = int(bool(is32))
+    l0 = np.arange(0, S, lpb)
+    nl = np.minimum(S - l0, lpb)
+    blocks = np.zeros((len(l0), BLOCK_COLS), np.int64)
+    blocks[:, LANE0], blocks[:, NLANES] = l0, nl
+    blocks[:, TAB_LO] = blocks[:, OUT_LO] = l0 * n
+    blocks[:, TAB_HI] = blocks[:, OUT_HI] = (l0 + nl) * n
+    blocks[:, PROB_LO], blocks[:, PROB_HI] = l0 * PROB_ROW, (l0 + nl) * PROB_ROW
+    blocks[:, CACHE_BYTES] = nl * n
+    host = torch.empty(lanes.size + blocks.size, dtype=torch.int32,
+                       pin_memory=dev.type == "cuda")
+    host.numpy()[:] = np.concatenate([lanes.reshape(-1), blocks.reshape(-1)])
+    table = host.to(dev, non_blocking=True)
+    lanes_d = table[:S * LANE_COLS].view(S, LANE_COLS)
+    # NNZ-NBITS are adjacent columns, in this order
+    lanes_d[:, NNZ:NBITS + 1] = torch.stack(
+        (nnz0, qmul[:, 0], qmul[:, 1], value0, rng0, bitbuf0, nbits0), 1)
+    t = torch.stack((scan, nb0, nb1)) & (n - 1)
+    tables = t[0] | t[1] << 10 | t[2] << 20
+    smem = MACHINE_BYTES + _r16(4 * lpb * n) + _r16(lpb * PROB_ROW) + lpb * n
+    return CoefLanes(lanes_d, table[S * LANE_COLS:].view(-1, BLOCK_COLS),
+                     half16.reshape(-1), tables.reshape(-1),
+                     probs.reshape(-1).to(torch.uint8), smem,
+                     ((n, S, 0, 0, bool(is32), Lh),), S * n)
+
+
+def split_groups(fr, coef, eob):
+    """The flat outputs of a CoefLanes' walk as [(coef [S, n], eob [S])]
+    per group, views."""
+    return [(coef[o:o + Sg * n].view(Sg, n), eob[l:l + Sg])
+            for n, Sg, o, l, _is32, _lh in fr.groups]
+
+
+def group_args(fr):
+    """decode_coeffs_multi's arguments of each group of a CoefLanes,
+    unpacked from its lane table, tables and probability rows (int32
+    tensors on its device)."""
+    dev = fr.lanes.device
+    L = fr.lanes.long()
+    probs = fr.probs.long()
+    out = []
+    for n, Sg, _o, l0, _is32, Lh in fr.groups:
+        r = L[l0:l0 + Sg]
+        w = fr.tables[r[:, TAB_OFF, None] + torch.arange(n, device=dev)]
+        args = (fr.half[r[:, HALF_OFF, None] + torch.arange(Lh, device=dev)],
+                r[:, VALUE], r[:, RNG], r[:, BITBUF], r[:, NBITS],
+                probs[r[:, PROB_OFF, None]
+                      + torch.arange(PROB_ROW, device=dev)]
+                .reshape(Sg, 36, 11),
+                w & 1023, (w >> 10) & 1023, (w >> 20) & 1023, r[:, NNZ],
+                r[:, [QDC, QAC]])
+        out.append(tuple(a.to(torch.int32).contiguous() for a in args))
+    return out
+
+
+def decode_coeffs_frame_plain(fr, bpp):
+    """The plain version of the frame's walk on the same packed inputs:
+    each group's lanes unpacked (group_args), then
+    decode_coeffs_multi_plain per group. Returns (coef [nout], eob [S])
+    int32."""
+    dev = fr.lanes.device
+    coef = torch.zeros(fr.nout, dtype=torch.int32, device=dev)
+    eob = torch.zeros(fr.lanes.shape[0], dtype=torch.int32, device=dev)
+    for (n, Sg, o, l0, is32, _lh), args in zip(fr.groups, group_args(fr)):
+        c, e = decode_coeffs_multi_plain(*args, n, bpp, is32)
+        coef[o:o + Sg * n] = c.reshape(-1)
+        eob[l0:l0 + Sg] = e
+    return coef, eob
+
+
+def decode_coeffs_frame(fr, bpp):
+    """Every lane of a packed frame (a CoefLanes of tensors) -> (coef
+    [nout] int32, each lane's n outputs in raster order at its output
+    offset, eob [S] int32); split_groups cuts them per group. CPU
+    tensors take decode_coeffs_frame_plain; any other device the kernel
+    (csrc/rac.cu), one launch for every lane, which takes CUDA tensors
+    only."""
+    if fr.lanes.device.type == "cpu":
+        return decode_coeffs_frame_plain(fr, bpp)
+    if bpp not in (8, 10, 12):
+        raise ValueError(f"unsupported bpp={bpp}")
+    dev = fr.lanes.device
+    S, B = fr.lanes.shape[0], fr.blocks.shape[0]
+    i32 = (torch.int32,)
+    args = [check_tensor(fr.lanes, i32, (S, LANE_COLS), dev, "lanes"),
+            check_tensor(fr.blocks, i32, (B, BLOCK_COLS), dev, "blocks"),
+            check_tensor(fr.half, i32, fr.half.shape[:1], dev, "half"),
+            check_tensor(fr.tables, i32, fr.tables.shape[:1], dev, "tables"),
+            check_tensor(fr.probs, (torch.uint8,), fr.probs.shape[:1], dev,
+                         "probs")]
+    if args[4].data_ptr() % 4:
+        raise ValueError("probs must be 4-byte aligned")
+    coef = torch.empty(fr.nout, dtype=torch.int32, device=dev)
+    eob = torch.empty(S, dtype=torch.int32, device=dev)
+    if B:
+        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_coeffs_frame",
+                     args[0], args[1], B, *args[2:],
+                     _machine_on(bpp, dev), bpp, fr.smem, coef, eob)
+        LAUNCHES["decode_coeffs_multi"] += 1
+    return coef, eob
 
 
 def decode_coeffs_multi(half16, value0, rng0, bitbuf0, nbits0, probs,
@@ -480,7 +807,9 @@ def decode_coeffs_multi(half16, value0, rng0, bitbuf0, nbits0, probs,
     band*6+ctx. scan/nb0/nb1: [S, n] int32 per-lane scan order and
     neighbor tables. nnz0: [S] initial nnz context. qmul: [S, 2] (dc,
     ac) dequant. Returns (coef [S, n] int32 in raster order within the
-    block, eob [S] int32)."""
+    block, eob [S] int32). CPU tensors take the plain version; on the
+    card the group is packed on the card (group_lanes) and walked by the
+    frame kernel, one launch."""
     if half16.device.type == "cpu":
         return decode_coeffs_multi_plain(half16, value0, rng0, bitbuf0,
                                          nbits0, probs, scan, nb0, nb1,
@@ -499,11 +828,26 @@ def decode_coeffs_multi(half16, value0, rng0, bitbuf0, nbits0, probs,
         args.append(check_tensor(t, (i32,), (S, n), dev, name))
     args.append(check_tensor(nnz0, (i32,), (S,), dev, "nnz0"))
     args.append(check_tensor(qmul, (i32,), (S, 2), dev, "qmul"))
-    args.append(_band_dev(n, dev))
-    coef = torch.empty((S, n), dtype=i32, device=dev)
-    eob = torch.empty((S,), dtype=i32, device=dev)
-    if S:
-        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_coeffs", args[0],
-                     S, Lh, *args[1:], n, bpp, int(bool(is32)), coef, eob)
-        LAUNCHES["decode_coeffs_multi"] += 1
-    return coef, eob
+    if not S:
+        return (torch.empty((0, n), dtype=i32, device=dev),
+                torch.empty((0,), dtype=i32, device=dev))
+    coef, eob = decode_coeffs_frame(group_lanes(*args, n, is32), bpp)
+    return coef.view(S, n), eob
+
+
+def bool_chain_cycles(half, value, rng, bitbuf, nbits, p8, K):
+    """Cycles of K bools (a multiple of 8) of one lane's chain on the
+    card (csrc/rac.cu bool_chain_kernel): its halfwords half (a CUDA
+    int32 tensor, staged in shared memory) from the state (value, rng,
+    bitbuf, nbits), under the 8 probabilities p8 (a CUDA int32 [8]) held
+    in registers, one thread, timed with clock64. A measurement, not a
+    path: it counts no launch. Synchronises."""
+    dev = half.device
+    half = check_tensor(half, (torch.int32,), half.shape[:1], dev, "half")
+    p8 = check_tensor(p8, (torch.int32,), (8,), dev, "p8")
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    _cuda.launch("rac.cu", _SIGNATURES, "rac_bool_chain", half,
+                 half.shape[0], int(value), int(rng), int(bitbuf),
+                 int(nbits), p8, int(K), cycles, sink)
+    return int(cycles.item())

@@ -13,15 +13,19 @@ reference: vp9_webgpu.c:2956):
                        _grids_from_records_plain, scatters and gathers
                        in eager ops
   1. residual pass   — the coefficient pairs scattered into dense
-                       buffers (on the card csrc/itxfm.cu's scatter: a
-                       memset pair and one launch per frame; the plain
-                       version, _scatter_pairs16/_scatter_pairs32), then
-                       the inverse transforms of every tx block of the
-                       three planes (dc-only fast path by eob==1). On the
-                       card one launch of csrc/itxfm.cu per frame; the
-                       plain version, residual_plane_plain, runs dense
-                       passes over a whole plane (one per tx size,
-                       dct/adst variants computed and selected per tile)
+                       buffers kept from frame to frame (scatter_frame:
+                       on the card one launch of csrc/itxfm.cu's scatter
+                       per frame, no memset; the plain version,
+                       _scatter_pairs16/32 copied in), then the inverse
+                       transforms of every tx block of the three planes
+                       (dc-only fast path by eob==1), which clear what
+                       they read, so the buffers read zero for the next
+                       frame. On
+                       the card one launch of csrc/itxfm.cu per frame;
+                       the plain version, residual_plane_plain with
+                       _consume_plain, runs dense passes over a whole
+                       plane (one per tx size, dct/adst variants
+                       computed and selected per tile)
   2. inter pass      — uniform per-4x4-cell 8-tap MC (sub-pel phases and
                        filter banks gathered per cell; bilinear expressed
                        as an 8-tap bank), compound average, +residual. On
@@ -211,16 +215,63 @@ def residual_plane_plain(coef, eob4, txsz4, txtype4, lossless, bpp):
 _GRID_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
-def residual_planes(jobs, lossless, bpp):
+def _consume_plain(coef, eob4, txsz4, txtype4, lossless):
+    """What a consuming residual launch clears, on one plane, in place:
+    every eob cell, and the coefficients of every transformed root that
+    is not DC-only with the first 4-pixel quad of every DC-only one
+    (csrc/itxfm.cu). Returns whether a nonzero eob cell is no root the
+    residual transforms (a stray)."""
+    e = eob4.to(torch.int64)
+    t = txsz4.to(torch.int64)
+    ty = txtype4.to(torch.int64)
+    r4, c4 = e.shape
+    dev = coef.device
+    yy = torch.arange(r4, device=dev)[:, None]
+    xx = torch.arange(c4, device=dev)[None, :]
+    roots = torch.zeros((r4, c4), dtype=torch.bool, device=dev)
+    full = torch.zeros_like(roots)
+    dcq = torch.zeros((coef.shape[0], c4), dtype=torch.bool, device=dev)
+    for tx in ((0,) if lossless else range(4)):
+        k = 1 << tx
+        root = ((t == tx) & (e > 0) & (yy % k == 0) & (xx % k == 0)
+                & (yy + k <= r4) & (xx + k <= c4))
+        dc = root & (e == 1) & ((ty == 0) | (tx == 3)) & (not lossless)
+        roots |= root
+        cover = (root & ~dc)[::k, ::k]
+        full |= cover.repeat_interleave(k, 0).repeat_interleave(k, 1)[
+            :r4, :c4]
+        dcq[::4] |= dc
+    mask = full.repeat_interleave(4, 0).repeat_interleave(4, 1) \
+        | dcq.repeat_interleave(4, 1)
+    coef.masked_fill_(mask, 0)
+    stray = bool(((e != 0) & ~roots).any())
+    eob4.zero_()
+    return stray
+
+
+def residual_planes(jobs, lossless, bpp, consume=None):
     """The residuals of a frame's planes: jobs [(coef, eob4, txsz4,
     txtype4)], each as residual_plane takes them -> an [H, W] int32
     residual a job. CPU tensors take residual_plane_plain, one call a
     plane; any other device the kernel (csrc/itxfm.cu, one launch for
-    all the planes), which takes CUDA tensors only."""
+    all the planes), which takes CUDA tensors only. consume: None, or a
+    CoefBuffers a job, whose buffers the job's coef and eob4 are views
+    of; then the call also clears what it read (_consume_plain on the
+    CPU), so the buffers read zero for the next scatter, and marks them
+    consumed."""
     if not jobs:
         return []
+    if consume is not None and len(consume) != len(jobs):
+        raise ValueError(f"{len(consume)} buffer sets for {len(jobs)} planes")
     if jobs[0][0].device.type == "cpu":
-        return [residual_plane_plain(*job, lossless, bpp) for job in jobs]
+        outs = [residual_plane_plain(*job, lossless, bpp) for job in jobs]
+        if consume is not None:
+            for job, bufs in zip(jobs, consume):
+                if _consume_plain(*job, lossless):
+                    bufs.strays[0] = 1
+            for bufs in consume:
+                bufs.consumed = True
+        return outs
     if bpp != 8:
         raise NotImplementedError(
             f"{bpp}-bit residuals wait for the 10/12-bit slice")
@@ -245,7 +296,19 @@ def residual_planes(jobs, lossless, bpp):
                                  (txtype4, "txtype4"))]
         checked.append((coef, *grids))
         outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
-    recon_cuda.residual(checked, outs, lossless)
+    if consume is None:
+        recon_cuda.residual(checked, outs, lossless)
+        return outs
+    for (coef, eob4, _t, _ty), job in zip(checked, jobs):
+        if coef is not job[0] or eob4 is not job[1]:
+            raise ValueError("a consuming residual clears its coef and eob4 "
+                             "in place: they must be contiguous")
+    recon_cuda.residual(checked, outs, lossless,
+                        [bufs.strays for bufs in consume])
+    for bufs in {id(b): b for b in consume}.values():
+        bufs.consumed = True
+        if bufs.done is not None:
+            bufs.done.record()
     return outs
 
 
@@ -1106,10 +1169,12 @@ def scatter_coef(cp, ep, nc, ne):
     [N, 3] int16 rows (pos-hi, pos-lo, value) -> int16 coefficients, or
     [N, 4] rows (pos-hi, pos-lo, value-hi, value-lo) -> int32; ep [M, 3]
     int16 rows -> int16 eob cells. A row with a negative position (a pad
-    row) or one past the end is dropped; every other position is 0. CPU
-    tensors take _scatter_pairs16/_scatter_pairs32; any other device the
-    kernel (csrc/itxfm.cu: a memset pair and one launch), which takes
-    CUDA tensors only."""
+    row) or one past the end is dropped; every other position is 0. The
+    counterpart of the JAX package's _scatter_pairs16/_scatter_pairs32,
+    into fresh buffers; recon_frame scatters into kept ones with
+    scatter_frame. CPU tensors take _scatter_pairs16/_scatter_pairs32;
+    any other device the kernel (csrc/itxfm.cu: a memset pair and one
+    launch), which takes CUDA tensors only."""
     wide = cp.dim() == 2 and cp.shape[1] == 4
     if cp.device.type == "cpu":
         scat = _scatter_pairs32 if wide else _scatter_pairs16
@@ -1127,6 +1192,100 @@ def scatter_coef(cp, ep, nc, ne):
     flat_e = torch.empty(ne, dtype=torch.int16, device=dev)
     recon_cuda.scatter(cp, ep, flat_c, flat_e)
     return flat_c, flat_e
+
+
+# zero-fills of kept coefficient buffers before a scatter, by cause: the
+# last scatter into them was not consumed (a frame raised between its
+# scatter and its residual), or the consuming residual found a stray
+COEF_FILLS = {"unconsumed": 0, "stray": 0}
+
+
+class CoefBuffers:
+    """The dense coefficient and eob buffers that one scatter slot of
+    recon_frame keeps from frame to frame on one device for one decoder
+    (coef_buffers: the decoder's coef_bufs holds them): zero when made,
+    and zero again after each consuming residual_planes, so that the next
+    scatter needs no memset. consumed: whether the last scatter into
+    them was consumed; strays: an int32 flag that the consuming residual
+    sets where a nonzero eob cell was no root it transformed (in pinned
+    host memory on a card, which the kernel writes); done: on a card, an
+    event after the consuming residual, which the next scatter waits for
+    before it reads the flag. The kernels update the buffers in stream
+    order, so one set serves one stream only."""
+
+    def __init__(self, dev, nc, ne, wide):
+        self.flat_c = torch.zeros(
+            nc, dtype=torch.int32 if wide else torch.int16, device=dev)
+        self.flat_e = torch.zeros(ne, dtype=torch.int16, device=dev)
+        cuda = dev.type == "cuda"
+        self.strays = torch.zeros(1, dtype=torch.int32, pin_memory=cuda)
+        self.done = torch.cuda.Event() if cuda else None
+        self.consumed = True
+
+    def fill_cause(self):
+        """Why the buffers may hold a nonzero ("unconsumed", "stray"), or
+        None when they read zero."""
+        if not self.consumed:
+            return "unconsumed"
+        if self.done is not None:
+            self.done.synchronize()
+        return "stray" if int(self.strays[0]) else None
+
+    def read_zero(self):
+        """Whether both buffers read zero (a check; it synchronises)."""
+        return not (bool(self.flat_c.any()) or bool(self.flat_e.any()))
+
+
+def coef_buffers(store, dev, slot, nc, ne, wide):
+    """The CoefBuffers of (device, slot, lengths, width) in `store` (a
+    dict: a decoder's coef_bufs, which its FrameJobs carry), made at
+    first use. recon_frame's slots: "merged" for the merged pair rows,
+    0-2 for the per-plane rows of the pure-Python pass A (U and V have
+    one geometry, so the slot tells them apart)."""
+    dev = torch.device(dev)
+    key = (dev, slot, nc, ne, bool(wide))
+    bufs = store.get(key)
+    if bufs is None:
+        bufs = store[key] = CoefBuffers(dev, nc, ne, wide)
+    return bufs
+
+
+def scatter_frame(bufs, cp, ep):
+    """The pair rows cp, ep (as scatter_coef takes them) scattered into
+    the kept buffers bufs (a CoefBuffers of their width and lengths),
+    which a consuming residual_planes must read before the next call.
+    Where the buffers may hold a nonzero (bufs.fill_cause()), they are
+    zero-filled first and COEF_FILLS counts it. CPU tensors take
+    scatter_coef's plain version, copied into the buffers; any other
+    device the kernel (csrc/itxfm.cu: one
+    launch, with a memset pair before it only for a fill), which takes
+    CUDA tensors only. Returns (flat_c, flat_e)."""
+    wide = cp.dim() == 2 and cp.shape[1] == 4
+    if (bufs.flat_c.dtype == torch.int32) != wide:
+        raise ValueError("pair rows of another width than the buffers")
+    cause = bufs.fill_cause()
+    if cause:
+        COEF_FILLS[cause] += 1
+        bufs.strays[0] = 0
+    if cp.device.type == "cpu":
+        flat_c, flat_e = scatter_coef(cp, ep, bufs.flat_c.numel(),
+                                      bufs.flat_e.numel())
+        bufs.flat_c.copy_(flat_c)
+        bufs.flat_e.copy_(flat_e)
+    else:
+        dev = cp.device
+        if cp.dim() != 2 or ep.dim() != 2:
+            raise ValueError("pair rows are [N, 3 or 4] and [M, 3]")
+        cp = check_tensor(cp, (torch.int16,),
+                          (cp.shape[0], 4 if wide else 3), dev, "cp")
+        ep = check_tensor(ep, (torch.int16,), (ep.shape[0], 3), dev, "ep")
+        if bufs.flat_c.device != dev:
+            raise ValueError(f"buffers on {bufs.flat_c.device}, rows on "
+                             f"{dev}")
+        recon_cuda.scatter(cp, ep, bufs.flat_c, bufs.flat_e,
+                           zero_fill=bool(cause))
+    bufs.consumed = False
+    return bufs.flat_c, bufs.flat_e
 
 
 def _fill_pairs(out, pos, val, n):
@@ -1435,6 +1594,37 @@ def _loop_filter(s, outs, dev):
     return outs
 
 
+def scatter_planes(s):
+    """The pair rows of an uploaded frame (s: a FrameJob) scattered into
+    the kept buffers of its decoder (s.coef_bufs, scatter_frame): the
+    merged rows into one set, or each plane's rows into a set of its
+    own. Returns ([(coef, eob4)] views a plane, [CoefBuffers] a plane)
+    for the consuming residual_planes."""
+    dev = s.pre["dev"]
+    merged = s.pre.get("pairs_merged")
+    if merged is not None:
+        _cp, _ep, geoms_m = merged
+        Lc = sum(sh[0] * sh[1] for sh, _e, _b, _eb in geoms_m)
+        Le = sum(e[0] * e[1] for _sh, e, _b, _eb in geoms_m)
+        bufs = coef_buffers(s.coef_bufs, dev["cp"].device, "merged", Lc, Le,
+                            dev["cp"].shape[1] == 4)
+        flat_c, flat_e = scatter_frame(bufs, dev["cp"], dev["ep"])
+        return [_slice_plane(flat_c[None], flat_e[None], bc, be, sh[0],
+                             sh[1], esh[0], esh[1])
+                for sh, esh, bc, be in geoms_m], [bufs] * 3
+    planes_cf = ((s.coef_y, s.eob_y), (s.coef_u, s.eob_u),
+                 (s.coef_v, s.eob_v))
+    coefs, consume = [], []
+    for k, ((coef, eob4), (cp_d, ep_d)) in enumerate(
+            zip(planes_cf, dev["pairs"])):
+        bufs = coef_buffers(s.coef_bufs, cp_d.device, k, coef.size,
+                            eob4.size, cp_d.shape[1] == 4)
+        flat_c, flat_e = scatter_frame(bufs, cp_d, ep_d)
+        coefs.append((flat_c.view(coef.shape), flat_e.view(eob4.shape)))
+        consume.append(bufs)
+    return coefs, consume
+
+
 def recon_frame(s):
     """Reconstruct one frame on its device from the pass-A snapshot
     (s: a FrameJob). Sets s.cur_frame_obj.dev to the three int32
@@ -1462,25 +1652,10 @@ def recon_frame(s):
         ((recs_host[:, 6] == 0) & (recs_host[:, 3] >= 0)).any())
     has_comp = bool((recs_host[:, 14] != 0).any())
 
-    planes_cf = ((s.coef_y, s.eob_y), (s.coef_u, s.eob_u),
-                 (s.coef_v, s.eob_v))
-    merged = pre.get("pairs_merged")
+    # the dense buffers are kept from frame to frame and read zero: the
+    # residual below consumes what the scatter writes
     with metrics.timer("recon.scatter_coef"):
-        if merged is not None:
-            _cp, _ep, geoms_m = merged
-            Lc = sum(sh[0] * sh[1] for sh, _e, _b, _eb in geoms_m)
-            Le = sum(e[0] * e[1] for _sh, e, _b, _eb in geoms_m)
-            flat_c, flat_e = scatter_coef(dev["cp"], dev["ep"], Lc, Le)
-            coefs = [_slice_plane(flat_c[None], flat_e[None], bc, be, sh[0],
-                                  sh[1], esh[0], esh[1])
-                     for sh, esh, bc, be in geoms_m]
-        else:
-            coefs = []
-            for (coef, eob4), (cp_d, ep_d) in zip(planes_cf, dev["pairs"]):
-                flat_c, flat_e = scatter_coef(cp_d, ep_d, coef.size,
-                                              eob4.size)
-                coefs.append((flat_c.view(coef.shape),
-                              flat_e.view(eob4.shape)))
+        coefs, consume = scatter_planes(s)
 
     grids = ((inter4_d, txsz4_d, txtype4_d, comp4_d, filt4_d, refsel_d,
               mv16_d),
@@ -1491,7 +1666,7 @@ def recon_frame(s):
         residuals = residual_planes(
             [(coef, eob, g[1], g[2])
              for (coef, eob), g in zip(coefs, plane_grids)],
-            bool(h.lossless), bpp)
+            bool(h.lossless), bpp, consume=consume)
 
     if has_inter_frame:
         jobs = []

@@ -51,11 +51,12 @@ TAPS, COLUMN, TM = 0, 1, 2
 _c = ctypes
 _P, _I = _c.c_void_p, _c.c_int
 _SIGNATURES = {
-    # pointers (5 a plane), dims (6 a plane), planes, lossless, stream;
-    # cp, rows, columns, ep, rows, flat coef, length, flat eob, length,
-    # stream
-    "itxfm.cu": {"residual_planes": [_P, _P, _I, _I, _P],
-                 "scatter_pairs": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _P]},
+    # pointers (5 a plane), dims (6 a plane), planes, lossless, strays
+    # flags (a plane; null unless consuming), stream; cp, rows, columns,
+    # ep, rows, flat coef, length, flat eob, length, zero_fill, stream
+    "itxfm.cu": {"residual_planes": [_P, _P, _I, _I, _P, _P],
+                 "scatter_pairs": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
+                                   _P]},
     # pointers (10 a plane), dims (8 a plane), planes, bpp, has_comp,
     # stream
     "mc.cu": {"mc_planes": [_P, _P, _I, _I, _I, _P]},
@@ -75,11 +76,14 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def residual(jobs, outs, lossless):
+def residual(jobs, outs, lossless, strays=None):
     """csrc/itxfm.cu on checked, contiguous tensors: the residuals of up
     to RESIDUAL_MAX_PLANES planes in one launch. jobs: [(coef [H, W]
     int16 or int32, eob4, txsz4, txtype4 [H/4, W/4] int8/int16/int32)];
-    outs: the [H, W] int32 residuals, one a job."""
+    outs: the [H, W] int32 residuals, one a job. strays: None, or a
+    pinned int32 flag a job; then the launch consumes its inputs: it
+    clears the eob cells and coefficients it reads, and sets a job's flag
+    to 1 where a nonzero eob cell is no root it transforms."""
     n = len(jobs)
     if not 1 <= n <= RESIDUAL_MAX_PLANES or len(outs) != n:
         raise ValueError(f"{n} planes for one residual launch")
@@ -90,19 +94,25 @@ def residual(jobs, outs, lossless):
         dims[j] = (*coef.shape, int(coef.dtype == torch.int16),
                    eob4.element_size(), txsz4.element_size(),
                    txtype4.element_size())
+    if strays is not None:
+        if len(strays) != n:
+            raise ValueError(f"{len(strays)} strays flags for {n} planes")
+        # pinned host memory: its address is the device's address too
+        strays = [f.data_ptr() for f in strays]
     _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], "residual_planes",
-                 ptrs, dims.ctypes.data, n, int(lossless))
+                 ptrs, dims.ctypes.data, n, int(lossless), strays)
     LAUNCHES["residual"] += 1
 
 
-def scatter(cp, ep, flat_c, flat_e):
+def scatter(cp, ep, flat_c, flat_e, zero_fill=True):
     """csrc/itxfm.cu's scatter on checked, contiguous tensors: cp [N, 3]
-    (or [N, 4], int32 values) and ep [M, 3] int16 pair rows into the
-    zero-filled flat_c [nc] (int16, or int32 for four columns) and
-    flat_e [ne] int16. One call: a memset pair and one launch."""
+    (or [N, 4], int32 values) and ep [M, 3] int16 pair rows into flat_c
+    [nc] (int16, or int32 for four columns) and flat_e [ne] int16. One
+    call: with zero_fill a memset pair and one launch; without, the one
+    launch into buffers that read zero already."""
     _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], "scatter_pairs", cp,
                  cp.shape[0], cp.shape[1], ep, ep.shape[0], flat_c,
-                 flat_c.numel(), flat_e, flat_e.numel())
+                 flat_c.numel(), flat_e, flat_e.numel(), int(zero_fill))
     LAUNCHES["scatter"] += 1
 
 
