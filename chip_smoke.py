@@ -26,8 +26,9 @@ Phases, one status line each; any failure exits non-zero:
                  reconstructed before the loop filter, and their grids,
                  both sets in one launch and each set alone (us per
                  wave); then the race stress: 50 launches on those
-                 inputs and 10 on a full-size random-grid frame with
-                 every edge position active, each bit-exact;
+                 inputs, 10 on a full-size random-grid frame with every
+                 edge position active and 10 on one at 10 bpp, each
+                 bit-exact;
                - the coefficient scatter and residual_planes
                  (csrc/itxfm.cu: the scatter, into fresh buffers with a
                  memset pair and into the buffers recon_frame keeps from
@@ -38,6 +39,13 @@ Phases, one status line each; any failure exits non-zero:
                  (an inter frame) and bench_1080p_lf frame 0, as
                  recon_frame hands them over, and on a seeded full-size
                  lossless frame;
+               - residual_planes_hbd (csrc/itxfm.cu's 10/12-bit
+                 instantiation: 64-bit butterflies on int32
+                 coefficients) with the wide scatter before it, on frame
+                 0 of fmt_420_10_1080p and fmt_444_12_1080p as
+                 recon_frame hands them over and on a seeded full-size
+                 12-bit 4:4:4 frame whose coefficients reach the int32
+                 extremes; the kept buffers read zero after each;
                - mc_planes (csrc/mc.cu: the inter pass of the three
                  planes in one launch) on bench_1080p frames 1-2's own
                  inputs, and on two seeded full-size frames with MVs
@@ -46,7 +54,8 @@ Phases, one status line each; any failure exits non-zero:
                  cell, every inter cell compound; one motion a tile,
                  every phase, compound cells sharing reference 1's;
                  each timed, with the share of its tiles that take the
-                 window path;
+                 window path; then such frames at 10 and 12 bpp under
+                 4:2:2, 4:4:0, 4:4:4 and 4:2:0 MV scales (MC_FORMATS);
                - _intra_scan_planes (csrc/intra.cu) on the planes,
                  residuals and slabs of bench_1080p_lf frame 0 and
                  bench_1080p frame 0 (a keyframe), Y, U and V in one
@@ -64,6 +73,12 @@ Phases, one status line each; any failure exits non-zero:
                - grids_device (csrc/lf_grids.cu) on the levels and masks
                  of bench_1080p_lf frame 0 and bench_4k frame 0 under
                  all four subsamplings;
+               - on frame 0 of each format clip (tools/
+                 make_format_vectors_torch.py: 4:2:2, 4:4:0, 4:4:4 at 8
+                 bits, 4:2:0 at 10, 4:4:4 at 12), as recon_frame hands
+                 them over: the splat, the loop-filter grids, the loop
+                 filter, the intra wavefront and, at 8 bits, the scatter
+                 and the consuming residual;
                each with its time, bound terms and the plain version's
                time on the same inputs (the last two timed on the card's
                clock with torch.profiler, since their wrappers' host
@@ -87,8 +102,14 @@ Phases, one status line each; any failure exits non-zero:
                synchronised to the card (per-stage times and the intra
                levels per frame), after each frame of which the kept
                coefficient buffers must read zero; no kept buffer may
-               need a zero-fill in the whole phase
-  5. a JSON line {"kernels": [...]} and the card line, then the result
+               need a zero-fill in the whole phase; then the five
+               format clips (two filtered keyframes each) the same way,
+               with three timed passes: the high-bit-depth residual must
+               launch once per frame of the 10/12-bit clips and the
+               8-bit one never there
+  5. threads   two decoders of one geometry on two host threads at once,
+               every frame bit-exact (each decoder owns its splat state)
+  6. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
 The script needs the repository around it and a CUDA device; without
@@ -105,6 +126,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIPS = ("bench_1080p", "bench_1080p_lf", "bench_4k")
+# VP9 profiles 1-3 at 1080p (tools/make_format_vectors_torch.py): two
+# filtered keyframes each; name: (bpp, ss_h, ss_v)
+FORMAT_CLIPS = {"fmt_422_1080p": (8, 1, 0), "fmt_440_1080p": (8, 0, 1),
+                "fmt_444_1080p": (8, 0, 0), "fmt_420_10_1080p": (10, 1, 1),
+                "fmt_444_12_1080p": (12, 0, 0)}
+HBD_CLIPS = ("fmt_420_10_1080p", "fmt_444_12_1080p")
 PKG = "ffmpeg_hybrid_tpu_torch"
 KERNEL_SRC = PKG + "/csrc/rac.cu"
 PALLAS_SRC = "ffmpeg_hybrid_tpu/ops/rac_pallas.py"
@@ -123,11 +150,12 @@ LF_GRIDS_SRC = PKG + "/csrc/lf_grids.cu"
 LF_GRIDS_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_masks.py:172"
 # loop-filter launches of the conformance passes, of the filter and of
 # its grids: one per filtered frame (Y and U+V in one launch)
-LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6, "bench_4k": 1}
+LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6, "bench_4k": 1,
+               **dict.fromkeys(FORMAT_CLIPS, 2)}
 SUBSAMPLINGS = ((1, 1), (1, 0), (0, 1), (0, 0))
 # race stress of the loop-filter kernel: launches on bench_1080p_lf frame
-# 0's inputs, and on a full-size random-grid frame
-LF_STRESS = (50, 10)
+# 0's inputs, on a full-size random-grid frame, and on one at 10 bpp
+LF_STRESS = (50, 10, 10)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s;
 # int32 outside the tensor cores, 64 lanes per SM against float32's 128
@@ -158,6 +186,13 @@ MC_CELL_MACS = 480
 # (int32), refsel (2 x int32), mv16 (4 x int32)
 MC_CELL_BYTES = 30
 DEVICE = "cuda"
+# MC on seeded full-size frames of other depths and layouts: (bpp, ss_h,
+# ss_v), every bpp and every chroma layout at least once
+MC_FORMATS = ((10, 1, 0), (12, 0, 0), (10, 0, 1), (12, 1, 1))
+# each 64-bit butterfly operation of the high-bit-depth residual counted
+# as this many int32 operations (a 64-bit add is two, a 64-bit product of
+# a 32-bit constant two or more)
+HBD_OP_WORDS = 2
 # timed pipelined passes over the clip (the fps is their median)
 WINDOWS = 5
 
@@ -761,10 +796,15 @@ def lpf_phase(torch, np, calls):
     rand_changed = [int((ref != p).sum()) for ref, p in zip(rand_want,
                                                            rand[:3])]
     lf_stress(torch, LD, rand, rand_want, LF_STRESS[1])
+    rand10 = random_lf_frame(torch, np, SEED + 1, bpp=10)
+    want10 = [p.clone() for p in rand10[:3]]
+    LD.lf_frame_plain_(*want10, *rand10[3:])
+    lf_stress(torch, LD, rand10, want10, LF_STRESS[2])
     say("kernels", f"lf_frame_ race stress: {LF_STRESS[0]} launches on "
-        f"bench_1080p_lf frame 0 and {LF_STRESS[1]} on a "
+        f"bench_1080p_lf frame 0, {LF_STRESS[1]} on a "
         f"{tuple(rand[0].shape)} random-grid frame (every position active,"
-        f" wd 4/8/16; {rand_changed} samples changed) bit-exact vs plain, "
+        f" wd 4/8/16; {rand_changed} samples changed) and {LF_STRESS[2]} "
+        "on one at 10 bpp, bit-exact vs plain, "
         f"{time.perf_counter() - t0:.1f} s")
     return {"name": "lf_dense", "route": "cuda", "source": LPF_SRC,
             "replaces": LPF_REPLACES, "launches": None, "max_abs_err": err,
@@ -1097,18 +1137,19 @@ def mc_work(np, job, has_comp):
     return nbytes, refs * MC_CELL_MACS * 2
 
 
-def mc_frame(torch, np, rng, shapes, visible):
+def mc_frame(torch, np, rng, shapes, visible, mvs=((2, 2), (1, 1), (1, 1)),
+             bpp=8):
     """A seeded frame for mc_planes, on the card: per plane (Y, U, V of
-    `shapes`, the visible sizes `visible`) random references and
-    residual; 90% inter cells, every one compound, with MVs out to 150
-    px and every filter bank; the other cells carry out-of-range refsel,
-    filter and MV values."""
+    `shapes`, the visible sizes `visible`, the MV scales `mvs`) random
+    `bpp`-bit references and residual; 90% inter cells, every one
+    compound, with MVs out to 150 px and every filter bank; the other
+    cells carry out-of-range refsel, filter and MV values."""
     jobs = []
     for i, ((H, W), (w, h)) in enumerate(zip(shapes, visible)):
-        mvs = 1 if i else 2
+        mvsx, mvsy = mvs[i]
         r4, c4 = H // 4, W // 4
         inter = rng.rand(r4, c4) < 0.9
-        lim = 150 * 16 // mvs
+        lim = 150 * 16 // max(mvsx, mvsy)
         mv16 = rng.randint(-lim, lim + 1, (r4, c4, 2, 2)).astype(np.int32)
         refsel = rng.randint(0, 3, (r4, c4, 2)).astype(np.int32)
         filt = rng.randint(0, 4, (r4, c4)).astype(np.int32)
@@ -1116,16 +1157,18 @@ def mc_frame(torch, np, rng, shapes, visible):
         refsel[off] = rng.choice([-9, 7], (int(off.sum()), 2))
         filt[off] = 9
         mv16[off] = rng.choice([-32768, 32767], (int(off.sum()), 2, 2))
-        arrays = [rng.randint(-300, 300, (H, W)).astype(np.int32), inter,
+        arrays = [rng.randint(-300 << (bpp - 8), 300 << (bpp - 8),
+                              (H, W)).astype(np.int32), inter,
                   inter.copy(), filt, refsel, mv16]
-        refs = tuple(torch.as_tensor(rng.randint(0, 256, (H, W)).astype(
+        refs = tuple(torch.as_tensor(rng.randint(0, 1 << bpp, (H, W)).astype(
             np.int32), device=DEVICE) for _ in range(3))
         jobs.append(tuple(torch.as_tensor(a, device=DEVICE) for a in arrays)
-                    + (refs, w, h, mvs, mvs))
+                    + (refs, w, h, mvsx, mvsy))
     return jobs
 
 
-def mc_tile_frame(torch, np, rng, shapes, visible):
+def mc_tile_frame(torch, np, rng, shapes, visible,
+                  mvs=((2, 2), (1, 1), (1, 1)), bpp=8):
     """mc_frame's sibling: per 16 x 16 tile one motion a reference (a
     plane, an MV out to 150 px, every phase with 0 one time in four on
     each axis) and one filter bank; 90% inter cells, half of them
@@ -1133,7 +1176,7 @@ def mc_tile_frame(torch, np, rng, shapes, visible):
     carry out-of-range refsel, filter and MV values."""
     jobs = []
     for i, ((H, W), (w, h)) in enumerate(zip(shapes, visible)):
-        mvs = 1 if i else 2
+        mvsx, mvsy = mvs[i]
         r4, c4 = H // 4, W // 4
         tr, tc = -(-r4 // 4), -(-c4 // 4)
 
@@ -1143,7 +1186,7 @@ def mc_tile_frame(torch, np, rng, shapes, visible):
         lim = 150 * 16
         v = rng.randint(-lim, lim + 1, (tr, tc, 2, 2))
         v = np.where(rng.rand(tr, tc, 2, 2) < 0.25, v & ~15, v)
-        mv16 = cells(v // mvs).astype(np.int32)
+        mv16 = cells(v // np.array([mvsx, mvsy])).astype(np.int32)
         refsel = cells(rng.randint(0, 3, (tr, tc, 2))).astype(np.int32)
         filt = cells(rng.randint(0, 4, (tr, tc))).astype(np.int32)
         inter = rng.rand(r4, c4) < 0.9
@@ -1152,12 +1195,13 @@ def mc_tile_frame(torch, np, rng, shapes, visible):
         refsel[off] = rng.choice([-9, 7], (int(off.sum()), 2))
         filt[off] = 9
         mv16[off] = rng.choice([-32768, 32767], (int(off.sum()), 2, 2))
-        arrays = [rng.randint(-300, 300, (H, W)).astype(np.int32), inter,
+        arrays = [rng.randint(-300 << (bpp - 8), 300 << (bpp - 8),
+                              (H, W)).astype(np.int32), inter,
                   comp, filt, refsel, mv16]
-        refs = tuple(torch.as_tensor(rng.randint(0, 256, (H, W)).astype(
+        refs = tuple(torch.as_tensor(rng.randint(0, 1 << bpp, (H, W)).astype(
             np.int32), device=DEVICE) for _ in range(3))
         jobs.append(tuple(torch.as_tensor(a, device=DEVICE) for a in arrays)
-                    + (refs, w, h, mvs, mvs))
+                    + (refs, w, h, mvsx, mvsy))
     return jobs
 
 
@@ -1169,6 +1213,34 @@ def mc_seeded(torch, np):
     visible = ((1920, 1080), (960, 540), (960, 540))
     return (mc_frame(torch, np, rng, shapes, visible),
             mc_tile_frame(torch, np, rng, shapes, visible))
+
+
+def layout(ss_h, ss_v):
+    """The name of a chroma subsampling."""
+    return {(1, 1): "4:2:0", (1, 0): "4:2:2", (0, 1): "4:4:0",
+            (0, 0): "4:4:4"}[ss_h, ss_v]
+
+
+def mc_formats(torch, np, w=1920, h=1080):
+    """Seeded w x h (1920x1080: 1088 coded) MC frames of the depths and
+    layouts of
+    MC_FORMATS, on the card, as recon_frame hands them to mc_planes: the
+    chroma planes subsampled by (ss_h, ss_v), their MVs scaled by 2 on
+    each axis that is not (mvsx, mvsy). [(name, jobs, bpp)], a motion a
+    cell and a motion a tile of each."""
+    rng = np.random.RandomState(SEED + 13)
+    out = []
+    for bpp, ss_h, ss_v in MC_FORMATS:
+        H, W = -(-h // 64) * 64, -(-w // 64) * 64
+        shapes = ((H, W),) + ((H >> ss_v, W >> ss_h),) * 2
+        visible = ((w, h),) + (((w + ss_h) >> ss_h, (h + ss_v) >> ss_v),) * 2
+        mvs = ((2, 2),) + ((1 << (1 - ss_h), 1 << (1 - ss_v)),) * 2
+        name = f"seeded_{bpp}bit_{layout(ss_h, ss_v)}"
+        out.append((name + "_cells", mc_frame(torch, np, rng, shapes,
+                                              visible, mvs, bpp), bpp))
+        out.append((name + "_tiles", mc_tile_frame(torch, np, rng, shapes,
+                                                   visible, mvs, bpp), bpp))
+    return out
 
 
 def mc_paths(np, jobs, has_comp):
@@ -1231,7 +1303,9 @@ def mc_phase(torch, np, calls):
     for which, (jobs, bpp, has_comp) in \
             [("bench_1080p", c) for c in calls] \
             + [("seeded_cells", (seeded, 8, True)),
-               ("seeded_tiles", (tiled, 8, True))]:
+               ("seeded_tiles", (tiled, 8, True))] \
+            + [(name, (jobs, bpp, True))
+               for name, jobs, bpp in mc_formats(torch, np)]:
         outs = R.mc_planes(jobs, bpp, has_comp)
         wants, t = host_ms(torch, lambda: R.mc_planes_plain(jobs, bpp,
                                                             has_comp))
@@ -1279,7 +1353,9 @@ def mc_phase(torch, np, calls):
         f"bound_ms/frame={bound_ms:.6f} ({bound_by}, {nbytes / nf:.0f} B, "
         f"{nops / nf:.0f} ops); exact vs plain, also on the seeded "
         "1920x1088 frames of a motion a cell (MVs to 150 px, every bank, "
-        "every inter cell compound) and a motion a tile")
+        "every inter cell compound) and a motion a tile, at 8 bpp 4:2:0 and "
+        "at " + ", ".join(f"{b} bpp {layout(h, v)}"
+                          for b, h, v in MC_FORMATS))
     return {"name": "mc_planes", "route": "cuda", "source": MC_SRC,
             "replaces": MC_REPLACES, "launches": None, "max_abs_err": err,
             "ms": ms / nf, "plain_ms": plain_ms / nf, "bound_ms": bound_ms,
@@ -1474,6 +1550,7 @@ def splat_phase(torch, np, calls, call_4k):
     err = 0
     ms = call_ms = plain_ms = nbytes = nops = 0.0
     shapes, ops_per_call, k4 = [], [], {}
+    states = {}     # the index state, kept across calls as a decoder's
     real = [(clip, args) for clip, cl in calls.items() for args in cl]
     for clip, args in real + [("bench_4k", call_4k)]:
         recs, r4, c4, ss_h, ss_v = args
@@ -1485,7 +1562,7 @@ def splat_phase(torch, np, calls, call_4k):
             device=DEVICE)
         for rr, ss in [(recs, (1, 1))] + [(seeded, ss)
                                           for ss in SUBSAMPLINGS[1:]]:
-            outs = R._grids_from_records(rr, r4, c4, *ss)
+            outs = R._grids_from_records(rr, r4, c4, *ss, states=states)
             wants, t = host_ms(torch, lambda: R._grids_from_records_plain(
                 rr, r4, c4, *ss))
             e = max_diff(outs, wants)
@@ -1497,7 +1574,8 @@ def splat_phase(torch, np, calls, call_4k):
                 continue
 
             def call():
-                R._grids_from_records(recs, r4, c4, ss_h, ss_v)
+                R._grids_from_records(recs, r4, c4, ss_h, ss_v,
+                                      states=states)
             kernel_ms, dev_ops = device_ms(torch, call, 50,
                                            ("splat_", "Memset"))
             b = recs.numel() * 2 + sum(o.numel() * o.element_size()
@@ -1607,6 +1685,299 @@ def lf_grids_phase(torch, np, call, call_4k):
             "bench_4k_frame_0": found["bench_4k"]}
 
 
+def hbd_pairs_frame(np, rng, shapes):
+    """A seeded 12-bit frame of planes `shapes` (Y, U, V) in the form
+    recon_frame hands to scatter_frame and residual_planes: merged wide
+    pair rows (pos-hi, pos-lo, value-hi, value-lo; in a random order,
+    with pad rows among them) and per plane its eob, tx size and type
+    grids: a size drawn per 32x32 region, every type, eobs 0, 1 (the DC
+    shortcut), 2 and full at the roots; the coefficients of each coded
+    root's tile (its DC alone where it is DC-only), the int32 values the
+    dequant can wrap to: drawn over the whole int32 range, a third of
+    them at INT32_MIN or INT32_MAX."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    planes, cpos, cval, epos, evals = [], [], [], [], []
+    cbase = ebase = 0
+    for H, W in shapes:
+        r4, c4 = H // 4, W // 4
+        tx = np.repeat(np.repeat(rng.randint(0, 4, (r4 // 8, c4 // 8)), 8,
+                                 0), 8, 1)
+        k = 1 << tx
+        yy, xx = np.mgrid[:r4, :c4]
+        root = (yy % k == 0) & (xx % k == 0)
+        ty = rng.randint(0, 4, (r4, c4))
+        full = (4 << tx) ** 2
+        eob = np.where(root, np.choose(rng.randint(0, 5, (r4, c4)),
+                                       [0 * full, 0 * full + 1, 0 * full + 1,
+                                        0 * full + 2, full]), 0)
+        ry, rx = yy - yy % k, xx - xx % k
+        re = eob[ry, rx]
+        rdc = (re == 1) & ((ty[ry, rx] == 0) | (tx == 3))
+        mask = np.repeat(np.repeat((re > 0) & ~rdc, 4, 0), 4, 1)
+        dy, dx = np.nonzero(root & (eob == 1) & ((ty == 0) | (tx == 3)))
+        mask[4 * dy, 4 * dx] = True
+        coef = rng.randint(-1 << 31, 1 << 31, (H, W), dtype=np.int64)
+        pick = rng.rand(H, W)
+        coef[pick < 1 / 6] = -1 << 31
+        coef[(pick >= 1 / 6) & (pick < 1 / 3)] = (1 << 31) - 1
+        coef = np.where(mask, coef, 0)
+        cy, cx = np.nonzero(coef)
+        cpos.append(cbase + cy * W + cx)
+        cval.append(coef[cy, cx])
+        ey, ex = np.nonzero(eob)
+        epos.append(ebase + ey * c4 + ex)
+        evals.append(eob[ey, ex])
+        planes.append((eob.astype(np.int32), tx.astype(np.int32),
+                       ty.astype(np.int32)))
+        cbase += H * W
+        ebase += r4 * c4
+
+    def rows(pos, val, ncols):
+        pos, val = np.concatenate(pos), np.concatenate(val)
+        n = len(pos)
+        out = np.zeros((n + 1024, ncols), np.int16)
+        R._fill_pairs(out, pos, val, n)
+        out[n:, 0] = -1                               # pad rows
+        return out[rng.permutation(len(out))]
+
+    return rows(cpos, cval, 4), rows(epos, evals, 3), cbase, ebase, planes
+
+
+def kept_pair(torch, what, cp, ep, nc, ne, jobs, lossless, bpp):
+    """recon_frame's scatter and consuming residual on a frame's pair rows
+    cp, ep (buffers of nc and ne entries) and per plane jobs [(coef,
+    eob4, txsz4, txtype4)] (only their grids and shapes are read): the
+    scatter into a fresh kept buffer set against _scatter_pairs16/32, the
+    consuming launch of the planes against residual_plane_plain, bit for
+    bit, and the set reading zero after it. Returns (bufs, views,
+    plain_jobs (the scattered planes, copied), outs, plain ms)."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    wide = cp.shape[1] == 4
+    bufs = R.CoefBuffers(torch.device(DEVICE), nc, ne, wide)
+    kept = R.scatter_frame(bufs, cp, ep)
+    e = max_diff(kept, ((R._scatter_pairs32 if wide else R._scatter_pairs16)(
+        cp, 1, nc)[0], R._scatter_pairs16(ep, 1, ne)[0]))
+    views, bc, be = [], 0, 0
+    for job in jobs:
+        r4, c4 = job[1].shape
+        views.append(R._slice_plane(kept[0][None], kept[1][None], bc, be,
+                                    4 * r4, 4 * c4, r4, c4) + tuple(job[2:]))
+        bc += 16 * r4 * c4
+        be += r4 * c4
+    if (bc, be) != (nc, ne):
+        raise RuntimeError(f"{what}: planes of {bc} and {be} entries in "
+                           f"buffers of {nc} and {ne}")
+    # the consuming residual clears the buffers: the plain version's copy
+    plain_jobs = [(v[0].clone(), v[1].clone(), v[2], v[3]) for v in views]
+    outs = R.residual_planes(views, lossless, bpp, consume=[bufs] * len(jobs))
+    wants, plain_ms = host_ms(torch, lambda: [
+        R.residual_plane_plain(*job, lossless, bpp) for job in plain_jobs])
+    e = max(e, max_diff(outs, wants))
+    if e:
+        raise RuntimeError(f"the scatter and residual on {what}: kernel != "
+                           f"plain (max |diff| {e})")
+    if not bufs.read_zero() or bufs.fill_cause() is not None:
+        raise RuntimeError(f"{what}: the kept buffers do not read zero after "
+                           "the consuming residual")
+    if not sum(int(o.count_nonzero()) for o in outs):
+        raise RuntimeError(f"{what}: the residuals are zero everywhere")
+    return bufs, views, plain_jobs, outs, plain_ms
+
+
+def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
+                       seeded_shape=(1088, 1920)):
+    """The high-bit-depth residual (csrc/itxfm.cu residual_planes_hbd) on
+    the real inputs of frame 0 of the 10-bit and the 12-bit clip ({clip:
+    args} of scatter_frame and residual_planes, as recon_frame hands them
+    over), then on a seeded full-size 12-bit 4:4:4 frame whose
+    coefficients reach the int32 extremes (hbd_pairs_frame): the wide
+    scatter into a kept buffer set against _scatter_pairs32, the
+    consuming launch of the three planes against residual_plane_plain,
+    bit for bit, and the set reading zero after it; on the clips, its
+    device time per frame on the card's clock (device_ms; also without
+    the clear), the plain version's time, and the bound: residual_work
+    (int32 coefficients, the int32 residual) and the bytes the clear
+    writes, the butterflies' operations at HBD_OP_WORDS int32 operations
+    each. Returns the kernel's row."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    frames = []
+    for clip in HBD_CLIPS:
+        (bufs, cp, ep), = scatter_calls[clip]
+        (jobs, lossless, bpp), = [rc[:3] for rc in residual_calls[clip]]
+        frames.append((clip, cp, ep, bufs.flat_c.numel(),
+                       bufs.flat_e.numel(), jobs, lossless, bpp))
+    rng = np.random.RandomState(SEED + 17)
+    cp, ep, nc, ne, grids = hbd_pairs_frame(np, rng, (seeded_shape,) * 3)
+    frames.append(("seeded 12-bit 4:4:4 (int32 extremes)",
+                   torch.as_tensor(cp, device=DEVICE),
+                   torch.as_tensor(ep, device=DEVICE), nc, ne,
+                   [(None, *(torch.as_tensor(g, device=DEVICE) for g in gr))
+                    for gr in grids], False, 12))
+    tot = dict.fromkeys(("ms", "ms_noclear", "plain_ms", "bytes", "ops"), 0.0)
+    notes = []
+    for clip, cp, ep, nc, ne, jobs, lossless, bpp in frames:
+        if bpp == 8 or cp.shape[1] != 4:
+            raise RuntimeError(f"{clip}: {bpp} bpp, pair rows of "
+                               f"{cp.shape[1]} columns")
+        bufs, views, plain_jobs, _outs, t = kept_pair(
+            torch, clip, cp, ep, nc, ne, jobs, lossless, bpp)
+        if clip not in HBD_CLIPS:
+            notes.append(f"{clip}: {cp.shape[0]} pair rows, exact")
+            continue
+
+        def pair():
+            R.scatter_frame(bufs, cp, ep)
+            R.residual_planes(views, lossless, bpp, consume=[bufs] * 3)
+
+        def residual():
+            R.residual_planes(plain_jobs, lossless, bpp)
+        k_ms, k_ops = device_ms(torch, pair, 20, ("residual_kernel",))
+        k0_ms, _o = device_ms(torch, residual, 20, ("residual_kernel",))
+        if not bufs.read_zero():
+            raise RuntimeError(f"{clip}: the kept buffers do not read zero "
+                               "after the timed pairs")
+        nbytes = nops = 0
+        for job in plain_jobs:
+            b, o = residual_work(np, *job, lossless)
+            nbytes += b + clear_bytes(np, *job, lossless)
+            nops += o * HBD_OP_WORDS
+        for key, v in (("ms", k_ms), ("ms_noclear", k0_ms), ("plain_ms", t),
+                       ("bytes", nbytes), ("ops", nops)):
+            tot[key] += v
+        notes.append(f"{clip} frame 0 ({bpp} bpp, planes "
+                     f"{[tuple(v[0].shape) for v in views]}, "
+                     f"{sum(int(j[1].gt(0).sum()) for j in plain_jobs)} coded "
+                     f"cells): {k_ms:.5f} ms on the card in {k_ops:.2f} device"
+                     f" ops (without the clear {k0_ms:.5f}), plain {t:.1f} ms,"
+                     f" bound {bounds(nbytes, nops, 0)[0]:.6f}")
+    n = len(HBD_CLIPS)
+    d = {k: v / n for k, v in tot.items()}
+    bound_ms, bound_by, _chain = bounds(d["bytes"], d["ops"], 0)
+    say("kernels", f"residual_planes_hbd: {'; '.join(notes)}; ms/frame="
+        f"{d['ms']:.5f} (without the clear {d['ms_noclear']:.5f}) "
+        f"plain_ms/frame={d['plain_ms']:.2f} bound_ms/frame={bound_ms:.6f} "
+        f"({bound_by}, {d['bytes']:.0f} B, {d['ops']:.0f} ops); exact vs "
+        "plain, the kept buffers read zero after each")
+    return {"name": "residual_planes_hbd", "route": "cuda",
+            "source": ITXFM_SRC, "replaces": ITXFM_REPLACES,
+            "launches": None, "max_abs_err": 0, "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": "frame (one consuming launch of the three planes), mean "
+                   "of frame 0 of " + " and ".join(HBD_CLIPS),
+            "ms_without_clear": d["ms_noclear"], "bytes_needed": d["bytes"],
+            "ops": d["ops"], "detail": notes}
+
+
+def formats_phase(torch, np, calls):
+    """Every main-path kernel of the other formats against its plain
+    version on the card, bit for bit, on frame 0 of each format clip
+    ({clip: {wrapper: [args]}} as recon_frame hands them over): the
+    splat (on the decoder's own index state), the loop-filter grids, the
+    loop filter (Y and U+V in one launch, on copies of the planes), the
+    intra wavefront of the three planes, and at 8 bpp the scatter and the
+    consuming residual of the three planes (kept_pair; the high-bit-depth
+    clips' are residual_hbd_phase's), with the plain versions' times."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense as LD
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_masks as LM
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    for clip, got in calls.items():
+        bpp, ss_h, ss_v = FORMAT_CLIPS[clip]
+        times = {}
+        states = {}
+        (recs, r4, c4, sh, sv), = got["_grids_from_records"]
+        if (sh, sv) != (ss_h, ss_v):
+            raise RuntimeError(f"{clip}: splat under {(sh, sv)}")
+        outs = R._grids_from_records(recs, r4, c4, sh, sv, states=states)
+        wants, times["_grids_from_records"] = host_ms(
+            torch, lambda: R._grids_from_records_plain(recs, r4, c4, sh, sv))
+        checks = [("_grids_from_records", outs, wants)]
+        (g_args,) = got["grids_device"]
+        outs = LM.grids_device(*g_args)
+        wants, times["grids_device"] = host_ms(
+            torch, lambda: LM.grids_device_plain(*g_args))
+        checks.append(("grids_device", outs, wants))
+        (lf_args,) = got["lf_frame_"]
+        if lf_args[9:11] != [ss_h, ss_v] or lf_args[11] != bpp:
+            raise RuntimeError(f"{clip}: the loop filter ran under "
+                               f"{lf_args[9:12]}")
+        wants = [p.clone() for p in lf_args[:3]]
+        _none, times["lf_frame_"] = host_ms(torch, lambda: LD.lf_frame_plain_(
+            *wants, *lf_args[3:]))
+        work, run, _restore = lf_run(torch, LD, lf_args)
+        run()
+        checks.append(("lf_frame_", work, wants))
+        (i_args,) = got["_intra_scan_planes"]
+        jobs, ibpp = i_args
+        outs = R._intra_scan_planes(jobs, ibpp)
+        wants, times["_intra_scan_planes"] = host_ms(torch, lambda: [
+            R._intra_scan_plain(*job, ibpp) for job in jobs])
+        checks.append(("_intra_scan_planes", outs, wants))
+        if bpp == 8:
+            (bufs, cp, ep), = got["scatter_frame"]
+            (jobs, lossless, rbpp), = [a[:3] for a in got["residual_planes"]]
+            *_rest, times["residual_planes"] = kept_pair(
+                torch, f"{clip} frame 0", cp, ep, bufs.flat_c.numel(),
+                bufs.flat_e.numel(), jobs, lossless, rbpp)
+        for name, outs, wants in checks:
+            e = max_diff(outs, wants)
+            if e:
+                raise RuntimeError(f"{name} on {clip} frame 0: kernel != "
+                                   f"plain (max |diff| {e})")
+        plain = {k: round(v, 1) for k, v in times.items()}
+        held = [n for n, _o, _w in checks] + (
+            ["scatter_frame", "residual_planes"] if bpp == 8 else [])
+        say("kernels", f"{clip} frame 0 ({bpp} bpp {layout(ss_h, ss_v)}): "
+            + ", ".join(held) + " exact vs plain "
+            f"(plain ms: {json.dumps(plain)})")
+
+
+def two_decoders_phase(torch, clips):
+    """Two decoders of one geometry on two host threads, each through
+    decode_stream at once, every frame's MD5 against its framemd5: in
+    turn bench_1080p beside bench_1080p_lf (both 1920x1080), and
+    bench_1080p beside itself. Each decoder keeps its own splat index
+    state and coefficient buffers, so the launches of the two may
+    interleave on the stream in any order."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    t0 = time.perf_counter()
+    for pair in (("bench_1080p", "bench_1080p_lf"),
+                 ("bench_1080p", "bench_1080p")):
+        results, errs = [None, None], []
+
+        def run(i, name):
+            try:
+                frames, _want = clips[name]
+                dec = VP9Decoder(device=DEVICE)
+                results[i] = (dec, [hashlib.md5(f.to_bytes()).hexdigest()
+                                    for f in dec.decode_stream(iter(frames))])
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=run, args=(i, n))
+                   for i, n in enumerate(pair)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errs:
+            raise errs[0]
+        for (dec, got), name in zip(results, pair):
+            if got != clips[name][1]:
+                bad = next(i for i, (a, b) in enumerate(zip(got,
+                                                            clips[name][1]))
+                           if a != b)
+                raise RuntimeError(f"two decoders on two threads: {name} "
+                                   f"frame {bad} is not bit-exact")
+        a, b = (set(map(id, r[0].splat_states.values())) for r in results)
+        if not a or a & b:
+            raise RuntimeError("the two decoders share a splat state")
+    say("decode", "two decoders of one geometry on two host threads at "
+        "once (bench_1080p beside bench_1080p_lf, then beside itself): "
+        "every frame bit-exact vs framemd5, each decoder on its own splat "
+        f"state, {time.perf_counter() - t0:.1f} s")
+
+
 def read_clip(name):
     from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
     from ffmpeg_hybrid_tpu_torch.formats.superframe import split_superframe
@@ -1622,8 +1993,9 @@ def read_clip(name):
     return frames, want
 
 
-def decode_phase(torch, name, frames, want):
-    """Conformance, then timing, of one clip on the main path. Returns
+def decode_phase(torch, name, frames, want, windows=WINDOWS):
+    """Conformance, then timing (`windows` timed passes), of one clip on
+    the main path. Returns
     (median fps, all fps, per-stage ms/frame, launches of the
     conformance pass by kernel, frames with intra blocks, frames with
     inter blocks, host ms/frame of pass A and pass B beside each timed
@@ -1686,7 +2058,7 @@ def decode_phase(torch, name, frames, want):
     fps_runs, host = [], []
     metrics.enable()
     try:
-        for _ in range(WINDOWS):
+        for _ in range(windows):
             metrics.reset()
             dec = VP9Decoder(device=DEVICE)
             torch.cuda.synchronize()
@@ -1702,7 +2074,7 @@ def decode_phase(torch, name, frames, want):
     fps = sorted(fps_runs)[len(fps_runs) // 2]
     say("decode", f"{name}: timed pipelined passes of {len(frames)} "
         "frames: median "
-        f"{fps:.3f} fps over {WINDOWS} (min {min(fps_runs):.3f}, max "
+        f"{fps:.3f} fps over {windows} (min {min(fps_runs):.3f}, max "
         f"{max(fps_runs):.3f}); by pass: "
         + ", ".join(f"{v:.3f} fps (host pass A {a:.3f}, pass B {b:.3f} "
                     "ms/frame)" for v, (a, b) in zip(fps_runs, host)))
@@ -1753,7 +2125,7 @@ def main():
         return 1
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
-            for c in CLIPS):
+            for c in CLIPS + tuple(FORMAT_CLIPS)):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -1796,7 +2168,7 @@ def main():
                         or "Compiling" in line:
                     say("build", f"{src}: {line.strip()}")
 
-    clips = {c: read_clip(c) for c in CLIPS}
+    clips = {c: read_clip(c) for c in CLIPS + tuple(FORMAT_CLIPS)}
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, recon
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
                                       (recon, "_intra_scan_planes"),
@@ -1814,6 +2186,14 @@ def main():
     k4_calls = capture_inputs(torch, [(recon, "_grids_from_records"),
                                       (lpf_masks, "grids_device")],
                               clips["bench_4k"][0][:2])
+    fmt_calls = {c: capture_inputs(torch, [(recon, "scatter_frame"),
+                                           (recon, "residual_planes"),
+                                           (recon, "_intra_scan_planes"),
+                                           (recon, "_grids_from_records"),
+                                           (lpf_masks, "grids_device"),
+                                           (lpf_dense, "lf_frame_")],
+                                   clips[c][0][:1])
+                 for c in FORMAT_CLIPS}
     intra_calls = {"bench_1080p_lf": lf_calls["_intra_scan_planes"][0],
                    "bench_1080p": res_calls["_intra_scan_planes"][0]}
     splat_calls = {"bench_1080p": res_calls["_grids_from_records"][:2],
@@ -1832,12 +2212,16 @@ def main():
         coef_phase(rac, torch, np, clips["bench_1080p"][0][0]),
         lpf_phase(torch, np, lf_calls["lf_frame_"]),
         *residual_phase(torch, np, scatter_calls, residual_calls),
+        residual_hbd_phase(
+            torch, np, {c: fmt_calls[c]["scatter_frame"] for c in HBD_CLIPS},
+            {c: fmt_calls[c]["residual_planes"] for c in HBD_CLIPS}),
         mc_phase(torch, np, res_calls["mc_planes"]),
         intra_phase(torch, np, intra_calls),
         splat_phase(torch, np, splat_calls,
                     k4_calls["_grids_from_records"][1]),
         lf_grids_phase(torch, np, lf_calls["grids_device"][0],
                        k4_calls["grids_device"][0]))}
+    formats_phase(torch, np, fmt_calls)
     # the launch floor, after the kernel phases: profiled before them, the
     # empty kernel made every later profile miss some device records of
     # the port's kernels (0.86 ops a call where 1 ran)
@@ -1849,26 +2233,34 @@ def main():
     for n in ("grids_device", "_grids_from_records"):
         by_name[n]["launch_floor_ms"] = floor_ms
     del lf_calls, res_calls, intra_calls, splat_calls, scatter_calls, \
-        residual_calls, k4_calls
+        residual_calls, k4_calls, fmt_calls
     main_path = {"lf_dense": "lf_dense", "residual_planes": "residual",
+                 "residual_planes_hbd": "residual_hbd",
                  "scatter_coef": "scatter", "mc_planes": "mc",
                  "_intra_scan_planes": "intra",
                  "_grids_from_records": "splat", "grids_device": "lf_grids"}
-    for name in CLIPS:
+    for name in CLIPS + tuple(FORMAT_CLIPS):
         frames, want = clips[name]
+        # the format clips' passes are two frames each: three timed ones
+        windows = WINDOWS if name in CLIPS else 3
         (fps, fps_runs, stages, launches, intra_frames, inter_frames,
-         host) = decode_phase(torch, name, frames, want)
+         host) = decode_phase(torch, name, frames, want, windows)
         for key in ("lf_dense", "lf_grids"):
             if launches[key] != LF_LAUNCHES[name]:
                 raise RuntimeError(f"{name}: {key} launched {launches[key]}"
                                    f" times, expected {LF_LAUNCHES[name]}")
-        for key in ("splat", "scatter", "residual"):
-            if launches[key] != len(want):
+        # one residual launch a frame: the high-bit-depth one on the
+        # 10/12-bit clips, the 8-bit one elsewhere
+        hbd = name in HBD_CLIPS
+        for key, n in (("splat", len(want)), ("scatter", len(want)),
+                       ("residual", 0 if hbd else len(want)),
+                       ("residual_hbd", len(want) if hbd else 0)):
+            if launches[key] != n:
                 raise RuntimeError(f"{name}: the {key} kernel launched "
                                    f"{launches[key]} times for {len(want)} "
-                                   "frames")
+                                   f"frames, expected {n}")
         if launches["mc"] != inter_frames or (inter_frames == 0) != (
-                name == "bench_1080p_lf"):
+                name == "bench_1080p_lf" or name in FORMAT_CLIPS):
             raise RuntimeError(f"{name}: the MC kernel launched "
                                f"{launches['mc']} times for {inter_frames} "
                                "frames with inter blocks")
@@ -1882,7 +2274,7 @@ def main():
             k.setdefault("launches_by_clip", {})[name] = launches[key]
         by_name["_intra_scan_planes"].setdefault(
             "frames_with_intra_by_clip", {})[name] = intra_frames
-        med = sorted(range(WINDOWS), key=fps_runs.__getitem__)[WINDOWS // 2]
+        med = sorted(range(windows), key=fps_runs.__getitem__)[windows // 2]
         top = sorted(((v, k) for k, v in stages.items()
                       if k.startswith(("recon.", "upload.", "intra."))),
                      reverse=True)[:5]
@@ -1891,6 +2283,8 @@ def main():
             f"pass A {host[med][0]:.3f}, pass B {host[med][1]:.3f} ms/frame)"
             f" on {card}; largest pass-B stages (ms/frame): "
             + ", ".join(f"{k} {v}" for v, k in top))
+
+    two_decoders_phase(torch, clips)
 
     print(json.dumps({"kernels": list(by_name.values())}))
     print(card_line())

@@ -132,7 +132,8 @@ class FrameJob:
     reconstruction reads. Lets pass A of the next frame run (and mutate
     the decoder) while this frame's pass B is still dispatching."""
     __slots__ = ("ready", "outputs", "refs", "lim_lut", "mblim_lut",
-                 "device", "pre", "_uv_levels", "coef_bufs") + tuple(
+                 "device", "pre", "_uv_levels", "coef_bufs",
+                 "splat_states") + tuple(
         a for a in (
             "header", "cur_frame_obj", "mvscale", "mvstep", "blocks",
             "block_records", "coef_y", "coef_u", "coef_v", "eob_y",
@@ -145,8 +146,10 @@ class FrameJob:
         self.pre = None
         # the dense coefficient buffers pass B scatters into (recon's
         # CoefBuffers by key): the decoder's own, kept from frame to
-        # frame; a job made elsewhere starts with none
+        # frame; a job made elsewhere starts with none. splat_states
+        # likewise: the splat's index state (recon_cuda.SplatState by key)
         self.coef_bufs = {}
+        self.splat_states = {}
 
 
 _JOB_ATTRS = (
@@ -201,8 +204,11 @@ class VP9Decoder:
         self._counts_pool = None
         # pass B's kept dense coefficient buffers (ops/recon.py
         # CoefBuffers), this decoder's alone: its frames' scatters and
-        # consuming residuals alternate on them in decode order
+        # consuming residuals alternate on them in decode order; and the
+        # splat's index state (ops/recon_cuda.py SplatState), which two
+        # decoders of one geometry on two threads must not share
         self.coef_bufs = {}
+        self.splat_states = {}
 
     # -- pass A frame context API used by TileDecoder ------------------
     def counts_factory(self):
@@ -709,6 +715,7 @@ class VP9Decoder:
             job.mblim_lut = self.mblim_lut.copy()
             job.device = self.device
             job.coef_bufs = self.coef_bufs
+            job.splat_states = self.splat_states
             job.outputs = [] if h.invisible else [self.cur_frame_obj]
 
         # reference slot rotation (reference: vp9.c:1688-1692, 1849-1851)

@@ -11,6 +11,8 @@
 //                    (a memset pair first when the caller asks for it)
 //   residual_planes  the residuals of up to three planes, one launch;
 //                    with `consume`, it also clears what it read
+//   residual_planes_hbd  the same for 10/12-bit planes: 64-bit
+//                    butterflies, int32 coefficients
 //
 // Semantics. Pair rows carry a position (pos-hi << 16 | pos-lo) and a
 // value; a row whose position is negative (a pad row) or past the
@@ -24,12 +26,13 @@
 // of a temporary, pass b over each column k of the temporary gives
 // column k of the residual. Each pass is a DCT or an ADST by the root's
 // txtype4 (1 and 3: ADST in pass a; 2 and 3: ADST in pass b; 32x32 is
-// DCT only), and its outputs wrap to int16 (8 bpp: dctcoef is int16_t).
-// Then (v + (1 << (s - 1))) >> s with s = 4, 5, 6, 6 by size. eob == 1
-// with DCT_DCT (any type at 32x32) takes the DC shortcut instead:
-// _rs(_rs(dc * 11585) * 11585), then the same rounding, over the whole
-// block. Lossless frames use the 4x4 Walsh-Hadamard transform (inputs
-// >> 2 in pass a, no final shift) on every root with txsz4 == 0.
+// DCT only), and its outputs wrap to the store type dctcoef: int16 at 8
+// bpp, int32 at 10/12 bpp. Then (int)(v + (1U << (s - 1))) >> s with s =
+// 4, 5, 6, 6 by size. eob == 1 with DCT_DCT (any type at 32x32) takes the
+// DC shortcut instead: _rs(_rs(dc * 11585) * 11585), then the same
+// rounding, over the whole block. Lossless frames use the 4x4
+// Walsh-Hadamard transform (inputs >> 2 in pass a, no final shift) on
+// every root with txsz4 == 0.
 //
 // Consuming. FFmpeg's inverse transforms clear a block's coefficients
 // after the add, so the buffer is zero again for the next block. With
@@ -61,11 +64,16 @@
 // both pass A packers to the precondition on the repository's clips
 // (tests/test_torch_residual_pairs.py).
 //
-// Arithmetic. The butterflies are int32 arithmetic that wraps modulo
-// 2^32 (JAX's and PyTorch's int32, and C's int on the reference's
+// Arithmetic. At 8 bpp the butterflies are int32 arithmetic that wraps
+// modulo 2^32 (JAX's and PyTorch's int32, and C's int on the reference's
 // targets); signed overflow is undefined in C++, so they run on
 // uint32_t, and _rs, (v + 8192) >> 14, is an arithmetic shift of the
-// wrapped value. The butterflies below were transcribed from
+// wrapped value. At 10/12 bpp the reference's dctint is int64_t and its
+// dctcoef int32_t: the same butterflies run on uint64_t words (the
+// coefficients sign-extended), and each pass's outputs keep their low
+// 32 bits (ops/itxfm.py _wrap32). One source carries both: the 1-D
+// kernels and the region's passes are templates of the word. The
+// butterflies below were transcribed from
 // ffmpeg_hybrid_tpu_torch/ops/itxfm.py line by line: every constant and
 // every input permutation and negated output is that file's.
 //
@@ -98,21 +106,35 @@
 // residual reads the grids and the first eob coefficients of each coded
 // block and writes the int32 residual once, some 16 MB (4.8 us), and,
 // consuming, clears what it read. The butterflies are a few tens of
-// integer operations per pixel, below that.
+// integer operations per pixel, below that. At 10/12 bpp the
+// coefficients are int32 (twice the bytes read and cleared) and the
+// butterflies 64-bit: the 32x32 lane pair holds its 16 inputs, 16
+// outputs and 16 exchanged values in register pairs (ptxas's register and
+// spill counts of both instantiations are in PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 typedef uint32_t u32;
+typedef uint64_t u64;
 
-// _rs: (v + (1 << 13)) >> 14, arithmetic, on the wrapped int32
+// _rs: (v + (1 << 13)) >> 14, arithmetic, on the wrapped int32 (8 bpp)
+// or int64 (dctint, 10/12 bpp)
 __device__ __forceinline__ u32 rs(u32 v) {
   return static_cast<u32>(static_cast<int32_t>(v + 8192u) >> 14);
 }
 
+__device__ __forceinline__ u64 rs(u64 v) {
+  return static_cast<u64>(static_cast<int64_t>(v + 8192u) >> 14);
+}
+
 __device__ __forceinline__ u32 asr(u32 v, int s) {
   return static_cast<u32>(static_cast<int32_t>(v) >> s);
+}
+
+__device__ __forceinline__ u64 asr(u64 v, int s) {
+  return static_cast<u64>(static_cast<int64_t>(v) >> s);
 }
 
 // _wrap16: the low 16 bits, sign-extended
@@ -120,58 +142,69 @@ __device__ __forceinline__ int32_t wrap16(u32 v) {
   return static_cast<int16_t>(static_cast<uint16_t>(v & 0xffffu));
 }
 
+// The dctcoef store of a pass's output: _wrap16 at 8 bpp, _wrap32 (the
+// low 32 bits) at 10/12 bpp
+__device__ __forceinline__ int32_t wrapc(u32 v) { return wrap16(v); }
+
+__device__ __forceinline__ int32_t wrapc(u64 v) {
+  return static_cast<int32_t>(static_cast<u32>(v));
+}
+
 // ---------------------------------------------------------------------
 // 1-D kernels (ops/itxfm.py idct4_1d ... idct32_1d): I -> O, length N
 
-__device__ __forceinline__ void idct4(const u32* I, u32* O) {
-  const u32 i0 = I[0];
-  const u32 i1 = I[1];
-  const u32 i2 = I[2];
-  const u32 i3 = I[3];
-  u32 t0 = rs((i0 + i2) * 11585);
-  u32 t1 = rs((i0 - i2) * 11585);
-  u32 t2 = rs(i1 * 6270 - i3 * 15137);
-  u32 t3 = rs(i1 * 15137 + i3 * 6270);
+template <typename T>
+__device__ __forceinline__ void idct4(const T* I, T* O) {
+  const T i0 = I[0];
+  const T i1 = I[1];
+  const T i2 = I[2];
+  const T i3 = I[3];
+  T t0 = rs((i0 + i2) * 11585);
+  T t1 = rs((i0 - i2) * 11585);
+  T t2 = rs(i1 * 6270 - i3 * 15137);
+  T t3 = rs(i1 * 15137 + i3 * 6270);
   O[0] = t0 + t3;
   O[1] = t1 + t2;
   O[2] = t1 - t2;
   O[3] = t0 - t3;
 }
 
-__device__ __forceinline__ void iadst4(const u32* I, u32* O) {
-  const u32 i0 = I[0];
-  const u32 i1 = I[1];
-  const u32 i2 = I[2];
-  const u32 i3 = I[3];
-  u32 t0 = 5283 * i0 + 15212 * i2 + 9929 * i3;
-  u32 t1 = 9929 * i0 - 5283 * i2 - 15212 * i3;
-  u32 t2 = 13377 * (i0 - i2 + i3);
-  u32 t3 = 13377 * i1;
+template <typename T>
+__device__ __forceinline__ void iadst4(const T* I, T* O) {
+  const T i0 = I[0];
+  const T i1 = I[1];
+  const T i2 = I[2];
+  const T i3 = I[3];
+  T t0 = 5283 * i0 + 15212 * i2 + 9929 * i3;
+  T t1 = 9929 * i0 - 5283 * i2 - 15212 * i3;
+  T t2 = 13377 * (i0 - i2 + i3);
+  T t3 = 13377 * i1;
   O[0] = rs(t0 + t3);
   O[1] = rs(t1 + t3);
   O[2] = rs(t2);
   O[3] = rs(t0 + t1 - t3);
 }
 
-__device__ __forceinline__ void idct8(const u32* I, u32* O) {
-  u32 t0a = rs((I[0] + I[4]) * 11585);
-  u32 t1a = rs((I[0] - I[4]) * 11585);
-  u32 t2a = rs(I[2] * 6270 - I[6] * 15137);
-  u32 t3a = rs(I[2] * 15137 + I[6] * 6270);
-  u32 t4a = rs(I[1] * 3196 - I[7] * 16069);
-  u32 t5a = rs(I[5] * 13623 - I[3] * 9102);
-  u32 t6a = rs(I[5] * 9102 + I[3] * 13623);
-  u32 t7a = rs(I[1] * 16069 + I[7] * 3196);
-  u32 t0 = t0a + t3a;
-  u32 t1 = t1a + t2a;
-  u32 t2 = t1a - t2a;
-  u32 t3 = t0a - t3a;
-  u32 t4 = t4a + t5a;
-  u32 t5a2 = t4a - t5a;
-  u32 t7 = t7a + t6a;
-  u32 t6a2 = t7a - t6a;
-  u32 t5 = rs((t6a2 - t5a2) * 11585);
-  u32 t6 = rs((t6a2 + t5a2) * 11585);
+template <typename T>
+__device__ __forceinline__ void idct8(const T* I, T* O) {
+  T t0a = rs((I[0] + I[4]) * 11585);
+  T t1a = rs((I[0] - I[4]) * 11585);
+  T t2a = rs(I[2] * 6270 - I[6] * 15137);
+  T t3a = rs(I[2] * 15137 + I[6] * 6270);
+  T t4a = rs(I[1] * 3196 - I[7] * 16069);
+  T t5a = rs(I[5] * 13623 - I[3] * 9102);
+  T t6a = rs(I[5] * 9102 + I[3] * 13623);
+  T t7a = rs(I[1] * 16069 + I[7] * 3196);
+  T t0 = t0a + t3a;
+  T t1 = t1a + t2a;
+  T t2 = t1a - t2a;
+  T t3 = t0a - t3a;
+  T t4 = t4a + t5a;
+  T t5a2 = t4a - t5a;
+  T t7 = t7a + t6a;
+  T t6a2 = t7a - t6a;
+  T t5 = rs((t6a2 - t5a2) * 11585);
+  T t6 = rs((t6a2 + t5a2) * 11585);
   O[0] = t0 + t7;
   O[1] = t1 + t6;
   O[2] = t2 + t5;
@@ -182,39 +215,40 @@ __device__ __forceinline__ void idct8(const u32* I, u32* O) {
   O[7] = t0 - t7;
 }
 
-__device__ __forceinline__ void iadst8(const u32* I, u32* O) {
-  u32 t0a = 16305 * I[7] + 1606 * I[0];
-  u32 t1a = 1606 * I[7] - 16305 * I[0];
-  u32 t2a = 14449 * I[5] + 7723 * I[2];
-  u32 t3a = 7723 * I[5] - 14449 * I[2];
-  u32 t4a = 10394 * I[3] + 12665 * I[4];
-  u32 t5a = 12665 * I[3] - 10394 * I[4];
-  u32 t6a = 4756 * I[1] + 15679 * I[6];
-  u32 t7a = 15679 * I[1] - 4756 * I[6];
-  u32 t0 = rs(t0a + t4a);
-  u32 t1 = rs(t1a + t5a);
-  u32 t2 = rs(t2a + t6a);
-  u32 t3 = rs(t3a + t7a);
-  u32 t4 = rs(t0a - t4a);
-  u32 t5 = rs(t1a - t5a);
-  u32 t6 = rs(t2a - t6a);
-  u32 t7 = rs(t3a - t7a);
+template <typename T>
+__device__ __forceinline__ void iadst8(const T* I, T* O) {
+  T t0a = 16305 * I[7] + 1606 * I[0];
+  T t1a = 1606 * I[7] - 16305 * I[0];
+  T t2a = 14449 * I[5] + 7723 * I[2];
+  T t3a = 7723 * I[5] - 14449 * I[2];
+  T t4a = 10394 * I[3] + 12665 * I[4];
+  T t5a = 12665 * I[3] - 10394 * I[4];
+  T t6a = 4756 * I[1] + 15679 * I[6];
+  T t7a = 15679 * I[1] - 4756 * I[6];
+  T t0 = rs(t0a + t4a);
+  T t1 = rs(t1a + t5a);
+  T t2 = rs(t2a + t6a);
+  T t3 = rs(t3a + t7a);
+  T t4 = rs(t0a - t4a);
+  T t5 = rs(t1a - t5a);
+  T t6 = rs(t2a - t6a);
+  T t7 = rs(t3a - t7a);
   t4a = 15137 * t4 + 6270 * t5;
   t5a = 6270 * t4 - 15137 * t5;
   t6a = 15137 * t7 - 6270 * t6;
   t7a = 6270 * t7 + 15137 * t6;
-  u32 o0 = t0 + t2;
-  u32 o7 = (0u - (t1 + t3));
+  T o0 = t0 + t2;
+  T o7 = (0u - (t1 + t3));
   t2 = t0 - t2;
   t3 = t1 - t3;
-  u32 o1 = (0u - rs(t4a + t6a));
-  u32 o6 = rs(t5a + t7a);
+  T o1 = (0u - rs(t4a + t6a));
+  T o6 = rs(t5a + t7a);
   t6 = rs(t4a - t6a);
   t7 = rs(t5a - t7a);
-  u32 o3 = (0u - rs((t2 + t3) * 11585));
-  u32 o4 = rs((t2 - t3) * 11585);
-  u32 o2 = rs((t6 + t7) * 11585);
-  u32 o5 = (0u - rs((t6 - t7) * 11585));
+  T o3 = (0u - rs((t2 + t3) * 11585));
+  T o4 = rs((t2 - t3) * 11585);
+  T o2 = rs((t6 + t7) * 11585);
+  T o5 = (0u - rs((t6 - t7) * 11585));
   O[0] = o0;
   O[1] = o1;
   O[2] = o2;
@@ -225,39 +259,40 @@ __device__ __forceinline__ void iadst8(const u32* I, u32* O) {
   O[7] = o7;
 }
 
-__device__ __forceinline__ void idct16(const u32* I, u32* O) {
-  u32 t0a = rs((I[0] + I[8]) * 11585);
-  u32 t1a = rs((I[0] - I[8]) * 11585);
-  u32 t2a = rs(I[4] * 6270 - I[12] * 15137);
-  u32 t3a = rs(I[4] * 15137 + I[12] * 6270);
-  u32 t4a = rs(I[2] * 3196 - I[14] * 16069);
-  u32 t7a = rs(I[2] * 16069 + I[14] * 3196);
-  u32 t5a = rs(I[10] * 13623 - I[6] * 9102);
-  u32 t6a = rs(I[10] * 9102 + I[6] * 13623);
-  u32 t8a = rs(I[1] * 1606 - I[15] * 16305);
-  u32 t15a = rs(I[1] * 16305 + I[15] * 1606);
-  u32 t9a = rs(I[9] * 12665 - I[7] * 10394);
-  u32 t14a = rs(I[9] * 10394 + I[7] * 12665);
-  u32 t10a = rs(I[5] * 7723 - I[11] * 14449);
-  u32 t13a = rs(I[5] * 14449 + I[11] * 7723);
-  u32 t11a = rs(I[13] * 15679 - I[3] * 4756);
-  u32 t12a = rs(I[13] * 4756 + I[3] * 15679);
-  u32 t0 = t0a + t3a;
-  u32 t1 = t1a + t2a;
-  u32 t2 = t1a - t2a;
-  u32 t3 = t0a - t3a;
-  u32 t4 = t4a + t5a;
-  u32 t5 = t4a - t5a;
-  u32 t6 = t7a - t6a;
-  u32 t7 = t7a + t6a;
-  u32 t8 = t8a + t9a;
-  u32 t9 = t8a - t9a;
-  u32 t10 = t11a - t10a;
-  u32 t11 = t11a + t10a;
-  u32 t12 = t12a + t13a;
-  u32 t13 = t12a - t13a;
-  u32 t14 = t15a - t14a;
-  u32 t15 = t15a + t14a;
+template <typename T>
+__device__ __forceinline__ void idct16(const T* I, T* O) {
+  T t0a = rs((I[0] + I[8]) * 11585);
+  T t1a = rs((I[0] - I[8]) * 11585);
+  T t2a = rs(I[4] * 6270 - I[12] * 15137);
+  T t3a = rs(I[4] * 15137 + I[12] * 6270);
+  T t4a = rs(I[2] * 3196 - I[14] * 16069);
+  T t7a = rs(I[2] * 16069 + I[14] * 3196);
+  T t5a = rs(I[10] * 13623 - I[6] * 9102);
+  T t6a = rs(I[10] * 9102 + I[6] * 13623);
+  T t8a = rs(I[1] * 1606 - I[15] * 16305);
+  T t15a = rs(I[1] * 16305 + I[15] * 1606);
+  T t9a = rs(I[9] * 12665 - I[7] * 10394);
+  T t14a = rs(I[9] * 10394 + I[7] * 12665);
+  T t10a = rs(I[5] * 7723 - I[11] * 14449);
+  T t13a = rs(I[5] * 14449 + I[11] * 7723);
+  T t11a = rs(I[13] * 15679 - I[3] * 4756);
+  T t12a = rs(I[13] * 4756 + I[3] * 15679);
+  T t0 = t0a + t3a;
+  T t1 = t1a + t2a;
+  T t2 = t1a - t2a;
+  T t3 = t0a - t3a;
+  T t4 = t4a + t5a;
+  T t5 = t4a - t5a;
+  T t6 = t7a - t6a;
+  T t7 = t7a + t6a;
+  T t8 = t8a + t9a;
+  T t9 = t8a - t9a;
+  T t10 = t11a - t10a;
+  T t11 = t11a + t10a;
+  T t12 = t12a + t13a;
+  T t13 = t12a - t13a;
+  T t14 = t15a - t14a;
+  T t15 = t15a + t14a;
   t5a = rs((t6 - t5) * 11585);
   t6a = rs((t6 + t5) * 11585);
   t9a = rs(t14 * 6270 - t9 * 15137);
@@ -302,39 +337,40 @@ __device__ __forceinline__ void idct16(const u32* I, u32* O) {
   O[15] = t0a - t15a;
 }
 
-__device__ __forceinline__ void iadst16(const u32* I, u32* O) {
-  u32 t0 = I[15] * 16364 + I[0] * 804;
-  u32 t1 = I[15] * 804 - I[0] * 16364;
-  u32 t2 = I[13] * 15893 + I[2] * 3981;
-  u32 t3 = I[13] * 3981 - I[2] * 15893;
-  u32 t4 = I[11] * 14811 + I[4] * 7005;
-  u32 t5 = I[11] * 7005 - I[4] * 14811;
-  u32 t6 = I[9] * 13160 + I[6] * 9760;
-  u32 t7 = I[9] * 9760 - I[6] * 13160;
-  u32 t8 = I[7] * 11003 + I[8] * 12140;
-  u32 t9 = I[7] * 12140 - I[8] * 11003;
-  u32 t10 = I[5] * 8423 + I[10] * 14053;
-  u32 t11 = I[5] * 14053 - I[10] * 8423;
-  u32 t12 = I[3] * 5520 + I[12] * 15426;
-  u32 t13 = I[3] * 15426 - I[12] * 5520;
-  u32 t14 = I[1] * 2404 + I[14] * 16207;
-  u32 t15 = I[1] * 16207 - I[14] * 2404;
-  u32 t0a = rs(t0 + t8);
-  u32 t1a = rs(t1 + t9);
-  u32 t2a = rs(t2 + t10);
-  u32 t3a = rs(t3 + t11);
-  u32 t4a = rs(t4 + t12);
-  u32 t5a = rs(t5 + t13);
-  u32 t6a = rs(t6 + t14);
-  u32 t7a = rs(t7 + t15);
-  u32 t8a = rs(t0 - t8);
-  u32 t9a = rs(t1 - t9);
-  u32 t10a = rs(t2 - t10);
-  u32 t11a = rs(t3 - t11);
-  u32 t12a = rs(t4 - t12);
-  u32 t13a = rs(t5 - t13);
-  u32 t14a = rs(t6 - t14);
-  u32 t15a = rs(t7 - t15);
+template <typename T>
+__device__ __forceinline__ void iadst16(const T* I, T* O) {
+  T t0 = I[15] * 16364 + I[0] * 804;
+  T t1 = I[15] * 804 - I[0] * 16364;
+  T t2 = I[13] * 15893 + I[2] * 3981;
+  T t3 = I[13] * 3981 - I[2] * 15893;
+  T t4 = I[11] * 14811 + I[4] * 7005;
+  T t5 = I[11] * 7005 - I[4] * 14811;
+  T t6 = I[9] * 13160 + I[6] * 9760;
+  T t7 = I[9] * 9760 - I[6] * 13160;
+  T t8 = I[7] * 11003 + I[8] * 12140;
+  T t9 = I[7] * 12140 - I[8] * 11003;
+  T t10 = I[5] * 8423 + I[10] * 14053;
+  T t11 = I[5] * 14053 - I[10] * 8423;
+  T t12 = I[3] * 5520 + I[12] * 15426;
+  T t13 = I[3] * 15426 - I[12] * 5520;
+  T t14 = I[1] * 2404 + I[14] * 16207;
+  T t15 = I[1] * 16207 - I[14] * 2404;
+  T t0a = rs(t0 + t8);
+  T t1a = rs(t1 + t9);
+  T t2a = rs(t2 + t10);
+  T t3a = rs(t3 + t11);
+  T t4a = rs(t4 + t12);
+  T t5a = rs(t5 + t13);
+  T t6a = rs(t6 + t14);
+  T t7a = rs(t7 + t15);
+  T t8a = rs(t0 - t8);
+  T t9a = rs(t1 - t9);
+  T t10a = rs(t2 - t10);
+  T t11a = rs(t3 - t11);
+  T t12a = rs(t4 - t12);
+  T t13a = rs(t5 - t13);
+  T t14a = rs(t6 - t14);
+  T t15a = rs(t7 - t15);
   t8 = t8a * 16069 + t9a * 3196;
   t9 = t8a * 3196 - t9a * 16069;
   t10 = t10a * 9102 + t11a * 13623;
@@ -367,30 +403,30 @@ __device__ __forceinline__ void iadst16(const u32* I, u32* O) {
   t13 = t12a * 6270 - t13a * 15137;
   t14 = t15a * 15137 - t14a * 6270;
   t15 = t15a * 6270 + t14a * 15137;
-  u32 o0 = t0 + t2;
-  u32 o15 = (0u - (t1 + t3));
+  T o0 = t0 + t2;
+  T o15 = (0u - (t1 + t3));
   t2a = t0 - t2;
   t3a = t1 - t3;
-  u32 o3 = (0u - rs(t4a + t6a));
-  u32 o12 = rs(t5a + t7a);
+  T o3 = (0u - rs(t4a + t6a));
+  T o12 = rs(t5a + t7a);
   t6 = rs(t4a - t6a);
   t7 = rs(t5a - t7a);
-  u32 o1 = (0u - (t8a + t10a));
-  u32 o14 = t9a + t11a;
+  T o1 = (0u - (t8a + t10a));
+  T o14 = t9a + t11a;
   t10 = t8a - t10a;
   t11 = t9a - t11a;
-  u32 o2 = rs(t12 + t14);
-  u32 o13 = (0u - rs(t13 + t15));
+  T o2 = rs(t12 + t14);
+  T o13 = (0u - rs(t13 + t15));
   t14a = rs(t12 - t14);
   t15a = rs(t13 - t15);
-  u32 o7 = rs((0u - (t2a + t3a)) * 11585);
-  u32 o8 = rs((t2a - t3a) * 11585);
-  u32 o4 = rs((t7 + t6) * 11585);
-  u32 o11 = rs((t7 - t6) * 11585);
-  u32 o6 = rs((t11 + t10) * 11585);
-  u32 o9 = rs((t11 - t10) * 11585);
-  u32 o5 = rs((0u - (t14a + t15a)) * 11585);
-  u32 o10 = rs((t14a - t15a) * 11585);
+  T o7 = rs((0u - (t2a + t3a)) * 11585);
+  T o8 = rs((t2a - t3a) * 11585);
+  T o4 = rs((t7 + t6) * 11585);
+  T o11 = rs((t7 - t6) * 11585);
+  T o6 = rs((t11 + t10) * 11585);
+  T o9 = rs((t11 - t10) * 11585);
+  T o5 = rs((0u - (t14a + t15a)) * 11585);
+  T o10 = rs((t14a - t15a) * 11585);
   O[0] = o0;
   O[1] = o1;
   O[2] = o2;
@@ -414,39 +450,40 @@ __device__ __forceinline__ void iadst16(const u32* I, u32* O) {
 // Y[k] and O[31 - k] = E[k] - Y[k] for k < 16, E being idct16 of the
 // even inputs. These are the odd-input lines of ops/itxfm.py's
 // idct32_1d, which uses no even value before that last step.
-__device__ __forceinline__ void idct32_odd(const u32* I, u32* D) {
-  u32 t16a = rs(I[0] * 804 - I[15] * 16364);
-  u32 t31a = rs(I[0] * 16364 + I[15] * 804);
-  u32 t17a = rs(I[8] * 12140 - I[7] * 11003);
-  u32 t30a = rs(I[8] * 11003 + I[7] * 12140);
-  u32 t18a = rs(I[4] * 7005 - I[11] * 14811);
-  u32 t29a = rs(I[4] * 14811 + I[11] * 7005);
-  u32 t19a = rs(I[12] * 15426 - I[3] * 5520);
-  u32 t28a = rs(I[12] * 5520 + I[3] * 15426);
-  u32 t20a = rs(I[2] * 3981 - I[13] * 15893);
-  u32 t27a = rs(I[2] * 15893 + I[13] * 3981);
-  u32 t21a = rs(I[10] * 14053 - I[5] * 8423);
-  u32 t26a = rs(I[10] * 8423 + I[5] * 14053);
-  u32 t22a = rs(I[6] * 9760 - I[9] * 13160);
-  u32 t25a = rs(I[6] * 13160 + I[9] * 9760);
-  u32 t23a = rs(I[14] * 16207 - I[1] * 2404);
-  u32 t24a = rs(I[14] * 2404 + I[1] * 16207);
-  u32 t16 = t16a + t17a;
-  u32 t17 = t16a - t17a;
-  u32 t18 = t19a - t18a;
-  u32 t19 = t19a + t18a;
-  u32 t20 = t20a + t21a;
-  u32 t21 = t20a - t21a;
-  u32 t22 = t23a - t22a;
-  u32 t23 = t23a + t22a;
-  u32 t24 = t24a + t25a;
-  u32 t25 = t24a - t25a;
-  u32 t26 = t27a - t26a;
-  u32 t27 = t27a + t26a;
-  u32 t28 = t28a + t29a;
-  u32 t29 = t28a - t29a;
-  u32 t30 = t31a - t30a;
-  u32 t31 = t31a + t30a;
+template <typename T>
+__device__ __forceinline__ void idct32_odd(const T* I, T* D) {
+  T t16a = rs(I[0] * 804 - I[15] * 16364);
+  T t31a = rs(I[0] * 16364 + I[15] * 804);
+  T t17a = rs(I[8] * 12140 - I[7] * 11003);
+  T t30a = rs(I[8] * 11003 + I[7] * 12140);
+  T t18a = rs(I[4] * 7005 - I[11] * 14811);
+  T t29a = rs(I[4] * 14811 + I[11] * 7005);
+  T t19a = rs(I[12] * 15426 - I[3] * 5520);
+  T t28a = rs(I[12] * 5520 + I[3] * 15426);
+  T t20a = rs(I[2] * 3981 - I[13] * 15893);
+  T t27a = rs(I[2] * 15893 + I[13] * 3981);
+  T t21a = rs(I[10] * 14053 - I[5] * 8423);
+  T t26a = rs(I[10] * 8423 + I[5] * 14053);
+  T t22a = rs(I[6] * 9760 - I[9] * 13160);
+  T t25a = rs(I[6] * 13160 + I[9] * 9760);
+  T t23a = rs(I[14] * 16207 - I[1] * 2404);
+  T t24a = rs(I[14] * 2404 + I[1] * 16207);
+  T t16 = t16a + t17a;
+  T t17 = t16a - t17a;
+  T t18 = t19a - t18a;
+  T t19 = t19a + t18a;
+  T t20 = t20a + t21a;
+  T t21 = t20a - t21a;
+  T t22 = t23a - t22a;
+  T t23 = t23a + t22a;
+  T t24 = t24a + t25a;
+  T t25 = t24a - t25a;
+  T t26 = t27a - t26a;
+  T t27 = t27a + t26a;
+  T t28 = t28a + t29a;
+  T t29 = t28a - t29a;
+  T t30 = t31a - t30a;
+  T t31 = t31a + t30a;
   t17a = rs(t30 * 3196 - t17 * 16069);
   t30a = rs(t30 * 16069 + t17 * 3196);
   t18a = rs((0u - (t29 * 16069 + t18 * 3196)));
@@ -522,19 +559,20 @@ __device__ __forceinline__ void idct32_odd(const u32* I, u32* D) {
 }
 
 // iwht4_1d: inputs read as (0, 3, 1, 2), >> 2 in the first pass
-__device__ __forceinline__ void iwht4(const u32* X, u32* O, bool first) {
-  u32 i0 = X[0], i1 = X[3], i2 = X[1], i3 = X[2];
+template <typename T>
+__device__ __forceinline__ void iwht4(const T* X, T* O, bool first) {
+  T i0 = X[0], i1 = X[3], i2 = X[1], i3 = X[2];
   if (first) {
     i0 = asr(i0, 2);
     i1 = asr(i1, 2);
     i2 = asr(i2, 2);
     i3 = asr(i3, 2);
   }
-  u32 t0 = i0 + i2;
-  u32 t3 = i3 - i1;
-  const u32 t4 = asr(t0 - t3, 1);
-  const u32 t1 = t4 - i1;
-  const u32 t2 = t4 - i2;
+  T t0 = i0 + i2;
+  T t3 = i3 - i1;
+  const T t4 = asr(t0 - t3, 1);
+  const T t1 = t4 - i1;
+  const T t2 = t4 - i2;
   t0 = t0 - t1;
   t3 = t3 + t2;
   O[0] = t0;
@@ -544,8 +582,8 @@ __device__ __forceinline__ void iwht4(const u32* X, u32* O, bool first) {
 }
 
 // One 1-D pass of size 4 << TX (TX < 3): DCT or ADST (the WHT when WHT).
-template <int TX, bool WHT>
-__device__ __forceinline__ void pass1d(const u32* I, u32* O, bool adst,
+template <int TX, bool WHT, typename T>
+__device__ __forceinline__ void pass1d(const T* I, T* O, bool adst,
                                        bool first) {
   if constexpr (WHT) {
     iwht4(I, O, first);
@@ -563,12 +601,13 @@ __device__ __forceinline__ void pass1d(const u32* I, u32* O, bool adst,
 // (idct32_odd); one exchange of their 16 values gives lane 0 outputs
 // 0-15 and lane 1 outputs 31 down to 16: O[j] is output j for lane 0 and
 // output 31 - j for lane 1. Both lanes of every pair of a warp call it.
-__device__ __forceinline__ void idct32_pair(const u32* I, u32* O, int half) {
-  u32 mine[16];
+template <typename T>
+__device__ __forceinline__ void idct32_pair(const T* I, T* O, int half) {
+  T mine[16];
   if (half) idct32_odd(I, mine); else idct16(I, mine);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const u32 other = __shfl_xor_sync(0xffffffffu, mine[j], 1);
+    const T other = __shfl_xor_sync(0xffffffffu, mine[j], 1);
     O[j] = half ? other - mine[j] : mine[j] + other;
   }
 }
@@ -614,19 +653,31 @@ struct Cells {
   unsigned char nz[kRegion][kRegion / 4];
 };
 
-__device__ __forceinline__ u32 ld_coef(const Plane& p, int y, int x) {
+// A coefficient as the butterflies' word: sign-extended to 32 or 64 bits
+template <typename T>
+__device__ __forceinline__ T ld_coef(const Plane& p, int y, int x) {
   const size_t i = static_cast<size_t>(y) * p.W + x;
-  return p.coef16 ? static_cast<u32>(static_cast<int32_t>(
+  return p.coef16 ? static_cast<T>(static_cast<int32_t>(
                         static_cast<const int16_t*>(p.coef)[i]))
-                  : static_cast<u32>(static_cast<const int32_t*>(p.coef)[i]);
+                  : static_cast<T>(static_cast<const int32_t*>(p.coef)[i]);
+}
+
+// The final rounding of a pass-b output v (its dctcoef value, or the DC
+// shortcut's): (int)(v + (1U << (SHIFT - 1))) >> SHIFT, as the
+// reference's itxfm wrapper computes it
+template <int SHIFT>
+__device__ __forceinline__ int32_t round_out(int32_t v) {
+  constexpr u32 RND = SHIFT ? 1u << (SHIFT - 1) : 0u;
+  return static_cast<int32_t>(static_cast<u32>(v) + RND) >> SHIFT;
 }
 
 // The blocks of size 4 << TX in the region at (ry0, rx0), whose roots the
 // vote found: thread t takes line t % SZ of root t / SZ ((32 / SZ)^2
 // roots, 1024 / SZ lines); at 32x32 the one root's 32 lines take two
 // lanes each (idct32_pair). Pass a runs only when some root of the size
-// is not DC-only (`full`), with its barrier.
-template <int TX, bool WHT>
+// is not DC-only (`full`), with its barrier. T: the butterflies' word,
+// u32 at 8 bpp, u64 (dctint) at 10/12 bpp.
+template <int TX, bool WHT, typename T>
 __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
                                             int ry0, int rx0, bool full,
                                             int consume,
@@ -635,7 +686,6 @@ __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
   constexpr int SZ = 4 << TX;
   constexpr int NR = kRegion / SZ;
   constexpr int SHIFT = WHT ? 0 : (TX == 0 ? 4 : (TX == 1 ? 5 : 6));
-  constexpr int RND = SHIFT ? 1 << (SHIFT - 1) : 0;
   constexpr bool PAIR = TX == 3;
   const int tid = threadIdx.x;
   const int root = PAIR ? tid / (2 * SZ) : tid / SZ;
@@ -654,14 +704,14 @@ __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
     }
   }
   constexpr int NIN = PAIR ? SZ / 2 : SZ;   // inputs a thread holds
-  u32 in[NIN], o[NIN];
+  T in[NIN], o[NIN];
   // pass a: column `line` of the coefficients -> row `line` of tmp
   if (full) {
     if (act && !dconly) {
       if constexpr (PAIR) {
 #pragma unroll
         for (int r = 0; r < NIN; ++r)
-          in[r] = ld_coef(p, gy + 2 * r + half, gx + line);
+          in[r] = ld_coef<T>(p, gy + 2 * r + half, gx + line);
         if (consume) {   // after every load is issued
 #pragma unroll
           for (int r = 0; r < NIN; ++r)
@@ -670,10 +720,10 @@ __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
         idct32_pair(in, o, half);
 #pragma unroll
         for (int j = 0; j < NIN; ++j)
-          tmp[ry + line][rx + (half ? SZ - 1 - j : j)] = wrap16(o[j]);
+          tmp[ry + line][rx + (half ? SZ - 1 - j : j)] = wrapc(o[j]);
       } else {
 #pragma unroll
-        for (int r = 0; r < SZ; ++r) in[r] = ld_coef(p, gy + r, gx + line);
+        for (int r = 0; r < SZ; ++r) in[r] = ld_coef<T>(p, gy + r, gx + line);
         if (consume) {   // after every load is issued
 #pragma unroll
           for (int r = 0; r < SZ; ++r)
@@ -681,7 +731,7 @@ __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
         }
         pass1d<TX, WHT>(in, o, adst_a, true);
 #pragma unroll
-        for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrap16(o[k]);
+        for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrapc(o[k]);
       }
     }
     __syncthreads();
@@ -690,27 +740,28 @@ __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
   if (act) {
     if (dconly) {
       if (consume && line == 0 && half == 0) cl.nz[ry][rx >> 2] = 1;
-      const u32 t = rs(rs(ld_coef(p, gy, gx) * 11585u) * 11585u);
-      const int32_t v = (static_cast<int32_t>(t) + RND) >> SHIFT;
+      // |t| < 2^31 however wide the coefficient: its low 32 bits
+      const T t = rs(rs(ld_coef<T>(p, gy, gx) * 11585u) * 11585u);
+      const int32_t v = round_out<SHIFT>(static_cast<int32_t>(t));
 #pragma unroll
       for (int c = 0; c < NIN; ++c) acc[ry + c + half * NIN][rx + line] += v;
     } else if constexpr (PAIR) {
 #pragma unroll
       for (int c = 0; c < NIN; ++c)
-        in[c] = static_cast<u32>(tmp[ry + 2 * c + half][rx + line]);
+        in[c] = static_cast<T>(tmp[ry + 2 * c + half][rx + line]);
       idct32_pair(in, o, half);
 #pragma unroll
       for (int j = 0; j < NIN; ++j)
         acc[ry + (half ? SZ - 1 - j : j)][rx + line] +=
-            (wrap16(o[j]) + RND) >> SHIFT;
+            round_out<SHIFT>(wrapc(o[j]));
     } else {
 #pragma unroll
       for (int c = 0; c < SZ; ++c)
-        in[c] = static_cast<u32>(tmp[ry + c][rx + line]);
+        in[c] = static_cast<T>(tmp[ry + c][rx + line]);
       pass1d<TX, WHT>(in, o, adst_b, false);
 #pragma unroll
       for (int c = 0; c < SZ; ++c)
-        acc[ry + c][rx + line] += (wrap16(o[c]) + RND) >> SHIFT;
+        acc[ry + c][rx + line] += round_out<SHIFT>(wrapc(o[c]));
     }
   }
   __syncthreads();
@@ -771,6 +822,7 @@ __device__ __forceinline__ void clear_quad(const Plane& p, const Cells& cl,
         make_int4(0, 0, 0, 0);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     residual_kernel(const __grid_constant__ Args a) {
   __shared__ int32_t tmp[kRegion][kRegion + 1];
@@ -799,17 +851,20 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned vote = votes[0] | votes[1];
   if (vote) {
     if (a.lossless) {
-      region_size<0, true>(p, cl, ry0, rx0, true, a.consume, tmp, acc);
+      region_size<0, true, T>(p, cl, ry0, rx0, true, a.consume, tmp, acc);
     } else {
       if (vote & 1u)
-        region_size<0, false>(p, cl, ry0, rx0, vote & 16u, a.consume, tmp, acc);
+        region_size<0, false, T>(p, cl, ry0, rx0, vote & 16u, a.consume, tmp,
+                                 acc);
       if (vote & 2u)
-        region_size<1, false>(p, cl, ry0, rx0, vote & 32u, a.consume, tmp, acc);
+        region_size<1, false, T>(p, cl, ry0, rx0, vote & 32u, a.consume, tmp,
+                                 acc);
       if (vote & 4u)
-        region_size<2, false>(p, cl, ry0, rx0, vote & 64u, a.consume, tmp, acc);
+        region_size<2, false, T>(p, cl, ry0, rx0, vote & 64u, a.consume, tmp,
+                                 acc);
       if (vote & 8u)
-        region_size<3, false>(p, cl, ry0, rx0, vote & 128u, a.consume, tmp,
-                              acc);
+        region_size<3, false, T>(p, cl, ry0, rx0, vote & 128u, a.consume, tmp,
+                                 acc);
     }
     if (a.consume) clear_quad(p, cl, ry0, rx0, oy, ox);
   }
@@ -850,21 +905,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// The residuals of n (1-3) planes in one launch on `stream`. ptrs: 5
-// device pointers a plane: coef (int16 or int32 [H, W]), eob, txsz,
-// txtype ([H/4, W/4] signed integers of 1, 2 or 4 bytes), out (int32
-// [H, W]). dims: 6 ints a plane: H, W (multiples of 4, of 32 unless
-// lossless), coef16, and the byte sizes of eob, txsz and txtype.
-// strays: null, or a host array of n pointers to int flags that the
-// device can write (pinned host memory); then the launch consumes (see
-// the header): it clears the eob cells and coefficients it reads and
-// sets a plane's flag to 1 where it finds a stray.
-int residual_planes(const void* const* ptrs, const int* dims, int n,
-                    int lossless, int* const* strays, cudaStream_t stream) {
+// residual_planes and residual_planes_hbd: hbd selects the 64-bit words
+// (dctint) and int32 coefficients
+int launch_residual(const void* const* ptrs, const int* dims, int n,
+                    int lossless, int* const* strays, bool hbd,
+                    cudaStream_t stream) {
   const auto esz_ok = [](int s) { return s == 1 || s == 2 || s == 4; };
   if (n < 1 || n > kMaxPlanes || !ptrs || !dims)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -892,14 +937,43 @@ int residual_planes(const void* const* ptrs, const int* dims, int n,
     if (p.H <= 0 || p.W <= 0 || p.H % 4 || p.W % 4 ||
         (!lossless && (p.H % kRegion || p.W % kRegion)) ||
         !esz_ok(p.eob_sz) || !esz_ok(p.txsz_sz) || !esz_ok(p.txtype_sz) ||
-        (a.consume && !p.strays))
+        (a.consume && !p.strays) || (hbd && p.coef16))
       return static_cast<int>(cudaErrorInvalidValue);
     p.regions_x = (p.W + kRegion - 1) / kRegion;
     p.region0 = regions;
     regions += p.regions_x * ((p.H + kRegion - 1) / kRegion);
   }
-  residual_kernel<<<regions, kThreads, 0, stream>>>(a);
+  if (hbd)
+    residual_kernel<u64><<<regions, kThreads, 0, stream>>>(a);
+  else
+    residual_kernel<u32><<<regions, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The residuals of n (1-3) 8-bit planes in one launch on `stream`. ptrs:
+// 5 device pointers a plane: coef (int16 or int32 [H, W]), eob, txsz,
+// txtype ([H/4, W/4] signed integers of 1, 2 or 4 bytes), out (int32
+// [H, W]). dims: 6 ints a plane: H, W (multiples of 4, of 32 unless
+// lossless), coef16, and the byte sizes of eob, txsz and txtype.
+// strays: null, or a host array of n pointers to int flags that the
+// device can write (pinned host memory); then the launch consumes (see
+// the header): it clears the eob cells and coefficients it reads and
+// sets a plane's flag to 1 where it finds a stray.
+int residual_planes(const void* const* ptrs, const int* dims, int n,
+                    int lossless, int* const* strays, cudaStream_t stream) {
+  return launch_residual(ptrs, dims, n, lossless, strays, false, stream);
+}
+
+// residual_planes for 10/12-bit planes: the butterflies in 64 bits
+// (dctint), the int32 wrap between passes; coef must be int32 (coef16 0).
+int residual_planes_hbd(const void* const* ptrs, const int* dims, int n,
+                        int lossless, int* const* strays,
+                        cudaStream_t stream) {
+  return launch_residual(ptrs, dims, n, lossless, strays, true, stream);
 }
 
 // The dense coefficient and eob buffers of pair rows, on `stream`: with

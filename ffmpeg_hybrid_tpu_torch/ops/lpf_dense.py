@@ -23,6 +23,7 @@ plane set on a copy. Kernel launches are counted in LAUNCHES.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -281,15 +282,24 @@ class _Schedule:
         self.state = torch.zeros(self.ntickets + 2, dtype=torch.int32,
                                  device=dev)
         self.epoch = 0
+        self._lock = threading.Lock()
 
     def next_epoch(self):
-        if self.epoch == 0x7fffffff:    # flags may hold any epoch: clear
-            self.state.zero_()
-            self.epoch = 0
-        self.epoch += 1
-        return self.epoch
+        """A new epoch, never the same twice, on any thread."""
+        with self._lock:
+            if self.epoch == 0x7fffffff:    # flags may hold any epoch
+                self.state.zero_()
+                self.epoch = 0
+            self.epoch += 1
+            return self.epoch
 
 
+# the schedules by (device, sb_rows, sb_cols, sets), shared by every
+# decoder: safe only while every kernel runs on one stream. Stream order
+# then runs each launch alone, and a launch waits only on flags of its own
+# epoch, which its own superblocks write, so launches may even reach the
+# stream out of the order of their epochs (two decoders on two host
+# threads), as long as no epoch is taken twice (next_epoch's lock).
 _SCHEDULES = {}
 
 

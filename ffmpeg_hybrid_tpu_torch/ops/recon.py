@@ -56,9 +56,11 @@ lpf_masks.LAUNCHES, lpf_dense.LAUNCHES).
 
 Frame planes stay on the device across frames (references included).
 Every stage is integer math or exact float32, so the planes equal the
-JAX package's bit for bit. The slice covers 8-bit 4:2:0 frames with
-unscaled references; other frames raise NotImplementedError naming the
-slice they wait for.
+JAX package's bit for bit. The slice covers VP9 profiles 0-3 (8, 10 and
+12 bits; 4:2:0, 4:2:2, 4:4:0 and 4:4:4) with unscaled references; a
+frame with a scaled reference raises NotImplementedError naming the
+slice it waits for. At 10/12 bits the coefficients are int32 and the
+residual runs its own kernel instantiation (64-bit butterflies).
 
 Where JAX clamps out-of-bounds gather indices and drops out-of-bounds
 scatter writes, torch raises, so this module masks explicitly: pad and
@@ -130,15 +132,8 @@ def _iota(n, device):
 
 
 def _check_slice(s):
-    """Frames this slice of the port does not reconstruct raise."""
-    h = s.header
-    if h.bpp != 8:
-        raise NotImplementedError(
-            f"{h.bpp}-bit frames wait for the 10/12-bit slice of the port")
-    if (h.ss_h, h.ss_v) != (1, 1):
-        raise NotImplementedError(
-            "only 4:2:0 is ported; 4:2:2/4:4:0/4:4:4 wait for their "
-            "slice of the port")
+    """Frames this slice of the port does not reconstruct raise: those
+    with a scaled or invalid-scale reference."""
     if any(sc[0] for sc in getattr(s, "mvscale", [[0, 0]] * 3)):
         raise NotImplementedError(
             "scaled or invalid-scale references wait for the "
@@ -149,13 +144,23 @@ def _check_slice(s):
 # residual pass
 
 
+def _round_residual(r, tx, bpp):
+    """The final rounding of a pass-b output r (its dctcoef value): at 8
+    bpp itxfm.round_residual; above, (int)(r + (1U << (bits - 1))) >>
+    bits as the reference's itxfm wrapper computes it, in 32 bits (JAX's
+    int32 pair path does the same; a numpy int64 rounding differs only
+    within 2^(bits-1) of the int32 maximum)."""
+    bits = itxfm.FINAL_SHIFT[tx] if tx < 4 else 0
+    if bpp == 8 or bits == 0:
+        return itxfm.round_residual(r, tx)
+    return itxfm._wrap32(r + (1 << (bits - 1))) >> bits
+
+
 def _residual_for_size(coef, eob4, txsz4, txtype4, tx, lossless, bpp):
     """Residual contribution of all tiles of size `tx` -> [H, W] int32
-    (8 bpp: int32 arithmetic with the int16 wrap between passes)."""
-    if bpp != 8:
-        raise NotImplementedError(
-            f"{bpp}-bit residuals wait for the 10/12-bit slice")
-    coef = coef.to(torch.int32)  # 8bpp coefs upload narrow
+    (8 bpp: int32 arithmetic with the int16 wrap between passes; 10/12
+    bpp: int64 (dctint) with the int32 wrap between passes)."""
+    coef = coef.to(torch.int32 if bpp == 8 else torch.int64)
     sz = 4 << tx
     k = sz // 4
     H, W = coef.shape
@@ -167,11 +172,10 @@ def _residual_for_size(coef, eob4, txsz4, txtype4, tx, lossless, bpp):
     active = roots_sz == tx
 
     if lossless:
-        r = itxfm.itxfm_2d(XP, tiles, 4, 0, bpp)
-        res = itxfm.round_residual(r, 4)
+        res = itxfm.itxfm_2d(XP, tiles, 4, 0, bpp)
     elif tx == 3:
         r = itxfm.itxfm_2d(XP, tiles, 3, 0, bpp)
-        full = itxfm.round_residual(r, 3)
+        full = _round_residual(r, 3, bpp)
         dc = itxfm.dc_only_residual(tiles[..., 0, 0], tx)
         res = torch.where((roots_eob == 1)[..., None, None],
                           dc[..., None, None], full)
@@ -180,7 +184,7 @@ def _residual_for_size(coef, eob4, txsz4, txtype4, tx, lossless, bpp):
         use_adst_a = ((roots_tp == 1) | (roots_tp == 3))[..., None, None]
         use_adst_b = ((roots_tp == 2) | (roots_tp == 3))[..., None, None]
         blk_t = tiles.swapaxes(-1, -2)
-        wrap = itxfm._wrap16
+        wrap = itxfm._wrap16 if bpp == 8 else itxfm._wrap32
         fa_d = itxfm._1D[(tx, "dct")]
         fa_a = itxfm._1D[(tx, "adst")]
         tmp = wrap(torch.where(use_adst_a, fa_a(XP, blk_t),
@@ -188,7 +192,7 @@ def _residual_for_size(coef, eob4, txsz4, txtype4, tx, lossless, bpp):
         tmp_t = tmp.swapaxes(-1, -2)
         r = wrap(torch.where(use_adst_b, fa_a(XP, tmp_t),
                              fa_d(XP, tmp_t)))
-        full = itxfm.round_residual(r.swapaxes(-1, -2), tx)
+        full = _round_residual(r.swapaxes(-1, -2), tx, bpp)
         dc = itxfm.dc_only_residual(tiles[..., 0, 0], tx)
         dc_ok = (roots_eob == 1) & (roots_tp == 0)
         res = torch.where(dc_ok[..., None, None], dc[..., None, None],
@@ -196,7 +200,7 @@ def _residual_for_size(coef, eob4, txsz4, txtype4, tx, lossless, bpp):
 
     res = torch.where((active & (roots_eob > 0))[..., None, None], res,
                       torch.zeros((), dtype=res.dtype, device=res.device))
-    return res.permute(0, 2, 1, 3).reshape(H, W)
+    return res.permute(0, 2, 1, 3).reshape(H, W).to(torch.int32)
 
 
 def residual_plane_plain(coef, eob4, txsz4, txtype4, lossless, bpp):
@@ -254,7 +258,8 @@ def residual_planes(jobs, lossless, bpp, consume=None):
     txtype4)], each as residual_plane takes them -> an [H, W] int32
     residual a job. CPU tensors take residual_plane_plain, one call a
     plane; any other device the kernel (csrc/itxfm.cu, one launch for
-    all the planes), which takes CUDA tensors only. consume: None, or a
+    all the planes: residual_planes at 8 bpp, residual_planes_hbd at 10
+    and 12), which takes CUDA tensors only. consume: None, or a
     CoefBuffers a job, whose buffers the job's coef and eob4 are views
     of; then the call also clears what it read (_consume_plain on the
     CPU), so the buffers read zero for the next scatter, and marks them
@@ -272,9 +277,8 @@ def residual_planes(jobs, lossless, bpp, consume=None):
             for bufs in consume:
                 bufs.consumed = True
         return outs
-    if bpp != 8:
-        raise NotImplementedError(
-            f"{bpp}-bit residuals wait for the 10/12-bit slice")
+    if bpp not in (8, 10, 12):
+        raise ValueError(f"bpp={bpp}")
     if len(jobs) > recon_cuda.RESIDUAL_MAX_PLANES:
         raise ValueError(f"{len(jobs)} planes, the kernel takes at most "
                          f"{recon_cuda.RESIDUAL_MAX_PLANES}")
@@ -289,22 +293,23 @@ def residual_planes(jobs, lossless, bpp, consume=None):
         if H % align or W % align:
             raise ValueError(f"a {H}x{W} plane is not made of {align}x"
                              f"{align} regions")
-        coef = check_tensor(coef, (torch.int16, torch.int32), (H, W), dev,
-                            "coef")
+        coef = check_tensor(coef, (torch.int16, torch.int32) if bpp == 8
+                            else (torch.int32,), (H, W), dev, "coef")
         grids = [check_tensor(g, _GRID_DTYPES, (H // 4, W // 4), dev, name)
                  for g, name in ((eob4, "eob4"), (txsz4, "txsz4"),
                                  (txtype4, "txtype4"))]
         checked.append((coef, *grids))
         outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
+    hbd = bpp > 8
     if consume is None:
-        recon_cuda.residual(checked, outs, lossless)
+        recon_cuda.residual(checked, outs, lossless, hbd=hbd)
         return outs
     for (coef, eob4, _t, _ty), job in zip(checked, jobs):
         if coef is not job[0] or eob4 is not job[1]:
             raise ValueError("a consuming residual clears its coef and eob4 "
                              "in place: they must be contiguous")
     recon_cuda.residual(checked, outs, lossless,
-                        [bufs.strays for bufs in consume])
+                        [bufs.strays for bufs in consume], hbd=hbd)
     for bufs in {id(b): b for b in consume}.values():
         bufs.consumed = True
         if bufs.done is not None:
@@ -314,8 +319,9 @@ def residual_planes(jobs, lossless, bpp, consume=None):
 
 def residual_plane(coef, eob4, txsz4, txtype4, lossless, bpp):
     """The residual of one plane -> [H, W] int32. coef: [H, W] int16
-    (8 bpp uploads narrow) or int32; eob4, txsz4, txtype4: [H/4, W/4]
-    int8/int16/int32 grids. residual_planes of this one plane."""
+    (8 bpp uploads narrow) or int32 (10/12 bpp: int32 only); eob4,
+    txsz4, txtype4: [H/4, W/4] int8/int16/int32 grids. residual_planes of
+    this one plane."""
     return residual_planes([(coef, eob4, txsz4, txtype4)], lossless,
                            bpp)[0]
 
@@ -1079,13 +1085,15 @@ def _grids_from_records_plain(recs, r4, c4, ss_h, ss_v):
             refsel_uv, uvmv)
 
 
-def _grids_from_records(recs, r4, c4, ss_h, ss_v):
+def _grids_from_records(recs, r4, c4, ss_h, ss_v, states=None):
     """The 14 per-cell grids of a frame's block records recs [N, 36]
     (the last row a pad row): Y [r4, c4], chroma [r4 >> ss_v, c4 >>
     ss_h]. CPU tensors take _grids_from_records_plain; any other device
-    the kernel (csrc/splat.cu, one call on state kept per device and
-    geometry, so one stream only: recon_cuda.SplatState), which takes
-    int16 CUDA records only. Both give the same shapes and dtypes."""
+    the kernel (csrc/splat.cu, one call), which takes int16 CUDA records
+    only, on the index state of the caller's store `states` (a decoder's
+    splat_states: recon_cuda.SplatState, kept per device and geometry,
+    one stream only), or on a fresh one of this call when states is
+    None. Both give the same shapes and dtypes."""
     if recs.device.type == "cpu":
         return _grids_from_records_plain(recs, r4, c4, ss_h, ss_v)
     if recs.dim() != 2 or recs.shape[0] < 1:
@@ -1097,7 +1105,7 @@ def _grids_from_records(recs, r4, c4, ss_h, ss_v):
                          f"({ss_h}, {ss_v})")
     recs = check_tensor(recs, (torch.int16,), (recs.shape[0], 36),
                         recs.device, "recs")
-    return recon_cuda.splat(recs, r4, c4, ss_h, ss_v)
+    return recon_cuda.splat(recs, r4, c4, ss_h, ss_v, states)
 
 
 def _records_from_blocks(s):
@@ -1645,7 +1653,7 @@ def recon_frame(s):
         (inter4_d, txsz4_d, txtype4_d, comp4_d, filt4_d, refsel_d, mv16_d,
          inter4uv_d, uvtx4_d, txtypeuv_d, compuv_d, filtuv_d, refseluv_d,
          uvmv_d) = _grids_from_records(dev["recs"], r4, c4, h.ss_h,
-                                       h.ss_v)
+                                       h.ss_v, states=s.splat_states)
 
     recs_host = pre["recs"]
     has_inter_frame = not (h.keyframe or h.intraonly) and bool(

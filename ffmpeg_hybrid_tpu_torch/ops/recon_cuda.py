@@ -19,7 +19,8 @@ from . import intra_tables as it
 from ..codecs.vp9 import tables as T
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"residual": 0, "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
+LAUNCHES = {"residual": 0, "residual_hbd": 0, "intra": 0, "splat": 0,
+            "scatter": 0, "mc": 0}
 
 # the splat's outputs in _grids_from_records' order: (dtype, chroma
 # plane, trailing dimensions)
@@ -55,6 +56,7 @@ _SIGNATURES = {
     # flags (a plane; null unless consuming), stream; cp, rows, columns,
     # ep, rows, flat coef, length, flat eob, length, zero_fill, stream
     "itxfm.cu": {"residual_planes": [_P, _P, _I, _I, _P, _P],
+                 "residual_planes_hbd": [_P, _P, _I, _I, _P, _P],
                  "scatter_pairs": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
                                    _P]},
     # pointers (10 a plane), dims (8 a plane), planes, bpp, has_comp,
@@ -76,10 +78,12 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def residual(jobs, outs, lossless, strays=None):
+def residual(jobs, outs, lossless, strays=None, hbd=False):
     """csrc/itxfm.cu on checked, contiguous tensors: the residuals of up
-    to RESIDUAL_MAX_PLANES planes in one launch. jobs: [(coef [H, W]
-    int16 or int32, eob4, txsz4, txtype4 [H/4, W/4] int8/int16/int32)];
+    to RESIDUAL_MAX_PLANES planes in one launch (hbd: of 10/12-bit
+    planes, residual_planes_hbd, counted apart as "residual_hbd"). jobs:
+    [(coef [H, W] int16 or int32 (int32 only with hbd), eob4, txsz4,
+    txtype4 [H/4, W/4] int8/int16/int32)];
     outs: the [H, W] int32 residuals, one a job. strays: None, or a
     pinned int32 flag a job; then the launch consumes its inputs: it
     clears the eob cells and coefficients it reads, and sets a job's flag
@@ -99,9 +103,10 @@ def residual(jobs, outs, lossless, strays=None):
             raise ValueError(f"{len(strays)} strays flags for {n} planes")
         # pinned host memory: its address is the device's address too
         strays = [f.data_ptr() for f in strays]
-    _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], "residual_planes",
-                 ptrs, dims.ctypes.data, n, int(lossless), strays)
-    LAUNCHES["residual"] += 1
+    name = "residual_planes_hbd" if hbd else "residual_planes"
+    _cuda.launch("itxfm.cu", _SIGNATURES["itxfm.cu"], name, ptrs,
+                 dims.ctypes.data, n, int(lossless), strays)
+    LAUNCHES["residual_hbd" if hbd else "residual"] += 1
 
 
 def scatter(cp, ep, flat_c, flat_e, zero_fill=True):
@@ -139,9 +144,10 @@ def mc(jobs, outs, bpp, has_comp):
 
 
 class SplatState:
-    """csrc/splat.cu's state for one device and cell grid: the index grid
-    bidx [units], an entry an 8x8 unit, of (epoch << 32) | record entries
-    (int64 here, uint64 to the kernel), zero at first. Each call takes a
+    """csrc/splat.cu's state for one device and cell grid of one decoder
+    (its splat_states; splat_state): the index grid bidx [units], an
+    entry an 8x8 unit, of (epoch << 32) | record entries (int64 here,
+    uint64 to the kernel), zero at first. Each call takes a
     new epoch, so the index grid needs no reset between frames; a
     wrapped epoch clears it. The kernel updates the state in stream
     order, so one state serves one stream only: calls on two streams at
@@ -159,28 +165,33 @@ class SplatState:
         return self.epoch
 
 
-_SPLAT_STATES = {}
+def splat_state(states, dev, r4, c4):
+    """The SplatState of (device, r4, c4) in `states` (a dict: a decoder's
+    splat_states, which its FrameJobs carry), made at first use."""
+    key = (torch.device(dev), r4, c4)
+    st = states.get(key)
+    if st is None:
+        st = states[key] = SplatState(dev, ((r4 + 1) // 2) * ((c4 + 1) // 2))
+    return st
 
 
-def splat(recs, r4, c4, ss_h, ss_v):
+def splat(recs, r4, c4, ss_h, ss_v, states=None):
     """csrc/splat.cu on checked, contiguous records recs [N, 36] int16
     (the last row a pad row): the 14 grids of _grids_from_records, Y
     [r4, c4] and chroma [r4 >> ss_v, c4 >> ss_h], in its order, shapes
     and dtypes. An index launch and a gather launch that starts while it
-    runs, on the SplatState of (device, r4, c4): the current stream must
-    be the only one that runs the splat at that geometry. Records not
-    8-byte aligned (a view at an odd offset) are copied first."""
+    runs, on the SplatState of (device, r4, c4) in `states` (the
+    caller's store: the current stream must be the only one that runs
+    the splat on it), or on a fresh one of this call alone when states is
+    None. Records not 8-byte aligned (a view at an odd offset) are
+    copied first."""
     dev = recs.device
     if recs.data_ptr() % 8:
         recs = recs.clone()
     planes = ((r4, c4), (r4 >> ss_v, c4 >> ss_h))
     outs = [torch.empty(planes[uv] + trail, dtype=dt, device=dev)
             for dt, uv, trail in _SPLAT_GRIDS]
-    key = (dev, r4, c4)
-    st = _SPLAT_STATES.get(key)
-    if st is None:
-        st = _SPLAT_STATES[key] = SplatState(
-            dev, ((r4 + 1) // 2) * ((c4 + 1) // 2))
+    st = splat_state({} if states is None else states, dev, r4, c4)
     _cuda.launch("splat.cu", _SIGNATURES["splat.cu"], "splat", recs,
                  recs.shape[0], st.bidx, st.next_epoch(), *outs, r4, c4,
                  ss_h, ss_v, _SPLAT_BWH.ctypes.data, _SPLAT_ITT.ctypes.data)

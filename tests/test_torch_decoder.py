@@ -2,7 +2,7 @@
 mini_encoder chains, with and without the loop filter, against the JAX
 package's VP9Decoder(recon_backend="tpu") plane by plane and against
 the golden decoder's frame bytes; pass-A snapshots carried across with
-state.py; frames outside the slice raise; the first frames of
+state.py; frames with scaled references raise; the first frames of
 bench_1080p against their framemd5 lines. Every comparison is exact."""
 import hashlib
 import itertools
@@ -207,14 +207,9 @@ def _decode_all(pkts):
 
 
 def test_out_of_slice_frames_raise():
+    """Only scaled references are outside the slice; 10/12-bit and
+    4:2:2/4:4:0/4:4:4 frames decode (tests/test_torch_formats.py)."""
     m = _mini()
-    with pytest.raises(NotImplementedError, match="10/12-bit"):
-        _decode_all([m.encode_keyframe_random(64, 64, 10, seed=1,
-                                              filter_level=0)])
-    with pytest.raises(NotImplementedError, match="4:2:0"):
-        _decode_all([m.encode_keyframe_random(64, 64, 8, seed=1,
-                                              filter_level=0, ss_h=0,
-                                              ss_v=0)])
     # an inter frame twice the keyframe's size predicts from a scaled
     # reference
     with pytest.raises(NotImplementedError, match="scaled"):

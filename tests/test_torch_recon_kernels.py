@@ -179,8 +179,8 @@ def test_wrappers_on_cpu_take_the_plain_versions(keyframe_slabs):
     targs = (_t(plane), _t(residual), _t(buf), L, sizes, caps, 8)
     assert torch.equal(P._intra_scan(*targs), P._intra_scan_plain(*targs))
     assert P.LAUNCHES is RC.LAUNCHES
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
-                           "scatter": 0, "mc": 0}
+    assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
 
 
 def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
@@ -219,8 +219,12 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
         P.residual_plane(coef, g[:8], g, g, False, 8)
     with pytest.raises(ValueError):       # not 32x32 regions
         P.residual_plane(coef[:36], g[:9], g[:9], g[:9], False, 8)
-    with pytest.raises(NotImplementedError, match="10/12-bit"):
+    with pytest.raises(TypeError):        # 10/12 bpp: int32 coefficients
         P.residual_plane(coef, g, g, g, False, 10)
+    with pytest.raises(ValueError):
+        P.residual_plane(coef.to(torch.int32), g, g, g, False, 9)
+    with pytest.raises(RuntimeError, match="no card"):
+        P.residual_plane(coef.to(torch.int32), g, g, g, False, 12)
     with pytest.raises(TypeError):
         P._intra_scan(plane, plane.to(torch.int16), slab, 2, (4, 8), (8, 8),
                       8)
@@ -228,9 +232,9 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
         P._intra_scan(plane, plane, slab[:31], 2, (4, 8), (8, 8), 8)
     with pytest.raises(ValueError):
         P._intra_scan(plane, plane, slab, 2, (4, 64), (8, 8), 8)
-    assert calls == ["residual_planes", "intra_scan"]
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
-                           "scatter": 0, "mc": 0}
+    assert calls == ["residual_planes", "intra_scan", "residual_planes_hbd"]
+    assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
 
 
 @pytest.mark.parametrize("sizes,caps,L", [((4,), (256,), 3700),
@@ -300,8 +304,8 @@ def test_decode_on_cpu_launches_no_kernel():
     finally:
         metrics.disable()
     assert len(frames) == 2
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
-                           "scatter": 0, "mc": 0}
+    assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
     assert rep["intra.levels"]["value"] > 0
 
 

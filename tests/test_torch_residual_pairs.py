@@ -217,14 +217,15 @@ def test_scatter_and_residual_match_jax(name, frames):
 
 
 def _idct32_odd_of_source():
-    """csrc/itxfm.cu's idct32_odd as a Python function over int32
-    tensors (the uint32 wrap of the kernel is the int32 wrap)."""
+    """csrc/itxfm.cu's idct32_odd (a template of the word T) as a Python
+    function over int32 tensors (the uint32 wrap of the kernel's 8-bit
+    instantiation is the int32 wrap)."""
     src = open(ITXFM_CU).read()
-    body = src[src.index("void idct32_odd(const u32* I, u32* D) {"):]
+    body = src[src.index("void idct32_odd(const T* I, T* D) {"):]
     body = body[body.index("{") + 1:body.index("\n}")]
     code = ["def f(I, D):"]
     for line in body.strip().splitlines():
-        line = line.strip().rstrip(";").replace("u32 ", "")
+        line = re.sub(r"^T ", "", line.strip().rstrip(";"))
         code.append("    " + re.sub(r"\b0u\b", "0", line))
     ns = {"rs": itxfm._rs}
     exec("\n".join(code), ns)
@@ -761,8 +762,8 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch, frames):
     for k, (job, out) in enumerate(zip(jobs, outs)):
         assert all(a is b for a, b in zip(ptrs[5 * k:5 * k + 4], job))
         assert ptrs[5 * k + 4] is out and out.shape == job[0].shape
-    assert RC.LAUNCHES == {"residual": 1, "intra": 0, "splat": 0,
-                           "scatter": 2, "mc": 0}
+    assert RC.LAUNCHES == {"residual": 1, "residual_hbd": 0,
+                           "intra": 0, "splat": 0, "scatter": 2, "mc": 0}
     with pytest.raises(TypeError):
         P.scatter_coef(cpm.to(torch.int32), epm, Lc, Le)
     with pytest.raises(ValueError):

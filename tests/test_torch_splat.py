@@ -216,13 +216,24 @@ def _splat_model(recs, r4, c4, ss_h, ss_v, state=None):
     chroma cell reading luma cell (i << ss_v, j << ss_h), takes its
     unit's record if the entry is of this epoch, else the last row, as
     its nine 8-byte words."""
-    nthreads, group = _constant("kThreads"), _constant("kGroup")
-    recs = np.ascontiguousarray(recs, dtype="<i2")
-    words = recs.view("<u8").reshape(len(recs), 9)
-    N = len(recs)
-    r8, c8 = (r4 + 1) // 2, (c4 + 1) // 2
     if state is None:
         state = new_state(r4, c4)
+    epoch = _index_model(recs, r4, c4, state)
+    return _gather_model(recs, r4, c4, ss_h, ss_v, state, epoch)
+
+
+def _words(recs):
+    recs = np.ascontiguousarray(recs, dtype="<i2")
+    return recs.view("<u8").reshape(len(recs), 9)
+
+
+def _index_model(recs, r4, c4, state):
+    """_splat_model's index launch (a) on `state`, under the next epoch,
+    which it returns."""
+    nthreads, group = _constant("kThreads"), _constant("kGroup")
+    words = _words(recs)
+    N = len(recs)
+    r8, c8 = (r4 + 1) // 2, (c4 + 1) // 2
     assert len(state["bidx"]) == r8 * c8
     state["epoch"] += 1
     epoch, bidx = state["epoch"], state["bidx"]
@@ -248,6 +259,16 @@ def _splat_model(recs, r4, c4, ss_h, ss_v, state=None):
                 for k in range(lane, (y1 - y0) * nx, group):
                     u = (y0 + k // nx) * c8 + x0 + k % nx
                     bidx[u] = max(bidx[u], (epoch << 32) | b)
+    return epoch
+
+
+def _gather_model(recs, r4, c4, ss_h, ss_v, state, epoch):
+    """_splat_model's gather launch (b) of the launch of `epoch`, on
+    `state`'s index grid as it stands."""
+    words = _words(recs)
+    N = len(recs)
+    c8 = (c4 + 1) // 2
+    bidx = state["bidx"]
 
     def record(i, j):
         """The record of luma cell (i, j), by its unit's entry."""
@@ -339,6 +360,82 @@ def test_kernel_model_two_frames_on_one_state(ss):
     assert state["epoch"] == 2 and set(stale) == {1}
 
 
+@pytest.mark.parametrize("shared", [True, False],
+                         ids=["one shared state", "a state a decoder"])
+def test_two_decoders_interleaved_on_the_stream(shared):
+    """Two decoders of one geometry on two host threads can reach the
+    stream as A's index launch, B's index launch, A's gather, B's
+    gather. On one shared state (the module-level state of old) B's
+    later epoch wins every unit B covers, and A's gather reads each of
+    them as no record; with a state a decoder, both frames equal
+    JAX's."""
+    recs_a, (r4, c4) = synthetic_records(40, (2, 3))
+    recs_b, _ = synthetic_records(41, (0, 1))
+    st_a = new_state(r4, c4)
+    st_b = st_a if shared else new_state(r4, c4)
+    ea = _index_model(recs_a, r4, c4, st_a)
+    eb = _index_model(recs_b, r4, c4, st_b)
+    got_a = _gather_model(recs_a, r4, c4, 1, 1, st_a, ea)
+    got_b = _gather_model(recs_b, r4, c4, 1, 1, st_b, eb)
+    want_a = [np.asarray(a) for a in _jax(recs_a, r4, c4, (1, 1))]
+    want_b = [np.asarray(a) for a in _jax(recs_b, r4, c4, (1, 1))]
+    assert all(np.array_equal(a, b) for a, b in zip(want_b, got_b))
+    same_a = [np.array_equal(a, b) for a, b in zip(want_a, got_a)]
+    if not shared:
+        assert all(same_a)
+        return
+    # every cell of a unit that B's index raised reads the pad row in
+    # A's gather (no inter cell, size 0), and A's grids differ from JAX's
+    # there and nowhere else
+    assert not all(same_a)
+    raised = np.asarray([e >> 32 == eb for e in st_a["bidx"]]).reshape(
+        (r4 + 1) // 2, (c4 + 1) // 2)
+    cells = raised.repeat(2, 0).repeat(2, 1)[:r4, :c4]
+    assert cells.any() and not cells.all()
+    assert not got_a[0][cells].any() and not got_a[1][cells].any()
+    for a, b in zip(want_a[:7], got_a[:7]):
+        assert np.array_equal(a[~cells], b[~cells])
+    assert want_a[1][cells].any()
+
+
+def test_each_decoder_owns_its_splat_state(monkeypatch):
+    """The index state is the decoder's (VP9Decoder.splat_states), which
+    its FrameJobs carry to _grids_from_records: two decoders never share
+    a store, and a direct call with no store gets a private one."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from test_torch_decoder import _mini
+    pkt = _mini().encode_keyframe_random(64, 64, 8, seed=3, filter_level=0)
+    seen = []
+    real = P._grids_from_records
+
+    def spy(*args, states=None):
+        seen.append(states)
+        return real(*args, states=states)
+
+    monkeypatch.setattr(P, "_grids_from_records", spy)
+    decs = [VP9Decoder(device="cpu") for _ in range(2)]
+    for dec in decs:
+        job = dec.decode_pass_a(pkt)
+        assert job.splat_states is dec.splat_states
+        dec.decode_pass_b(dec.precompute_job(job))
+    assert seen == [decs[0].splat_states, decs[1].splat_states]
+    assert seen[0] is decs[0].splat_states and seen[0] is not seen[1]
+    calls = []
+
+    def recorded(source, signatures, name, *args):
+        calls.append(args[2])
+
+    monkeypatch.setattr(_cuda, "launch", recorded)
+    meta = torch.zeros((8, 36), dtype=torch.int16, device="meta")
+    for _ in range(2):
+        real(meta, 4, 4, 1, 1)
+    assert calls[0] is not calls[1]           # a fresh state a call
+    store = {}
+    for _ in range(2):
+        real(meta, 4, 4, 1, 1, states=store)
+    assert calls[2] is calls[3] and len(store) == 1
+
+
 def test_splat_state_clears_on_a_wrapped_epoch():
     """Epochs run 1, 2, ... on a zero index grid; after 2**32 - 1 the
     grid is cleared and the next epoch is 1 again."""
@@ -404,17 +501,18 @@ def test_wrapper_off_cpu_goes_to_the_kernel(monkeypatch, real_records):
     with pytest.raises(ValueError):
         P._grids_from_records(meta, r4, c4, 2, 1)
     assert calls == ["splat"]
-    assert RC.LAUNCHES == {"residual": 0, "intra": 0, "splat": 0,
-                           "scatter": 0, "mc": 0}
+    assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
     calls.clear()
     monkeypatch.setattr(_cuda, "launch", recorded)
     plain = J._grids_from_records(jnp.asarray(recs), r4, c4, 1, 0)
+    states = {}     # a decoder's store (VP9Decoder.splat_states)
     for n, ss in enumerate(SUBSAMPLINGS):
-        outs = P._grids_from_records(meta, r4, c4, *ss)
+        outs = P._grids_from_records(meta, r4, c4, *ss, states)
         source, name, args = calls[n]
         assert (source, name) == ("splat.cu", "splat")
         assert args[0] is meta and args[1] == len(recs)
-        st = RC._SPLAT_STATES[(meta.device, r4, c4)]
+        st = states[(meta.device, r4, c4)]
         assert args[2] is st.bidx
         assert st.bidx.shape == (((r4 + 1) // 2) * ((c4 + 1) // 2),)
         assert st.bidx.dtype == torch.int64
@@ -455,3 +553,36 @@ def test_cuda_kernel_matches_plain(real_records):
         assert RC.LAUNCHES["splat"] == 1
         for n, (a, b) in enumerate(zip(want, got)):
             assert a.dtype == b.dtype and torch.equal(a, b.cpu()), (ss, n)
+
+
+@pytest.mark.cuda
+def test_two_decoders_on_two_threads_are_bit_exact():
+    """Fault 3.1 on the card: two decoders of one geometry decode at once
+    on two host threads, their launches interleaving on the stream; every
+    frame equals the same stream decoded alone on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import threading
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from test_torch_decoder import _chain
+    streams = [_chain(128, 128, 5, seed=3), _chain(128, 128, 5, seed=9)]
+    want = [[f.to_bytes() for f in VP9Decoder(device="cpu").decode_stream(
+        iter(s))] for s in streams]
+    for _round in range(3):
+        got, errs = [None, None], []
+
+        def run(i):
+            try:
+                dec = VP9Decoder(device="cuda")
+                got[i] = [f.to_bytes() for f in
+                          dec.decode_stream(iter(streams[i]))]
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        assert not errs, errs
+        assert got == want

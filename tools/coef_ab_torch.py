@@ -263,6 +263,8 @@ def main():
         if old_interface("itxfm", v, "zero_fill"):
             return lambda: old_pair(torch, lib, sargs, jobs, lossless)
         for name, argtypes in RC._SIGNATURES["itxfm.cu"].items():
+            if not hasattr(lib, name):   # a source before residual_planes_hbd
+                continue
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
         cp, ep, nc, ne = sargs

@@ -171,9 +171,11 @@ def main():
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
 
+        states = {}     # the splat's index state, kept across the calls
+
         def call():
             _build._LIBS[source] = lib
-            return (R._grids_from_records(*a) if kernel == "splat"
+            return (R._grids_from_records(*a, states) if kernel == "splat"
                     else LM.grids_device(*a))
         return call
 
