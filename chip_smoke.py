@@ -56,6 +56,17 @@ Phases, one status line each; any failure exits non-zero:
                  each timed, with the share of its tiles that take the
                  window path; then such frames at 10 and 12 bpp under
                  4:2:2, 4:4:0, 4:4:4 and 4:2:0 MV scales (MC_FORMATS);
+               - mc_planes_scaled (csrc/mc.cu's scaled entry: the inter
+                 pass of a frame with a reference of another size, the
+                 three planes in one launch) on resize_1080p frames 1-5
+                 as recon_frame hands them over (with the splat's index
+                 as that frame left it), and on seeded 1920x1080 frames
+                 whose records the splat kernel indexes: references at
+                 2x down (step 32), the frame's size and 1.5x down, or
+                 at 16x up (step 1), the frame's size and 2x up; every
+                 filter bank, half the cells compound, so that compound
+                 cells mix a scaled and a same-size slot; at 8 bpp 4:2:0
+                 and at MC_FORMATS' depths and layouts;
                - _intra_scan_planes (csrc/intra.cu) on the planes,
                  residuals and slabs of bench_1080p_lf frame 0 and
                  bench_1080p frame 0 (a keyframe), Y, U and V in one
@@ -106,7 +117,15 @@ Phases, one status line each; any failure exits non-zero:
                format clips (two filtered keyframes each) the same way,
                with three timed passes: the high-bit-depth residual must
                launch once per frame of the 10/12-bit clips and the
-               8-bit one never there
+               8-bit one never there; then vectors/resize_1080p.ivf
+               (tools/make_resize_vector_torch.py: 1920x1080, 1280x720,
+               960x540, 1920x1080 twice, 960x540, each inter frame from
+               a reference of another size) the same way: the scaled MC
+               kernel once per inter frame, the unscaled one never, three
+               kept coefficient buffer sets and three splat states for
+               its three sizes (a size returned to reuses its own), the
+               peak device memory over its passes and the card's busy
+               share in a serial decode under torch.profiler
   5. threads   two decoders of one geometry on two host threads at once,
                every frame bit-exact (each decoder owns its splat state)
   6. a JSON line {"kernels": [...]} and the card line, then the result
@@ -142,6 +161,12 @@ ITXFM_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:54"
 SCATTER_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:1037"
 MC_SRC = PKG + "/csrc/mc.cu"
 MC_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:131"
+# _mc_cells_mixed, with _mc_ref_scaled, _mulshift14, _mc_one_ref_unscaled
+# and _scaled_anchor_grids (204-442) and the apply (1851-1884)
+MC_SCALED_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:352"
+# the resize clip (tools/make_resize_vector_torch.py): every inter frame
+# predicts from a reference of another size
+RESIZE_CLIP = "resize_1080p"
 INTRA_SRC = PKG + "/csrc/intra.cu"
 INTRA_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:706"
 SPLAT_SRC = PKG + "/csrc/splat.cu"
@@ -151,7 +176,7 @@ LF_GRIDS_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_masks.py:172"
 # loop-filter launches of the conformance passes, of the filter and of
 # its grids: one per filtered frame (Y and U+V in one launch)
 LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6, "bench_4k": 1,
-               **dict.fromkeys(FORMAT_CLIPS, 2)}
+               **dict.fromkeys(FORMAT_CLIPS, 2), RESIZE_CLIP: 6}
 SUBSAMPLINGS = ((1, 1), (1, 0), (0, 1), (0, 0))
 # race stress of the loop-filter kernel: launches on bench_1080p_lf frame
 # 0's inputs, on a full-size random-grid frame, and on one at 10 bpp
@@ -639,11 +664,18 @@ def capture_inputs(torch, targets, packets):
     calls = {name: [] for _mod, name in targets}
     reals = {name: getattr(mod, name) for mod, name in targets}
 
+    from ffmpeg_hybrid_tpu_torch.ops.recon_cuda import SplatState
+
     def copy(a):
         if torch.is_tensor(a):
             return a.clone()
         if isinstance(a, (list, tuple)):
             return type(a)(copy(x) for x in a)
+        if isinstance(a, SplatState):
+            # the index as this call reads it: later frames' splats move it
+            snap = SplatState.__new__(SplatState)
+            snap.bidx, snap.epoch = a.bidx.clone(), a.epoch
+            return snap
         return a
 
     def wrap(name):
@@ -1366,6 +1398,223 @@ def mc_phase(torch, np, calls):
             "ops": nops / nf, "seeded_ms": seeded_ms}
 
 
+def random_records(np, rng, rows8, cols8, mv_lim):
+    """Block records of a random partition of a rows8 x cols8 grid of 8x8
+    units, superblock by superblock (every block size, sub-8x8 included),
+    all inter: half compound, random references and filter banks, raw
+    MVs to mv_lim (1/8 pel); bucket-padded with pad rows as
+    recon._pack_records leaves them."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    rows = []
+
+    def leaf(r, c, bs):
+        if r < rows8 and c < cols8:
+            rows.append((r, c, bs))
+
+    def part(r, c, lvl):
+        if r >= rows8 or c >= cols8:
+            return
+        n = 8 >> lvl
+        if lvl == 3:
+            leaf(r, c, 9 + rng.randint(0, 4))
+            return
+        p = rng.choice(4, p=(0.2, 0.15, 0.15, 0.5))
+        if p == 0:
+            leaf(r, c, 3 * lvl)
+        elif p == 1:
+            leaf(r, c, 3 * lvl + 1)
+            leaf(r + n // 2, c, 3 * lvl + 1)
+        elif p == 2:
+            leaf(r, c, 3 * lvl + 2)
+            leaf(r, c + n // 2, 3 * lvl + 2)
+        else:
+            for dr in (0, n // 2):
+                for dc in (0, n // 2):
+                    part(r + dr, c + dc, lvl + 1)
+
+    for r in range(0, rows8, 8):
+        for c in range(0, cols8, 8):
+            part(r, c, 0)
+    n = len(rows)
+    recs = np.zeros((R._pad_to_bucket(n + 1, base=256, mult=2), 36), np.int16)
+    recs[:n, [0, 1, 3]] = rows
+    recs[:n, 14] = rng.rand(n) < 0.5
+    recs[:n, 15:17] = rng.randint(0, 3, (n, 2))
+    recs[:n, 17] = rng.randint(0, 4, n)
+    recs[:n, 18:34] = rng.randint(-mv_lim, mv_lim + 1, (n, 16))
+    recs[n:, 3] = -1
+    return recs
+
+
+def ref_sizes(frame, refs):
+    """(scales, steps) of references of luma sizes `refs` for a frame of
+    luma size `frame`, as the decoder computes them (0 for its size)."""
+    w, h = frame
+    sc = [[(rw << 14) // w, (rh << 14) // h] if (rw, rh) != (w, h)
+          else [0, 0] for rw, rh in refs]
+    return sc, [[16 * a >> 14, 16 * b >> 14] for a, b in sc]
+
+
+def mc_scaled_frame(torch, np, rng, frame, refs, bpp=8, ss_h=1, ss_v=1):
+    """A seeded frame for mc_planes_scaled on the card, as recon_frame
+    hands it over: random records of a `frame` (luma w, h) frame
+    (random_records, MVs to 500 px), the splat kernel's grids and index
+    state from them, random `bpp`-bit reference planes of the luma sizes
+    `refs` (padded to 64 px) and random residuals. Returns the call's
+    arguments, as mc_planes_scaled takes them."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
+    w, h = frame
+    cols, rows = (w + 7) >> 3, (h + 7) >> 3
+    r4, c4 = -(-h // 64) * 16, -(-w // 64) * 16
+    recs = torch.as_tensor(random_records(np, rng, rows, cols, 4000),
+                           device=DEVICE)
+    states = {}
+    grids = R._grids_from_records(recs, r4, c4, ss_h, ss_v, states=states)
+    index = RC.splat_state(states, torch.device(DEVICE), r4, c4)
+    scales, steps = ref_sizes(frame, refs)
+    jobs = []
+    for p in range(3):
+        ss_x, ss_y = (ss_h, ss_v) if p else (0, 0)
+        g = grids[7 * (p > 0):7 * (p > 0) + 7]
+        planes, dims = [], []
+        for rw, rh in refs:
+            Hp, Wp = -(-rh // 64) * 64 >> ss_y, -(-rw // 64) * 64 >> ss_x
+            planes.append(torch.as_tensor(rng.randint(
+                0, 1 << bpp, (Hp, Wp)).astype(np.int32), device=DEVICE))
+            dims.append(((rw + ss_x) >> ss_x, (rh + ss_y) >> ss_y))
+        H, W = (r4 * 4) >> ss_y, (c4 * 4) >> ss_x
+        residual = torch.as_tensor(rng.randint(
+            -300 << (bpp - 8), 300 << (bpp - 8), (H, W)).astype(np.int32),
+            device=DEVICE)
+        jobs.append((residual, g[0], g[3], g[4], g[5], g[6], tuple(planes),
+                     tuple(dims), ss_x, ss_y))
+    return [jobs, bpp, True, recs, scales, steps, cols, rows, index]
+
+
+# seeded scaled-MC frames at 1920x1080: the references' luma sizes (a 2x
+# downscale at step 32, the frame's own size, 1.5x down; a 16x upscale at
+# step 1, the frame's size, 2x up)
+SCALED_REFS = {"down": ((3840, 2160), (1920, 1080), (2880, 1620)),
+               "up": ((120, 68), (1920, 1080), (960, 540))}
+
+
+def mc_scaled_work(np, args):
+    """(bytes, operations) an mc_planes_scaled call must move and do: each
+    output pixel written once; per inter pixel its residual; the grids
+    (MC_CELL_BYTES a cell); the records and the index; per inter pixel
+    and reference the reference pixels it covers, (step_x / 16) x
+    (step_y / 16) of them scaled and one unscaled, each reference plane
+    at most its visible area; 8 multiply-adds (two operations each) a
+    pixel and reference for the vertical pass, and for the horizontal
+    one 8 a row of the rows a 4-pixel column needs (11 unscaled, at most
+    8 + ceil(3 step_y / 16) scaled)."""
+    jobs, _bpp, has_comp, recs, scales, steps, _c, _r, index = args
+    nbytes = recs.numel() * 2 + index.bidx.numel() * 8
+    nops = 0
+    for residual, inter4, comp, _f, refsel, _mv, refs, dims, _sx, \
+            _sy in jobs:
+        H, W = residual.shape
+        inter = inter4.cpu().numpy()
+        act = [inter, inter & comp.cpu().numpy() if has_comp
+               else inter & False]
+        sel = refsel.cpu().numpy().clip(0, 2)
+        covered = {}      # reference plane -> pixels read, at most its area
+        for ri, a in enumerate(act):
+            for k in range(3):
+                n = int((a & (sel[..., ri] == k)).sum())
+                if not n:
+                    continue
+                sx, sy = steps[k] if scales[k][0] else (16, 16)
+                key = refs[k].data_ptr()
+                covered[key] = min(covered.get(key, 0)
+                                   + 16 * n * sx * sy / 256,
+                                   dims[k][0] * dims[k][1])
+                nrows = 8 + -(-3 * sy // 16) if scales[k][0] else 11
+                nops += n * 2 * (16 * 8 + 4 * nrows * 8)
+        nbytes += H * W * 4 + int(inter.sum()) * 64 \
+            + inter.size * MC_CELL_BYTES + 4 * sum(covered.values())
+    return int(nbytes), nops
+
+
+def mc_scaled_phase(torch, np, calls):
+    """mc_planes_scaled (csrc/mc.cu's scaled entry) on the real inputs of
+    resize_1080p frames 1-5 (each frame's three planes in one launch,
+    the index of the splat that made its grids), then on seeded
+    1920x1080 frames (SCALED_REFS: steps 32 and 1, every bank, compound
+    cells that mix a scaled and a same-size slot) at 8 bpp 4:2:0 and at
+    MC_FORMATS' depths and layouts: the kernel against the plain version
+    on the card, bit for bit; its device time on the card's clock, the
+    wrapper's call under CUDA events, the plain version's time; the
+    bound from mc_scaled_work."""
+    from ffmpeg_hybrid_tpu_torch.ops import recon as R
+    if len(calls) != 5:
+        raise RuntimeError(f"{RESIZE_CLIP} ran {len(calls)} scaled-MC calls,"
+                           " expected 5")
+    rng = np.random.RandomState(SEED + 17)
+    seeded = [(f"seeded_{k}_8bit_4:2:0",
+               mc_scaled_frame(torch, np, rng, (1920, 1080), refs))
+              for k, refs in SCALED_REFS.items()]
+    for i, (bpp, ss_h, ss_v) in enumerate(MC_FORMATS):
+        k = ("down", "up")[i % 2]
+        seeded.append((f"seeded_{k}_{bpp}bit_{layout(ss_h, ss_v)}",
+                       mc_scaled_frame(torch, np, rng, (1920, 1080),
+                                       SCALED_REFS[k], bpp, ss_h, ss_v)))
+    err = 0
+    ms = call_ms = plain_ms = nbytes = nops = 0.0
+    notes, seeded_ms = [], {}
+    for which, args in [(f"{RESIZE_CLIP} frame {i + 1}", a)
+                        for i, a in enumerate(calls)] + seeded:
+        outs = R.mc_planes_scaled(*args)
+        wants, t = host_ms(torch, lambda: R.mc_planes_scaled_plain(
+            *args[:-1]))
+        e = max_diff(outs, wants)
+        err = max(err, e)
+        if e:
+            raise RuntimeError(f"mc_planes_scaled on {which}: kernel != "
+                               f"plain (max |diff| {e})")
+
+        def call():
+            R.mc_planes_scaled(*args)
+        k_ms, _n = device_ms(torch, call, 20, ("mc_scaled_kernel",))
+        b, o = mc_scaled_work(np, args)
+        jobs = args[0]
+        inter = sum(int(j[1].sum()) for j in jobs)
+        comp = sum(int((j[1] & j[2]).sum()) for j in jobs)
+        say("kernels", f"mc_planes_scaled on {which} ({inter} inter cells, "
+            f"{comp} compound; scales {args[4]}): {k_ms:.5f} ms on the "
+            f"card, bound {bounds(b, o, 0)[0]:.6f} ({b} B, {o} ops); "
+            f"plain {t:.1f} ms")
+        if which.startswith("seeded"):
+            seeded_ms[which] = k_ms
+            continue
+        ms += k_ms
+        call_ms += cuda_ms(call, 20)
+        plain_ms += t
+        nbytes += b
+        nops += o
+        notes.append(f"{k_ms:.5f}")
+    nf = len(calls)
+    bound_ms, bound_by, _chain = bounds(nbytes / nf, nops / nf, 0)
+    say("kernels", f"mc_planes_scaled on {RESIZE_CLIP} frames 1-5 "
+        f"({', '.join(notes)} ms): ms/frame={ms / nf:.5f} on the card (the "
+        f"wrapper's call under CUDA events {call_ms / nf:.4f}) "
+        f"plain_ms/frame={plain_ms / nf:.2f} bound_ms/frame={bound_ms:.6f} "
+        f"({bound_by}, {nbytes / nf:.0f} B, {nops / nf:.0f} ops); exact vs "
+        "plain, also on seeded 1920x1080 frames at steps 32 and 1 with "
+        "every bank and compound cells mixing a scaled and a same-size "
+        "slot, at 8 bpp 4:2:0 and at "
+        + ", ".join(f"{b} bpp {layout(h, v)}" for b, h, v in MC_FORMATS))
+    return {"name": "mc_planes_scaled", "route": "cuda", "source": MC_SRC,
+            "replaces": MC_SCALED_REPLACES, "launches": None,
+            "max_abs_err": err, "ms": ms / nf, "plain_ms": plain_ms / nf,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": f"frame (Y, U, V in one launch), mean of {RESIZE_CLIP} "
+                   "frames 1-5",
+            "call_ms": call_ms / nf, "bytes_needed": nbytes / nf,
+            "ops": nops / nf, "seeded_ms": seeded_ms}
+
+
 def intra_work(np, jobs):
     """(bytes, operations, real blocks, covered pixels) one
     _intra_scan_planes call on `jobs` must move and do: each new plane
@@ -1978,6 +2227,36 @@ def two_decoders_phase(torch, clips):
         f"state, {time.perf_counter() - t0:.1f} s")
 
 
+def busy_share(torch, frames):
+    """(the card's busy share, device ops a frame) of a serial decode of
+    `frames` under torch.profiler after a warm-up decode: the device time
+    of its kernels over the wall time, as tools/profile_stages_torch.py
+    reads it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+
+    def run():
+        dec = VP9Decoder(device=DEVICE)
+        for fd in frames:
+            dec.decode(fd)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0) for e in kernels)
+    if not us:
+        raise RuntimeError("the profiler saw no device time in the decode")
+    return us / 1e6 / wall, sum(e.count for e in kernels) / len(frames)
+
+
 def read_clip(name):
     from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
     from ffmpeg_hybrid_tpu_torch.formats.superframe import split_superframe
@@ -1999,7 +2278,8 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
     (median fps, all fps, per-stage ms/frame, launches of the
     conformance pass by kernel, frames with intra blocks, frames with
     inter blocks, host ms/frame of pass A and pass B beside each timed
-    pass)."""
+    pass, the serial pass's kept coefficient buffer sets and splat
+    states)."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
@@ -2011,7 +2291,8 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
     recon.reset_launches()
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
-                 "_intra_scan_plain", "mc_planes_plain", "_scatter_pairs16",
+                 "_intra_scan_plain", "mc_planes_plain",
+                 "mc_planes_scaled_plain", "_scatter_pairs16",
                  "_scatter_pairs32", "_consume_plain")),
         (lpf_masks, ("grids_device_plain",)),
         (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")))
@@ -2113,8 +2394,10 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
         + json.dumps(stages, sort_keys=True)
         + f"; intra levels per frame (Y + U + V): {levels / len(frames)}; "
         f"{intra_frames} of {len(frames)} frames have intra blocks, "
-        f"{inter_frames} inter blocks")
-    return fps, fps_runs, stages, launches, intra_frames, inter_frames, host
+        f"{inter_frames} inter blocks; kept coefficient buffer sets "
+        f"{len(dec.coef_bufs)}, splat states {len(dec.splat_states)}")
+    return (fps, fps_runs, stages, launches, intra_frames, inter_frames, host,
+            (len(dec.coef_bufs), len(dec.splat_states)))
 
 
 def main():
@@ -2125,7 +2408,7 @@ def main():
         return 1
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
-            for c in CLIPS + tuple(FORMAT_CLIPS)):
+            for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -2168,7 +2451,8 @@ def main():
                         or "Compiling" in line:
                     say("build", f"{src}: {line.strip()}")
 
-    clips = {c: read_clip(c) for c in CLIPS + tuple(FORMAT_CLIPS)}
+    clips = {c: read_clip(c)
+             for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)}
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, recon
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
                                       (recon, "_intra_scan_planes"),
@@ -2194,6 +2478,8 @@ def main():
                                            (lpf_dense, "lf_frame_")],
                                    clips[c][0][:1])
                  for c in FORMAT_CLIPS}
+    rs_calls = capture_inputs(torch, [(recon, "mc_planes_scaled")],
+                              clips[RESIZE_CLIP][0])
     intra_calls = {"bench_1080p_lf": lf_calls["_intra_scan_planes"][0],
                    "bench_1080p": res_calls["_intra_scan_planes"][0]}
     splat_calls = {"bench_1080p": res_calls["_grids_from_records"][:2],
@@ -2216,6 +2502,7 @@ def main():
             torch, np, {c: fmt_calls[c]["scatter_frame"] for c in HBD_CLIPS},
             {c: fmt_calls[c]["residual_planes"] for c in HBD_CLIPS}),
         mc_phase(torch, np, res_calls["mc_planes"]),
+        mc_scaled_phase(torch, np, rs_calls["mc_planes_scaled"]),
         intra_phase(torch, np, intra_calls),
         splat_phase(torch, np, splat_calls,
                     k4_calls["_grids_from_records"][1]),
@@ -2233,18 +2520,30 @@ def main():
     for n in ("grids_device", "_grids_from_records"):
         by_name[n]["launch_floor_ms"] = floor_ms
     del lf_calls, res_calls, intra_calls, splat_calls, scatter_calls, \
-        residual_calls, k4_calls, fmt_calls
+        residual_calls, k4_calls, fmt_calls, rs_calls
     main_path = {"lf_dense": "lf_dense", "residual_planes": "residual",
                  "residual_planes_hbd": "residual_hbd",
                  "scatter_coef": "scatter", "mc_planes": "mc",
+                 "mc_planes_scaled": "mc_scaled",
                  "_intra_scan_planes": "intra",
                  "_grids_from_records": "splat", "grids_device": "lf_grids"}
-    for name in CLIPS + tuple(FORMAT_CLIPS):
+    for name in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,):
         frames, want = clips[name]
-        # the format clips' passes are two frames each: three timed ones
+        # the format clips' passes are two frames each, the resize clip's
+        # six: three timed ones
         windows = WINDOWS if name in CLIPS else 3
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         (fps, fps_runs, stages, launches, intra_frames, inter_frames,
-         host) = decode_phase(torch, name, frames, want, windows)
+         host, kept) = decode_phase(torch, name, frames, want, windows)
+        peak = torch.cuda.max_memory_allocated()
+        busy = ""
+        if name == RESIZE_CLIP:
+            share, ops = busy_share(torch, frames)
+            busy = (f"; a serial decode under torch.profiler: the card busy "
+                    f"{100 * share:.2f}% of the wall time, {ops:.2f} device "
+                    "ops a frame")
         for key in ("lf_dense", "lf_grids"):
             if launches[key] != LF_LAUNCHES[name]:
                 raise RuntimeError(f"{name}: {key} launched {launches[key]}"
@@ -2259,11 +2558,22 @@ def main():
                 raise RuntimeError(f"{name}: the {key} kernel launched "
                                    f"{launches[key]} times for {len(want)} "
                                    f"frames, expected {n}")
-        if launches["mc"] != inter_frames or (inter_frames == 0) != (
-                name == "bench_1080p_lf" or name in FORMAT_CLIPS):
-            raise RuntimeError(f"{name}: the MC kernel launched "
-                               f"{launches['mc']} times for {inter_frames} "
-                               "frames with inter blocks")
+        # every inter frame of the resize clip has a reference of another
+        # size: the scaled kernel once each, the unscaled one never; on the
+        # other clips the reverse
+        mc_want = (0, inter_frames) if name == RESIZE_CLIP \
+            else (inter_frames, 0)
+        if (launches["mc"], launches["mc_scaled"]) != mc_want or (
+                inter_frames == 0) != (name == "bench_1080p_lf"
+                                       or name in FORMAT_CLIPS):
+            raise RuntimeError(f"{name}: the MC kernels launched "
+                               f"{launches['mc']} (unscaled) and "
+                               f"{launches['mc_scaled']} (scaled) times for "
+                               f"{inter_frames} frames with inter blocks")
+        if name == RESIZE_CLIP and kept != (3, 3):
+            raise RuntimeError(f"{name}: {kept[0]} kept coefficient buffer "
+                               f"sets and {kept[1]} splat states for its "
+                               "three frame sizes")
         if not 0 < intra_frames == launches["intra"]:
             raise RuntimeError(f"{name}: the intra kernel launched "
                                f"{launches['intra']} times for "
@@ -2282,7 +2592,9 @@ def main():
             f"{min(fps_runs):.3f}, max {max(fps_runs):.3f}; its pass's host "
             f"pass A {host[med][0]:.3f}, pass B {host[med][1]:.3f} ms/frame)"
             f" on {card}; largest pass-B stages (ms/frame): "
-            + ", ".join(f"{k} {v}" for v, k in top))
+            + ", ".join(f"{k} {v}" for v, k in top)
+            + f"; peak device memory over the clip's passes {peak} B"
+            + busy)
 
     two_decoders_phase(torch, clips)
 

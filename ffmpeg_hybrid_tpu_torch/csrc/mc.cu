@@ -4,7 +4,9 @@
 // recon_tpu.py:131-184 and 1805-1850). Those are XLA programs there, not
 // Pallas kernels; the port's plain version is ops/recon.py:mc_planes_plain.
 //
-//   mc_planes  the inter pass of up to three planes, one launch
+//   mc_planes         the inter pass of up to three planes, one launch
+//   mc_planes_scaled  the same for a frame with a reference of another
+//                     size (below, before the entry points)
 //
 // Semantics. A plane is H x W pixels, its grids H/4 x W/4 cells. Cell
 // (i, j) of an inter cell (inter4) predicts its 4x4 pixels from one
@@ -545,6 +547,235 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// ---------------------------------------------------------------------------
+// mc_planes_scaled: the inter pass of a frame with a reference of another
+// size than the frame (dynamic resize), the counterpart of the JAX
+// package's _mc_cells_mixed with _mc_ref_scaled, _mulshift14,
+// _mc_one_ref_unscaled, _scaled_anchor_grids and the apply of
+// _recon_plane_inter_mixed (ffmpeg_hybrid_tpu/ops/recon_tpu.py:204-442,
+// 1851-1884), XLA programs there; the port's plain version is
+// ops/recon.py:mc_planes_scaled_plain. Reference: mc_luma_scaled and
+// mc_chroma_scaled (vp9recon.c:492-628).
+//
+// Semantics. As mc_planes, but each of the three slots has its own plane,
+// row stride and visible size, and a slot of scale 0 (the frame's size)
+// takes mc_planes' arithmetic, any other the scaled one, per cell and
+// reference: so a compound cell can mix the two. The MV grid holds raw
+// 1/8-pel MVs (luma units); the unscaled path scales them by 2 >> ss. The
+// scaled path, for the cell's reference of slot k:
+//  - the call anchor (ay, ax), parent corner (by, bx) and span (ph, pw)
+//    come from the cell's block record b, the record of luma cell (i <<
+//    ss_y, j << ss_x): by = row * 8 >> ss_y, ay = by + 4 ((i - 2 row) & 1)
+//    for a sub-8x8 block (bs > 9) when ss_y is 0, else by; ph = 8 height
+//    (8x8 units of bs) >> ss_y; likewise x;
+//  - the MV is clamped to [-(b0 + span + 4) * 8, (n8 * 8 - b0 + 3) * 8]
+//    without subsampling, [-(b0 + span + 4) * 16, (n8 * 4 - b0 + 3) * 16]
+//    with (n8: the frame's 8x8 columns or rows);
+//  - the start t0 = (2 mv * sc >> 14) + (a0 * sc >> 10) without
+//    subsampling, (mv * sc >> 14) + ((a0 * sc >> 10) & ~15) + ((a0 * sc
+//    >> 9) & 15) with (the libvpx-820 formula), in 64 bits;
+//  - pixel x of the plane reads source column (t0 >> 4) + (tk >> 4) at
+//    phase tk & 15, tk = (t0 & 15) + (x - ax) * step; likewise y;
+//  - the 8-tap passes as mc_planes', each source row and column clamped
+//    to the slot's visible size.
+//
+// Design. A thread per 4-pixel column of a cell: a warp holds 8 cells of
+// a row of cells, 4 lanes each, so the stores of a pixel row are 32
+// consecutive ints. The thread derives its cell's record from the
+// splat's index (an entry per 8x8 unit, (epoch << 32) | b; an entry of
+// another epoch is no record: the last, a pad row), only where a scaled
+// slot is used. Its column has one source column set and one phase, so
+// it runs the horizontal pass over the rows its 4 pixels need (at most
+// 14 at a step of 32, 11 unscaled) into its own column of shared memory
+// (no barrier: no other thread reads it), then the vertical pass at each
+// row's phase. The taps come from kFtab, the block sizes from kBwh.
+//
+// What bounds it. Bytes: each output pixel written once (4 B), per inter
+// pixel its residual (4 B), the grids (some 30 B a cell) and the
+// reference planes the cells use, each read once: about 43 MB at 1080p
+// with one reference plane a cell, 13 us at 3.35 TB/s. Operations: 8
+// multiply-adds a pixel for the vertical pass and 2-3.5 rows of 8 for the
+// horizontal one, per reference, under the bytes at the int32 rate. The
+// kernel reads each source pixel again for every column that needs it
+// (from L1) and walks its rows serially: a first design, right before
+// fast.
+
+constexpr int kScaledThreads = 128;
+constexpr int kScaledRows = 16;   // horizontal-pass rows a thread keeps
+constexpr int kRecLen = 36;       // int16 fields a block record
+
+// BWH_TAB[1] of the port's tables.py: a block size's width and height in
+// 8x8 units; the port's tests hold this table to it
+__constant__ int kBwh[13][2] = {{8, 8}, {8, 4}, {4, 8}, {4, 4}, {4, 2},
+                                {2, 4}, {2, 2}, {2, 1}, {1, 2}, {1, 1},
+                                {1, 1}, {1, 1}, {1, 1}};
+
+struct ScaledPlane {
+  const int32_t* ref[3];    // [Hr, Wr] each, a shape a slot
+  int ref_stride[3];        // Wr
+  int ref_w[3], ref_h[3];   // the visible size
+  const int32_t* residual;  // [H, W]
+  int32_t* out;             // [H, W]
+  const uint8_t* inter;     // [H/4, W/4] bool
+  const uint8_t* comp;      // [H/4, W/4] bool; null without has_comp
+  const int32_t* filt;      // [H/4, W/4]
+  const int32_t* refsel;    // [H/4, W/4, 2]
+  const int32_t* mv;        // [H/4, W/4, 2 refs, (x, y)], raw 1/8 pel
+  int H, W, r4, c4;
+  int ss_x, ss_y;
+  int strips_x;             // strips of 8 cells a row of cells
+  int strip0;               // the plane's first strip in the grid
+};
+
+struct ScaledArgs {
+  ScaledPlane p[kMaxPlanes];
+  int n;
+  int strips;               // of all the planes
+  int maxp;
+  int has_comp;
+  const int16_t* recs;      // [N, 36]
+  int N;
+  const unsigned long long* bidx;  // [r8 * c8] (epoch << 32) | record
+  unsigned epoch;
+  int c8;
+  int cols, rows;           // the frame's 8x8 block columns and rows
+  int scale[3][2];          // 14-bit factors, 0 for the frame's size
+  int step[3][2];           // 1/16-pel steps a pixel
+};
+
+__device__ __forceinline__ int clamp_mv(int mv, int b0, int span, int n8,
+                                        int ss) {
+  return ss ? clip(mv, -(b0 + span + 4) * 16, (n8 * 4 - b0 + 3) * 16)
+            : clip(mv, -(b0 + span + 4) * 8, (n8 * 8 - b0 + 3) * 8);
+}
+
+// the 14-bit scaled start of a call, in 1/16 pel of the reference
+__device__ __forceinline__ long long scaled_start(int mv, int a0, int sc,
+                                                  int ss) {
+  const long long pa = static_cast<long long>(a0) * sc;
+  if (ss)
+    return ((static_cast<long long>(mv) * sc) >> 14) + ((pa >> 10) & ~15LL) +
+           ((pa >> 9) & 15);
+  return ((static_cast<long long>(mv) * 2 * sc) >> 14) + (pa >> 10);
+}
+
+__global__ void __launch_bounds__(kScaledThreads)
+    mc_scaled_kernel(const __grid_constant__ ScaledArgs a) {
+  __shared__ int32_t hv[kScaledRows][kScaledThreads];
+  const int t = threadIdx.x, lane = t & 31;
+  const int strip_g = blockIdx.x * (kScaledThreads / 32) + (t >> 5);
+  if (strip_g >= a.strips) return;
+  int pi = 0;
+  while (pi + 1 < a.n && strip_g >= a.p[pi + 1].strip0) ++pi;
+  const ScaledPlane& p = a.p[pi];
+  const int strip = strip_g - p.strip0;
+  const int i = strip / p.strips_x;
+  const int j = (strip % p.strips_x) * 8 + (lane >> 2);
+  if (j >= p.c4) return;
+  const int x = 4 * j + (lane & 3), y0 = 4 * i;
+  const size_t g = static_cast<size_t>(i) * p.c4 + j;
+  int32_t* out = p.out + static_cast<size_t>(y0) * p.W + x;
+  if (!__ldg(p.inter + g)) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) out[static_cast<size_t>(r) * p.W] = 0;
+    return;
+  }
+  const int nref = a.has_comp && __ldg(p.comp + g) ? 2 : 1;
+  const int bank = clip(__ldg(p.filt + g), 0, 3);
+  bool have_rec = false;
+  int ay = 0, ax = 0, by = 0, bx = 0, ph = 0, pw = 0;
+  int pred[4];
+  for (int ri = 0; ri < nref; ++ri) {
+    const int sel = clip(__ldg(p.refsel + g * 2 + ri), 0, 2);
+    int mvx = __ldg(p.mv + g * 4 + ri * 2);
+    int mvy = __ldg(p.mv + g * 4 + ri * 2 + 1);
+    int col0, phx, row[4], phy[4];
+    if (a.scale[sel][0] == 0) {
+      mvx *= 2 >> p.ss_x;
+      mvy *= 2 >> p.ss_y;
+      col0 = x + (mvx >> 4) - 3;
+      phx = mvx & 15;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        row[r] = y0 + r + (mvy >> 4) - 3;
+        phy[r] = mvy & 15;
+      }
+    } else {
+      if (!have_rec) {
+        // the record of luma cell (i << ss_y, j << ss_x), by its 8x8 unit
+        const unsigned long long e =
+            a.bidx[static_cast<size_t>((i << p.ss_y) >> 1) * a.c8 +
+                   ((j << p.ss_x) >> 1)];
+        const int b = static_cast<unsigned>(e >> 32) == a.epoch
+                          ? min(static_cast<int>(e & 0xffffffffu), a.N - 1)
+                          : a.N - 1;
+        const int16_t* rec = a.recs + static_cast<size_t>(b) * kRecLen;
+        const int brow = rec[0], bcol = rec[1], bs = rec[3];
+        const bool sub8 = bs > 9;
+        const int bsc = clip(bs, 0, 12);
+        by = (brow * 8) >> p.ss_y;
+        bx = (bcol * 8) >> p.ss_x;
+        ay = by + (sub8 && !p.ss_y ? ((i - brow * 2) & 1) * 4 : 0);
+        ax = bx + (sub8 && !p.ss_x ? ((j - bcol * 2) & 1) * 4 : 0);
+        pw = (kBwh[bsc][0] * 8) >> p.ss_x;
+        ph = (kBwh[bsc][1] * 8) >> p.ss_y;
+        have_rec = true;
+      }
+      mvx = clamp_mv(mvx, bx, pw, a.cols, p.ss_x);
+      mvy = clamp_mv(mvy, by, ph, a.rows, p.ss_y);
+      const long long tx0 = scaled_start(mvx, ax, a.scale[sel][0], p.ss_x);
+      const long long ty0 = scaled_start(mvy, ay, a.scale[sel][1], p.ss_y);
+      const int txk = static_cast<int>(tx0 & 15) + (x - ax) * a.step[sel][0];
+      col0 = static_cast<int>(tx0 >> 4) + (txk >> 4) - 3;
+      phx = txk & 15;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int tyk =
+            static_cast<int>(ty0 & 15) + (y0 + r - ay) * a.step[sel][1];
+        row[r] = static_cast<int>(ty0 >> 4) + (tyk >> 4) - 3;
+        phy[r] = tyk & 15;
+      }
+    }
+    const int32_t* ref = p.ref[sel];
+    const int wm = p.ref_w[sel] - 1, hm = p.ref_h[sel] - 1;
+    int cidx[8], tx[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      cidx[k] = clip(col0 + k, 0, wm);
+      tx[k] = kFtab[bank][phx][k];
+    }
+    // horizontal pass over the rows the column's pixels need
+    const int nrows = clip(row[3] - row[0] + 8, 8, kScaledRows);
+    for (int u = 0; u < nrows; ++u) {
+      const int32_t* src = ref + static_cast<size_t>(clip(row[0] + u, 0, hm)) *
+                                     p.ref_stride[sel];
+      int acc = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc += tx[k] * __ldg(src + cidx[k]);
+      hv[u][t] = clip((acc + 64) >> 7, 0, a.maxp);
+    }
+    // vertical pass at each row's phase
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int base = row[r] - row[0];
+      int acc = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc += kFtab[bank][phy[r]][k] *
+               hv[clip(base + k, 0, kScaledRows - 1)][t];
+      const int v = clip((acc + 64) >> 7, 0, a.maxp);
+      pred[r] = ri == 0 ? v : (pred[r] + v + 1) >> 1;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const size_t o = static_cast<size_t>(r) * p.W;
+    out[o] = clip(pred[r] + __ldg(p.residual + static_cast<size_t>(y0) * p.W +
+                                  x + o),
+                  0, a.maxp);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -599,6 +830,87 @@ int mc_planes(const void* const* ptrs, const int* dims, int n, int bpp,
   }
   a.tiles = tiles;
   mc_kernel<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The inter pass of n (1-3) planes of a frame with a reference of another
+// size, in one launch on `stream`. ptrs: 10 device pointers a plane as
+// mc_planes' (ref0-2 int32 [Hr, Wr], each of its own shape; residual,
+// out int32 [H, W]; inter4, comp bool (comp null when has_comp is 0);
+// filt int32 [H/4, W/4]; refsel int32 [H/4, W/4, 2]; mv int32 [H/4, W/4,
+// 2, 2], raw 1/8 pel), then recs (int16 [N, 36]) and the splat's index
+// (uint64 [r8 * c8]). dims: 16 ints a plane: H, W (multiples of 4), ss_x,
+// ss_y (0 or 1), then a slot each Hr, Wr, w, h (1 <= w <= Wr, 1 <= h <=
+// Hr). frame: 18 ints: N, epoch, r8, c8 (the luma 8x8 units), cols, rows,
+// scale[3][2], step[3][2]. bpp: 8-12.
+int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
+                     const int* frame, int bpp, int has_comp,
+                     cudaStream_t stream) {
+  if (n < 1 || n > kMaxPlanes || bpp < 8 || bpp > 12 || !ptrs || !dims ||
+      !frame)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScaledArgs a{};
+  a.n = n;
+  a.maxp = (1 << bpp) - 1;
+  a.has_comp = has_comp != 0;
+  a.recs = static_cast<const int16_t*>(ptrs[10 * n]);
+  a.bidx = static_cast<const unsigned long long*>(ptrs[10 * n + 1]);
+  a.N = frame[0];
+  a.epoch = static_cast<unsigned>(frame[1]);
+  const int r8 = frame[2];
+  a.c8 = frame[3];
+  a.cols = frame[4];
+  a.rows = frame[5];
+  for (int k = 0; k < 3; ++k)
+    for (int d = 0; d < 2; ++d) {
+      a.scale[k][d] = frame[6 + 2 * k + d];
+      a.step[k][d] = frame[12 + 2 * k + d];
+    }
+  if (!a.recs || !a.bidx || a.N < 1 || r8 < 1 || a.c8 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int strips = 0;
+  for (int i = 0; i < n; ++i) {
+    const void* const* q = ptrs + 10 * i;
+    const int* d = dims + 16 * i;
+    ScaledPlane& p = a.p[i];
+    p.H = d[0];
+    p.W = d[1];
+    p.ss_x = d[2];
+    p.ss_y = d[3];
+    if (p.H <= 0 || p.W <= 0 || p.H % 4 || p.W % 4 || p.ss_x < 0 ||
+        p.ss_x > 1 || p.ss_y < 0 || p.ss_y > 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.r4 = p.H / 4;
+    p.c4 = p.W / 4;
+    if ((((p.r4 << p.ss_y) + 1) >> 1) != r8 ||
+        (((p.c4 << p.ss_x) + 1) >> 1) != a.c8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int r = 0; r < 3; ++r) {
+      p.ref[r] = static_cast<const int32_t*>(q[r]);
+      const int* s = d + 4 + 4 * r;
+      p.ref_stride[r] = s[1];
+      p.ref_w[r] = s[2];
+      p.ref_h[r] = s[3];
+      if (!p.ref[r] || p.ref_w[r] < 1 || p.ref_w[r] > s[1] ||
+          p.ref_h[r] < 1 || p.ref_h[r] > s[0])
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.residual = static_cast<const int32_t*>(q[3]);
+    p.out = static_cast<int32_t*>(const_cast<void*>(q[4]));
+    p.inter = static_cast<const uint8_t*>(q[5]);
+    p.comp = static_cast<const uint8_t*>(q[6]);
+    p.filt = static_cast<const int32_t*>(q[7]);
+    p.refsel = static_cast<const int32_t*>(q[8]);
+    p.mv = static_cast<const int32_t*>(q[9]);
+    if (has_comp && !p.comp) return static_cast<int>(cudaErrorInvalidValue);
+    p.strips_x = (p.c4 + 7) / 8;
+    p.strip0 = strips;
+    strips += p.strips_x * p.r4;
+  }
+  a.strips = strips;
+  constexpr int kStrips = kScaledThreads / 32;
+  mc_scaled_kernel<<<(strips + kStrips - 1) / kStrips, kScaledThreads, 0,
+                     stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

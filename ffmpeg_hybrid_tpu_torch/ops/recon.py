@@ -32,7 +32,13 @@ reference: vp9_webgpu.c:2956):
                        the card one launch of csrc/mc.cu per frame with
                        inter blocks, for the three planes; the plain
                        version, mc_planes_plain, is _mc_cells and the
-                       apply per plane
+                       apply per plane. A frame with a reference of
+                       another size takes mc_planes_scaled instead (one
+                       launch of csrc/mc.cu's scaled entry): per cell and
+                       reference, a resized slot steps each pixel's
+                       phase from its block's call anchor, a same-size
+                       slot takes the unscaled arithmetic; the plain
+                       version is mc_planes_scaled_plain
   3. intra wavefront — host-computed dependency levels, after the
                        three planes' residual and inter passes. On the
                        card one launch of csrc/intra.cu per frame walks
@@ -56,11 +62,12 @@ lpf_masks.LAUNCHES, lpf_dense.LAUNCHES).
 
 Frame planes stay on the device across frames (references included).
 Every stage is integer math or exact float32, so the planes equal the
-JAX package's bit for bit. The slice covers VP9 profiles 0-3 (8, 10 and
-12 bits; 4:2:0, 4:2:2, 4:4:0 and 4:4:4) with unscaled references; a
-frame with a scaled reference raises NotImplementedError naming the
-slice it waits for. At 10/12 bits the coefficients are int32 and the
-residual runs its own kernel instantiation (64-bit butterflies).
+JAX package's bit for bit. The port covers VP9 profiles 0-3 (8, 10 and
+12 bits; 4:2:0, 4:2:2, 4:4:0 and 4:4:4) and references of any valid
+size; a frame whose inter blocks use a reference of invalid size raises
+ValueError, as the reference does. At 10/12 bits the coefficients are
+int32 and the residual runs its own kernel instantiation (64-bit
+butterflies).
 
 Where JAX clamps out-of-bounds gather indices and drops out-of-bounds
 scatter writes, torch raises, so this module masks explicitly: pad and
@@ -131,13 +138,20 @@ def _iota(n, device):
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def _check_slice(s):
-    """Frames this slice of the port does not reconstruct raise: those
-    with a scaled or invalid-scale reference."""
-    if any(sc[0] for sc in getattr(s, "mvscale", [[0, 0]] * 3)):
-        raise NotImplementedError(
-            "scaled or invalid-scale references wait for the "
-            "scaled-MC slice of the port")
+def _check_refs(s, recs):
+    """Raise, as the reference does (vp9recon.c:661-669), when an inter
+    block of the frame predicts from a reference of invalid dimensions
+    (mvscale -1: more than twice the frame's size or under a sixteenth of
+    it): recs, the frame's [N, 36] block records on the host. A frame
+    whose invalid slot no block uses decodes."""
+    bad = [k for k, sc in enumerate(getattr(s, "mvscale", ())) if sc[0] == -1]
+    if not bad:
+        return
+    inter = (recs[:, 3] >= 0) & (recs[:, 6] == 0)
+    uses = np.isin(recs[:, 15], bad) | ((recs[:, 14] != 0)
+                                        & np.isin(recs[:, 16], bad))
+    if (inter & uses).any():
+        raise ValueError("reference frame has invalid dimensions")
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +488,322 @@ def mc_planes(jobs, bpp, has_comp):
                         w, h, mvsx, mvsy))
         outs.append(out)
     recon_cuda.mc(checked, outs, bpp, has_comp)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# inter pass with scaled references (dynamic resize): per-pixel stepping
+#
+# Reference: mc_luma_scaled / mc_chroma_scaled (vp9recon.c:492-628) and
+# do_scaled_8tap_c / do_scaled_bilin_c (vp9dsp_template.c:2363-2500). In
+# scaled mode every sub-8x8 block becomes four 4x4 quadrant calls, the MV
+# is clamped against the parent block, and with subsampling the phase
+# uses the libvpx-820 formula. A call's phase steps from its corner: in
+# closed form total(k) = mx0 + k * step, offset(k) = total >> 4, phase
+# total & 15, so every 4x4 cell is computed from its call anchor alone.
+# A cell gathers a 16x16 source patch: a step is at most 32 (2x down), so
+# a cell spans at most 6 source pixels and 8 taps.
+
+
+def _mulshift14(a, b):
+    """Exact (a * b) >> 14, as the reference's int64 cast computes it
+    (vp9recon.c:508): int64 tensors."""
+    return (a.to(torch.int64) * b) >> 14
+
+
+def _patches(refs, dims, sel, top, left):
+    """The 16x16 source patch of every cell: refs, three int32 planes of
+    their own shapes, and dims, their visible (w, h); sel [r4, c4] each
+    cell's slot; top, left [r4, c4] its patch's first row and column ->
+    (the planes as one flat tensor, [r4, c4, 16, 16] indices into it),
+    each row and column clamped to the slot's visible area."""
+    dev = sel.device
+    flat = torch.cat([r.reshape(-1) for r in refs])
+    sizes = [r.numel() for r in refs]
+    base = torch.as_tensor([0, sizes[0], sizes[0] + sizes[1]],
+                           dtype=torch.int64, device=dev)[sel]
+    stride = torch.as_tensor([r.shape[1] for r in refs], dtype=torch.int64,
+                             device=dev)[sel]
+    dims_t = torch.as_tensor(dims, dtype=torch.int64, device=dev)
+    w, h = dims_t[sel, 0], dims_t[sel, 1]
+    s16 = torch.arange(16, device=dev)
+    rows_i = torch.minimum((top[..., None] + s16).clamp_min(0),
+                           h[..., None] - 1)
+    cols_i = torch.minimum((left[..., None] + s16).clamp_min(0),
+                           w[..., None] - 1)
+    return flat, (base[..., None, None] + rows_i[..., :, None]
+                  * stride[..., None, None] + cols_i[..., None, :])
+
+
+def _scaled_anchors_plain(recs, r4, c4, ss_x, ss_y, bidx=None):
+    """The scaled call structure of one plane of subsampling (ss_x, ss_y)
+    (0, 0 for luma), the counterpart of the JAX package's
+    _scaled_anchor_grids: recs [N, 36] block records (the last row a pad
+    row), r4, c4 the luma cell grid -> (ay, ax, by, bx, pw, ph), each
+    [r4 >> ss_y, c4 >> ss_x] int64: the cell's call anchor, its parent
+    block's corner and its span, in this plane's pixels. Cell (i, j)
+    takes the record of luma cell (i << ss_y, j << ss_x); a sub-8x8 block
+    is four 4x4 quadrant calls, split only along an axis that is not
+    subsampled. bidx: the [r4, c4] record index when the caller has it."""
+    dev = recs.device
+    recs = recs.to(torch.int64)
+    if bidx is None:
+        bidx = _record_index_plain(recs.to(torch.int32), r4, c4)
+    b = bidx[::1 << ss_y, ::1 << ss_x][:r4 >> ss_y, :c4 >> ss_x]
+    row, col, bs = recs[b, 0], recs[b, 1], recs[b, 3]
+    sub8 = bs > 9
+    bwh = _const("bwh", dev).to(torch.int64)
+    bsc = bs.clamp(0, 12)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    by, bx = (row * 8) >> ss_y, (col * 8) >> ss_x
+    ii = torch.arange(b.shape[0], device=dev)[:, None]
+    jj = torch.arange(b.shape[1], device=dev)[None, :]
+    ay = by + (torch.where(sub8, ((ii - row * 2) & 1) * 4, zero)
+               if not ss_y else 0)
+    ax = bx + (torch.where(sub8, ((jj - col * 2) & 1) * 4, zero)
+               if not ss_x else 0)
+    pw = (bwh[bsc, 0] * 8) >> ss_x
+    ph = (bwh[bsc, 1] * 8) >> ss_y
+    return ay, ax, by, bx, pw, ph
+
+
+def _mc_patch_pass(flat, idx, tapsx, tapsy, relx, rely, bpp):
+    """The two 8-tap passes of every cell over its patch: flat[idx] [r4,
+    c4, 16, 16] source pixels, tapsx / tapsy [r4, c4, 4, 8] each pixel
+    column's and row's taps, relx / rely [r4, c4, 4] each one's first
+    patch column and row -> [r4, c4, 4, 4], each pass rounded and
+    clipped."""
+    patch = flat[idx]
+    maxp = (1 << bpp) - 1
+    r4, c4 = patch.shape[:2]
+    acc = torch.zeros((r4, c4, 16, 4), dtype=torch.int32, device=flat.device)
+    for k in range(8):
+        ck = (relx + k).clamp(0, 15)[:, :, None, :].expand(r4, c4, 16, 4)
+        acc = acc + tapsx[:, :, None, :, k] * patch.gather(3, ck)
+    tmp = ((acc + 64) >> 7).clamp(0, maxp)
+    acc = torch.zeros((r4, c4, 4, 4), dtype=torch.int32, device=flat.device)
+    for t in range(8):
+        rk = (rely + t).clamp(0, 15)[:, :, :, None].expand(r4, c4, 4, 4)
+        acc = acc + tapsy[:, :, :, t, None] * tmp.gather(2, rk)
+    return ((acc + 64) >> 7).clamp(0, maxp)
+
+
+def _mc_ref_scaled(refs, dims, mvraw, refsel, filt, anchors, scales, steps,
+                   cols, rows, bpp, ri, ss_x, ss_y):
+    """Scaled MC of one reference direction -> [r4, c4, 4, 4] int32, the
+    counterpart of the JAX package's _mc_ref_scaled. refs: three int32
+    planes of their own shapes; dims: their visible (w, h); mvraw [r4,
+    c4, 2, 2] this plane's raw 1/8-pel MVs; refsel [r4, c4, 2] in 0-2;
+    filt [r4, c4] in 0-3; anchors: _scaled_anchors_plain's six grids;
+    scales, steps: [3, 2] int64 per-slot 14-bit factors and 1/16-pel
+    steps; cols, rows: the frame's 8x8 block columns and rows."""
+    dev = mvraw.device
+    ay, ax, by, bx, pw, ph = anchors
+    r4, c4 = refsel.shape[:2]
+    ftab = _const("ftab", dev)
+    sel = refsel[:, :, ri].long()
+    scx, scy = scales[sel, 0], scales[sel, 1]
+    stx, sty = steps[sel, 0], steps[sel, 1]
+    mvx = mvraw[:, :, ri, 0].to(torch.int64)
+    mvy = mvraw[:, :, ri, 1].to(torch.int64)
+
+    # the MV clamp against the parent block (vp9recon.c:505-506 luma,
+    # :574-589 chroma)
+    def clamp(mv, b0, span, n8, ss):
+        if ss:
+            return torch.minimum(torch.maximum(mv, -(b0 + span + 4) * 16),
+                                 (n8 * 4 - b0 + 3) * 16)
+        return torch.minimum(torch.maximum(mv, -(b0 + span + 4) * 8),
+                             (n8 * 8 - b0 + 3) * 8)
+
+    mvx = clamp(mvx, bx, pw, cols, ss_x)
+    mvy = clamp(mvy, by, ph, rows, ss_y)
+
+    # the scaled start position and phase (14-bit fixed point, libvpx's
+    # rounding; with subsampling the libvpx-820 formula)
+    def start(mv, a0, sc, ss):
+        if ss:
+            return (_mulshift14(mv, sc) + (((a0 * sc) >> 10) & ~15)
+                    + (((a0 * sc) >> 9) & 15))
+        return _mulshift14(mv * 2, sc) + ((a0 * sc) >> 10)
+
+    tx0 = start(mvx, ax, scx, ss_x)
+    ty0 = start(mvy, ay, scy, ss_y)
+    # each pixel's position from the call's corner, in closed form
+    j4 = torch.arange(4, device=dev)
+    kx = (torch.arange(c4, device=dev) * 4)[None, :, None] + j4 - ax[..., None]
+    ky = (torch.arange(r4, device=dev) * 4)[:, None, None] + j4 - ay[..., None]
+    txk = (tx0 & 15)[..., None] + kx * stx[..., None]
+    tyk = (ty0 & 15)[..., None] + ky * sty[..., None]
+    offx = (tx0 >> 4)[..., None] + (txk >> 4)
+    offy = (ty0 >> 4)[..., None] + (tyk >> 4)
+
+    flat, idx = _patches(refs, dims, sel, offy[..., 0] - 3, offx[..., 0] - 3)
+    fl = filt.long()[..., None]
+    return _mc_patch_pass(flat, idx, ftab[fl, (txk & 15)],
+                          ftab[fl, (tyk & 15)], offx - offx[..., :1],
+                          offy - offy[..., :1], bpp)
+
+
+def _mc_one_ref_unscaled(refs, dims, mvraw, refsel, filt, bpp, ri, mvsx,
+                         mvsy):
+    """One reference direction of _mc_cells with each slot's own plane
+    and visible size (the JAX package's _mc_one_ref_unscaled) -> [r4, c4,
+    4, 4] int32; arguments as _mc_ref_scaled's, mvsx / mvsy the MV
+    scale to 1/16 pel."""
+    dev = mvraw.device
+    r4, c4 = refsel.shape[:2]
+    ftab = _const("ftab", dev)
+    sel = refsel[:, :, ri].long()
+    mvx = mvraw[:, :, ri, 0].to(torch.int64) * mvsx
+    mvy = mvraw[:, :, ri, 1].to(torch.int64) * mvsy
+    ix = (torch.arange(c4, device=dev) * 4)[None, :] + (mvx >> 4)
+    iy = (torch.arange(r4, device=dev) * 4)[:, None] + (mvy >> 4)
+    flat, idx = _patches(refs, dims, sel, iy - 3, ix - 3)
+    fl = filt.long()
+    taps_x = ftab[fl, (mvx & 15)][:, :, None, :].expand(r4, c4, 4, 8)
+    taps_y = ftab[fl, (mvy & 15)][:, :, None, :].expand(r4, c4, 4, 8)
+    j4 = torch.arange(4, device=dev).expand(r4, c4, 4)
+    return _mc_patch_pass(flat, idx, taps_x, taps_y, j4, j4, bpp)
+
+
+def _mc_cells_mixed(refs, dims, mvraw, refsel, comp, filt, anchors, scales,
+                    steps, cols, rows, bpp, ss_x, ss_y, has_comp=True):
+    """MC every cell of a frame with scaled references (the JAX package's
+    _mc_cells_mixed): per cell and reference, a same-size slot (scale 0)
+    takes the unscaled path and a resized one the scaled path, then the
+    compound average -> [r4 * 4, c4 * 4] int32. refsel and filt are
+    clamped to their ranges (cells that are not inter carry any values);
+    has_comp=False skips the second reference."""
+    refsel = refsel.long().clamp(0, 2)
+    filt = filt.long().clamp(0, 3)
+    r4, c4 = refsel.shape[:2]
+    scale_nz = scales[:, 0] != 0
+    mvs = (2 >> ss_x, 2 >> ss_y)
+
+    def one_ref(ri):
+        un = _mc_one_ref_unscaled(refs, dims, mvraw, refsel, filt, bpp, ri,
+                                  *mvs)
+        sc = _mc_ref_scaled(refs, dims, mvraw, refsel, filt, anchors,
+                            scales, steps, cols, rows, bpp, ri, ss_x, ss_y)
+        return torch.where(scale_nz[refsel[:, :, ri]][..., None, None], sc,
+                           un)
+
+    out = one_ref(0)
+    if has_comp:
+        out = torch.where(comp.bool()[..., None, None],
+                          (out + one_ref(1) + 1) >> 1, out)
+    return out.permute(0, 2, 1, 3).reshape(r4 * 4, c4 * 4)
+
+
+def _luma_cells(jobs):
+    """The luma cell grid (r4, c4) of mc_planes_scaled's jobs."""
+    residual, *_rest, ss_x, ss_y = jobs[0]
+    return (residual.shape[0] // 4) << ss_y, (residual.shape[1] // 4) << ss_x
+
+
+def mc_planes_scaled_plain(jobs, bpp, has_comp, recs, scales, steps, cols,
+                           rows):
+    """The plain inter pass of a frame with scaled references, the
+    anchors, _mc_cells_mixed and the apply per plane: arguments as
+    mc_planes_scaled takes them (index is not needed) -> per job the
+    plane clip(mc + residual) on inter cells and 0 elsewhere."""
+    dev = jobs[0][0].device
+    maxp = (1 << bpp) - 1
+    scales = torch.as_tensor(scales, dtype=torch.int64, device=dev)
+    steps = torch.as_tensor(steps, dtype=torch.int64, device=dev)
+    recs = recs.to(torch.int32)
+    r4, c4 = _luma_cells(jobs)
+    bidx = _record_index_plain(recs, r4, c4)
+    outs = []
+    for residual, inter4, comp, filt, refsel, mvraw, refs, dims, ss_x, \
+            ss_y in jobs:
+        anchors = _scaled_anchors_plain(recs, r4, c4, ss_x, ss_y, bidx)
+        mc = _mc_cells_mixed(refs, dims, mvraw, refsel, comp, filt, anchors,
+                             scales, steps, cols, rows, bpp, ss_x, ss_y,
+                             has_comp)
+        mcfull = (mc + residual).clamp(0, maxp)
+        mask = inter4.bool().repeat_interleave(4, 0).repeat_interleave(4, 1)
+        outs.append(torch.where(mask, mcfull, torch.zeros_like(mcfull)))
+    return outs
+
+
+def mc_planes_scaled(jobs, bpp, has_comp, recs, scales, steps, cols, rows,
+                     index=None):
+    """The inter pass of a frame's planes when a reference has another
+    size than the frame -> an [H, W] int32 plane a job. jobs: [(residual
+    [H, W] int32, inter4 [H/4, W/4] bool, comp bool, filt int32, refsel
+    [H/4, W/4, 2] int32, mvraw [H/4, W/4, 2, 2] int32 (the splat's MV
+    grid: 1/8 pel of luma), refs (the three reference planes, int32, each
+    of its own shape [Hr, Wr]), dims (each slot's visible (w, h)), ss_x,
+    ss_y (the plane's subsampling: 0, 0 for luma))]. Frame: recs [N, 36]
+    int16 block records (the last row a pad row) from which the grids
+    were splatted; scales, steps: [3][2] per-slot 14-bit scale factors
+    (0 for a slot of the frame's size) and 1/16-pel steps; cols, rows:
+    the frame's 8x8 block columns and rows; index: on a card, the
+    recon_cuda.SplatState of the splat that made the grids, read at its
+    current epoch (the cells' records). has_comp=False leaves comp
+    unread. CPU tensors take mc_planes_scaled_plain; any other device the
+    kernel (csrc/mc.cu mc_planes_scaled, one launch for all the planes),
+    which takes CUDA tensors only."""
+    if not jobs:
+        return []
+    if jobs[0][0].device.type == "cpu":
+        return mc_planes_scaled_plain(jobs, bpp, has_comp, recs, scales,
+                                      steps, cols, rows)
+    if not 8 <= bpp <= 12:
+        raise ValueError(f"bpp={bpp}")
+    if len(jobs) > recon_cuda.MC_MAX_PLANES:
+        raise ValueError(f"{len(jobs)} planes, the kernel takes at most "
+                         f"{recon_cuda.MC_MAX_PLANES}")
+    dev = jobs[0][0].device
+    r4, c4 = _luma_cells(jobs)
+    if index is None or index.bidx.device != dev or index.epoch < 1 \
+            or index.bidx.numel() != ((r4 + 1) // 2) * ((c4 + 1) // 2):
+        raise ValueError("the kernel reads the cells' records from the "
+                         f"splat's index state of the {r4}x{c4} cell grid, "
+                         "after the splat of this frame")
+    if recs.dim() != 2 or recs.shape[0] < 1:
+        raise ValueError(f"recs has shape {tuple(recs.shape)}")
+    recs = check_tensor(recs, (torch.int16,), (recs.shape[0], 36), dev,
+                        "recs")
+    if np.shape(scales) != (3, 2) or np.shape(steps) != (3, 2):
+        raise ValueError("scales and steps are [3][2]")
+    i32 = (torch.int32,)
+    checked, outs = [], []
+    for residual, inter4, comp, filt, refsel, mvraw, refs, dims, ss_x, \
+            ss_y in jobs:
+        if residual.dim() != 2 or residual.shape[0] % 4 \
+                or residual.shape[1] % 4:
+            raise ValueError(f"residual has shape {tuple(residual.shape)}, "
+                             "expected [H, W] in 4x4 cells")
+        H, W = residual.shape
+        cells = (H // 4, W // 4)
+        if ss_x not in (0, 1) or ss_y not in (0, 1) \
+                or (cells[0] << ss_y, cells[1] << ss_x) != (r4, c4):
+            raise ValueError(f"an {H}x{W} plane of subsampling ({ss_x}, "
+                             f"{ss_y}) in a {r4}x{c4} cell grid")
+        residual = check_tensor(residual, i32, (H, W), dev, "residual")
+        inter4 = check_tensor(inter4, (torch.bool,), cells, dev, "inter4")
+        comp = check_tensor(comp, (torch.bool,), cells, dev, "comp") \
+            if has_comp else None
+        filt = check_tensor(filt, i32, cells, dev, "filt")
+        refsel = check_tensor(refsel, i32, cells + (2,), dev, "refsel")
+        mvraw = check_tensor(mvraw, i32, cells + (2, 2), dev, "mvraw")
+        if len(refs) != 3 or len(dims) != 3:
+            raise ValueError("expected three reference planes and sizes")
+        refs = tuple(check_tensor(r, i32, r.shape, dev, f"ref{i}")
+                     for i, r in enumerate(refs))
+        for r, (w, h) in zip(refs, dims):
+            if r.dim() != 2 or not (1 <= w <= r.shape[1]
+                                    and 1 <= h <= r.shape[0]):
+                raise ValueError(f"visible size {w}x{h} in a reference of "
+                                 f"shape {tuple(r.shape)}")
+        checked.append((residual, inter4, comp, filt, refsel, mvraw, refs,
+                        tuple(dims), ss_x, ss_y))
+        outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
+    recon_cuda.mc_scaled(checked, outs, bpp, has_comp, recs, index, scales,
+                         steps, cols, rows)
     return outs
 
 
@@ -957,12 +1287,12 @@ def _rdiv4(s):
     return torch.where(s >= 0, (s + 2) // 4, -((-s + 2) // 4))
 
 
-def _grids_from_records_plain(recs, r4, c4, ss_h, ss_v):
-    """recs: [N, 36] int16 block records (pad rows have bs == -1; the
-    LAST row must always be a pad row). Returns the dense per-cell grids
-    for the Y plane ([r4, c4]) and the chroma planes ([r4u, c4u])."""
+def _record_index_plain(recs, r4, c4):
+    """The record of every cell of an [r4, c4] grid: recs [N, 36] int32
+    block records (the last row a pad row) -> [r4, c4] int64, the highest
+    record index that covers the cell, or N - 1 (a pad row) where none
+    does."""
     dev = recs.device
-    recs = recs.to(torch.int32)
     N = recs.shape[0]
     row, col, bs = recs[:, 0], recs[:, 1], recs[:, 3]
     valid = bs >= 0
@@ -989,7 +1319,18 @@ def _grids_from_records_plain(recs, r4, c4, ss_h, ss_v):
     bidx = bidx[:r4 * c4].view(r4, c4)
     # uncovered cells read recs[-1], a pad row (bs == -1), as JAX's
     # negative-index wraparound does
-    bidx = torch.where(bidx < 0, bidx + N, bidx).long()
+    return torch.where(bidx < 0, bidx + N, bidx).long()
+
+
+def _grids_from_records_plain(recs, r4, c4, ss_h, ss_v):
+    """recs: [N, 36] int16 block records (pad rows have bs == -1; the
+    LAST row must always be a pad row). Returns the dense per-cell grids
+    for the Y plane ([r4, c4]) and the chroma planes ([r4u, c4u])."""
+    dev = recs.device
+    recs = recs.to(torch.int32)
+    bs = recs[:, 3]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    bidx = _record_index_plain(recs, r4, c4)
 
     def g(f, b=bidx):
         return recs[b, f]
@@ -1633,11 +1974,35 @@ def scatter_planes(s):
     return coefs, consume
 
 
+def _ref_planes(s, plane_idx, ss_x, ss_y):
+    """The three reference planes of plane plane_idx of a frame (s: a
+    FrameJob), on its device, with each one's visible (w, h). The planes
+    stay on the device across frames."""
+    h = s.header
+    planes, dims = [], []
+    for i in range(3):
+        rf = s.refs[h.refidx[i]]
+        if rf is None:
+            planes.append(None)
+            dims.append(None)
+            continue
+        if rf.dev is not None:
+            planes.append(rf.dev[plane_idx])
+        else:
+            planes.append(torch.as_tensor(rf.planes[plane_idx],
+                                          dtype=torch.int32, device=s.device))
+        rw, rh = rf.size
+        dims.append(((rw + ss_x) >> ss_x, (rh + ss_y) >> ss_y))
+    k = next(i for i, p in enumerate(planes) if p is not None)
+    return (tuple(p if p is not None else planes[k] for p in planes),
+            tuple(d if d is not None else dims[k] for d in dims))
+
+
 def recon_frame(s):
     """Reconstruct one frame on its device from the pass-A snapshot
     (s: a FrameJob). Sets s.cur_frame_obj.dev to the three int32
-    planes."""
-    _check_slice(s)
+    planes. A frame whose inter blocks use a reference of invalid
+    dimensions raises ValueError before any launch."""
     h = s.header
     bpp = h.bpp
     device = s.device
@@ -1645,6 +2010,7 @@ def recon_frame(s):
     if getattr(s, "pre", None) is None:
         precompute_host(s)
     pre = s.pre
+    _check_refs(s, pre["recs"])
     upload_job(s)
     dev = pre["dev"]
 
@@ -1677,35 +2043,31 @@ def recon_frame(s):
             bool(h.lossless), bpp, consume=consume)
 
     if has_inter_frame:
+        # a reference of another size than the frame (mvscale nonzero)
+        # takes the scaled inter pass, each slot at its own size
+        scaled = any(sc[0] for sc in s.mvscale)
         jobs = []
         for plane_idx, (residual, g) in enumerate(zip(residuals,
                                                       plane_grids)):
+            ss_x, ss_y = (h.ss_h, h.ss_v) if plane_idx else (0, 0)
             w, hh = cur.size
-            mvsx = mvsy = 2
-            if plane_idx:
-                w = (w + h.ss_h) >> h.ss_h
-                hh = (hh + h.ss_v) >> h.ss_v
-                mvsx = 1 << (1 - h.ss_h)
-                mvsy = 1 << (1 - h.ss_v)
-            # reference planes stay on the device across frames
-            refplanes = []
-            for i in range(3):
-                rf = s.refs[h.refidx[i]]
-                if rf is None:
-                    refplanes.append(None)
-                elif rf.dev is not None:
-                    refplanes.append(rf.dev[plane_idx])
-                else:
-                    refplanes.append(torch.as_tensor(
-                        rf.planes[plane_idx], dtype=torch.int32,
-                        device=device))
-            z = next(p for p in refplanes if p is not None)
-            refplanes = tuple(p if p is not None else z for p in refplanes)
+            w, hh = (w + ss_x) >> ss_x, (hh + ss_y) >> ss_y
+            refplanes, dims = _ref_planes(s, plane_idx, ss_x, ss_y)
             inter4_p, _tx, _tt, comp_p, filt_p, refsel_p, mv16_p = g
-            jobs.append((residual, inter4_p, comp_p, filt_p, refsel_p,
-                         mv16_p, refplanes, w, hh, mvsx, mvsy))
+            grids_p = (residual, inter4_p, comp_p, filt_p, refsel_p, mv16_p,
+                       refplanes)
+            jobs.append(grids_p + ((dims, ss_x, ss_y) if scaled else
+                                   (w, hh, 2 >> ss_x, 2 >> ss_y)))
         with metrics.timer("recon.mc"):
-            outs = mc_planes(jobs, bpp, has_comp)
+            if scaled:
+                index = None if device.type == "cpu" else \
+                    recon_cuda.splat_state(s.splat_states, dev["recs"].device,
+                                           r4, c4)
+                outs = mc_planes_scaled(jobs, bpp, has_comp, dev["recs"],
+                                        s.mvscale, s.mvstep, s.cols, s.rows,
+                                        index)
+            else:
+                outs = mc_planes(jobs, bpp, has_comp)
     else:
         outs = [torch.zeros(r.shape, dtype=torch.int32, device=device)
                 for r in residuals]

@@ -3,8 +3,9 @@ intra kernels (csrc/splat.cu, csrc/itxfm.cu, csrc/mc.cu, csrc/intra.cu):
 their ctypes signatures, the launch counters and the host side of the
 kernels' tables. The wrappers that choose between a kernel and its plain
 version are ops/recon.py's _grids_from_records, scatter_coef,
-residual_planes, mc_planes and _intra_scan_planes; they call these only
-with tensors off the CPU, and these raise for anything but CUDA tensors.
+residual_planes, mc_planes, mc_planes_scaled and _intra_scan_planes;
+they call these only with tensors off the CPU, and these raise for
+anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from ..codecs.vp9 import tables as T
 
 # kernel launches since the last reset_launches()
 LAUNCHES = {"residual": 0, "residual_hbd": 0, "intra": 0, "splat": 0,
-            "scatter": 0, "mc": 0}
+            "scatter": 0, "mc": 0, "mc_scaled": 0}
 
 # the splat's outputs in _grids_from_records' order: (dtype, chroma
 # plane, trailing dimensions)
@@ -60,8 +61,11 @@ _SIGNATURES = {
                  "scatter_pairs": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _I,
                                    _P]},
     # pointers (10 a plane), dims (8 a plane), planes, bpp, has_comp,
-    # stream
-    "mc.cu": {"mc_planes": [_P, _P, _I, _I, _I, _P]},
+    # stream; the scaled entry: pointers (10 a plane, then recs and the
+    # splat's index), dims (16 a plane), planes, frame ints (18), bpp,
+    # has_comp, stream
+    "mc.cu": {"mc_planes": [_P, _P, _I, _I, _I, _P],
+              "mc_planes_scaled": [_P, _P, _I, _P, _I, _I, _P]},
     # plane, residual, slab of three planes, taps, edges, n, dims, meta,
     # bpp, windows (out), stream
     "intra.cu": {"intra_scan": [_P] * 9 + [_P, _P, _I, _P, _P, _I, _P,
@@ -143,6 +147,43 @@ def mc(jobs, outs, bpp, has_comp):
     LAUNCHES["mc"] += 1
 
 
+def mc_scaled(jobs, outs, bpp, has_comp, recs, index, scales, steps, cols,
+              rows):
+    """csrc/mc.cu's scaled entry on checked, contiguous tensors: the inter
+    pass of up to MC_MAX_PLANES planes of a frame with a reference of
+    another size, in one launch. jobs: [(residual [H, W] int32, inter4
+    bool, comp bool (None without has_comp), filt int32 [H/4, W/4],
+    refsel int32 [H/4, W/4, 2], mvraw int32 [H/4, W/4, 2, 2], refs (three
+    int32 planes, each [Hr, Wr] of its own), dims (three visible (w, h)),
+    ss_x, ss_y)]; outs: the [H, W] int32 planes, one a job. recs: the
+    frame's [N, 36] int16 records; index: the SplatState of the splat
+    that made the grids, read at its current epoch; scales, steps: [3][2]
+    per slot; cols, rows: the frame's 8x8 block columns and rows."""
+    n = len(jobs)
+    if not 1 <= n <= MC_MAX_PLANES or len(outs) != n:
+        raise ValueError(f"{n} planes for one MC launch")
+    r4, c4 = (outs[0].shape[0] // 4) << jobs[0][9], \
+        (outs[0].shape[1] // 4) << jobs[0][8]
+    ptrs = []
+    dims = np.zeros((n, 16), np.int32)
+    for j, (job, out) in enumerate(zip(jobs, outs)):
+        residual_, inter4, comp, filt, refsel, mvraw, refs, rdims, ss_x, \
+            ss_y = job
+        ptrs += [*refs, residual_, out, inter4, comp, filt, refsel, mvraw]
+        dims[j, :4] = (*out.shape, ss_x, ss_y)
+        for k, (r, (w, h)) in enumerate(zip(refs, rdims)):
+            dims[j, 4 + 4 * k:8 + 4 * k] = (*r.shape, w, h)
+    ptrs += [recs, index.bidx]
+    frame = np.asarray([recs.shape[0], index.epoch, (r4 + 1) // 2,
+                        (c4 + 1) // 2, cols, rows,
+                        *np.asarray(scales).reshape(-1),
+                        *np.asarray(steps).reshape(-1)],
+                       np.int64).astype(np.uint32).view(np.int32)
+    _cuda.launch("mc.cu", _SIGNATURES["mc.cu"], "mc_planes_scaled", ptrs,
+                 dims.ctypes.data, n, frame.ctypes.data, bpp, int(has_comp))
+    LAUNCHES["mc_scaled"] += 1
+
+
 class SplatState:
     """csrc/splat.cu's state for one device and cell grid of one decoder
     (its splat_states; splat_state): the index grid bidx [units], an
@@ -167,8 +208,13 @@ class SplatState:
 
 def splat_state(states, dev, r4, c4):
     """The SplatState of (device, r4, c4) in `states` (a dict: a decoder's
-    splat_states, which its FrameJobs carry), made at first use."""
-    key = (torch.device(dev), r4, c4)
+    splat_states, which its FrameJobs carry), made at first use. A CUDA
+    device without an index is the current one, so that "cuda" and the
+    tensors' "cuda:0" find one state."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev, r4, c4)
     st = states.get(key)
     if st is None:
         st = states[key] = SplatState(dev, ((r4 + 1) // 2) * ((c4 + 1) // 2))

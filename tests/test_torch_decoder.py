@@ -2,8 +2,9 @@
 mini_encoder chains, with and without the loop filter, against the JAX
 package's VP9Decoder(recon_backend="tpu") plane by plane and against
 the golden decoder's frame bytes; pass-A snapshots carried across with
-state.py; frames with scaled references raise; the first frames of
-bench_1080p against their framemd5 lines. Every comparison is exact."""
+state.py; a frame with a scaled reference against the golden decoder;
+the first frames of bench_1080p against their framemd5 lines. Every
+comparison is exact."""
 import hashlib
 import itertools
 import os
@@ -207,16 +208,24 @@ def _decode_all(pkts):
 
 
 def test_out_of_slice_frames_raise():
-    """Only scaled references are outside the slice; 10/12-bit and
-    4:2:2/4:4:0/4:4:4 frames decode (tests/test_torch_formats.py)."""
+    """No frame of a valid stream is outside the port any more: the
+    stream whose scaled reference the port once refused decodes equal to
+    the golden decoder. The one frame the port refuses is one that the
+    reference refuses too, whose blocks use a reference of invalid size
+    (tests/test_torch_scaled.py)."""
+    from ffmpeg_hybrid_tpu.codecs.vp9.decoder import VP9Decoder as JDec
     m = _mini()
     # an inter frame twice the keyframe's size predicts from a scaled
     # reference
-    with pytest.raises(NotImplementedError, match="scaled"):
-        _decode_all([
-            m.encode_keyframe_random(64, 64, 8, seed=1, filter_level=0),
+    pkts = [m.encode_keyframe_random(64, 64, 8, seed=1, filter_level=0),
             m.encode_inter_flex(128, 128, seed=2, refresh_mask=0,
-                                filter_level=0, coeffs=True)])
+                                filter_level=0, coeffs=True)]
+    gold = JDec(recon_backend="golden")
+    want = [f for p in pkts for f in gold.decode(p)]
+    got = _decode_all(pkts)
+    assert [f.size for f in got] == [(64, 64), (128, 128)]
+    for a, b in zip(want, got):
+        assert a.to_bytes() == b.to_bytes()
 
 
 def test_device_pass_a_waits_for_its_slice():

@@ -176,7 +176,8 @@ def test_run_intra_off_cpu_is_one_launch_per_frame(monkeypatch,
     outs = P.run_intra(s, [j[0] for j in jobs], [j[1] for j in jobs])
     assert [name for name, _a in launched] == ["intra_scan"]
     assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
-                           "intra": 1, "splat": 0, "scatter": 0, "mc": 0}
+                           "intra": 1, "splat": 0, "scatter": 0, "mc": 0,
+                           "mc_scaled": 0}
     args = launched[0][1]
     ptrs, n = args[:9], args[11]
     assert n == 3

@@ -180,7 +180,8 @@ def test_wrappers_on_cpu_take_the_plain_versions(keyframe_slabs):
     assert torch.equal(P._intra_scan(*targs), P._intra_scan_plain(*targs))
     assert P.LAUNCHES is RC.LAUNCHES
     assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
-                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0,
+                           "mc_scaled": 0}
 
 
 def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
@@ -234,7 +235,8 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch):
         P._intra_scan(plane, plane, slab, 2, (4, 64), (8, 8), 8)
     assert calls == ["residual_planes", "intra_scan", "residual_planes_hbd"]
     assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
-                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0,
+                           "mc_scaled": 0}
 
 
 @pytest.mark.parametrize("sizes,caps,L", [((4,), (256,), 3700),
@@ -305,7 +307,8 @@ def test_decode_on_cpu_launches_no_kernel():
         metrics.disable()
     assert len(frames) == 2
     assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
-                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0,
+                           "mc_scaled": 0}
     assert rep["intra.levels"]["value"] > 0
 
 

@@ -763,7 +763,8 @@ def test_wrappers_off_cpu_go_to_the_kernels(monkeypatch, frames):
         assert all(a is b for a, b in zip(ptrs[5 * k:5 * k + 4], job))
         assert ptrs[5 * k + 4] is out and out.shape == job[0].shape
     assert RC.LAUNCHES == {"residual": 1, "residual_hbd": 0,
-                           "intra": 0, "splat": 0, "scatter": 2, "mc": 0}
+                           "intra": 0, "splat": 0, "scatter": 2, "mc": 0,
+                           "mc_scaled": 0}
     with pytest.raises(TypeError):
         P.scatter_coef(cpm.to(torch.int32), epm, Lc, Le)
     with pytest.raises(ValueError):

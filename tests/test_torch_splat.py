@@ -502,7 +502,8 @@ def test_wrapper_off_cpu_goes_to_the_kernel(monkeypatch, real_records):
         P._grids_from_records(meta, r4, c4, 2, 1)
     assert calls == ["splat"]
     assert RC.LAUNCHES == {"residual": 0, "residual_hbd": 0,
-                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0}
+                           "intra": 0, "splat": 0, "scatter": 0, "mc": 0,
+                           "mc_scaled": 0}
     calls.clear()
     monkeypatch.setattr(_cuda, "launch", recorded)
     plain = J._grids_from_records(jnp.asarray(recs), r4, c4, 1, 0)
