@@ -39,13 +39,14 @@ Phases, one status line each; any failure exits non-zero:
                  (an inter frame) and bench_1080p_lf frame 0, as
                  recon_frame hands them over, and on a seeded full-size
                  lossless frame;
-               - residual_planes_hbd (csrc/itxfm.cu's 10/12-bit
-                 instantiation: 64-bit butterflies on int32
-                 coefficients) with the wide scatter before it, on frame
-                 0 of fmt_420_10_1080p and fmt_444_12_1080p as
-                 recon_frame hands them over and on a seeded full-size
-                 12-bit 4:4:4 frame whose coefficients reach the int32
-                 extremes; the kept buffers read zero after each;
+               - residual_planes_hbd (csrc/itxfm.cu's 10/12-bit kernel:
+                 float64 butterflies on int32 coefficients) with the
+                 wide scatter before it, on frame 0 of fmt_420_10_1080p
+                 and fmt_444_12_1080p as recon_frame hands them over and
+                 on a seeded full-size 12-bit 4:4:4 frame whose
+                 coefficients reach the int32 extremes; the kept buffers
+                 read zero after each; with its coded roots by size and
+                 ptxas's registers and spills;
                - mc_planes (csrc/mc.cu: the inter pass of the three
                  planes in one launch) on bench_1080p frames 1-2's own
                  inputs, and on two seeded full-size frames with MVs
@@ -66,7 +67,14 @@ Phases, one status line each; any failure exits non-zero:
                  at 16x up (step 1), the frame's size and 2x up; every
                  filter bank, half the cells compound, so that compound
                  cells mix a scaled and a same-size slot; at 8 bpp 4:2:0
-                 and at MC_FORMATS' depths and layouts;
+                 and at MC_FORMATS' depths and layouts; and a frame of
+                 32x32 blocks, a motion a 16x16 tile, at steps 32, 8 and
+                 1; each with the share of its tile passes on the window
+                 path, as the kernel's warps count them on the card
+                 (which must equal the host model's, mc_scaled_paths;
+                 the seeded frames of random blocks must take both
+                 paths, the frame of 32x32 blocks the window path alone)
+                 and ptxas's registers and spills;
                - _intra_scan_planes (csrc/intra.cu) on the planes,
                  residuals and slabs of bench_1080p_lf frame 0 and
                  bench_1080p frame 0 (a keyframe), Y, U and V in one
@@ -338,6 +346,20 @@ def load_empty(build):
 def launch_floor_ms(torch, empty, reps=50):
     """The empty kernel's device time, in device_ms like any kernel."""
     return device_ms(torch, empty, reps, ("empty_kernel",))[0]
+
+
+def ptxas_of(src, kernel):
+    """ptxas's registers and spills of the kernel whose entry name holds
+    `kernel`, from the build log of `src` (a path in the repository)."""
+    from ffmpeg_hybrid_tpu_torch import _build
+    with open(_build.lib_path(os.path.basename(src)) + ".log") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            props = [ln.strip() for ln in lines[i + 1:i + 4]
+                     if "spill" in ln or "registers" in ln]
+            return "; ".join(props)
+    raise RuntimeError(f"no ptxas report of {kernel} in {src}'s build")
 
 
 def bounds(nbytes, nops, chain):
@@ -1398,12 +1420,13 @@ def mc_phase(torch, np, calls):
             "ops": nops / nf, "seeded_ms": seeded_ms}
 
 
-def random_records(np, rng, rows8, cols8, mv_lim):
+def random_records(np, rng, rows8, cols8, mv_lim, square=None):
     """Block records of a random partition of a rows8 x cols8 grid of 8x8
-    units, superblock by superblock (every block size, sub-8x8 included),
-    all inter: half compound, random references and filter banks, raw
-    MVs to mv_lim (1/8 pel); bucket-padded with pad rows as
-    recon._pack_records leaves them."""
+    units, superblock by superblock (every block size, sub-8x8 included;
+    with `square` (0-3), every block of that square size: 64 >> square
+    pixels a side), all inter: half compound, random references and
+    filter banks, raw MVs to mv_lim (1/8 pel); bucket-padded with pad
+    rows as recon._pack_records leaves them."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
     rows = []
 
@@ -1415,6 +1438,14 @@ def random_records(np, rng, rows8, cols8, mv_lim):
         if r >= rows8 or c >= cols8:
             return
         n = 8 >> lvl
+        if lvl == square:
+            leaf(r, c, 3 * lvl)
+            return
+        if square is not None:
+            for dr in (0, n // 2):
+                for dc in (0, n // 2):
+                    part(r + dr, c + dc, lvl + 1)
+            return
         if lvl == 3:
             leaf(r, c, 9 + rng.randint(0, 4))
             return
@@ -1455,19 +1486,22 @@ def ref_sizes(frame, refs):
     return sc, [[16 * a >> 14, 16 * b >> 14] for a, b in sc]
 
 
-def mc_scaled_frame(torch, np, rng, frame, refs, bpp=8, ss_h=1, ss_v=1):
+def mc_scaled_frame(torch, np, rng, frame, refs, bpp=8, ss_h=1, ss_v=1,
+                    square=None):
     """A seeded frame for mc_planes_scaled on the card, as recon_frame
     hands it over: random records of a `frame` (luma w, h) frame
-    (random_records, MVs to 500 px), the splat kernel's grids and index
-    state from them, random `bpp`-bit reference planes of the luma sizes
-    `refs` (padded to 64 px) and random residuals. Returns the call's
-    arguments, as mc_planes_scaled takes them."""
+    (random_records, MVs to 500 px; `square` 1: every block 32x32, so
+    that a motion covers each 16x16 tile of every plane), the splat
+    kernel's grids and index state from them, random `bpp`-bit
+    reference planes of the luma sizes `refs` (padded to 64 px) and
+    random residuals. Returns the call's arguments, as mc_planes_scaled
+    takes them."""
     from ffmpeg_hybrid_tpu_torch.ops import recon as R
     from ffmpeg_hybrid_tpu_torch.ops import recon_cuda as RC
     w, h = frame
     cols, rows = (w + 7) >> 3, (h + 7) >> 3
     r4, c4 = -(-h // 64) * 16, -(-w // 64) * 16
-    recs = torch.as_tensor(random_records(np, rng, rows, cols, 4000),
+    recs = torch.as_tensor(random_records(np, rng, rows, cols, 4000, square),
                            device=DEVICE)
     states = {}
     grids = R._grids_from_records(recs, r4, c4, ss_h, ss_v, states=states)
@@ -1494,9 +1528,11 @@ def mc_scaled_frame(torch, np, rng, frame, refs, bpp=8, ss_h=1, ss_v=1):
 
 # seeded scaled-MC frames at 1920x1080: the references' luma sizes (a 2x
 # downscale at step 32, the frame's own size, 1.5x down; a 16x upscale at
-# step 1, the frame's size, 2x up)
+# step 1, the frame's size, 2x up); "tiles", of 32x32 blocks (a motion a
+# 16x16 tile in every plane: the window path), steps 32, 8 and 1
 SCALED_REFS = {"down": ((3840, 2160), (1920, 1080), (2880, 1620)),
-               "up": ((120, 68), (1920, 1080), (960, 540))}
+               "up": ((120, 68), (1920, 1080), (960, 540)),
+               "tiles": ((3840, 2160), (960, 540), (120, 68))}
 
 
 def mc_scaled_work(np, args):
@@ -1537,6 +1573,131 @@ def mc_scaled_work(np, args):
     return int(nbytes), nops
 
 
+def mc_scaled_keys(np, job, ri, recs, scales, steps, cols, rows, bidx,
+                   epoch):
+    """The motion keys of csrc/mc.cu's scaled kernel for reference ri of
+    one plane's job, on the host: (act [r4, c4] the cells that use it,
+    key [r4, c4, 4]: slot, bank and the map's 1/16-pel position at the
+    cell's 16x16 tile's origin, column and row). bidx: the splat's index
+    entries (uint64 as int64) at `epoch`; the kernel's arithmetic: the
+    record of luma cell (i << ss_y, j << ss_x), the anchor, the MV clamp,
+    the 64-bit start, the line through the cell's first pixel."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9 import tables as T
+    _res, inter4, comp, filt, refsel, mv, _refs, _dims, ss_x, ss_y = job
+    inter = inter4.cpu().numpy().astype(bool)
+    act = inter & comp.cpu().numpy().astype(bool) if ri else inter
+    r4, c4 = inter.shape
+    sel = np.clip(refsel.cpu().numpy()[..., ri], 0, 2).astype(np.int64)
+    bank = np.clip(filt.cpu().numpy(), 0, 3).astype(np.int64)
+    mvx = mv.cpu().numpy()[..., ri, 0].astype(np.int64)
+    mvy = mv.cpu().numpy()[..., ri, 1].astype(np.int64)
+    sc = np.asarray(scales, np.int64)[sel]
+    st = np.asarray(steps, np.int64)[sel]
+    scaled = sc[..., 0] != 0
+    ii, jj = np.mgrid[:r4, :c4]
+    yc, xc = 4 * ii, 4 * jj
+    # the record of each cell, from the unit index
+    rc = np.asarray(recs.cpu() if hasattr(recs, "cpu") else recs,
+                    np.int64)
+    n = len(rc)
+    c8 = ((c4 << ss_x) + 1) // 2
+    e = np.asarray(bidx, np.int64).reshape(-1)[((ii << ss_y) >> 1) * c8
+                                               + ((jj << ss_x) >> 1)]
+    b = np.where((e >> 32) & 0xffffffff == epoch,
+                 np.minimum(e & 0xffffffff, n - 1), n - 1)
+    brow, bcol, bs = rc[b, 0], rc[b, 1], rc[b, 3]
+    sub8 = bs > 9
+    bwh = np.asarray(T.BWH_TAB[1], np.int64)[np.clip(bs, 0, 12)]
+    by, bx = (brow * 8) >> ss_y, (bcol * 8) >> ss_x
+    ay = by + (np.where(sub8, ((ii - brow * 2) & 1) * 4, 0) if not ss_y
+               else 0)
+    ax = bx + (np.where(sub8, ((jj - bcol * 2) & 1) * 4, 0) if not ss_x
+               else 0)
+    pw, ph = (bwh[..., 0] * 8) >> ss_x, (bwh[..., 1] * 8) >> ss_y
+
+    def axis(mvr, b0, span, n8, ss, a0, s, step, c):
+        lo = -(b0 + span + 4) * (16 if ss else 8)
+        hi = (n8 * 4 - b0 + 3) * 16 if ss else (n8 * 8 - b0 + 3) * 8
+        m = np.clip(mvr, lo, hi)
+        pa = a0 * s
+        t0 = ((m * s) >> 14) + ((pa >> 10) & ~15) + ((pa >> 9) & 15) \
+            if ss else ((m * 2 * s) >> 14) + (pa >> 10)
+        pos = 16 * (t0 >> 4) + (t0 & 15) + (c - a0) * step
+        return np.where(scaled, pos, 16 * c + mvr * (2 >> ss))
+    px = axis(mvx, bx, pw, cols, ss_x, ax, sc[..., 0], st[..., 0], xc)
+    py = axis(mvy, by, ph, rows, ss_y, ay, sc[..., 1], st[..., 1], yc)
+    stx = np.where(scaled, st[..., 0], 16)
+    sty = np.where(scaled, st[..., 1], 16)
+    key = np.stack([sel, bank, px + ((xc & ~15) - xc) * stx,
+                    py + ((yc & ~15) - yc) * sty], -1)
+    return act, key
+
+
+def mc_scaled_paths(np, args):
+    """What csrc/mc.cu's scaled kernel's warps do on an mc_planes_scaled
+    call (its arguments), counted on the host: {tiles, passes (a
+    reference of a tile with a cell that uses it), window (passes whose
+    cells share one motion key: one window), walk (the others)}."""
+    jobs, _bpp, has_comp, recs, scales, steps, cols, rows, index = args
+    bidx = index.bidx.cpu().numpy()
+    n = dict.fromkeys(("tiles", "passes", "window", "walk"), 0)
+    for job in jobs:
+        r4, c4 = job[1].shape
+        tr, tc = -(-r4 // 4), -(-c4 // 4)
+
+        def tiles(a):
+            a = np.pad(a, [(0, 4 * tr - r4), (0, 4 * tc - c4)]
+                       + [(0, 0)] * (a.ndim - 2))
+            return a.reshape(tr, 4, tc, 4, *a.shape[2:]).swapaxes(
+                1, 2).reshape(tr, tc, 16, *a.shape[2:])
+        n["tiles"] += tr * tc
+        for ri in ((0, 1) if has_comp else (0,)):
+            act, key = mc_scaled_keys(np, job, ri, recs, scales, steps,
+                                      cols, rows, bidx, index.epoch)
+            act, key = tiles(act), tiles(key)
+            used = act.any(-1)
+            lead = np.take_along_axis(key, act.argmax(-1)[..., None, None],
+                                      2)
+            one = (~act | (key == lead).all(-1)).all(-1) & used
+            n["passes"] += int(used.sum())
+            n["window"] += int(one.sum())
+            n["walk"] += int((used & ~one).sum())
+    return n
+
+
+def kernel_paths(np, which, args, counted):
+    """The tile passes of an mc_planes_scaled call (its arguments) by
+    path, as the kernel's warps counted them into `counted` (int64 [2]:
+    window, walk): {tiles, passes, window, walk}. Raises unless the host
+    model (mc_scaled_paths) counts the same."""
+    window, walk = (int(v) for v in counted.tolist())
+    model = mc_scaled_paths(np, args)
+    if (window, walk) != (model["window"], model["walk"]):
+        raise RuntimeError(f"mc_planes_scaled on {which}: the kernel's warps"
+                           f" counted {window} window and {walk} walk tile "
+                           f"passes, the host model {model}")
+    return {"tiles": model["tiles"], "passes": window + walk,
+            "window": window, "walk": walk}
+
+
+def mc_scaled_seeded(torch, np):
+    """chip_smoke.py's seeded 1920x1080 scaled-MC frames, on the card:
+    [(name, mc_planes_scaled's arguments)] for each of SCALED_REFS at 8
+    bpp 4:2:0 ("tiles" of 32x32 blocks, a motion a tile), then "down"
+    and "up" in turns at MC_FORMATS' depths and layouts."""
+    rng = np.random.RandomState(SEED + 17)
+    seeded = [(f"seeded_{k}_8bit_4:2:0",
+               mc_scaled_frame(torch, np, rng, (1920, 1080), refs,
+                               square=1 if k == "tiles" else None))
+              for k, refs in SCALED_REFS.items()]
+    for i, (bpp, ss_h, ss_v) in enumerate(MC_FORMATS):
+        k = ("down", "up")[i % 2]
+        seeded.append((f"seeded_{k}_{bpp}bit_{layout(ss_h, ss_v)}",
+                       mc_scaled_frame(torch, np, rng, (1920, 1080),
+                                       SCALED_REFS[k], bpp, ss_h, ss_v)))
+    return seeded
+
+
 def mc_scaled_phase(torch, np, calls):
     """mc_planes_scaled (csrc/mc.cu's scaled entry) on the real inputs of
     resize_1080p frames 1-5 (each frame's three planes in one launch,
@@ -1551,21 +1712,15 @@ def mc_scaled_phase(torch, np, calls):
     if len(calls) != 5:
         raise RuntimeError(f"{RESIZE_CLIP} ran {len(calls)} scaled-MC calls,"
                            " expected 5")
-    rng = np.random.RandomState(SEED + 17)
-    seeded = [(f"seeded_{k}_8bit_4:2:0",
-               mc_scaled_frame(torch, np, rng, (1920, 1080), refs))
-              for k, refs in SCALED_REFS.items()]
-    for i, (bpp, ss_h, ss_v) in enumerate(MC_FORMATS):
-        k = ("down", "up")[i % 2]
-        seeded.append((f"seeded_{k}_{bpp}bit_{layout(ss_h, ss_v)}",
-                       mc_scaled_frame(torch, np, rng, (1920, 1080),
-                                       SCALED_REFS[k], bpp, ss_h, ss_v)))
+    seeded = mc_scaled_seeded(torch, np)
     err = 0
     ms = call_ms = plain_ms = nbytes = nops = 0.0
-    notes, seeded_ms = [], {}
+    notes, seeded_ms, paths = [], {}, {}
+    card = card_line()
     for which, args in [(f"{RESIZE_CLIP} frame {i + 1}", a)
                         for i, a in enumerate(calls)] + seeded:
-        outs = R.mc_planes_scaled(*args)
+        counted = torch.zeros(2, dtype=torch.int64, device="cuda")
+        outs = R.mc_planes_scaled(*args, paths=counted)
         wants, t = host_ms(torch, lambda: R.mc_planes_scaled_plain(
             *args[:-1]))
         e = max_diff(outs, wants)
@@ -1581,10 +1736,15 @@ def mc_scaled_phase(torch, np, calls):
         jobs = args[0]
         inter = sum(int(j[1].sum()) for j in jobs)
         comp = sum(int((j[1] & j[2]).sum()) for j in jobs)
+        n = paths[which] = kernel_paths(np, which, args, counted)
         say("kernels", f"mc_planes_scaled on {which} ({inter} inter cells, "
-            f"{comp} compound; scales {args[4]}): {k_ms:.5f} ms on the "
-            f"card, bound {bounds(b, o, 0)[0]:.6f} ({b} B, {o} ops); "
-            f"plain {t:.1f} ms")
+            f"{comp} compound; steps {args[5]}): {k_ms:.5f} ms on the "
+            f"card ({card}), bound {bounds(b, o, 0)[0]:.6f} ({b} B, {o} "
+            f"ops; {k_ms / bounds(b, o, 0)[0]:.2f} x); plain {t:.1f} ms; "
+            f"paths, as its warps counted them: {n['window']} of "
+            f"{n['passes']} tile passes on the window path "
+            f"({100 * n['window'] / max(n['passes'], 1):.1f}%), "
+            f"{n['walk']} walk the cells (the host model agrees)")
         if which.startswith("seeded"):
             seeded_ms[which] = k_ms
             continue
@@ -1604,7 +1764,14 @@ def mc_scaled_phase(torch, np, calls):
         "plain, also on seeded 1920x1080 frames at steps 32 and 1 with "
         "every bank and compound cells mixing a scaled and a same-size "
         "slot, at 8 bpp 4:2:0 and at "
-        + ", ".join(f"{b} bpp {layout(h, v)}" for b, h, v in MC_FORMATS))
+        + ", ".join(f"{b} bpp {layout(h, v)}" for b, h, v in MC_FORMATS)
+        + f", and a frame of a motion a tile at steps 32, 8 and 1; {card}; "
+        f"ptxas: {ptxas_of(MC_SRC, 'mc_scaled_kernel')}")
+    if not all(paths[k]["window"] and paths[k]["walk"] for k in paths
+               if k.startswith(("seeded_down_8", "seeded_up_8"))) \
+            or paths["seeded_tiles_8bit_4:2:0"]["walk"]:
+        raise RuntimeError(f"mc_planes_scaled: the seeded frames do not "
+                           f"drive both paths as meant: {paths}")
     return {"name": "mc_planes_scaled", "route": "cuda", "source": MC_SRC,
             "replaces": MC_SCALED_REPLACES, "launches": None,
             "max_abs_err": err, "ms": ms / nf, "plain_ms": plain_ms / nf,
@@ -1612,7 +1779,8 @@ def mc_scaled_phase(torch, np, calls):
             "per": f"frame (Y, U, V in one launch), mean of {RESIZE_CLIP} "
                    "frames 1-5",
             "call_ms": call_ms / nf, "bytes_needed": nbytes / nf,
-            "ops": nops / nf, "seeded_ms": seeded_ms}
+            "ops": nops / nf, "seeded_ms": seeded_ms, "paths": paths,
+            "ptxas": ptxas_of(MC_SRC, "mc_scaled_kernel")}
 
 
 def intra_work(np, jobs):
@@ -1992,6 +2160,24 @@ def hbd_pairs_frame(np, rng, shapes):
     return rows(cpos, cval, 4), rows(epos, evals, 3), cbase, ebase, planes
 
 
+def hbd_roots(np, jobs, lossless):
+    """{size: [coded roots, DC-only roots]} of a frame's planes [(coef,
+    eob4, txsz4, txtype4)], summed over the planes."""
+    out = {}
+    for _coef, eob4, txsz4, txtype4 in jobs:
+        e, t, ty = (np.asarray(g.cpu() if hasattr(g, "cpu") else g)
+                    .astype(np.int64) for g in (eob4, txsz4, txtype4))
+        yy, xx = np.mgrid[:e.shape[0], :e.shape[1]]
+        for tx in ((0,) if lossless else range(4)):
+            k = 1 << tx
+            root = (t == tx) & (e > 0) & (yy % k == 0) & (xx % k == 0)
+            dc = root & (e == 1) & ((ty == 0) | (tx == 3)) & (not lossless)
+            n = out.setdefault(4 << tx, [0, 0])
+            n[0] += int(root.sum())
+            n[1] += int(dc.sum())
+    return out
+
+
 def kept_pair(torch, what, cp, ep, nc, ne, jobs, lossless, bpp):
     """recon_frame's scatter and consuming residual on a frame's pair rows
     cp, ep (buffers of nc and ne entries) and per plane jobs [(coef,
@@ -2063,15 +2249,24 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
                    [(None, *(torch.as_tensor(g, device=DEVICE) for g in gr))
                     for gr in grids], False, 12))
     tot = dict.fromkeys(("ms", "ms_noclear", "plain_ms", "bytes", "ops"), 0.0)
-    notes = []
+    notes, seeded_ms = [], {}
+    card = card_line()
     for clip, cp, ep, nc, ne, jobs, lossless, bpp in frames:
         if bpp == 8 or cp.shape[1] != 4:
             raise RuntimeError(f"{clip}: {bpp} bpp, pair rows of "
                                f"{cp.shape[1]} columns")
         bufs, views, plain_jobs, _outs, t = kept_pair(
             torch, clip, cp, ep, nc, ne, jobs, lossless, bpp)
+        roots = ", ".join(f"{sz}x{sz} {n} ({dc} DC-only)" for sz, (n, dc)
+                          in sorted(hbd_roots(np, plain_jobs,
+                                              lossless).items()))
         if clip not in HBD_CLIPS:
-            notes.append(f"{clip}: {cp.shape[0]} pair rows, exact")
+            def residual():
+                R.residual_planes(plain_jobs, lossless, bpp)
+            k_ms = seeded_ms[clip] = device_ms(torch, residual, 20,
+                                               ("residual_kernel",))[0]
+            notes.append(f"{clip}: {cp.shape[0]} pair rows, roots {roots}; "
+                         f"exact; {k_ms:.5f} ms on the card (no clear)")
             continue
 
         def pair():
@@ -2098,7 +2293,7 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
                      f"{sum(int(j[1].gt(0).sum()) for j in plain_jobs)} coded "
                      f"cells): {k_ms:.5f} ms on the card in {k_ops:.2f} device"
                      f" ops (without the clear {k0_ms:.5f}), plain {t:.1f} ms,"
-                     f" bound {bounds(nbytes, nops, 0)[0]:.6f}")
+                     f" bound {bounds(nbytes, nops, 0)[0]:.6f}; roots {roots}")
     n = len(HBD_CLIPS)
     d = {k: v / n for k, v in tot.items()}
     bound_ms, bound_by, _chain = bounds(d["bytes"], d["ops"], 0)
@@ -2106,7 +2301,8 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
         f"{d['ms']:.5f} (without the clear {d['ms_noclear']:.5f}) "
         f"plain_ms/frame={d['plain_ms']:.2f} bound_ms/frame={bound_ms:.6f} "
         f"({bound_by}, {d['bytes']:.0f} B, {d['ops']:.0f} ops); exact vs "
-        "plain, the kept buffers read zero after each")
+        f"plain, the kept buffers read zero after each; {card}; ptxas: "
+        + ptxas_of(ITXFM_SRC, "residual_kernel_hbd"))
     return {"name": "residual_planes_hbd", "route": "cuda",
             "source": ITXFM_SRC, "replaces": ITXFM_REPLACES,
             "launches": None, "max_abs_err": 0, "ms": d["ms"],
@@ -2115,7 +2311,8 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
             "per": "frame (one consuming launch of the three planes), mean "
                    "of frame 0 of " + " and ".join(HBD_CLIPS),
             "ms_without_clear": d["ms_noclear"], "bytes_needed": d["bytes"],
-            "ops": d["ops"], "detail": notes}
+            "ops": d["ops"], "detail": notes, "seeded_ms": seeded_ms,
+            "ptxas": ptxas_of(ITXFM_SRC, "residual_kernel_hbd")}
 
 
 def formats_phase(torch, np, calls):

@@ -11,7 +11,7 @@
 //                    (a memset pair first when the caller asks for it)
 //   residual_planes  the residuals of up to three planes, one launch;
 //                    with `consume`, it also clears what it read
-//   residual_planes_hbd  the same for 10/12-bit planes: 64-bit
+//   residual_planes_hbd  the same for 10/12-bit planes: float64
 //                    butterflies, int32 coefficients
 //
 // Semantics. Pair rows carry a position (pos-hi << 16 | pos-lo) and a
@@ -69,10 +69,13 @@
 // targets); signed overflow is undefined in C++, so they run on
 // uint32_t, and _rs, (v + 8192) >> 14, is an arithmetic shift of the
 // wrapped value. At 10/12 bpp the reference's dctint is int64_t and its
-// dctcoef int32_t: the same butterflies run on uint64_t words (the
-// coefficients sign-extended), and each pass's outputs keep their low
-// 32 bits (ops/itxfm.py _wrap32). One source carries both: the 1-D
-// kernels and the region's passes are templates of the word. The
+// dctcoef int32_t, and each pass's outputs keep their low 32 bits
+// (ops/itxfm.py _wrap32). On int32 inputs no intermediate of any 1-D
+// kernel reaches 2^51 (kPeakBits), so the int64 arithmetic never wraps,
+// and a double holds each value exactly: the same butterflies run on
+// float64 words (f64: each + - * exact, the floors of _rs and the shifts
+// exact by kMagic), in about half the instructions of uint64 ones. One
+// source carries every word: the 1-D kernels are templates of it. The
 // butterflies below were transcribed from
 // ffmpeg_hybrid_tpu_torch/ops/itxfm.py line by line: every constant and
 // every input permutation and negated output is that file's.
@@ -98,7 +101,11 @@
 // written once, an int4 a thread, zeros included. The clear comes after
 // the last size's barrier, a quad a thread, so no thread of the region
 // reads a coefficient after it is cleared, and a region's roots lie in
-// the region, so no other block reads them.
+// the region, so no other block reads them. At 10/12 bpp the region's
+// kHbdThreads (128) take the same work items in rounds (4x4's 256 in two),
+// so that more regions are in flight on an SM (kHbdMinBlocks, 48
+// registers): a region of one 32x32 root keeps 64 threads busy however
+// wide its block, and waits on its chains of dependent operations.
 //
 // What bounds it. Bytes: the scatter reads the pair rows and writes the
 // positions they name, some 2 MB for a 1080p frame (with the memset
@@ -108,10 +115,12 @@
 // consuming, clears what it read. The butterflies are a few tens of
 // integer operations per pixel, below that. At 10/12 bpp the
 // coefficients are int32 (twice the bytes read and cleared) and the
-// butterflies 64-bit: the 32x32 lane pair holds its 16 inputs, 16
-// outputs and 16 exchanged values in register pairs (ptxas's register and
-// spill counts of both instantiations are in PERF.md).
+// butterflies float64, 1-3 instructions an operation (ptxas's register
+// and spill counts of both kernels are in PERF.md). The first 10/12-bit
+// design ran them on uint64 words, 2-4 instructions an operation, in
+// 256-thread blocks at 64 registers: 4.6-4.9 times the bytes bound.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -137,17 +146,76 @@ __device__ __forceinline__ u64 asr(u64 v, int s) {
   return static_cast<u64>(static_cast<int64_t>(v) >> s);
 }
 
+// A float64 word for dctint at 10/12 bpp: the butterflies' values are
+// integers, and with int32 inputs every intermediate stays below 2^49.6 in
+// magnitude (interval arithmetic over ops/itxfm.py; the port's tests hold
+// it), so below 2^51: each +, - and * by a constant is exact, a * b + c
+// too (fused or not), and the floors of _rs and the WHT's shifts are exact
+// by adding kMagic (1.5 * 2^52) rounded toward -inf, where a double's unit
+// is 1: the int64 (dctint) arithmetic bit for bit, in about half the
+// instructions of uint64 words (a DFMA a product and sum, three for _rs).
+struct f64 {
+  double v;
+};
+constexpr double kMagic = 6755399441055744.0;
+
+__device__ __forceinline__ f64 operator+(f64 a, f64 b) { return {a.v + b.v}; }
+__device__ __forceinline__ f64 operator-(f64 a, f64 b) { return {a.v - b.v}; }
+// 0u - x, the butterflies' negation
+__device__ __forceinline__ f64 operator-(unsigned, f64 a) { return {-a.v}; }
+__device__ __forceinline__ f64 operator*(f64 a, int c) { return {a.v * c}; }
+__device__ __forceinline__ f64 operator*(int c, f64 a) { return {a.v * c}; }
+__device__ __forceinline__ f64 operator*(f64 a, unsigned c) {
+  return {a.v * c};
+}
+
+__device__ __forceinline__ f64 floor_exact(double v) {
+  return {__dadd_rd(v, kMagic) - kMagic};
+}
+
+__device__ __forceinline__ f64 rs(f64 a) {
+  return floor_exact(fma(a.v, 1.0 / 16384, 0.5));
+}
+
+__device__ __forceinline__ f64 asr(f64 a, int s) {
+  return floor_exact(a.v * (1.0 / (1 << s)));
+}
+
 // _wrap16: the low 16 bits, sign-extended
 __device__ __forceinline__ int32_t wrap16(u32 v) {
   return static_cast<int16_t>(static_cast<uint16_t>(v & 0xffffu));
 }
 
-// The dctcoef store of a pass's output: _wrap16 at 8 bpp, _wrap32 (the
-// low 32 bits) at 10/12 bpp
-__device__ __forceinline__ int32_t wrapc(u32 v) { return wrap16(v); }
+__device__ __forceinline__ int32_t lo32(u32 v) {
+  return static_cast<int32_t>(v);
+}
 
-__device__ __forceinline__ int32_t wrapc(u64 v) {
+__device__ __forceinline__ int32_t lo32(u64 v) {
   return static_cast<int32_t>(static_cast<u32>(v));
+}
+
+// an integer below 2^51 plus kMagic holds it in its low mantissa bits
+__device__ __forceinline__ int32_t lo32(f64 v) {
+  return __double2loint(v.v + kMagic);
+}
+
+// A value as the butterflies' word, sign-extended
+template <typename T>
+__device__ __forceinline__ T word(int32_t v);
+
+template <>
+__device__ __forceinline__ u32 word<u32>(int32_t v) {
+  return static_cast<u32>(v);
+}
+
+template <>
+__device__ __forceinline__ u64 word<u64>(int32_t v) {
+  return static_cast<u64>(static_cast<int64_t>(v));
+}
+
+template <>
+__device__ __forceinline__ f64 word<f64>(int32_t v) {
+  return {static_cast<double>(v)};
 }
 
 // ---------------------------------------------------------------------
@@ -596,22 +664,6 @@ __device__ __forceinline__ void pass1d(const T* I, T* O, bool adst,
   }
 }
 
-// Half `half` of a 32-point DCT by a pair of neighbouring lanes: lane
-// half 0 takes the even inputs (idct16), lane half 1 the odd ones
-// (idct32_odd); one exchange of their 16 values gives lane 0 outputs
-// 0-15 and lane 1 outputs 31 down to 16: O[j] is output j for lane 0 and
-// output 31 - j for lane 1. Both lanes of every pair of a warp call it.
-template <typename T>
-__device__ __forceinline__ void idct32_pair(const T* I, T* O, int half) {
-  T mine[16];
-  if (half) idct32_odd(I, mine); else idct16(I, mine);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const T other = __shfl_xor_sync(0xffffffffu, mine[j], 1);
-    O[j] = half ? other - mine[j] : mine[j] + other;
-  }
-}
-
 __device__ __forceinline__ int ld_grid(const void* p, int esz, size_t i) {
   if (esz == 1) return static_cast<const int8_t*>(p)[i];
   if (esz == 2) return static_cast<const int16_t*>(p)[i];
@@ -653,13 +705,48 @@ struct Cells {
   unsigned char nz[kRegion][kRegion / 4];
 };
 
-// A coefficient as the butterflies' word: sign-extended to 32 or 64 bits
-template <typename T>
-__device__ __forceinline__ T ld_coef(const Plane& p, int y, int x) {
+// The butterflies' word at 10/12 bpp (dctint): float64, exact (f64)
+using Word = f64;
+// The 10/12-bit kernel's threads a block (a region) and its
+// __launch_bounds__ minimum of blocks an SM
+constexpr int kHbdThreads = 128;
+constexpr int kHbdMinBlocks = 10;
+
+// The 1-D kernels, in the order of kPeakBits' columns
+enum { kIdct4, kIadst4, kIdct8, kIadst8, kIdct16, kIadst16, kIdct32, kIwht4,
+       kKernels };
+
+// kPeakBits[pass][kernel]: the bits of the largest magnitude any
+// intermediate or output of the kernel's butterflies (ops/itxfm.py, line by
+// line) can reach on int32 inputs (pass 0 reads the coefficients, pass 1
+// the first pass's int32 outputs; only iwht4 differs, its first pass
+// shifting its inputs right by 2), by interval arithmetic over those lines;
+// the port's tests derive it and hold this table to it. Every entry is
+// below 51, where f64 is exact (its header).
+constexpr int kPeakBits[2][kKernels] = {{46, 48, 47, 49, 49, 50, 50, 32},
+                                        {46, 48, 47, 49, 49, 50, 50, 34}};
+constexpr bool peaks_fit_f64() {
+  for (int p = 0; p < 2; ++p)
+    for (int k = 0; k < kKernels; ++k)
+      if (kPeakBits[p][k] > 50) return false;
+  return true;
+}
+static_assert(peaks_fit_f64(), "a kernel's values outgrow the f64 word");
+
+// A coefficient, sign-extended: int16 (coef16) or int32 at 8 bpp, int32
+// at 10/12 bpp (HBD)
+template <bool HBD>
+__device__ __forceinline__ int32_t ld_coef(const Plane& p, int y, int x) {
   const size_t i = static_cast<size_t>(y) * p.W + x;
-  return p.coef16 ? static_cast<T>(static_cast<int32_t>(
-                        static_cast<const int16_t*>(p.coef)[i]))
-                  : static_cast<T>(static_cast<const int32_t*>(p.coef)[i]);
+  if (!HBD && p.coef16) return static_cast<const int16_t*>(p.coef)[i];
+  return static_cast<const int32_t*>(p.coef)[i];
+}
+
+// The dctcoef store of a pass's output from its low 32 bits v: _wrap16 at
+// 8 bpp, _wrap32 (v itself) at 10/12 bpp
+template <bool HBD>
+__device__ __forceinline__ int32_t wrapc(int32_t v) {
+  return HBD ? v : wrap16(static_cast<u32>(v));
 }
 
 // The final rounding of a pass-b output v (its dctcoef value, or the DC
@@ -671,97 +758,171 @@ __device__ __forceinline__ int32_t round_out(int32_t v) {
   return static_cast<int32_t>(static_cast<u32>(v) + RND) >> SHIFT;
 }
 
-// The blocks of size 4 << TX in the region at (ry0, rx0), whose roots the
-// vote found: thread t takes line t % SZ of root t / SZ ((32 / SZ)^2
-// roots, 1024 / SZ lines); at 32x32 the one root's 32 lines take two
-// lanes each (idct32_pair). Pass a runs only when some root of the size
-// is not DC-only (`full`), with its barrier. T: the butterflies' word,
-// u32 at 8 bpp, u64 (dctint) at 10/12 bpp.
+// Half `half` of a 32-point DCT by a pair of neighbouring lanes, on word
+// T: lane half 0 takes the even inputs x (idct16), lane half 1 the odd
+// ones (idct32_odd); one exchange of the low 32 bits of their 16 values
+// (the outputs keep only theirs) gives lane 0 outputs 0-15 and lane 1
+// outputs 31 down to 16: y[j] is output j for lane 0 and output 31 - j
+// for lane 1. Both lanes of every pair of a warp call it.
+template <typename T>
+__device__ __forceinline__ void idct32_pair(const int32_t* x, int32_t* y,
+                                            int half) {
+  T in[16], mine[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) in[k] = word<T>(x[k]);
+  if (half) idct32_odd(in, mine); else idct16(in, mine);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const u32 m = static_cast<u32>(lo32(mine[j]));
+    const u32 o = __shfl_xor_sync(0xffffffffu, m, 1);
+    y[j] = static_cast<int32_t>(half ? o - m : m + o);
+  }
+}
+
+// One 1-D pass of size 4 << TX (the WHT when WHT; at 32x32 half of a lane
+// pair's) on word T: int32 inputs x, the low 32 bits of its outputs into y
 template <int TX, bool WHT, typename T>
+__device__ __forceinline__ void run1d(const int32_t* x, int32_t* y,
+                                      bool adst, bool first, int half) {
+  if constexpr (TX == 3) {
+    idct32_pair<T>(x, y, half);
+  } else {
+    constexpr int SZ = 4 << TX;
+    T in[SZ], o[SZ];
+#pragma unroll
+    for (int k = 0; k < SZ; ++k) in[k] = word<T>(x[k]);
+    pass1d<TX, WHT>(in, o, adst, first);
+#pragma unroll
+    for (int k = 0; k < SZ; ++k) y[k] = lo32(o[k]);
+  }
+}
+
+// The DC shortcut on a DC-only root's coefficient, its _rs chain on word D
+// (u32 at 8 bpp, u64 at 10/12): |t| < 2^31 however wide the coefficient,
+// so its low 32 bits
+template <int SHIFT, typename D>
+__device__ __forceinline__ int32_t dc_out(int32_t dc) {
+  const D t = rs(rs(word<D>(dc) * 11585u) * 11585u);
+  return round_out<SHIFT>(lo32(t));
+}
+
+// A work item of region_size: line `line` (half `half` of it at 32x32) of
+// the root at (ry, rx) of the region, and what the root's cell says
+struct Item {
+  int line, half, ry, rx;
+  bool act, dconly, adst_a, adst_b;
+};
+
+// Work item i of the blocks of size 4 << TX in the region at (ry0, rx0)
+// (region_size)
+template <int TX, bool WHT>
+__device__ __forceinline__ Item item_of(const Plane& p, const Cells& cl,
+                                        int ry0, int rx0, int i) {
+  constexpr int SZ = 4 << TX;
+  constexpr int NR = kRegion / SZ;
+  constexpr bool PAIR = TX == 3;
+  constexpr int ITEMS = PAIR ? 2 * SZ : NR * NR * SZ;
+  Item w;
+  const int root = PAIR ? i / (2 * SZ) : i / SZ;
+  w.line = PAIR ? (i >> 1) % SZ : i % SZ;
+  w.half = PAIR ? i & 1 : 0;
+  w.ry = (root / NR) * SZ;
+  w.rx = (root % NR) * SZ;
+  w.act = w.dconly = w.adst_a = w.adst_b = false;
+  if (i < ITEMS && ry0 + w.ry + SZ <= p.H && rx0 + w.rx + SZ <= p.W) {
+    const int c = (w.ry >> 2) * kRegionCells + (w.rx >> 2);
+    w.act = cl.tx[c] == TX && cl.eob[c] > 0;
+    if (!WHT) {
+      w.dconly = cl.eob[c] == 1 && (TX == 3 || cl.type[c] == 0);
+      w.adst_a = TX < 3 && (cl.type[c] == 1 || cl.type[c] == 3);
+      w.adst_b = TX < 3 && (cl.type[c] == 2 || cl.type[c] == 3);
+    }
+  }
+  return w;
+}
+
+// The blocks of size 4 << TX in the region at (ry0, rx0), whose roots the
+// vote found. Work item i takes line i % SZ of root i / SZ ((32 / SZ)^2
+// roots, 1024 / SZ lines); at 32x32 the one root's 32 lines take two
+// lanes each (idct32_pair), 64 items. The block's threads take the items
+// in rounds: at 8 bpp its kThreads every size in one, at 10/12 bpp its
+// kHbdThreads 4x4's 256 in two. Pass a runs only when some root of the
+// size is not DC-only (`full`), with its barrier. The butterflies run on
+// u32 words at 8 bpp and on Word (dctint) at 10/12 (HBD).
+template <int TX, bool WHT, bool HBD>
 __device__ __forceinline__ void region_size(const Plane& p, Cells& cl,
                                             int ry0, int rx0, bool full,
                                             int consume,
                                             int32_t (*tmp)[kRegion + 1],
                                             int32_t (*acc)[kRegion + 1]) {
+  using T = std::conditional_t<HBD, Word, u32>;
+  using D = std::conditional_t<HBD, u64, u32>;
+  constexpr int NT = HBD ? kHbdThreads : kThreads;
   constexpr int SZ = 4 << TX;
   constexpr int NR = kRegion / SZ;
   constexpr int SHIFT = WHT ? 0 : (TX == 0 ? 4 : (TX == 1 ? 5 : 6));
   constexpr bool PAIR = TX == 3;
-  const int tid = threadIdx.x;
-  const int root = PAIR ? tid / (2 * SZ) : tid / SZ;
-  const int line = PAIR ? (tid >> 1) % SZ : tid % SZ;
-  const int half = PAIR ? tid & 1 : 0;
-  const int ry = (root / NR) * SZ, rx = (root % NR) * SZ;
-  const int gy = ry0 + ry, gx = rx0 + rx;
-  bool act = false, dconly = false, adst_a = false, adst_b = false;
-  if (root < NR * NR && gy + SZ <= p.H && gx + SZ <= p.W) {
-    const int c = (ry >> 2) * kRegionCells + (rx >> 2);
-    act = cl.tx[c] == TX && cl.eob[c] > 0;
-    if (!WHT) {
-      dconly = cl.eob[c] == 1 && (TX == 3 || cl.type[c] == 0);
-      adst_a = TX < 3 && (cl.type[c] == 1 || cl.type[c] == 3);
-      adst_b = TX < 3 && (cl.type[c] == 2 || cl.type[c] == 3);
-    }
-  }
   constexpr int NIN = PAIR ? SZ / 2 : SZ;   // inputs a thread holds
-  T in[NIN], o[NIN];
+  constexpr int ITEMS = PAIR ? 2 * SZ : NR * NR * SZ;
+  constexpr int ROUNDS = (ITEMS + NT - 1) / NT;
+  const int tid = threadIdx.x;
+  Item it[ROUNDS];
+#pragma unroll
+  for (int rd = 0; rd < ROUNDS; ++rd)
+    it[rd] = item_of<TX, WHT>(p, cl, ry0, rx0, rd * NT + tid);
+  int32_t x[NIN], y[NIN];
   // pass a: column `line` of the coefficients -> row `line` of tmp
   if (full) {
-    if (act && !dconly) {
-      if constexpr (PAIR) {
+#pragma unroll
+    for (int rd = 0; rd < ROUNDS; ++rd) {
+      const Item w = it[rd];
+      if (w.act && !w.dconly) {
 #pragma unroll
         for (int r = 0; r < NIN; ++r)
-          in[r] = ld_coef<T>(p, gy + 2 * r + half, gx + line);
+          x[r] = ld_coef<HBD>(p, ry0 + w.ry + (PAIR ? 2 * r + w.half : r),
+                              rx0 + w.rx + w.line);
         if (consume) {   // after every load is issued
 #pragma unroll
           for (int r = 0; r < NIN; ++r)
-            if (in[r]) cl.nz[ry + 2 * r + half][(rx + line) >> 2] = 1;
+            if (x[r])
+              cl.nz[w.ry + (PAIR ? 2 * r + w.half : r)]
+                   [(w.rx + w.line) >> 2] = 1;
         }
-        idct32_pair(in, o, half);
+        run1d<TX, WHT, T>(x, y, w.adst_a, true, w.half);
 #pragma unroll
-        for (int j = 0; j < NIN; ++j)
-          tmp[ry + line][rx + (half ? SZ - 1 - j : j)] = wrapc(o[j]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < SZ; ++r) in[r] = ld_coef<T>(p, gy + r, gx + line);
-        if (consume) {   // after every load is issued
-#pragma unroll
-          for (int r = 0; r < SZ; ++r)
-            if (in[r]) cl.nz[ry + r][(rx + line) >> 2] = 1;
-        }
-        pass1d<TX, WHT>(in, o, adst_a, true);
-#pragma unroll
-        for (int k = 0; k < SZ; ++k) tmp[ry + line][rx + k] = wrapc(o[k]);
+        for (int k = 0; k < NIN; ++k)
+          tmp[w.ry + w.line][w.rx + (w.half ? SZ - 1 - k : k)] =
+              wrapc<HBD>(y[k]);
       }
     }
     __syncthreads();
   }
   // pass b: column `line` of tmp -> column `line` of the residual
-  if (act) {
-    if (dconly) {
-      if (consume && line == 0 && half == 0) cl.nz[ry][rx >> 2] = 1;
-      // |t| < 2^31 however wide the coefficient: its low 32 bits
-      const T t = rs(rs(ld_coef<T>(p, gy, gx) * 11585u) * 11585u);
-      const int32_t v = round_out<SHIFT>(static_cast<int32_t>(t));
 #pragma unroll
-      for (int c = 0; c < NIN; ++c) acc[ry + c + half * NIN][rx + line] += v;
-    } else if constexpr (PAIR) {
+  for (int rd = 0; rd < ROUNDS; ++rd) {
+    const Item w = it[rd];
+    if (w.act && !w.dconly) {
 #pragma unroll
       for (int c = 0; c < NIN; ++c)
-        in[c] = static_cast<T>(tmp[ry + 2 * c + half][rx + line]);
-      idct32_pair(in, o, half);
+        x[c] = tmp[w.ry + (PAIR ? 2 * c + w.half : c)][w.rx + w.line];
+      run1d<TX, WHT, T>(x, y, w.adst_b, false, w.half);
+    }
+    // then the residual (this order keeps both kernels at 48 registers)
+    if (w.act) {
+      if (w.dconly) {
+        if (consume && w.line == 0 && w.half == 0)
+          cl.nz[w.ry][w.rx >> 2] = 1;
+        const int32_t v =
+            dc_out<SHIFT, D>(ld_coef<HBD>(p, ry0 + w.ry, rx0 + w.rx));
 #pragma unroll
-      for (int j = 0; j < NIN; ++j)
-        acc[ry + (half ? SZ - 1 - j : j)][rx + line] +=
-            round_out<SHIFT>(wrapc(o[j]));
-    } else {
+        for (int c = 0; c < NIN; ++c)
+          acc[w.ry + c + w.half * NIN][w.rx + w.line] += v;
+      } else {
 #pragma unroll
-      for (int c = 0; c < SZ; ++c)
-        in[c] = static_cast<T>(tmp[ry + c][rx + line]);
-      pass1d<TX, WHT>(in, o, adst_b, false);
-#pragma unroll
-      for (int c = 0; c < SZ; ++c)
-        acc[ry + c][rx + line] += round_out<SHIFT>(wrapc(o[c]));
+        for (int k = 0; k < NIN; ++k)
+          acc[w.ry + (w.half ? SZ - 1 - k : k)][w.rx + w.line] +=
+              round_out<SHIFT>(wrapc<HBD>(y[k]));
+      }
     }
   }
   __syncthreads();
@@ -822,9 +983,8 @@ __device__ __forceinline__ void clear_quad(const Plane& p, const Cells& cl,
         make_int4(0, 0, 0, 0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    residual_kernel(const __grid_constant__ Args a) {
+template <bool HBD>
+__device__ __forceinline__ void residual_region(const Args& a) {
   __shared__ int32_t tmp[kRegion][kRegion + 1];
   __shared__ int32_t acc[kRegion][kRegion + 1];
   __shared__ Cells cl;
@@ -837,42 +997,78 @@ __global__ void __launch_bounds__(kThreads)
   const int ry0 = (region / p.regions_x) * kRegion;
   const int rx0 = (region % p.regions_x) * kRegion;
   const int tid = threadIdx.x;
-  // each thread owns 4 neighbouring pixels of the region: one int4 store
-  const int oy = tid / (kRegion / 4), ox = (tid % (kRegion / 4)) * 4;
+  // a thread owns QUADS quads of 4 neighbouring pixels of the region (an
+  // int4 store each): quad tid + NT q, at (oy, ox)
+  constexpr int NT = HBD ? kHbdThreads : kThreads;
+  constexpr int QUADS = kRegion * kRegion / 4 / NT;
+  static_assert(QUADS * NT == kRegion * kRegion / 4 &&
+                NT >= kRegionCells * kRegionCells, "threads a region");
+  const auto quad = [&](int q, int& oy, int& ox) {
+    oy = (tid + NT * q) / (kRegion / 4);
+    ox = ((tid + NT * q) % (kRegion / 4)) * 4;
+  };
   if (tid < kRegionCells * kRegionCells) {
     const unsigned v = __reduce_or_sync(
         0xffffffffu, cell_vote(p, cl, ry0, rx0, a.lossless, a.consume, tid));
     if ((tid & 31) == 0) votes[tid >> 5] = v;
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) acc[oy][ox + k] = 0;
-  cl.nz[oy][ox >> 2] = 0;
+  for (int q = 0; q < QUADS; ++q) {
+    int oy, ox;
+    quad(q, oy, ox);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[oy][ox + k] = 0;
+    cl.nz[oy][ox >> 2] = 0;
+  }
   __syncthreads();
   const unsigned vote = votes[0] | votes[1];
   if (vote) {
     if (a.lossless) {
-      region_size<0, true, T>(p, cl, ry0, rx0, true, a.consume, tmp, acc);
+      region_size<0, true, HBD>(p, cl, ry0, rx0, true, a.consume, tmp,
+                                acc);
     } else {
       if (vote & 1u)
-        region_size<0, false, T>(p, cl, ry0, rx0, vote & 16u, a.consume, tmp,
-                                 acc);
+        region_size<0, false, HBD>(p, cl, ry0, rx0, vote & 16u,
+                                   a.consume, tmp, acc);
       if (vote & 2u)
-        region_size<1, false, T>(p, cl, ry0, rx0, vote & 32u, a.consume, tmp,
-                                 acc);
+        region_size<1, false, HBD>(p, cl, ry0, rx0, vote & 32u,
+                                   a.consume, tmp, acc);
       if (vote & 4u)
-        region_size<2, false, T>(p, cl, ry0, rx0, vote & 64u, a.consume, tmp,
-                                 acc);
+        region_size<2, false, HBD>(p, cl, ry0, rx0, vote & 64u,
+                                   a.consume, tmp, acc);
       if (vote & 8u)
-        region_size<3, false, T>(p, cl, ry0, rx0, vote & 128u, a.consume, tmp,
-                                 acc);
+        region_size<3, false, HBD>(p, cl, ry0, rx0, vote & 128u,
+                                   a.consume, tmp, acc);
     }
-    if (a.consume) clear_quad(p, cl, ry0, rx0, oy, ox);
+    if (a.consume) {
+#pragma unroll
+      for (int q = 0; q < QUADS; ++q) {
+        int oy, ox;
+        quad(q, oy, ox);
+        clear_quad(p, cl, ry0, rx0, oy, ox);
+      }
+    }
   }
-  const int y = ry0 + oy, x = rx0 + ox;
-  if (y < p.H && x < p.W)
-    *reinterpret_cast<int4*>(p.out + static_cast<size_t>(y) * p.W + x) =
-        make_int4(acc[oy][ox], acc[oy][ox + 1], acc[oy][ox + 2],
-                  acc[oy][ox + 3]);
+#pragma unroll
+  for (int q = 0; q < QUADS; ++q) {
+    int oy, ox;
+    quad(q, oy, ox);
+    const int y = ry0 + oy, x = rx0 + ox;
+    if (y < p.H && x < p.W)
+      *reinterpret_cast<int4*>(p.out + static_cast<size_t>(y) * p.W + x) =
+          make_int4(acc[oy][ox], acc[oy][ox + 1], acc[oy][ox + 2],
+                    acc[oy][ox + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    residual_kernel(const __grid_constant__ Args a) {
+  residual_region<false>(a);
+}
+
+__global__ void __launch_bounds__(kHbdThreads, kHbdMinBlocks)
+    residual_kernel_hbd(const __grid_constant__ Args a) {
+  residual_region<true>(a);
 }
 
 // The coefficient and eob scatter: a thread per row of cp, then of ep.
@@ -905,8 +1101,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// residual_planes and residual_planes_hbd: hbd selects the 64-bit words
-// (dctint) and int32 coefficients
+// residual_planes and residual_planes_hbd: hbd selects the 10/12-bit
+// kernel (dctint on Word, int32 coefficients)
 int launch_residual(const void* const* ptrs, const int* dims, int n,
                     int lossless, int* const* strays, bool hbd,
                     cudaStream_t stream) {
@@ -944,9 +1140,9 @@ int launch_residual(const void* const* ptrs, const int* dims, int n,
     regions += p.regions_x * ((p.H + kRegion - 1) / kRegion);
   }
   if (hbd)
-    residual_kernel<u64><<<regions, kThreads, 0, stream>>>(a);
+    residual_kernel_hbd<<<regions, kHbdThreads, 0, stream>>>(a);
   else
-    residual_kernel<u32><<<regions, kThreads, 0, stream>>>(a);
+    residual_kernel<<<regions, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -968,8 +1164,9 @@ int residual_planes(const void* const* ptrs, const int* dims, int n,
   return launch_residual(ptrs, dims, n, lossless, strays, false, stream);
 }
 
-// residual_planes for 10/12-bit planes: the butterflies in 64 bits
-// (dctint), the int32 wrap between passes; coef must be int32 (coef16 0).
+// residual_planes for 10/12-bit planes: the butterflies of dctint (int64)
+// on float64 words, exact (the header), the int32 wrap between passes;
+// coef must be int32 (coef16 0).
 int residual_planes_hbd(const void* const* ptrs, const int* dims, int n,
                         int lossless, int* const* strays,
                         cudaStream_t stream) {

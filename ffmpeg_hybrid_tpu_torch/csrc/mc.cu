@@ -75,6 +75,7 @@
 // steps behind two block-wide votes and two barriers (the inter byte,
 // the compound byte, the grids, the patches, then the residual): 0.105
 // ms a frame, 4.5 us a wave, some four device-memory round trips.
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -109,7 +110,7 @@ static_assert(32 % kCellLanes == 0 && kCellLanes <= 16, "kCellLanes");
 // SUBPEL_FILTERS in its order (smooth, regular, sharp), bank 3 the
 // bilinear filter as 8 taps (128 - 8m and 8m at taps 3 and 4); the
 // port's tests hold this table to ops/recon.py's _FTAB.
-__constant__ int kFtab[4][16][8] = {
+__constant__ __align__(16) int kFtab[4][16][8] = {
     {  // bank 0
      {0, 0, 0, 128, 0, 0, 0, 0},
      {-3, -1, 32, 64, 38, 1, -3, 0},
@@ -579,16 +580,48 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 //  - the 8-tap passes as mc_planes', each source row and column clamped
 //    to the slot's visible size.
 //
-// Design. A thread per 4-pixel column of a cell: a warp holds 8 cells of
-// a row of cells, 4 lanes each, so the stores of a pixel row are 32
-// consecutive ints. The thread derives its cell's record from the
-// splat's index (an entry per 8x8 unit, (epoch << 32) | b; an entry of
-// another epoch is no record: the last, a pad row), only where a scaled
-// slot is used. Its column has one source column set and one phase, so
-// it runs the horizontal pass over the rows its 4 pixels need (at most
-// 14 at a step of 32, 11 unscaled) into its own column of shared memory
-// (no barrier: no other thread reads it), then the vertical pass at each
-// row's phase. The taps come from kFtab, the block sizes from kBwh.
+// Design. mc_planes' structure: a warp per 16 x 16 tile of a plane,
+// kSWarps tiles a block, each warp with its own slice of shared memory and
+// __syncwarp its only barrier; a lane owns two 4-pixel quads, rows lane /
+// 4 and lane / 4 + 8 at columns 4 (lane % 4) to +3, and their two cells.
+// It loads its cells' grids at once, and where a cell uses a scaled slot
+// it reads the cell's record once from the splat's index (an entry per
+// 8x8 unit, (epoch << 32) | b; an entry of another epoch is no record:
+// the last, a pad row) and derives the anchor, corner and span. The inter
+// quads' residuals go into the slice by cp.async, in flight with the
+// rest. For each reference the lane maps each of its cells that uses it
+// to the source: pixel x of the cell reads the 1/16-pel position pos(x) =
+// p + (x - xc) * step (column pos >> 4, phase pos & 15; p the cell's own
+// position, step 16 for a slot of the frame's size and mc_planes'
+// arithmetic there), and likewise y. The map is a line, so the motion key
+// of a cell is its slot, its bank and the line's value at the tile's
+// origin (x0, y0): two cells of equal keys read the same source columns
+// and rows at the same phases, whatever their blocks, anchors or MVs. The
+// warp votes on the key of the cells that use the reference.
+//  - One motion: the warp copies one window of the slot into its slice
+//    (cp.async, each source row and column clamped to the slot's visible
+//    size; where no column needs the clamp, a row as the 16-byte chunks
+//    that hold it): the rows and columns the tile's 16 pixel rows and
+//    columns need, ((phase + 15 step) >> 4) + 8 of each, at most 38 at a
+//    step of 32 (a reference twice the frame's size; kSWin). The
+//    horizontal pass runs each output column at its own phase over the
+//    window's rows into the slice, a lane a column and half the rows; the
+//    vertical pass runs each pixel row at its phase into registers, an
+//    int4 a tap.
+//  - More than one: the warp walks the cells that use the reference,
+//    kSCells (8) at a time with every patch's copies in flight at once, 4
+//    lanes a cell, from descriptors their owning lanes left in the slice:
+//    the cell's patch (at most 14 x 14 at a step of 32, 11 x 11
+//    unscaled), its 4 columns' horizontal values, its 16 pixels into a
+//    16 x 16 prediction tile in the slice, read back by quad.
+// The epilogue averages compound cells, adds the residual, clips, selects
+// by inter and writes each quad once as an int4. A cell that does not use
+// a reference contributes nothing to its key, address or product. Taps
+// come from kFtab read through L1 (a lane loads its column's or row's
+// phase once a window or cell; constant memory would serve a warp's 16
+// phases one address at a time), block sizes from kBwh. The cells' index
+// entries load beside the grids, the residual's copies go before the
+// records.
 //
 // What bounds it. Bytes: each output pixel written once (4 B), per inter
 // pixel its residual (4 B), the grids (some 30 B a cell) and the
@@ -596,13 +629,35 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // with one reference plane a cell, 13 us at 3.35 TB/s. Operations: 8
 // multiply-adds a pixel for the vertical pass and 2-3.5 rows of 8 for the
 // horizontal one, per reference, under the bytes at the int32 rate. The
-// kernel reads each source pixel again for every column that needs it
-// (from L1) and walks its rows serially: a first design, right before
-// fast.
+// first design (a thread per 4-pixel column, each reading its 8 source
+// columns from L1 for every row its pixels need, 88-112 loads for 4
+// pixels; 96 registers, 5 blocks of 4 warps an SM) took 4.6 times the
+// bytes bound on the resize clip and 3.5-6.8 times on seeded frames.
 
-constexpr int kScaledThreads = 128;
-constexpr int kScaledRows = 16;   // horizontal-pass rows a thread keeps
+constexpr int kSWarps = 4;        // tiles a block, a warp each
+constexpr int kSMinBlocks = 5;    // blocks an SM holds (__launch_bounds__)
+constexpr int kSThreads = 32 * kSWarps;
+constexpr int kSWin = 38;         // window rows and columns at a step of 32
+constexpr int kSWinStride = 44;   // ints a window row: kSWin + 3, by 4
+constexpr int kSPatch = 14;       // patch rows and columns a cell, step 32
+constexpr int kSCells = 8;        // cells a step of the walk, 4 lanes each
 constexpr int kRecLen = 36;       // int16 fields a block record
+constexpr int kMaxStep = 32;      // 1/16 pel a pixel: 2x down
+// A warp's slice, in ints: the window [kSWin][kSWinStride] at 0, its
+// horizontal values [kSWin][kTile] at kSHv, the tile's residual
+// [kTile][kTile] at kSRes, the walk's cell descriptors [16][8] at kSDesc.
+// The walk overlays the window and its values: kSCells patches at 0, their
+// horizontal values [kSPatch][4] at kSHval, the tile's prediction
+// [kTile][kTile] at kSPred.
+constexpr int kSHv = (kSWin * kSWinStride + 3) & ~3;
+constexpr int kSRes = kSHv + kSWin * kTile;
+constexpr int kSDesc = kSRes + kTile * kTile;
+constexpr int kSSlice = kSDesc + 16 * 8;
+constexpr int kSHval = kSCells * kSPatch * kSPatch;
+constexpr int kSPred = (kSHval + kSCells * kSPatch * 4 + 3) & ~3;
+static_assert(kSPred + kTile * kTile <= kSRes, "the walk outgrows a slice");
+static_assert(((15 + 15 * kMaxStep) >> 4) + 8 == kSWin, "kSWin");
+static_assert(((15 + 3 * kMaxStep) >> 4) + 8 == kSPatch, "kSPatch");
 
 // BWH_TAB[1] of the port's tables.py: a block size's width and height in
 // 8x8 units; the port's tests hold this table to it
@@ -621,16 +676,17 @@ struct ScaledPlane {
   const int32_t* filt;      // [H/4, W/4]
   const int32_t* refsel;    // [H/4, W/4, 2]
   const int32_t* mv;        // [H/4, W/4, 2 refs, (x, y)], raw 1/8 pel
-  int H, W, r4, c4;
+  int H, W;
   int ss_x, ss_y;
-  int strips_x;             // strips of 8 cells a row of cells
-  int strip0;               // the plane's first strip in the grid
+  int tiles_x;              // tiles a row
+  int tile0;                // the plane's first tile in the grid
+  int vec[3];               // the slot's rows are 16-byte aligned
 };
 
 struct ScaledArgs {
   ScaledPlane p[kMaxPlanes];
   int n;
-  int strips;               // of all the planes
+  int tiles;                // of all the planes
   int maxp;
   int has_comp;
   const int16_t* recs;      // [N, 36]
@@ -641,6 +697,11 @@ struct ScaledArgs {
   int cols, rows;           // the frame's 8x8 block columns and rows
   int scale[3][2];          // 14-bit factors, 0 for the frame's size
   int step[3][2];           // 1/16-pel steps a pixel
+  const int* ftab;          // kFtab, read through L1 (global memory)
+  int any_scaled;           // a slot has another size than the frame
+  // null, or the warps' own count of their tile passes (a reference of a
+  // tile that some cell uses): [0] on the window path, [1] on the walk
+  unsigned long long* paths;
 };
 
 __device__ __forceinline__ int clamp_mv(int mv, int b0, int span, int n8,
@@ -659,121 +720,427 @@ __device__ __forceinline__ long long scaled_start(int mv, int a0, int sc,
   return ((static_cast<long long>(mv) * 2 * sc) >> 14) + (pa >> 10);
 }
 
-__global__ void __launch_bounds__(kScaledThreads)
-    mc_scaled_kernel(const __grid_constant__ ScaledArgs a) {
-  __shared__ int32_t hv[kScaledRows][kScaledThreads];
-  const int t = threadIdx.x, lane = t & 31;
-  const int strip_g = blockIdx.x * (kScaledThreads / 32) + (t >> 5);
-  if (strip_g >= a.strips) return;
-  int pi = 0;
-  while (pi + 1 < a.n && strip_g >= a.p[pi + 1].strip0) ++pi;
-  const ScaledPlane& p = a.p[pi];
-  const int strip = strip_g - p.strip0;
-  const int i = strip / p.strips_x;
-  const int j = (strip % p.strips_x) * 8 + (lane >> 2);
-  if (j >= p.c4) return;
-  const int x = 4 * j + (lane & 3), y0 = 4 * i;
-  const size_t g = static_cast<size_t>(i) * p.c4 + j;
-  int32_t* out = p.out + static_cast<size_t>(y0) * p.W + x;
-  if (!__ldg(p.inter + g)) {
+// A cell's call structure in a plane (from its block record): the anchor
+// (ay, ax), the parent corner (by, bx) and span (ph, pw).
+struct Call {
+  int ay, ax, by, bx, ph, pw;
+};
+
+// A cell's motion for one reference: its slot and bank, and its map to
+// the source, the 1/16-pel position of its first pixel column (cx: column
+// cx >> 4, phase cx & 15) and row (cy), a step a pixel (the slot's).
+struct SMotion {
+  int sel, bank, cx, cy;
+};
+
+__device__ __forceinline__ bool same(const SMotion& a, const SMotion& b) {
+  return a.sel == b.sel && a.bank == b.bank && a.cx == b.cx && a.cy == b.cy;
+}
+
+// The splat's index entry of the cell (i, j) of plane p: its 8x8 unit's
+__device__ __forceinline__ unsigned long long cell_entry(
+    const ScaledArgs& a, const ScaledPlane& p, int i, int j) {
+  return __ldg(a.bidx + static_cast<size_t>((i << p.ss_y) >> 1) * a.c8 +
+               ((j << p.ss_x) >> 1));
+}
+
+// The call structure of the cell (i, j) of plane p from its record, which
+// its index entry e names.
+__device__ __forceinline__ Call cell_call(const ScaledArgs& a,
+                                          const ScaledPlane& p, int i,
+                                          int j, unsigned long long e) {
+  const int b = static_cast<unsigned>(e >> 32) == a.epoch
+                    ? min(static_cast<int>(e & 0xffffffffu), a.N - 1)
+                    : a.N - 1;
+  const int16_t* rec = a.recs + static_cast<size_t>(b) * kRecLen;
+  const int brow = rec[0], bcol = rec[1], bs = rec[3];
+  const bool sub8 = bs > 9;
+  const int bsc = clip(bs, 0, 12);
+  Call c;
+  c.by = (brow * 8) >> p.ss_y;
+  c.bx = (bcol * 8) >> p.ss_x;
+  c.ay = c.by + (sub8 && !p.ss_y ? ((i - brow * 2) & 1) * 4 : 0);
+  c.ax = c.bx + (sub8 && !p.ss_x ? ((j - bcol * 2) & 1) * 4 : 0);
+  c.pw = (kBwh[bsc][0] * 8) >> p.ss_x;
+  c.ph = (kBwh[bsc][1] * 8) >> p.ss_y;
+  return c;
+}
+
+// A slot's step on axis d: 16 at the frame's size. A slot of another size
+// steps 1-32 (the decoder refuses a frame whose blocks use one beyond); a
+// larger step is taken as kMaxStep, which keeps every read in the slice.
+__device__ __forceinline__ int slot_step(const ScaledArgs& a, int sel,
+                                         int d) {
+  return a.scale[sel][0] ? min(a.step[sel][d], kMaxStep) : 16;
+}
+
+// The motion of the cell whose first pixel is (yc, xc) for reference ri:
+// its raw MV (mvx, mvy), slot sel and bank; cl its call structure (read
+// only for a scaled slot).
+__device__ __forceinline__ SMotion cell_motion(const ScaledArgs& a,
+                                               const ScaledPlane& p, int sel,
+                                               int bank, int mvx, int mvy,
+                                               const Call& cl, int yc,
+                                               int xc) {
+  if (a.scale[sel][0] == 0) {
+    mvx *= 2 >> p.ss_x;
+    mvy *= 2 >> p.ss_y;
+    return SMotion{sel, bank, 16 * xc + mvx, 16 * yc + mvy};
+  }
+  mvx = clamp_mv(mvx, cl.bx, cl.pw, a.cols, p.ss_x);
+  mvy = clamp_mv(mvy, cl.by, cl.ph, a.rows, p.ss_y);
+  const long long tx0 = scaled_start(mvx, cl.ax, a.scale[sel][0], p.ss_x);
+  const long long ty0 = scaled_start(mvy, cl.ay, a.scale[sel][1], p.ss_y);
+  // pos(x) = tx0 + (x - ax) step, as (tx0 >> 4) whole pixels and the rest
+  const int txk =
+      static_cast<int>(tx0 & 15) + (xc - cl.ax) * slot_step(a, sel, 0);
+  const int tyk =
+      static_cast<int>(ty0 & 15) + (yc - cl.ay) * slot_step(a, sel, 1);
+  return SMotion{sel, bank, 16 * static_cast<int>(tx0 >> 4) + txk,
+                 16 * static_cast<int>(ty0 >> 4) + tyk};
+}
+
+// The 8 taps of bank `bank` at phase `ph`, two 16-byte loads through L1:
+// the lanes of a warp ask for up to 16 phases at once, which constant
+// memory would serve one address at a time.
+__device__ __forceinline__ void taps(const ScaledArgs& a, int bank, int ph,
+                                     int* t) {
+  const int4* row =
+      reinterpret_cast<const int4*>(a.ftab + (bank * 16 + ph) * 8);
+  const int4 lo = __ldg(row), hi = __ldg(row + 1);
+  t[0] = lo.x;
+  t[1] = lo.y;
+  t[2] = lo.z;
+  t[3] = lo.w;
+  t[4] = hi.x;
+  t[5] = hi.y;
+  t[6] = hi.z;
+  t[7] = hi.w;
+}
+
+// The window path: the prediction of the lane's two quads from one motion
+// m, whose map is at the tile's origin.
+__device__ __forceinline__ void scaled_window(const ScaledArgs& a,
+                                              const ScaledPlane& p,
+                                              int32_t* s, int lane,
+                                              const SMotion& m, int v[2][4]) {
+  const int sx = slot_step(a, m.sel, 0), sy = slot_step(a, m.sel, 1);
+  const int fx = m.cx & 15, fy = m.cy & 15;
+  const int ncol = ((fx + 15 * sx) >> 4) + 8;
+  const int nrow = ((fy + 15 * sy) >> 4) + 8;
+  const int c0 = (m.cx >> 4) - 3, r0 = (m.cy >> 4) - 3;
+  const int32_t* ref = p.ref[m.sel];
+  const int stride = p.ref_stride[m.sel];
+  const int wm = p.ref_w[m.sel] - 1, hm = p.ref_h[m.sel] - 1;
+  // window column v sits at v + off of its row: where no column is
+  // clamped and the slot's rows are aligned, the rows go as the 16-byte
+  // chunks that hold them (off = c0 % 4), else a column at a time
+  int off = 0;
+  const int nch = ((c0 & 3) + ncol + 3) >> 2;
+  if (p.vec[m.sel] && c0 >= 0 && c0 + ncol - 1 <= wm &&
+      (c0 & ~3) + 4 * nch <= stride) {
+    off = c0 & 3;
+    const int32_t* src = ref + (c0 - off);
+    // chunk i = r nch + k, the lane's stepping by 32 without a division
+    const int dr = 32 / nch, dk = 32 - dr * nch;
+    int r = lane / nch, k = lane - r * nch;
+    for (; r < nrow; r += dr, k += dk) {
+      if (k >= nch) {
+        k -= nch;
+        ++r;
+        if (r >= nrow) break;
+      }
+      copy16(s + r * kSWinStride + 4 * k,
+             src + static_cast<size_t>(clip(r0 + r, 0, hm)) * stride + 4 * k);
+    }
+  } else {
+    for (int c = lane; c < ncol; c += 32) {
+      const int32_t* src = ref + clip(c0 + c, 0, wm);
+      for (int r = 0; r < nrow; ++r)
+        copy4(s + r * kSWinStride + c,
+              src + static_cast<size_t>(clip(r0 + r, 0, hm)) * stride);
+    }
+  }
+  copies_done();
+  __syncwarp();
+  // horizontal pass: output column j at its phase, rows lane / 16 + 2 i
+  int32_t* hv = s + kSHv;
+  {
+    const int j = lane & 15, tk = fx + j * sx;
+    int t[8];
+    taps(a, m.bank, tk & 15, t);
+    const int32_t* w = s + (tk >> 4) + off;
+    for (int u = lane >> 4; u < nrow; u += 2)
+      hv[u * kTile + j] = tap8(t, w + u * kSWinStride, a.maxp);
+  }
+  __syncwarp();
+  // vertical pass: each of the lane's two pixel rows at its phase
+  const int q = lane & 3;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) out[static_cast<size_t>(r) * p.W] = 0;
+  for (int k = 0; k < 2; ++k) {
+    const int tk = fy + ((lane >> 2) + 8 * k) * sy;
+    int t[8];
+    taps(a, m.bank, tk & 15, t);
+    int acc[4] = {0, 0, 0, 0};
+    const int32_t* h = hv + (tk >> 4) * kTile + 4 * q;
+#pragma unroll
+    for (int tap = 0; tap < 8; ++tap) {
+      const int4 h4 = *reinterpret_cast<const int4*>(h + tap * kTile);
+      acc[0] += t[tap] * h4.x;
+      acc[1] += t[tap] * h4.y;
+      acc[2] += t[tap] * h4.z;
+      acc[3] += t[tap] * h4.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[k][i] = clip((acc[i] + 64) >> 7, 0, a.maxp);
+  }
+}
+
+// The walk: the prediction of the lane's two quads from the cells of
+// `cells` (bit 4 i + j: cell (i, j) of the tile), whose motions
+// (SMotion, at the cell's first pixel) are in the slice's descriptors,
+// kSCells cells a step (all their patches' copies in flight at once) and
+// 4 lanes a cell, a column each.
+__device__ __forceinline__ void scaled_walk(const ScaledArgs& a,
+                                            const ScaledPlane& p, int32_t* s,
+                                            int lane, unsigned cells,
+                                            int v[2][4]) {
+  const int grp = lane >> 2, rank = lane & 3;
+  int32_t* patch = s + grp * kSPatch * kSPatch;
+  int32_t* hval = s + kSHval + grp * kSPatch * 4;
+  int32_t* pred = s + kSPred;
+  while (cells) {
+    int c = -1;
+#pragma unroll
+    for (int i = 0; i < kSCells; ++i) {
+      const int b = cells ? __ffs(cells) - 1 : -1;
+      if (i == grp) c = b;
+      cells &= cells - 1;
+    }
+    SMotion m{0, 0, 0, 0};
+    int sx = 16, sy = 16, nrow = 0;
+    if (c >= 0) {
+      const int4 d = *reinterpret_cast<const int4*>(s + kSDesc + 8 * c);
+      m = SMotion{d.x, d.y, d.z, d.w};
+      sx = slot_step(a, m.sel, 0);
+      sy = slot_step(a, m.sel, 1);
+      const int ncol = (((m.cx & 15) + 3 * sx) >> 4) + 8;
+      nrow = (((m.cy & 15) + 3 * sy) >> 4) + 8;
+      const int c0 = (m.cx >> 4) - 3, r0 = (m.cy >> 4) - 3;
+      const int wm = p.ref_w[m.sel] - 1, hm = p.ref_h[m.sel] - 1;
+      const int stride = p.ref_stride[m.sel];
+      for (int col = rank; col < ncol; col += 4) {
+        const int32_t* src = p.ref[m.sel] + clip(c0 + col, 0, wm);
+        for (int r = 0; r < nrow; ++r)
+          copy4(patch + r * kSPatch + col,
+                src + static_cast<size_t>(clip(r0 + r, 0, hm)) * stride);
+      }
+    }
+    copies_done();
+    __syncwarp();
+    if (c >= 0) {
+      // horizontal pass: column `rank` of the cell at its phase, every row
+      const int tk = (m.cx & 15) + rank * sx;
+      int t[8];
+      taps(a, m.bank, tk & 15, t);
+      for (int r = 0; r < nrow; ++r)
+        hval[r * 4 + rank] = tap8(t, patch + r * kSPatch + (tk >> 4), a.maxp);
+    }
+    __syncwarp();
+    if (c >= 0) {
+      // vertical pass: the cell's four pixels of column `rank`
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int tk = (m.cy & 15) + y * sy;
+        int t[8];
+        taps(a, m.bank, tk & 15, t);
+        int acc = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          acc += t[k] * hval[((tk >> 4) + k) * 4 + rank];
+        pred[((c >> 2) * 4 + y) * kTile + (c & 3) * 4 + rank] =
+            clip((acc + 64) >> 7, 0, a.maxp);
+      }
+    }
+  }
+  __syncwarp();
+  const int q = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int4 p4 = *reinterpret_cast<const int4*>(
+        pred + ((lane >> 2) + 8 * k) * kTile + 4 * q);
+    v[k][0] = p4.x;
+    v[k][1] = p4.y;
+    v[k][2] = p4.z;
+    v[k][3] = p4.w;
+  }
+}
+
+__global__ void __launch_bounds__(kSThreads, kSMinBlocks)
+    mc_scaled_kernel(const __grid_constant__ ScaledArgs a) {
+  __shared__ __align__(16) int32_t smem[kSWarps * kSSlice];
+  const int lane = threadIdx.x & 31;
+  const int tile_g = blockIdx.x * kSWarps + (threadIdx.x >> 5);
+  if (tile_g >= a.tiles) return;
+  int pi = 0;
+  while (pi + 1 < a.n && tile_g >= a.p[pi + 1].tile0) ++pi;
+  const ScaledPlane& p = a.p[pi];
+  int32_t* s = smem + (threadIdx.x >> 5) * kSSlice;
+  const int tile = tile_g - p.tile0;
+  const int y0 = (tile / p.tiles_x) * kTile, x0 = (tile % p.tiles_x) * kTile;
+  const int x = x0 + 4 * (lane & 3);
+  // every grid load first, then the records the scaled slots need, then
+  // the residuals of the inter quads into the slice
+  bool qin[2], inter[2], comp[2];
+  int4 mv[2];
+  int2 rs[2];
+  int filt[2];
+  unsigned long long ent[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int y = y0 + (lane >> 2) + 8 * k;
+    qin[k] = y < p.H && x < p.W;
+    inter[k] = comp[k] = false;
+    mv[k] = make_int4(0, 0, 0, 0);
+    rs[k] = make_int2(0, 0);
+    filt[k] = 0;
+    ent[k] = 0;
+    if (qin[k]) {
+      const size_t g = static_cast<size_t>(y >> 2) * (p.W >> 2) + (x >> 2);
+      inter[k] = __ldg(p.inter + g) != 0;
+      if (a.has_comp) comp[k] = __ldg(p.comp + g) != 0;
+      filt[k] = __ldg(p.filt + g);
+      rs[k] = __ldg(reinterpret_cast<const int2*>(p.refsel) + g);
+      mv[k] = __ldg(reinterpret_cast<const int4*>(p.mv) + g);
+      // the record's index entry beside the grids, where a slot is scaled
+      if (a.any_scaled) ent[k] = cell_entry(a, p, y >> 2, x >> 2);
+    }
+    comp[k] = comp[k] && inter[k];
+    rs[k] = make_int2(clip(rs[k].x, 0, 2), clip(rs[k].y, 0, 2));
+    filt[k] = clip(filt[k], 0, 3);
+  }
+  if (!__any_sync(kFull, inter[0] || inter[1])) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (qin[k])
+        *reinterpret_cast<int4*>(
+            p.out + static_cast<size_t>(y0 + (lane >> 2) + 8 * k) * p.W + x) =
+            make_int4(0, 0, 0, 0);
     return;
   }
-  const int nref = a.has_comp && __ldg(p.comp + g) ? 2 : 1;
-  const int bank = clip(__ldg(p.filt + g), 0, 3);
-  bool have_rec = false;
-  int ay = 0, ax = 0, by = 0, bx = 0, ph = 0, pw = 0;
-  int pred[4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (inter[k])
+      copy16(s + kSRes + ((lane >> 2) + 8 * k) * kTile + 4 * (lane & 3),
+             p.residual +
+                 static_cast<size_t>(y0 + (lane >> 2) + 8 * k) * p.W + x);
+  Call cl[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    cl[k] = Call{0, 0, 0, 0, 0, 0};
+    if (inter[k] && (a.scale[rs[k].x][0] || (comp[k] && a.scale[rs[k].y][0])))
+      cl[k] = cell_call(a, p, (y0 >> 2) + (lane >> 2) / 4 + 2 * k, x >> 2,
+                        ent[k]);
+  }
+  const int nref = __any_sync(kFull, comp[0] || comp[1]) ? 2 : 1;
+  int pred[2][4];
   for (int ri = 0; ri < nref; ++ri) {
-    const int sel = clip(__ldg(p.refsel + g * 2 + ri), 0, 2);
-    int mvx = __ldg(p.mv + g * 4 + ri * 2);
-    int mvy = __ldg(p.mv + g * 4 + ri * 2 + 1);
-    int col0, phx, row[4], phy[4];
-    if (a.scale[sel][0] == 0) {
-      mvx *= 2 >> p.ss_x;
-      mvy *= 2 >> p.ss_y;
-      col0 = x + (mvx >> 4) - 3;
-      phx = mvx & 15;
+    if (ri) __syncwarp();   // reference 0's reads of the slice are done
+    bool act[2];
+    SMotion m[2], key[2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        row[r] = y0 + r + (mvy >> 4) - 3;
-        phy[r] = mvy & 15;
+    for (int k = 0; k < 2; ++k) {
+      act[k] = ri ? comp[k] : inter[k];
+      m[k] = key[k] = SMotion{0, 0, 0, 0};
+      if (act[k]) {
+        const int yc = y0 + (lane >> 2 & ~3) + 8 * k;
+        const int sel = ri ? rs[k].y : rs[k].x;
+        m[k] = cell_motion(a, p, sel, filt[k], ri ? mv[k].z : mv[k].x,
+                           ri ? mv[k].w : mv[k].y, cl[k], yc, x);
+        // the map at the tile's origin
+        key[k] = SMotion{m[k].sel, m[k].bank,
+                         m[k].cx + (x0 - x) * slot_step(a, sel, 0),
+                         m[k].cy + (y0 - yc) * slot_step(a, sel, 1)};
       }
+    }
+    // the vote: the first lane that uses the reference leads
+    const unsigned by0 = __ballot_sync(kFull, act[0]);
+    const unsigned by1 = __ballot_sync(kFull, act[1]);
+    const int src = __ffs(by0 | by1) - 1;
+    const SMotion mine = act[0] ? key[0] : key[1];
+    const SMotion lead{__shfl_sync(kFull, mine.sel, src),
+                       __shfl_sync(kFull, mine.bank, src),
+                       __shfl_sync(kFull, mine.cx, src),
+                       __shfl_sync(kFull, mine.cy, src)};
+    int v[2][4];
+    const bool one = __all_sync(kFull, (!act[0] || same(key[0], lead)) &&
+                                           (!act[1] || same(key[1], lead)));
+    if (a.paths && lane == 0) atomicAdd(a.paths + (one ? 0 : 1), 1ull);
+    if (one) {
+      scaled_window(a, p, s, lane, lead, v);
     } else {
-      if (!have_rec) {
-        // the record of luma cell (i << ss_y, j << ss_x), by its 8x8 unit
-        const unsigned long long e =
-            a.bidx[static_cast<size_t>((i << p.ss_y) >> 1) * a.c8 +
-                   ((j << p.ss_x) >> 1)];
-        const int b = static_cast<unsigned>(e >> 32) == a.epoch
-                          ? min(static_cast<int>(e & 0xffffffffu), a.N - 1)
-                          : a.N - 1;
-        const int16_t* rec = a.recs + static_cast<size_t>(b) * kRecLen;
-        const int brow = rec[0], bcol = rec[1], bs = rec[3];
-        const bool sub8 = bs > 9;
-        const int bsc = clip(bs, 0, 12);
-        by = (brow * 8) >> p.ss_y;
-        bx = (bcol * 8) >> p.ss_x;
-        ay = by + (sub8 && !p.ss_y ? ((i - brow * 2) & 1) * 4 : 0);
-        ax = bx + (sub8 && !p.ss_x ? ((j - bcol * 2) & 1) * 4 : 0);
-        pw = (kBwh[bsc][0] * 8) >> p.ss_x;
-        ph = (kBwh[bsc][1] * 8) >> p.ss_y;
-        have_rec = true;
-      }
-      mvx = clamp_mv(mvx, bx, pw, a.cols, p.ss_x);
-      mvy = clamp_mv(mvy, by, ph, a.rows, p.ss_y);
-      const long long tx0 = scaled_start(mvx, ax, a.scale[sel][0], p.ss_x);
-      const long long ty0 = scaled_start(mvy, ay, a.scale[sel][1], p.ss_y);
-      const int txk = static_cast<int>(tx0 & 15) + (x - ax) * a.step[sel][0];
-      col0 = static_cast<int>(tx0 >> 4) + (txk >> 4) - 3;
-      phx = txk & 15;
+      // the lanes of the cells' first pixel rows leave their motions; cell
+      // (i, j) of the tile is lane 16 i + j's first cell for i < 2, lane
+      // 16 (i - 2) + j's second for i >= 2
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int tyk =
-            static_cast<int>(ty0 & 15) + (y0 + r - ay) * a.step[sel][1];
-        row[r] = static_cast<int>(ty0 >> 4) + (tyk >> 4) - 3;
-        phy[r] = tyk & 15;
-      }
+      for (int k = 0; k < 2; ++k)
+        if (act[k] && !(lane & 12))
+          *reinterpret_cast<int4*>(s + kSDesc +
+                                   8 * (4 * (lane >> 4) + 8 * k + (lane & 3))) =
+              make_int4(m[k].sel, m[k].bank, m[k].cx, m[k].cy);
+      __syncwarp();
+      const unsigned cells = (by0 & 0xf) | (by0 >> 16 & 0xf) << 4 |
+                             (by1 & 0xf) << 8 | (by1 >> 16 & 0xf) << 12;
+      scaled_walk(a, p, s, lane, cells, v);
     }
-    const int32_t* ref = p.ref[sel];
-    const int wm = p.ref_w[sel] - 1, hm = p.ref_h[sel] - 1;
-    int cidx[8], tx[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      cidx[k] = clip(col0 + k, 0, wm);
-      tx[k] = kFtab[bank][phx][k];
-    }
-    // horizontal pass over the rows the column's pixels need
-    const int nrows = clip(row[3] - row[0] + 8, 8, kScaledRows);
-    for (int u = 0; u < nrows; ++u) {
-      const int32_t* src = ref + static_cast<size_t>(clip(row[0] + u, 0, hm)) *
-                                     p.ref_stride[sel];
-      int acc = 0;
+    for (int k = 0; k < 2; ++k)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc += tx[k] * __ldg(src + cidx[k]);
-      hv[u][t] = clip((acc + 64) >> 7, 0, a.maxp);
-    }
-    // vertical pass at each row's phase
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int base = row[r] - row[0];
-      int acc = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        acc += kFtab[bank][phy[r]][k] *
-               hv[clip(base + k, 0, kScaledRows - 1)][t];
-      const int v = clip((acc + 64) >> 7, 0, a.maxp);
-      pred[r] = ri == 0 ? v : (pred[r] + v + 1) >> 1;
-    }
+      for (int i = 0; i < 4; ++i)
+        pred[k][i] = ri == 0 ? v[k][i]
+                   : act[k]  ? (pred[k][i] + v[k][i] + 1) >> 1
+                             : pred[k][i];
   }
+  copies_done();
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const size_t o = static_cast<size_t>(r) * p.W;
-    out[o] = clip(pred[r] + __ldg(p.residual + static_cast<size_t>(y0) * p.W +
-                                  x + o),
-                  0, a.maxp);
+  for (int k = 0; k < 2; ++k) {
+    if (!qin[k]) continue;
+    int4 o = make_int4(0, 0, 0, 0);
+    if (inter[k]) {
+      const int4 res = *reinterpret_cast<const int4*>(
+          s + kSRes + ((lane >> 2) + 8 * k) * kTile + 4 * (lane & 3));
+      o = make_int4(clip(pred[k][0] + res.x, 0, a.maxp),
+                    clip(pred[k][1] + res.y, 0, a.maxp),
+                    clip(pred[k][2] + res.z, 0, a.maxp),
+                    clip(pred[k][3] + res.w, 0, a.maxp));
+    }
+    *reinterpret_cast<int4*>(
+        p.out + static_cast<size_t>(y0 + (lane >> 2) + 8 * k) * p.W + x) = o;
   }
+}
+
+// kFtab's address on the current device, for taps()' 16-byte loads:
+// looked up once a device and process (a host call, on a host-bound
+// path), and refused unless 16-byte aligned.
+cudaError_t ftab_address(const int** out) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<const int*> cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  const int* p = cache[dev].load(std::memory_order_acquire);
+  if (!p) {
+    void* addr = nullptr;
+    err = cudaGetSymbolAddress(&addr, kFtab);
+    if (err != cudaSuccess) return err;
+    if (reinterpret_cast<uintptr_t>(addr) % 16)
+      return cudaErrorMisalignedAddress;
+    p = static_cast<const int*>(addr);
+    cache[dev].store(p, std::memory_order_release);
+  }
+  *out = p;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -838,11 +1205,15 @@ int mc_planes(const void* const* ptrs, const int* dims, int n, int bpp,
 // mc_planes' (ref0-2 int32 [Hr, Wr], each of its own shape; residual,
 // out int32 [H, W]; inter4, comp bool (comp null when has_comp is 0);
 // filt int32 [H/4, W/4]; refsel int32 [H/4, W/4, 2]; mv int32 [H/4, W/4,
-// 2, 2], raw 1/8 pel), then recs (int16 [N, 36]) and the splat's index
-// (uint64 [r8 * c8]). dims: 16 ints a plane: H, W (multiples of 4), ss_x,
+// 2, 2], raw 1/8 pel), then recs (int16 [N, 36]), the splat's index
+// (uint64 [r8 * c8]) and paths (null, or uint64 [2]: the warps add their
+// tile passes on the window path to [0], those on the walk to [1]). dims: 16 ints a plane: H, W (multiples of 4), ss_x,
 // ss_y (0 or 1), then a slot each Hr, Wr, w, h (1 <= w <= Wr, 1 <= h <=
 // Hr). frame: 18 ints: N, epoch, r8, c8 (the luma 8x8 units), cols, rows,
-// scale[3][2], step[3][2]. bpp: 8-12.
+// scale[3][2], step[3][2] (a slot of another size steps 1-32 a pixel:
+// at most twice the frame's size, at most 16 times smaller; slot_step).
+// bpp: 8-12.
+// residual, out and mv must be 16-byte aligned, refsel 8-byte aligned.
 int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
                      const int* frame, int bpp, int has_comp,
                      cudaStream_t stream) {
@@ -855,6 +1226,8 @@ int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
   a.has_comp = has_comp != 0;
   a.recs = static_cast<const int16_t*>(ptrs[10 * n]);
   a.bidx = static_cast<const unsigned long long*>(ptrs[10 * n + 1]);
+  a.paths = static_cast<unsigned long long*>(const_cast<void*>(
+      ptrs[10 * n + 2]));
   a.N = frame[0];
   a.epoch = static_cast<unsigned>(frame[1]);
   const int r8 = frame[2];
@@ -868,7 +1241,13 @@ int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
     }
   if (!a.recs || !a.bidx || a.N < 1 || r8 < 1 || a.c8 < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int strips = 0;
+  const auto misaligned = [](const void* ptr, uintptr_t to) {
+    return reinterpret_cast<uintptr_t>(ptr) % to != 0;
+  };
+  const cudaError_t err = ftab_address(&a.ftab);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int k = 0; k < 3; ++k) a.any_scaled |= a.scale[k][0] != 0;
+  int tiles = 0;
   for (int i = 0; i < n; ++i) {
     const void* const* q = ptrs + 10 * i;
     const int* d = dims + 16 * i;
@@ -880,10 +1259,8 @@ int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
     if (p.H <= 0 || p.W <= 0 || p.H % 4 || p.W % 4 || p.ss_x < 0 ||
         p.ss_x > 1 || p.ss_y < 0 || p.ss_y > 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    p.r4 = p.H / 4;
-    p.c4 = p.W / 4;
-    if ((((p.r4 << p.ss_y) + 1) >> 1) != r8 ||
-        (((p.c4 << p.ss_x) + 1) >> 1) != a.c8)
+    if (((((p.H >> 2) << p.ss_y) + 1) >> 1) != r8 ||
+        ((((p.W >> 2) << p.ss_x) + 1) >> 1) != a.c8)
       return static_cast<int>(cudaErrorInvalidValue);
     for (int r = 0; r < 3; ++r) {
       p.ref[r] = static_cast<const int32_t*>(q[r]);
@@ -894,6 +1271,7 @@ int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
       if (!p.ref[r] || p.ref_w[r] < 1 || p.ref_w[r] > s[1] ||
           p.ref_h[r] < 1 || p.ref_h[r] > s[0])
         return static_cast<int>(cudaErrorInvalidValue);
+      p.vec[r] = !misaligned(p.ref[r], 16) && p.ref_stride[r] % 4 == 0;
     }
     p.residual = static_cast<const int32_t*>(q[3]);
     p.out = static_cast<int32_t*>(const_cast<void*>(q[4]));
@@ -902,14 +1280,16 @@ int mc_planes_scaled(const void* const* ptrs, const int* dims, int n,
     p.filt = static_cast<const int32_t*>(q[7]);
     p.refsel = static_cast<const int32_t*>(q[8]);
     p.mv = static_cast<const int32_t*>(q[9]);
-    if (has_comp && !p.comp) return static_cast<int>(cudaErrorInvalidValue);
-    p.strips_x = (p.c4 + 7) / 8;
-    p.strip0 = strips;
-    strips += p.strips_x * p.r4;
+    if ((has_comp && !p.comp) || misaligned(p.residual, 16) ||
+        misaligned(p.out, 16) || misaligned(p.mv, 16) ||
+        misaligned(p.refsel, 8))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.tiles_x = (p.W + kTile - 1) / kTile;
+    p.tile0 = tiles;
+    tiles += p.tiles_x * ((p.H + kTile - 1) / kTile);
   }
-  a.strips = strips;
-  constexpr int kStrips = kScaledThreads / 32;
-  mc_scaled_kernel<<<(strips + kStrips - 1) / kStrips, kScaledThreads, 0,
+  a.tiles = tiles;
+  mc_scaled_kernel<<<(tiles + kSWarps - 1) / kSWarps, kSThreads, 0,
                      stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

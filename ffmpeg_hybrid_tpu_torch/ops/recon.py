@@ -729,7 +729,7 @@ def mc_planes_scaled_plain(jobs, bpp, has_comp, recs, scales, steps, cols,
 
 
 def mc_planes_scaled(jobs, bpp, has_comp, recs, scales, steps, cols, rows,
-                     index=None):
+                     index=None, paths=None):
     """The inter pass of a frame's planes when a reference has another
     size than the frame -> an [H, W] int32 plane a job. jobs: [(residual
     [H, W] int32, inter4 [H/4, W/4] bool, comp bool, filt int32, refsel
@@ -742,10 +742,17 @@ def mc_planes_scaled(jobs, bpp, has_comp, recs, scales, steps, cols, rows,
     (0 for a slot of the frame's size) and 1/16-pel steps; cols, rows:
     the frame's 8x8 block columns and rows; index: on a card, the
     recon_cuda.SplatState of the splat that made the grids, read at its
-    current epoch (the cells' records). has_comp=False leaves comp
+    current epoch (the cells' records); paths: on a card, None or an int64
+    [2] tensor there, to which the kernel's warps add their tile passes
+    (a reference of a 16x16 tile that some cell uses) on the window path
+    ([0]) and on the walk ([1]). has_comp=False leaves comp
     unread. CPU tensors take mc_planes_scaled_plain; any other device the
     kernel (csrc/mc.cu mc_planes_scaled, one launch for all the planes),
-    which takes CUDA tensors only."""
+    which takes CUDA tensors only: it reads the residual, the output and
+    mvraw as 16-byte vectors and refsel as 8-byte pairs, so those must be
+    aligned to them. A slot of another size steps 1-32 a pixel (the
+    decoder refuses a frame whose blocks use one beyond; an unused one
+    may step anywhere)."""
     if not jobs:
         return []
     if jobs[0][0].device.type == "cpu":
@@ -799,11 +806,18 @@ def mc_planes_scaled(jobs, bpp, has_comp, recs, scales, steps, cols, rows,
                                     and 1 <= h <= r.shape[0]):
                 raise ValueError(f"visible size {w}x{h} in a reference of "
                                  f"shape {tuple(r.shape)}")
+        out = torch.empty((H, W), dtype=torch.int32, device=dev)
+        for t, name, size in ((residual, "residual", 16), (out, "out", 16),
+                              (mvraw, "mvraw", 16), (refsel, "refsel", 8)):
+            if t.data_ptr() % size:
+                raise ValueError(f"{name} is not {size}-byte aligned")
         checked.append((residual, inter4, comp, filt, refsel, mvraw, refs,
                         tuple(dims), ss_x, ss_y))
-        outs.append(torch.empty((H, W), dtype=torch.int32, device=dev))
+        outs.append(out)
+    if paths is not None:
+        paths = check_tensor(paths, (torch.int64,), (2,), dev, "paths")
     recon_cuda.mc_scaled(checked, outs, bpp, has_comp, recs, index, scales,
-                         steps, cols, rows)
+                         steps, cols, rows, paths)
     return outs
 
 

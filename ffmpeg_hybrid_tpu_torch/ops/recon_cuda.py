@@ -148,7 +148,7 @@ def mc(jobs, outs, bpp, has_comp):
 
 
 def mc_scaled(jobs, outs, bpp, has_comp, recs, index, scales, steps, cols,
-              rows):
+              rows, paths=None):
     """csrc/mc.cu's scaled entry on checked, contiguous tensors: the inter
     pass of up to MC_MAX_PLANES planes of a frame with a reference of
     another size, in one launch. jobs: [(residual [H, W] int32, inter4
@@ -158,7 +158,9 @@ def mc_scaled(jobs, outs, bpp, has_comp, recs, index, scales, steps, cols,
     ss_x, ss_y)]; outs: the [H, W] int32 planes, one a job. recs: the
     frame's [N, 36] int16 records; index: the SplatState of the splat
     that made the grids, read at its current epoch; scales, steps: [3][2]
-    per slot; cols, rows: the frame's 8x8 block columns and rows."""
+    per slot; cols, rows: the frame's 8x8 block columns and rows; paths:
+    None, or an int64 [2] tensor that counts the warps' tile passes on
+    the window path and on the walk."""
     n = len(jobs)
     if not 1 <= n <= MC_MAX_PLANES or len(outs) != n:
         raise ValueError(f"{n} planes for one MC launch")
@@ -173,7 +175,7 @@ def mc_scaled(jobs, outs, bpp, has_comp, recs, index, scales, steps, cols,
         dims[j, :4] = (*out.shape, ss_x, ss_y)
         for k, (r, (w, h)) in enumerate(zip(refs, rdims)):
             dims[j, 4 + 4 * k:8 + 4 * k] = (*r.shape, w, h)
-    ptrs += [recs, index.bidx]
+    ptrs += [recs, index.bidx, paths]
     frame = np.asarray([recs.shape[0], index.epoch, (r4 + 1) // 2,
                         (c4 + 1) // 2, cols, rows,
                         *np.asarray(scales).reshape(-1),

@@ -23,6 +23,7 @@ block uses decodes; a stream that returns to a size reuses that size's
 kept coefficient buffers. `cuda` tests hold the kernel to its plain
 version on the card."""
 import os
+import re
 import sys
 
 import numpy as np
@@ -284,93 +285,171 @@ def _unit_index(recs, r4, c4, epoch, stale_epoch):
     return idx
 
 
-def _kernel_model(c, ss_x, ss_y, bpp, index, epoch):
-    """The scaled kernel's threads, one per 4-pixel column of a cell, in
-    numpy: the cell's record from the unit index, the anchor, the MV
-    clamp, the 64-bit start, each pixel's source column and rows in
-    closed form, the horizontal pass over the column's rows into its
-    16-row store, the vertical pass, the average and the apply."""
-    ftab = R._FTAB
+def _mc_consts():
+    """csrc/mc.cu's scaled window and patch sizes and its largest step."""
+    src = open(os.path.join(os.path.dirname(R.__file__), "..", "csrc",
+                            "mc.cu")).read()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("kSWin", "kSPatch", "kMaxStep")}
+
+
+def _call(c, i, j, ss_x, ss_y, index, epoch):
+    """The call structure of plane cell (i, j) from its record, read from
+    the unit index as the kernel reads it: (ay, ax, by, bx, ph, pw)."""
     bwh = np.asarray(T.BWH_TAB[1])
     recs = c["recs"].astype(np.int64)
+    e = int(index[(i << ss_y) >> 1, (j << ss_x) >> 1])
+    b = min(e & 0xffffffff, len(recs) - 1) if e >> 32 == epoch \
+        else len(recs) - 1
+    brow, bcol, bs = recs[b, 0], recs[b, 1], recs[b, 3]
+    sub8 = bs > 9
+    bsc = min(max(bs, 0), 12)
+    by, bx = (brow * 8) >> ss_y, (bcol * 8) >> ss_x
+    ay = by + (((i - brow * 2) & 1) * 4 if sub8 and not ss_y else 0)
+    ax = bx + (((j - bcol * 2) & 1) * 4 if sub8 and not ss_x else 0)
+    return ay, ax, by, bx, (bwh[bsc, 1] * 8) >> ss_y, (bwh[bsc, 0] * 8) >> ss_x
+
+
+def _motion(c, i, j, ri, ss_x, ss_y, call):
+    """A cell's motion for reference ri, as the kernel's lanes derive it:
+    (slot, bank, the 1/16-pel position of its first pixel column and
+    row, the slot's steps)."""
+    sel = min(max(int(c["refsel"][i, j, ri]), 0), 2)
+    bank = min(max(int(c["filt"][i, j]), 0), 3)
+    mvx, mvy = (int(v) for v in c["mvraw"][i, j, ri])
+    if int(c["scales"][sel][0]) == 0:
+        return (sel, bank, 16 * 4 * j + mvx * (2 >> ss_x),
+                16 * 4 * i + mvy * (2 >> ss_y), 16, 16)
+    ay, ax, by, bx, ph, pw = call
+
+    def clamp(mv, b0, span, n8, ss):
+        if ss:
+            return min(max(mv, -(b0 + span + 4) * 16), (n8 * 4 - b0 + 3) * 16)
+        return min(max(mv, -(b0 + span + 4) * 8), (n8 * 8 - b0 + 3) * 8)
+
+    def start(mv, a0, sc, ss):
+        pa = int(a0) * sc
+        if ss:
+            return ((mv * sc) >> 14) + ((pa >> 10) & ~15) + ((pa >> 9) & 15)
+        return ((mv * 2 * sc) >> 14) + (pa >> 10)
+
+    scx, scy = (int(v) for v in c["scales"][sel])
+    stx, sty = (int(v) for v in c["steps"][sel])
+    tx0 = start(clamp(mvx, bx, pw, c["cols"], ss_x), ax, scx, ss_x)
+    ty0 = start(clamp(mvy, by, ph, c["rows"], ss_y), ay, scy, ss_y)
+    return (sel, bank, 16 * (tx0 >> 4) + (tx0 & 15) + (4 * j - ax) * stx,
+            16 * (ty0 >> 4) + (ty0 & 15) + (4 * i - ay) * sty, stx, sty)
+
+
+def _passes(c, sel, bank, px, py, sx, sy, n, bpp, most):
+    """The prediction [n, n] of n x n pixels whose first pixel reads the
+    1/16-pel position (px, py), as the kernel computes it: the slot's
+    window of ((phase + (n - 1) step) >> 4) + 8 rows and columns (at most
+    `most`), each clamped to the slot's visible size; the horizontal pass
+    of each output column at its phase over the window's rows, the
+    vertical pass of each row at its phase."""
+    ftab = R._FTAB
+    maxp = (1 << bpp) - 1
+    fx, fy = px & 15, py & 15
+    ncol, nrow = ((fx + (n - 1) * sx) >> 4) + 8, ((fy + (n - 1) * sy) >> 4) + 8
+    assert ncol <= most and nrow <= most
+    ref = c["planes"][sel].astype(np.int64)
+    w, h = c["dims"][sel]
+    win = ref[np.clip((py >> 4) - 3 + np.arange(nrow), 0, h - 1)][
+        :, np.clip((px >> 4) - 3 + np.arange(ncol), 0, w - 1)]
+    hv = np.zeros((nrow, n), np.int64)
+    for x in range(n):
+        tk = fx + x * sx
+        acc = win[:, (tk >> 4) + np.arange(8)] @ ftab[bank, tk & 15]
+        hv[:, x] = np.clip((acc + 64) >> 7, 0, maxp)
+    out = np.zeros((n, n), np.int64)
+    for y in range(n):
+        tk = fy + y * sy
+        acc = ftab[bank, tk & 15] @ hv[(tk >> 4) + np.arange(8)]
+        out[y] = np.clip((acc + 64) >> 7, 0, maxp)
+    return out
+
+
+def _kernel_model(c, ss_x, ss_y, bpp, index, epoch, paths=None):
+    """csrc/mc.cu's scaled kernel in numpy, a warp per 16x16 tile: each
+    cell's record from the unit index, its motion for each reference
+    (_motion) and its key, the motion's line at the tile's origin; where
+    every cell of the tile that uses the reference has one key, the
+    window path (_passes over the tile, a window of at most kSWin), else
+    the walk (_passes over each cell, a patch of at most kSPatch); the
+    compound average, the residual and the clip. paths: a dict counting
+    the window and walk passes."""
+    k = _mc_consts()
     maxp = (1 << bpp) - 1
     pr4, pc4 = c["inter"].shape
     out = np.zeros((pr4 * 4, pc4 * 4), np.int64)
-    for i in range(pr4):
-        for j in range(pc4):
-            if not c["inter"][i, j]:
-                continue
-            nref = 2 if c["comp"][i, j] else 1
-            bank = min(max(c["filt"][i, j], 0), 3)
-            e = int(index[(i << ss_y) >> 1, (j << ss_x) >> 1])
-            b = min(e & 0xffffffff, len(recs) - 1) if e >> 32 == epoch \
-                else len(recs) - 1
-            brow, bcol, bs = recs[b, 0], recs[b, 1], recs[b, 3]
-            sub8 = bs > 9
-            bsc = min(max(bs, 0), 12)
-            by, bx = (brow * 8) >> ss_y, (bcol * 8) >> ss_x
-            ay = by + (((i - brow * 2) & 1) * 4 if sub8 and not ss_y else 0)
-            ax = bx + (((j - bcol * 2) & 1) * 4 if sub8 and not ss_x else 0)
-            pw, ph = (bwh[bsc, 0] * 8) >> ss_x, (bwh[bsc, 1] * 8) >> ss_y
-            for cx in range(4):
-                x, y0 = 4 * j + cx, 4 * i
-                pred = [0] * 4
-                for ri in range(nref):
-                    sel = min(max(c["refsel"][i, j, ri], 0), 2)
-                    mvx, mvy = (int(v) for v in c["mvraw"][i, j, ri])
-                    scx, scy = (int(v) for v in c["scales"][sel])
-                    stx, sty = (int(v) for v in c["steps"][sel])
-                    if scx == 0:
-                        mvx *= 2 >> ss_x
-                        mvy *= 2 >> ss_y
-                        col0, phx = x + (mvx >> 4) - 3, mvx & 15
-                        row = [y0 + r + (mvy >> 4) - 3 for r in range(4)]
-                        phy = [mvy & 15] * 4
-                    else:
-                        def clamp(mv, b0, span, n8, ss):
-                            if ss:
-                                return min(max(mv, -(b0 + span + 4) * 16),
-                                           (n8 * 4 - b0 + 3) * 16)
-                            return min(max(mv, -(b0 + span + 4) * 8),
-                                       (n8 * 8 - b0 + 3) * 8)
-
-                        def start(mv, a0, sc, ss):
-                            pa = int(a0) * sc
-                            if ss:
-                                return ((mv * sc) >> 14) + ((pa >> 10) & ~15) \
-                                    + ((pa >> 9) & 15)
-                            return ((mv * 2 * sc) >> 14) + (pa >> 10)
-                        mvx = clamp(mvx, bx, pw, c["cols"], ss_x)
-                        mvy = clamp(mvy, by, ph, c["rows"], ss_y)
-                        tx0 = start(mvx, ax, scx, ss_x)
-                        ty0 = start(mvy, ay, scy, ss_y)
-                        txk = (tx0 & 15) + (x - ax) * stx
-                        col0, phx = (tx0 >> 4) + (txk >> 4) - 3, txk & 15
-                        tyk = [(ty0 & 15) + (y0 + r - ay) * sty
-                               for r in range(4)]
-                        row = [(ty0 >> 4) + (v >> 4) - 3 for v in tyk]
-                        phy = [v & 15 for v in tyk]
-                    ref = c["planes"][sel]
-                    wm, hm = c["dims"][sel][0] - 1, c["dims"][sel][1] - 1
-                    cidx = np.clip(col0 + np.arange(8), 0, wm)
-                    nrows = min(max(row[3] - row[0] + 8, 8), 16)
-                    hv = np.zeros(16, np.int64)
-                    for u in range(nrows):
-                        src = ref[min(max(row[0] + u, 0), hm), cidx]
-                        acc = int((ftab[bank, phx] * src.astype(np.int64))
-                                  .sum())
-                        hv[u] = min(max((acc + 64) >> 7, 0), maxp)
-                    for r in range(4):
-                        base = row[r] - row[0]
-                        acc = sum(int(ftab[bank, phy[r], k])
-                                  * int(hv[min(base + k, 15)])
-                                  for k in range(8))
-                        v = min(max((acc + 64) >> 7, 0), maxp)
-                        pred[r] = v if ri == 0 else (pred[r] + v + 1) >> 1
-                for r in range(4):
-                    out[y0 + r, x] = min(max(
-                        pred[r] + int(c["residual"][y0 + r, x]), 0), maxp)
+    for ty in range(0, pr4, 4):
+        for tx in range(0, pc4, 4):
+            cells = [(i, j) for i in range(ty, min(ty + 4, pr4))
+                     for j in range(tx, min(tx + 4, pc4)) if c["inter"][i, j]]
+            calls = {ij: _call(c, *ij, ss_x, ss_y, index, epoch)
+                     for ij in cells}
+            pred = {}
+            for ri in (0, 1):
+                use = [ij for ij in cells if ri == 0 or c["comp"][ij]]
+                if not use:
+                    continue
+                m = {ij: _motion(c, *ij, ri, ss_x, ss_y, calls[ij])
+                     for ij in use}
+                keys = {(s, b, px + (4 * tx - 4 * j) * sx,
+                         py + (4 * ty - 4 * i) * sy)
+                        for (i, j), (s, b, px, py, sx, sy) in m.items()}
+                if len(keys) == 1:
+                    (s, b, px, py), = keys
+                    sx, sy = next(iter(m.values()))[4:]
+                    tile = _passes(c, s, b, px, py, sx, sy, 16, bpp,
+                                   k["kSWin"])
+                    v = {(i, j): tile[4 * (i - ty):4 * (i - ty) + 4,
+                                      4 * (j - tx):4 * (j - tx) + 4]
+                         for i, j in use}
+                else:
+                    v = {ij: _passes(c, s, b, px, py, sx, sy, 4, bpp,
+                                     k["kSPatch"])
+                         for ij, (s, b, px, py, sx, sy) in m.items()}
+                if paths is not None:
+                    paths["window" if len(keys) == 1 else "walk"] += 1
+                for ij in use:
+                    pred[ij] = v[ij] if ri == 0 else (pred[ij] + v[ij] + 1) >> 1
+            for (i, j), p in pred.items():
+                out[4 * i:4 * i + 4, 4 * j:4 * j + 4] = np.clip(
+                    p + c["residual"][4 * i:4 * i + 4, 4 * j:4 * j + 4], 0,
+                    maxp)
     return out
+
+
+def _tiles_case(seed, ss_x, ss_y, bpp):
+    """A _case whose records are 32x32 blocks and whose cells carry their
+    block's references, bank, compound flag and MVs (a luma cell's block;
+    a chroma cell's, that of its luma cell), so that every 16x16 tile of
+    every plane has one motion a reference."""
+    c = _case(seed, ss_x, ss_y, bpp)
+    rng = np.random.RandomState(seed + 1000)
+    rows8, cols8 = c["rows"], c["cols"]
+    recs = []
+    for r in range(0, rows8, 4):
+        for col in range(0, cols8, 4):
+            rec = np.zeros(36, np.int16)
+            rec[0], rec[1], rec[3] = r, col, 3
+            recs.append(rec)
+    n = len(recs)
+    out = np.zeros((R._pad_to_bucket(n + 1, base=256, mult=2), 36), np.int16)
+    out[:n] = recs
+    out[n:, 3] = -1
+    c["recs"] = out
+    pr4, pc4 = c["inter"].shape
+    blk = (((np.arange(pr4)[:, None] << ss_y) // 8) * ((cols8 + 3) // 4)
+           + ((np.arange(pc4)[None, :] << ss_x) // 8))
+    nb = int(blk.max()) + 1
+    c["refsel"] = rng.randint(0, 3, (nb, 2)).astype(np.int32)[blk]
+    c["filt"] = rng.randint(0, 4, nb).astype(np.int32)[blk]
+    c["comp"] = (rng.rand(nb) < 0.5)[blk]
+    c["mvraw"] = _mvs(rng, (nb, 2, 2))[blk]
+    return c
 
 
 @pytest.mark.parametrize("layout,bpp", [(0, 8), (1, 12)])
@@ -393,6 +472,53 @@ def test_mixed_plain_and_kernel_model_match_jitted_mixed(layout, bpp):
     index = _unit_index(c["recs"], c["r4"], c["c4"], epoch, epoch - 1)
     assert np.array_equal(_kernel_model(c, ss_x, ss_y, bpp, index, epoch),
                           want)
+
+
+@pytest.mark.parametrize("layout,bpp", [(0, 8), (3, 10)])
+def test_kernel_model_window_path_matches_jitted_mixed(layout, bpp):
+    """Records of 32x32 blocks whose cells carry their block's motion:
+    every tile pass of the kernel's model takes the window path, and the
+    model equals the jitted _mc_cells_mixed and its apply."""
+    ss_x, ss_y = LAYOUTS[layout]
+    c = _tiles_case(40 + layout, ss_x, ss_y, bpp)
+    want = _apply(_jax_mixed(c, ss_x, ss_y, bpp), c, bpp)
+    epoch = 9
+    index = _unit_index(c["recs"], c["r4"], c["c4"], epoch, epoch - 1)
+    paths = {"window": 0, "walk": 0}
+    got = _kernel_model(c, ss_x, ss_y, bpp, index, epoch, paths)
+    assert np.array_equal(got, want)
+    assert paths["window"] and not paths["walk"]
+
+
+def test_window_and_patch_fit_their_slices():
+    """For every step from 1 to kMaxStep (32) and every start phase, the
+    window of a 16-pixel tile and the patch of a 4-pixel cell fit the
+    kernel's kSWin and kSPatch, and every tap the passes read lies in
+    them; for any anchor offset and 64-bit start, a cell's own source
+    columns and phases equal those of its key, its line at the tile's
+    origin."""
+    k = _mc_consts()
+    assert k["kMaxStep"] == 32
+    for step in range(1, 33):
+        for f in range(16):
+            for n, most in ((16, k["kSWin"]), (4, k["kSPatch"])):
+                span = ((f + (n - 1) * step) >> 4) + 8
+                assert span <= most
+                reads = [((f + x * step) >> 4) + t for x in range(n)
+                         for t in range(8)]
+                assert 0 <= min(reads) and max(reads) < span
+    assert ((15 + 15 * 32) >> 4) + 8 == k["kSWin"]
+    assert ((15 + 3 * 32) >> 4) + 8 == k["kSPatch"]
+    t0 = np.arange(-4003, 4004, 37)[:, None, None]
+    off = np.arange(0, 64, 4)[None, :, None]         # xc - ax
+    cell = np.arange(0, 16, 4)[None, None, :]        # xc - x0
+    for step in range(1, 33):
+        key = 16 * (t0 >> 4) + (t0 & 15) + off * step - cell * step
+        for x in range(4):
+            own = (t0 & 15) + (off + x) * step + 0 * cell
+            pos = key + (cell + x) * step
+            assert np.array_equal((t0 >> 4) + (own >> 4), pos >> 4)
+            assert np.array_equal(own & 15, pos & 15)
 
 
 def test_kernel_tables_match_the_port():
@@ -545,8 +671,8 @@ def test_a_size_returned_to_reuses_its_buffers():
 
 def test_wrapper_takes_the_kernel_off_the_cpu(monkeypatch):
     """Tensors off the CPU reach one launch of csrc/mc.cu's scaled entry
-    for the planes, with the splat's index state; without it the wrapper
-    raises. (The launch is recorded, not run: the CPU has no card.)"""
+    for the planes, with the splat's index state and a null path counter
+    unless one is given; without the state the wrapper raises. (The launch is recorded, not run: the CPU has no card.)"""
     from ffmpeg_hybrid_tpu_torch.ops import _cuda
     c = _case(50, 1, 1, 8, refs=MIXED)
     jobs = [_job(c, 1, 1)]
@@ -570,7 +696,12 @@ def test_wrapper_takes_the_kernel_off_the_cpu(monkeypatch):
                                                   "mc_planes_scaled")]
     assert RC.LAUNCHES["mc_scaled"] == 1
     ptrs, _dims, n, frame = launched[0][2][:4]
-    assert n == 1 and len(ptrs) == 12 and ptrs[-1] is state.bidx
+    assert n == 1 and len(ptrs) == 13 and ptrs[-2] is state.bidx
+    assert ptrs[-1] is None     # no path counter: the decode's launch
+    paths = torch.zeros(2, dtype=torch.int64, device=fake)
+    R.mc_planes_scaled(meta, 8, True, _t(c["recs"]).to(fake), c["scales"],
+                       c["steps"], c["cols"], c["rows"], state, paths)
+    assert launched[1][2][0][-1] is paths
     state.epoch = 0     # no splat has run on it
     for index in (None, state):
         with pytest.raises(ValueError, match="index state"):
@@ -613,6 +744,43 @@ def test_kernel_matches_plain_on_the_card(layout, bpp):
         got = R.mc_planes_scaled(job, *args, index)
         assert RC.LAUNCHES["mc_scaled"] == 1
         assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["window", "walk"])
+def test_kernel_paths_match_plain_on_the_card(path):
+    """The kernel against its plain version on cases whose tiles take one
+    path, by the model's count: every tile pass the window (32x32 blocks,
+    a motion a tile) or most of them the walk (a motion a cell); the
+    kernel's own count of its paths equals the model's."""
+    dev = _card()
+    for layout, bpp in ((0, 8), (3, 12)):
+        ss_x, ss_y = LAYOUTS[layout]
+        c = _tiles_case(80 + layout, ss_x, ss_y, bpp) if path == "window" \
+            else _case(80 + layout, ss_x, ss_y, bpp, refs=MIXED)
+        epoch = 5
+        paths = {"window": 0, "walk": 0}
+        _kernel_model(c, ss_x, ss_y, bpp, _unit_index(
+            c["recs"], c["r4"], c["c4"], epoch, epoch - 1), epoch, paths)
+        assert (not paths["walk"]) if path == "window" \
+            else paths["walk"] > paths["window"]
+        job = [tuple(x.to(dev) if torch.is_tensor(x) else
+                     tuple(y.to(dev) for y in x) if isinstance(x, tuple)
+                     and x and torch.is_tensor(x[0]) else x
+                     for x in _job(c, ss_x, ss_y))]
+        recs = _t(c["recs"]).to(dev)
+        states = {}
+        R._grids_from_records(recs, c["r4"], c["c4"], 1, 1, states=states)
+        index = RC.splat_state(states, torch.device(dev), c["r4"], c["c4"])
+        args = (bpp, True, recs, c["scales"], c["steps"], c["cols"],
+                c["rows"])
+        want = R.mc_planes_scaled_plain(job, *args)
+        RC.reset_launches()
+        counted = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = R.mc_planes_scaled(job, *args, index, counted)
+        assert RC.LAUNCHES["mc_scaled"] == 1
+        assert torch.equal(got[0], want[0])
+        assert counted.tolist() == [paths["window"], paths["walk"]]
 
 
 @pytest.mark.cuda
