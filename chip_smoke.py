@@ -136,18 +136,43 @@ Phases, one status line each; any failure exits non-zero:
                share in a serial decode under torch.profiler
   5. threads   two decoders of one geometry on two host threads at once,
                every frame bit-exact (each decoder owns its splat state)
-  6. a JSON line {"kernels": [...]} and the card line, then the result
+  6. cli       the command line, `python -m ffmpeg_hybrid_tpu_torch`, on
+               the card with every plain version set to raise:
+               - a shell run on vectors/bench_1080p.ivf, its rows from
+                 the data rows down equal to the framemd5's;
+               - main(argv) in this process on each of the nine clips,
+                 its rows equal to the framemd5's and its kernel
+                 launches equal to the decode phase's for that clip;
+               - bench_1080p and resize_1080p remuxed to WebM (as
+                 SimpleBlocks and xiph-laced): the IVF's (size, md5)
+                 pairs, and the timecodes written as pts;
+               - -f rawvideo of bench_4k and -f y4m of bench_1080p, each
+                 frame's bytes hashing to its framemd5 row, and --bsf
+                 vp9_superframe_split,vp9_raw_reorder on bench_1080p;
+               - checkpoint resume: bench_1080p after frame 10 and
+                 resize_1080p after frame 3, state_dict loaded into a
+                 fresh decoder on the card, every MD5 as the framemd5;
+               - flat device memory: the peak allocated over a run of
+                 all 30 bench_1080p frames within CLI_MEM_SLACK of the
+                 peak over --frames 10;
+               - the CLI's wall fps on bench_1080p with -f null and -f
+                 framemd5 (median of three runs), beside the decode
+                 phase's, not gated
+  7. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
 The script needs the repository around it and a CUDA device; without
 either it exits non-zero and prints no result.
 """
+import contextlib
 import gc
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -228,6 +253,14 @@ MC_FORMATS = ((10, 1, 0), (12, 0, 0), (10, 0, 1), (12, 1, 1))
 HBD_OP_WORDS = 2
 # timed pipelined passes over the clip (the fps is their median)
 WINDOWS = 5
+# the CLI phase: the most the peak device memory of a run over all of
+# bench_1080p may exceed that of a run over its first CLI_MEM_FRAMES
+CLI_MEM_SLACK = 64 << 20
+CLI_MEM_FRAMES = 10
+# checkpoint resume: the frames decoded before the state is taken
+RESUME_AT = {"bench_1080p": 10, RESIZE_CLIP: 3}
+# timed in-process CLI runs a format (the fps is their median)
+CLI_RUNS = 3
 
 
 def say(phase, msg):
@@ -2424,6 +2457,221 @@ def two_decoders_phase(torch, clips):
         f"state, {time.perf_counter() - t0:.1f} s")
 
 
+def data_rows(text):
+    return [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+
+
+def run_cli(torch, argv):
+    """stdout of the port's CLI, main(argv), in this process; the card
+    synchronised at its end. Fails unless it exits 0."""
+    from ffmpeg_hybrid_tpu_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"the CLI exited {rc} on {argv}")
+    return buf.getvalue()
+
+
+def cli_run_checked(torch, argv, name, launches):
+    """run_cli on the main path with every plain version set to raise;
+    fails unless the kernels launched as often as in the decode phase's
+    conformance pass of the clip `name` (launches[name])."""
+    with main_path_run():
+        out = run_cli(torch, argv)
+    got = main_path_launches()
+    if got != launches[name]:
+        raise RuntimeError(f"CLI {argv}: kernel launches {got}, the decode "
+                           f"phase's for {name} {launches[name]}")
+    return out
+
+
+def check_slices(what, data, rows, name):
+    """Each frame's bytes, in order, hash to its framemd5 row."""
+    at = 0
+    for i, row in enumerate(rows):
+        size, md5 = (p.strip() for p in row.split(",")[4:6])
+        part = data[at:at + int(size)]
+        if hashlib.md5(part).hexdigest() != md5:
+            raise RuntimeError(f"{what} of {name}: frame {i} differs from "
+                               "its framemd5 row")
+        at += int(size)
+    if at != len(data):
+        raise RuntimeError(f"{what} of {name}: {len(data) - at} bytes more "
+                           "than the framemd5's frames")
+
+
+def resume_check(name, cut):
+    """Decode `cut` frames of the clip on the card, take state_dict, load
+    it into a fresh decoder on the card and decode the rest: every MD5
+    must equal the framemd5's."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9 import checkpoint
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    frames, want = read_clip(name)
+    with main_path_run():
+        dec = VP9Decoder(device=DEVICE)
+        got = [hashlib.md5(f.to_bytes()).hexdigest()
+               for fd in frames[:cut] for f in dec.decode(fd)]
+        state = checkpoint.state_dict(dec)
+        del dec
+        dec = checkpoint.load_state_dict(VP9Decoder(device=DEVICE), state)
+        if not all(f.dev[0].device.type == DEVICE and not f._host_stale
+                   for f in dec.refs if f is not None):
+            raise RuntimeError(f"{name}: a restored reference is not on "
+                               "the card")
+        got += [hashlib.md5(f.to_bytes()).hexdigest()
+                for fd in frames[cut:] for f in dec.decode(fd)]
+    if got != want:
+        raise RuntimeError(f"{name} resumed after frame {cut - 1}: the "
+                           "MD5s differ from the framemd5's")
+    return len(state["frames"])
+
+
+def cli_phase(torch, launches, decode_fps):
+    """The port's command line on the card (phase 6 of the docstring).
+    launches: each clip's kernel launches in the decode phase;
+    decode_fps: bench_1080p's median fps there."""
+    from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
+    from ffmpeg_hybrid_tpu_torch.formats.webm import write_webm
+    vec = os.path.join(ROOT, "vectors")
+    rows = {}
+    for name in launches:
+        with open(os.path.join(vec, name + ".framemd5")) as f:
+            rows[name] = data_rows(f.read())
+    t0 = time.perf_counter()
+    shell = subprocess.run(
+        [sys.executable, "-m", PKG,
+         os.path.join("vectors", "bench_1080p.ivf")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if shell.returncode != 0 or data_rows(shell.stdout) != \
+            rows["bench_1080p"]:
+        raise RuntimeError("python -m ffmpeg_hybrid_tpu_torch "
+                           f"vectors/bench_1080p.ivf exited "
+                           f"{shell.returncode}, rows unequal to the "
+                           f"framemd5's: {shell.stderr[-2000:]}")
+    say("cli", "shell run: python -m ffmpeg_hybrid_tpu_torch "
+        "vectors/bench_1080p.ivf prints the framemd5's rows in "
+        f"{time.perf_counter() - t0:.1f} s (a process, kernels built)")
+
+    t0 = time.perf_counter()
+    for name in launches:
+        out = cli_run_checked(torch, [os.path.join(vec, name + ".ivf")],
+                              name, launches)
+        if data_rows(out) != rows[name]:
+            raise RuntimeError(f"CLI on {name}: rows unequal to the "
+                               "framemd5's")
+    say("cli", f"main(argv) on all {len(launches)} clips: every row equal "
+        "to the framemd5's, every kernel's launches equal to the decode "
+        f"phase's, {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("bench_1080p", RESIZE_CLIP):
+            info, pkts = read_ivf(os.path.join(vec, name + ".ivf"))
+            pkts = list(pkts)
+            tcs = [i * 1000 // 30 for i in range(len(pkts))]
+            for layout in ({}, {"lacing": "xiph", "lace_group": 3}):
+                path = os.path.join(tmp, name + ".webm")
+                write_webm(path, info.width, info.height,
+                           [(tc, d) for tc, (_p, d) in zip(tcs, pkts)],
+                           **layout)
+                got = [[p.strip() for p in r.split(",")] for r in
+                       data_rows(cli_run_checked(torch, [path], name,
+                                                 launches))]
+                want = [[p.strip() for p in r.split(",")] for r in
+                        rows[name]]
+                # a lace's later frames carry no timecode of their own
+                lace = layout.get("lace_group", 1)
+                pts = [0 if i % lace else tc for i, tc in enumerate(tcs)]
+                if [g[4:6] for g in got] != [w[4:6] for w in want] or \
+                        [int(g[2]) for g in got] != pts:
+                    raise RuntimeError(f"CLI on {name} as WebM {layout}: "
+                                       "rows or pts unequal")
+        say("cli", "bench_1080p and resize_1080p remuxed to WebM as "
+            "SimpleBlocks and xiph-laced (three frames a lace): every "
+            "(size, md5) the IVF's, every pts the timecode written (a "
+            "lace's later frames carry none: 0)")
+
+        raw = os.path.join(tmp, "bench_4k.yuv")
+        cli_run_checked(torch, [os.path.join(vec, "bench_4k.ivf"), "-f",
+                                "rawvideo", "-o", raw], "bench_4k",
+                        launches)
+        with open(raw, "rb") as f:
+            check_slices("-f rawvideo", f.read(), rows["bench_4k"],
+                         "bench_4k")
+        os.unlink(raw)
+        y4m = os.path.join(tmp, "bench_1080p.y4m")
+        cli_run_checked(torch, [os.path.join(vec, "bench_1080p.ivf"), "-f",
+                                "y4m", "-o", y4m], "bench_1080p", launches)
+        with open(y4m, "rb") as f:
+            data = f.read()
+        head, _, body = data.partition(b"\n")
+        info, _pkts = read_ivf(os.path.join(vec, "bench_1080p.ivf"))
+        if head != (f"YUV4MPEG2 W{info.width} H{info.height} F30:1 Ip "
+                    "A0:0 C420jpeg").encode():
+            raise RuntimeError(f"-f y4m header {head[:80]!r}")
+        frames = body.split(b"FRAME\n")
+        if frames[0] != b"" or len(frames) != len(rows["bench_1080p"]) + 1:
+            raise RuntimeError("-f y4m: not a FRAME record a frame")
+        for i, (part, row) in enumerate(zip(frames[1:],
+                                            rows["bench_1080p"])):
+            check_slices("-f y4m", part, [row], f"bench_1080p frame {i}")
+    out = cli_run_checked(torch, [os.path.join(vec, "bench_1080p.ivf"),
+                                  "--bsf",
+                                  "vp9_superframe_split,vp9_raw_reorder"],
+                          "bench_1080p", launches)
+    if data_rows(out) != rows["bench_1080p"]:
+        raise RuntimeError("--bsf vp9_superframe_split,vp9_raw_reorder on "
+                           "bench_1080p: rows unequal to the framemd5's")
+    say("cli", "-f rawvideo of bench_4k and -f y4m of bench_1080p: every "
+        "frame's bytes hash to its framemd5 row; --bsf "
+        "vp9_superframe_split,vp9_raw_reorder on bench_1080p: the "
+        f"framemd5's rows; {time.perf_counter() - t0:.1f} s with the WebM "
+        "runs")
+
+    for name, cut in RESUME_AT.items():
+        n = resume_check(name, cut)
+        say("cli", f"checkpoint: {name} resumed after frame {cut - 1} in a "
+            f"fresh decoder on the card ({n} frames in the state): every "
+            "MD5 equal to the framemd5's")
+
+    peaks = {}
+    ivf = os.path.join(vec, "bench_1080p.ivf")
+    n_frames = len(rows["bench_1080p"])
+    for argv in ([ivf, "--frames", str(CLI_MEM_FRAMES)], [ivf]):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run_cli(torch, argv)
+        peaks[len(argv)] = torch.cuda.max_memory_allocated()
+    short, full = peaks[3], peaks[1]
+    say("cli", f"peak device memory allocated: {full} B over all "
+        f"{n_frames} bench_1080p frames, {short} B over --frames "
+        f"{CLI_MEM_FRAMES} "
+        f"({(full - short) / 2**20:.3f} MiB more; the limit "
+        f"{CLI_MEM_SLACK >> 20} MiB)")
+    if full - short > CLI_MEM_SLACK:
+        raise RuntimeError("the CLI's device memory grows with the clip")
+
+    fps = {}
+    for fmt in ("null", "framemd5"):
+        runs = []
+        for _ in range(CLI_RUNS):
+            gc.collect()
+            t0 = time.perf_counter()
+            run_cli(torch, [ivf, "-f", fmt])
+            runs.append(n_frames / (time.perf_counter() - t0))
+        fps[fmt] = (sorted(runs)[CLI_RUNS // 2], runs)
+    say("cli", "bench_1080p through main(argv), wall fps (median of "
+        f"{CLI_RUNS} runs, each ending in a synchronise): "
+        + ", ".join(f"-f {k} {m:.3f} (runs "
+                    + ", ".join(f"{r:.3f}" for r in v) + ")"
+                    for k, (m, v) in fps.items())
+        + f"; the decode phase's median {decode_fps:.3f} fps; on "
+        + card_line())
+
+
 def busy_share(torch, frames):
     """(the card's busy share, device ops a frame) of a serial decode of
     `frames` under torch.profiler after a warm-up decode: the device time
@@ -2469,23 +2717,20 @@ def read_clip(name):
     return frames, want
 
 
-def decode_phase(torch, name, frames, want, windows=WINDOWS):
-    """Conformance, then timing (`windows` timed passes), of one clip on
-    the main path. Returns
-    (median fps, all fps, per-stage ms/frame, launches of the
-    conformance pass by kernel, frames with intra blocks, frames with
-    inter blocks, host ms/frame of pass A and pass B beside each timed
-    pass, the serial pass's kept coefficient buffer sets and splat
-    states)."""
-    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+def main_path_launches():
+    """Every kernel wrapper's launch count since main_path_run began."""
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
-    from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
-    # conformance pass: the main path's run, launches counted from zero,
-    # with every kernel's plain version set to raise
-    rac.reset_launches()
-    lpf_dense.reset_launches()
-    lpf_masks.reset_launches()
-    recon.reset_launches()
+    return dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **lpf_masks.LAUNCHES,
+                **recon.LAUNCHES)
+
+
+@contextlib.contextmanager
+def main_path_run():
+    """A run of the main path: every launch count set to zero at its
+    start, and every kernel's plain version set to raise within it."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
+    for mod in (rac, lpf_dense, lpf_masks, recon):
+        mod.reset_launches()
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
                  "_intra_scan_plain", "mc_planes_plain",
@@ -2499,10 +2744,30 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
     def plain_called(*_a, **_k):
         raise RuntimeError("a plain version ran on the card's main path")
 
-    t0 = time.perf_counter()
     try:
         for mod, fn in plains:
             setattr(mod, fn, plain_called)
+        yield
+    finally:
+        for (mod, fn), real in zip(plains, saved):
+            setattr(mod, fn, real)
+
+
+def decode_phase(torch, name, frames, want, windows=WINDOWS):
+    """Conformance, then timing (`windows` timed passes), of one clip on
+    the main path. Returns
+    (median fps, all fps, per-stage ms/frame, launches of the
+    conformance pass by kernel, frames with intra blocks, frames with
+    inter blocks, host ms/frame of pass A and pass B beside each timed
+    pass, the serial pass's kept coefficient buffer sets and splat
+    states)."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.ops import recon
+    from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
+    # conformance pass: the main path's run, launches counted from zero,
+    # with every kernel's plain version set to raise
+    t0 = time.perf_counter()
+    with main_path_run():
         dec = VP9Decoder(device=DEVICE)
         n = 0
         for f in dec.decode_stream(iter(frames)):
@@ -2514,14 +2779,10 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
                 raise RuntimeError(f"{name} frame {n}: md5 {got} != "
                                    f"{want[n]}")
             n += 1
-    finally:
-        for (mod, fn), real in zip(plains, saved):
-            setattr(mod, fn, real)
     if n != len(want):
         raise RuntimeError(f"{name}: decoded {n} frames, expected "
                            f"{len(want)}")
-    launches = dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **lpf_masks.LAUNCHES,
-                    **recon.LAUNCHES)
+    launches = main_path_launches()
     say("decode", f"{name}: {n} frames bit-exact vs framemd5 in "
         f"{time.perf_counter() - t0:.1f} s (first pass, incl. warm-up); "
         f"kernel launches on this path: {launches}")
@@ -2724,6 +2985,7 @@ def main():
                  "mc_planes_scaled": "mc_scaled",
                  "_intra_scan_planes": "intra",
                  "_grids_from_records": "splat", "grids_device": "lf_grids"}
+    clip_launches, clip_fps = {}, {}
     for name in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,):
         frames, want = clips[name]
         # the format clips' passes are two frames each, the resize clip's
@@ -2734,6 +2996,7 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         (fps, fps_runs, stages, launches, intra_frames, inter_frames,
          host, kept) = decode_phase(torch, name, frames, want, windows)
+        clip_launches[name], clip_fps[name] = launches, fps
         peak = torch.cuda.max_memory_allocated()
         busy = ""
         if name == RESIZE_CLIP:
@@ -2794,6 +3057,8 @@ def main():
             + busy)
 
     two_decoders_phase(torch, clips)
+    del clips
+    cli_phase(torch, clip_launches, clip_fps["bench_1080p"])
 
     print(json.dumps({"kernels": list(by_name.values())}))
     print(card_line())

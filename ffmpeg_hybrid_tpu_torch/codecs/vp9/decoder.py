@@ -85,6 +85,10 @@ class Frame:
         # host `planes` are synced lazily on first pixel access
         self.dev = None
         self._host_stale = False
+        # encode-params side data (set when the decoder was opened with
+        # export_enc_params; show-existing re-outputs the donor frame's
+        # data, matching av_frame_ref side-data copy semantics)
+        self.enc_params = None
 
     def sync_host(self):
         if self._host_stale and self.dev is not None:
@@ -118,6 +122,18 @@ class Frame:
     def to_bytes(self) -> bytes:
         """Raw video bytes (planar YUV, 8-bit or 16-bit LE) as the
         rawvideo encoder produces for framemd5."""
+        if self._host_stale and self.dev is not None:
+            # the visible planes, cast and joined on the device, in one
+            # copy of the output's own bytes (the host planes stay
+            # stale: sync_host pulls them for whoever reads them)
+            w, h = self.size
+            cw = (w + self.ss_h) >> self.ss_h
+            ch = (h + self.ss_v) >> self.ss_v
+            dt = torch.uint8 if self.bpp == 8 else torch.int16
+            flat = torch.cat([p[:ph, :pw].to(dt).reshape(-1) for p, ph, pw
+                              in zip(self.dev, (h, ch, ch), (w, cw, cw))])
+            raw = flat.cpu().numpy()
+            return (raw if self.bpp == 8 else raw.astype("<u2")).tobytes()
         y, u, v = self.crop()
         if self.bpp == 8:
             return (y.astype(np.uint8).tobytes()
@@ -168,10 +184,12 @@ POOL_DEPTH = 8
 class VP9Decoder:
     """Stateful VP9 decoder. decode(packet) -> list of output Frames."""
 
-    def __init__(self, device=None, use_native=None, pass_a_impl=None):
+    def __init__(self, device=None, use_native=None, pass_a_impl=None,
+                 export_enc_params=False):
         # pass B runs on `device`: the card unless "cpu" is asked for
         from ...device import resolve
         self.device = resolve(device)
+        self.export_enc_params = export_enc_params
         if use_native is None:
             from ...passa_native import available
             use_native = available()
@@ -702,6 +720,10 @@ class VP9Decoder:
             with metrics.timer("decode.adapt_probs"):
                 adapt_probs(self.prob_ctx[c], self.probs, counts, h,
                             self.last_keyframe)
+
+        if self.export_enc_params:
+            from .encparams import build_enc_params
+            self.cur_frame_obj.enc_params = build_enc_params(self)
 
         # snapshot everything pass B reads (pass A of the next frame
         # mutates decoder state while pass B of this one may still run)

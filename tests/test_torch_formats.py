@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from ffmpeg_hybrid_tpu.ops import itxfm as JI
 from ffmpeg_hybrid_tpu.ops import recon_tpu as J

@@ -10,6 +10,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from ffmpeg_hybrid_tpu.ops import intra_tables as JT
 from ffmpeg_hybrid_tpu_torch.ops import _cuda

@@ -2,7 +2,10 @@
 ops/lpf_dense.py) against the JAX package's ops/lpf_masks.py,
 ops/lpf_dense.py and ops/lpf_tpu.py on the same numpy inputs (CPU-JAX,
 as tests/conftest.py sets it), and the CUDA kernel (csrc/lpf.cu)
-against the plain version on the card. Every comparison is exact."""
+against the plain version on the card. Every comparison is exact. The
+frame entry lf_frame_ on the keyframes whose lf_dense shapes no other
+test compiles is test_torch_lpf_frame.py, which reads this file's cases
+and helpers."""
 import os
 import sys
 
@@ -10,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from ffmpeg_hybrid_tpu.ops import lpf_dense as JD
 from ffmpeg_hybrid_tpu.ops import lpf_masks as JM
@@ -324,11 +328,12 @@ def test_schedule_replay_two_sets_interleaved():
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("case", GRID_CASES, ids=lambda c: f"s{c['seed']}")
-def test_lf_frame_plain_filters_in_place_like_jax(case):
+def lf_frame_case(case):
     """lf_frame_ on CPU planes (its plain version) filters Y and U+V in
     place, equal to the JAX package's lf_dense on Y and on stacked U+V,
-    for 4:2:0, 4:4:4, 4:2:2 and 4:4:0 keyframes."""
+    for 4:2:0, 4:4:4, 4:2:2 and 4:4:0 keyframes. The cases whose
+    lf_dense shapes no other test here compiles are
+    test_torch_lpf_frame.py's."""
     s, planes, (Vy, Hy, Vu, Hu) = _prefilter_planes(case)
     hd = s.header
     y, u, v = (torch.from_numpy(p.copy()) for p in planes)
@@ -343,6 +348,19 @@ def test_lf_frame_plain_filters_in_place_like_jax(case):
                           64 >> hd.ss_h, 64 >> hd.ss_v, 8)
     _same(want_y, y[None])
     _same(want_uv, torch.stack([u, v]))
+
+
+# lf_frame_ cases here: those whose Y and U+V shapes the lf_dense tests
+# above have compiled already, and 4:2:2 (seed 32); the rest,
+# LF_FRAME_ALONE, are test_torch_lpf_frame.py's
+LF_FRAME_ALONE = (2, 31, 33)
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in GRID_CASES if c["seed"] not in LF_FRAME_ALONE],
+    ids=lambda c: f"s{c['seed']}")
+def test_lf_frame_plain_filters_in_place_like_jax(case):
+    lf_frame_case(case)
 
 
 def test_lf_frame_plain_skips_the_sets_not_asked_for():

@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOOLS = os.path.join(os.path.dirname(__file__), "..", "tools")
 
@@ -117,33 +118,38 @@ def _keyframe(bpp):
                                           filter_level=0)
 
 
-@pytest.mark.parametrize("bpp", [8, 10])
-def test_decode_coeffs_multi_matches_host_and_pallas(bpp):
-    """Blocks captured from a real keyframe by the port's pure-Python
-    pass A, at every tx size: the port's plain decode equals the host
-    result on every block, and the Pallas kernel on a few lanes of each
-    size (the Pallas kernel's compile per size is the cost here)."""
+def _pallas_lanes(tx):
+    """Lanes of each tx size that the Pallas kernel decodes."""
+    return 4 if tx < 3 else 2
+
+
+@pytest.fixture(scope="module")
+def keyframe_blocks():
+    """Per bpp, made at its first use: the keyframe's blocks captured by
+    the port's pure-Python pass A, grouped by tx size, and the Pallas
+    kernel's (coef, eob) on the first _pallas_lanes(tx) lanes of each
+    group (interpret mode; its compile per size is the cost). At 8 and
+    10 bits both tests that hold the port to it read it once, in
+    test_torch_rac_coeffs.py; here the walk at 12 bits does."""
     import jax.numpy as jnp
     from ffmpeg_hybrid_tpu.ops import rac_pallas
     from ffmpeg_hybrid_tpu_torch.ops import coef_path as CP
-    from ffmpeg_hybrid_tpu_torch.ops import rac
 
-    caps = CP.capture_blocks(_keyframe(bpp))
-    groups = CP.group_by_tx(caps)
-    assert set(groups) == {0, 1, 2, 3}
-    out = CP.decode_blocks(groups, CP.frame_inputs(groups, "cpu"), bpp)
-    for tx, group in groups.items():
-        coef, eob = (t.numpy() for t in out[tx])
-        for s, g in enumerate(group):
-            assert eob[s] == g["eob"], (tx, s)
-            assert np.array_equal(coef[s], g["coef"]), (tx, s)
-        lanes = 4 if tx < 3 else 2
-        sub = CP.lane_inputs(group[:lanes], "cpu")
-        want_c, want_e = rac_pallas.decode_coeffs_multi(
-            *(jnp.asarray(t.numpy()) for t in sub), n=(4 << tx) ** 2,
-            bpp=bpp, is32=group[0]["is32"])
-        assert np.array_equal(coef[:lanes], np.asarray(want_c)), tx
-        assert np.array_equal(eob[:lanes], np.asarray(want_e)), tx
+    made = {}
+
+    def get(bpp):
+        if bpp not in made:
+            groups = CP.group_by_tx(CP.capture_blocks(_keyframe(bpp)))
+            pallas = {}
+            for tx, group in groups.items():
+                sub = CP.lane_inputs(group[:_pallas_lanes(tx)], "cpu")
+                c, e = rac_pallas.decode_coeffs_multi(
+                    *(jnp.asarray(t.numpy()) for t in sub),
+                    n=(4 << tx) ** 2, bpp=bpp, is32=group[0]["is32"])
+                pallas[tx] = (np.asarray(c), np.asarray(e))
+            made[bpp] = groups, pallas
+        return made[bpp]
+    return get
 
 
 def test_capture_matches_jax_pass_a():
@@ -425,19 +431,17 @@ def test_band_of_the_kernel_is_band_table():
         assert np.array_equal(got, rac.band_table(n)), n
 
 
-@pytest.mark.parametrize("bpp", [8, 10, 12])
-def test_walk_model_matches_host_and_pallas(bpp):
+def walk_model_case(bpp, keyframe_blocks):
     """The model of the one-launch walk on the packed keyframe, with a
     lane a block (132 SMs) and 28 lanes a block of mixed sizes (1 SM):
     every block's coefficients and eob equal the host pass A's, the
     plain version's on the same packed inputs, and the Pallas kernel's
-    on a few lanes of each size."""
-    import jax.numpy as jnp
-    from ffmpeg_hybrid_tpu.ops import rac_pallas
+    on a few lanes of each size. At 8 and 10 bits in
+    test_torch_rac_coeffs.py, beside the coefficient test that shares
+    the Pallas reference."""
     from ffmpeg_hybrid_tpu_torch.ops import coef_path as CP
 
-    caps = CP.capture_blocks(_keyframe(bpp))
-    groups = CP.group_by_tx(caps)
+    groups, pallas = keyframe_blocks(bpp)
     for sms in (rac.H100_SMS, 1):
         fr = CP.frame_inputs(groups, "cpu", sms)
         coef, eob, _longest = _walk_model(fr, bpp)
@@ -451,16 +455,18 @@ def test_walk_model_matches_host_and_pallas(bpp):
                 assert int(e[s]) == g["eob"], (tx, s)
                 assert np.array_equal(c[s].numpy(), g["coef"]), (tx, s)
     for tx, group in groups.items():
-        lanes = 3 if tx < 3 else 2
-        sub = CP.lane_inputs(group[:lanes], "cpu")
-        want_c, want_e = rac_pallas.decode_coeffs_multi(
-            *(jnp.asarray(t.numpy()) for t in sub), n=(4 << tx) ** 2,
-            bpp=bpp, is32=group[0]["is32"])
+        lanes = _pallas_lanes(tx)
+        want_c, want_e = pallas[tx]
         got = CP.decode_blocks({tx: group[:lanes]},
                                CP.frame_inputs({tx: group[:lanes]}, "cpu"),
                                bpp)[tx]
-        assert np.array_equal(got[0].numpy(), np.asarray(want_c)), tx
-        assert np.array_equal(got[1].numpy(), np.asarray(want_e)), tx
+        assert np.array_equal(got[0].numpy(), want_c), tx
+        assert np.array_equal(got[1].numpy(), want_e), tx
+
+
+@pytest.mark.parametrize("bpp", [12])
+def test_walk_model_matches_host_and_pallas(bpp, keyframe_blocks):
+    walk_model_case(bpp, keyframe_blocks)
 
 
 @pytest.mark.parametrize("bpp", [8, 10, 12])

@@ -29,6 +29,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 
