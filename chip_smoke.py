@@ -10,7 +10,12 @@ Phases, one status line each; any failure exits non-zero:
   3. kernels   each kernel against its plain PyTorch version on the
                card:
                - decode_bits_multi / decode_tree_multi on seeded
-                 streams, S = 64 lanes (the stream path);
+                 streams, S = 64 lanes (the stream path), and on their
+                 edges (every VP9 tree, the depth cap, overread, L not a
+                 multiple of 4, probabilities 0, 1 and 255, a first byte
+                 0xff, rows at every byte alignment); the longest lane's
+                 cycles a bool in the kernel beside its chain alone, and
+                 ptxas's registers and spills;
                - decode_coeffs_multi on every coefficient block of
                  bench_1080p frame 0, captured by the port's
                  pure-Python pass A, every lane in one launch (the
@@ -414,49 +419,36 @@ def bytes_used(d, length):
     return min(length, d.byte_pos + (1 if d.bit_pos else 0))
 
 
-def stream_phase(rac, torch, np, kind):
-    """decode_bits_multi or decode_tree_multi on seeded byte streams:
-    the counted run, the plain version, the spec decoder, timings.
+# the stream path's seeded lanes: S lanes of L bytes; bits K bools a
+# lane, tree K symbols of the intra-mode tree
+STREAM_S, STREAM_L = 64, 1024
+STREAM_K = {"bits": 2048, "tree": 512}
+# the VP9 trees (codecs/vp9/tables.py), every one held on the card
+TREES = ("PARTITION_TREE", "SEGMENTATION_TREE", "INTRAMODE_TREE",
+         "INTER_MODE_TREE", "FILTER_TREE", "MV_JOINT_TREE", "MV_CLASS_TREE",
+         "MV_FP_TREE")
 
-    The bytes bound counts what this run's lanes need: the stream bytes
-    each spec decoder consumed, the probabilities read (every one for
-    bits; the distinct nodes a lane visited for a tree, and the distinct
-    tree-table entries taken), and the output."""
-    from ffmpeg_hybrid_tpu_torch.codecs.vp9 import tables as T
+
+def spec_stream(np, data, probs, tree=None, k=0, max_depth=12):
+    """The spec decoder (codecs/vp9/rac.py) on each lane of data [S, L]:
+    the bits under probs [S, K], or, with a tree, k symbols under probs
+    [S, NN] with at most max_depth bools a symbol. Returns (outputs, bools
+    a lane, stream bytes consumed in all, distinct nodes read in all
+    lanes, distinct tree entries taken)."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.rac import BoolDecoder
-    rng = np.random.RandomState(SEED + (kind == "tree"))
-    S, L = 64, 1024
-    data = rng.randint(0, 256, (S, L)).astype(np.uint8)
-    if kind == "bits":
-        K = 2048
-        probs = rng.randint(1, 256, (S, K)).astype(np.uint8)
-        ref = np.zeros((S, K), np.int64)
-        used = 0
-        for s in range(S):
-            d = BoolDecoder(data[s].tobytes())
+    S, L = data.shape
+    ref = np.zeros((S, k if tree is not None else probs.shape[1]), np.int64)
+    lane_bools, used, nodes, entries = [], 0, 0, set()
+    for s in range(S):
+        d = BoolDecoder(data[s].tobytes())
+        if tree is None:
             ref[s] = [d.get_prob(int(p)) for p in probs[s]]
-            used += bytes_used(d, L)
-        lane_bools = [K] * S
-        need = used + S * K + S * K * 4     # streams, probs, out
-        name = "decode_bits_multi"
-        kern = rac.decode_bits_multi
-        plain = rac.decode_bits_multi_plain
-        extra = ()
-    else:
-        tree = np.asarray(T.INTRAMODE_TREE, np.int32)
-        K = 512
-        probs = rng.randint(40, 220, (S, tree.shape[0])).astype(np.uint8)
-        ref = np.zeros((S, K), np.int64)
-        lane_bools = []
-        used = nodes = 0
-        entries = set()
-        for s in range(S):
-            d = BoolDecoder(data[s].tobytes())
-            nb = 0
-            visited = set()
-            for i in range(K):
+            lane_bools.append(probs.shape[1])
+        else:
+            nb, visited = 0, set()
+            for i in range(k):
                 node = 0
-                while True:
+                for _ in range(max_depth):
                     bit = d.get_prob(int(probs[s, node]))
                     visited.add(node)
                     entries.add((node, bit))
@@ -467,14 +459,152 @@ def stream_phase(rac, torch, np, kind):
                         break
                     node = nxt
             lane_bools.append(nb)
-            used += bytes_used(d, L)
             nodes += len(visited)
+        used += bytes_used(d, L)
+    return ref, lane_bools, used, nodes, entries
+
+
+def stream_lanes(np, kind):
+    """The stream path's seeded lanes: data [S, L]
+    uint8, probs, the tree (None for bits) and K."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9 import tables as T
+    rng = np.random.RandomState(SEED + (kind == "tree"))
+    data = rng.randint(0, 256, (STREAM_S, STREAM_L)).astype(np.uint8)
+    K = STREAM_K[kind]
+    if kind == "bits":
+        return data, rng.randint(1, 256, (STREAM_S, K)).astype(np.uint8), \
+            None, K
+    tree = np.asarray(T.INTRAMODE_TREE, np.int32)
+    return data, rng.randint(40, 220, (STREAM_S, tree.shape[0])) \
+        .astype(np.uint8), tree, K
+
+
+def stream_chain(rac, torch, np, row, probs8, bools):
+    """(cycles a bool, clock in Hz) of one byte-fed lane's chain alone
+    (rac.bool_chain_cycles, the halfword-fed loop): the lane's bytes
+    after its first as halfwords, from the state the spec decoder's
+    init leaves (value its first byte, range 255), under 8 of its
+    probabilities, its bools rounded up to a multiple of 8; the clock
+    from chain_clock_hz."""
+    half = torch.as_tensor(rac.pack_windows([bytes(row)], [1])[0],
+                           device=DEVICE)
+    p8 = torch.as_tensor(np.resize(np.asarray(probs8, np.int32), 8),
+                         device=DEVICE)
+    K = -(-bools // 8) * 8
+    args = (half, int(row[0]), 255, 0, 0, p8, K)
+    rac.bool_chain_cycles(*args)         # warm-up
+    cycles = min(rac.bool_chain_cycles(*args) for _ in range(5))
+    return cycles / K, chain_clock_hz(rac, torch, args)
+
+
+def on_card(torch, a, base=0):
+    """numpy array a on the card, as a view `base` bytes into a larger
+    buffer (a row then starts at another byte alignment)."""
+    t = torch.as_tensor(a)
+    big = torch.zeros(t.numel() + base, dtype=t.dtype, device=DEVICE)
+    big[base:] = t.reshape(-1).to(DEVICE)
+    return big[base:].view(t.shape)
+
+
+def stream_edges(rac, torch, np, kind):
+    """Both kernels held to their plain versions and to the spec decoder
+    on their edges, each input at the four byte alignments of its rows:
+    for a tree, every VP9 tree on random lanes, the depth cap below, at
+    and one under the intra-mode and MV-class trees' depths, a tree with
+    a cycle, overread (5 bytes a lane) and probabilities 0, 1 and 255
+    (the kernel's capped and cap-free instances); for bits, L not a
+    multiple of 4 with K not a multiple of 16, overread (1 and 3 bytes a
+    lane) and the extreme probabilities; and lanes whose first byte is
+    0xff, held to the plain version alone (its int32 value parts there
+    from the spec decoder's unbounded one). Returns the cases held."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9 import tables as T
+    rng = np.random.RandomState(SEED + 2 + (kind == "tree"))
+
+    def lanes(S, L):
+        return rng.randint(0, 255, (S, L)).astype(np.uint8)   # no 0xff
+
+    def depth(tree, node=0):
+        return 1 + max(depth(tree, int(e)) if e > 0 else 0
+                       for e in tree[node])
+    cases = []
+    if kind == "tree":
+        for name in TREES:
+            tree = np.asarray(getattr(T, name), np.int32)
+            cases.append((name, lanes(32, 61), rng.randint(
+                1, 256, (32, tree.shape[0])).astype(np.uint8), tree, 64, 12))
+        for name in ("INTRAMODE_TREE", "MV_CLASS_TREE"):
+            tree = np.asarray(getattr(T, name), np.int32)
+            probs = rng.randint(1, 256, (16, tree.shape[0])).astype(np.uint8)
+            for md in (1, depth(tree) - 1, depth(tree)):
+                cases.append((f"{name} max_depth={md}", lanes(16, 33),
+                              probs, tree, 40, md))
+        cyc = np.array([[1, -1], [2, -2], [1, -3]], np.int32)
+        cases.append(("a cycle (max_depth=5)", lanes(16, 19), rng.randint(
+            1, 256, (16, 3)).astype(np.uint8), cyc, 40, 5))
+        tree = np.asarray(T.MV_CLASS_TREE, np.int32)
+        NN = tree.shape[0]
+        cases.append(("overread (L=5)", lanes(16, 5), rng.randint(
+            1, 256, (16, NN)).astype(np.uint8), tree, 64, 12))
+        cases.append(("probabilities 0, 1, 255", lanes(16, 23), rng.choice(
+            [0, 1, 255], (16, NN)).astype(np.uint8), tree, 40, 12))
+        ff = lanes(16, 27)
+        ff[:, 0] = 0xff
+        cases.append(("first byte 0xff", ff, rng.randint(
+            1, 256, (16, NN)).astype(np.uint8), tree, 40, 12))
+    else:
+        probs = rng.randint(1, 256, (16, 150)).astype(np.uint8)
+        cases += [("L=43, K=150", lanes(16, 43), probs),
+                  ("overread (L=3)", lanes(16, 3), probs),
+                  ("overread (L=1)", lanes(16, 1), probs[:, :37]),
+                  ("probabilities 0, 1, 255", lanes(16, 9), rng.choice(
+                      [0, 1, 255], (16, 70)).astype(np.uint8))]
+        ff = lanes(16, 27)
+        ff[:, 0] = 0xff
+        cases.append(("first byte 0xff", ff, probs))
+    name = f"decode_{kind}_multi"
+    kern = getattr(rac, name)
+    plain = getattr(rac, name + "_plain")
+    for case in cases:
+        label, data, probs, args = case[0], case[1], case[2], case[3:]
+        ref = plain(on_card(torch, data), on_card(torch, probs), *args)
+        want = None
+        if not label.startswith("first byte"):
+            want = spec_stream(np, data, probs, *args)[0]
+        for base in range(4):
+            got = kern(on_card(torch, data, base),
+                       on_card(torch, probs, (base + 1) % 4), *args)
+            if not torch.equal(got, ref) or (
+                    want is not None
+                    and not np.array_equal(got.cpu().numpy(), want)):
+                raise RuntimeError(f"{name} on {label} (rows {base} bytes "
+                                   "off their words): kernel != plain/spec")
+    return [c[0] for c in cases]
+
+
+def stream_phase(rac, torch, np, kind):
+    """decode_bits_multi or decode_tree_multi on seeded byte streams:
+    the counted run, the plain version, the spec decoder, timings; the
+    edge cases (stream_edges); the longest lane's cycles a bool in the
+    kernel (its clock-reading instance, rac.stream_cycles) beside its
+    chain alone (stream_chain) at the clock that chain kernel ran at;
+    ptxas's registers and spills.
+
+    The bytes bound counts what this run's lanes need: the stream bytes
+    each spec decoder consumed, the probabilities read (every one for
+    bits; the distinct nodes a lane visited for a tree, and the distinct
+    tree-table entries taken), and the output."""
+    data, probs, tree, K = stream_lanes(np, kind)
+    extra = () if tree is None else (tree, K)
+    ref, lane_bools, used, nodes, entries = spec_stream(np, data, probs,
+                                                        *extra)
+    name = f"decode_{kind}_multi"
+    kern = getattr(rac, name)
+    plain = getattr(rac, name + "_plain")
+    if tree is None:
+        need = used + STREAM_S * K + STREAM_S * K * 4    # streams, probs, out
+    else:
         # streams, probs (uint8), tree entries (int32), out
-        need = used + nodes + 4 * len(entries) + S * K * 4
-        name = "decode_tree_multi"
-        kern = rac.decode_tree_multi
-        plain = rac.decode_tree_multi_plain
-        extra = (tree, K)
+        need = used + nodes + 4 * len(entries) + STREAM_S * K * 4
     data_d = torch.as_tensor(data, device=DEVICE)
     probs_d = torch.as_tensor(probs, device=DEVICE)
     # the path's run: launches counted from zero
@@ -489,22 +619,54 @@ def stream_phase(rac, torch, np, kind):
     if err or not np.array_equal(out.cpu().numpy(), ref):
         raise RuntimeError(f"{name}: kernel != plain/spec (max |diff| "
                            f"{err})")
-    ms = cuda_ms(lambda: kern(data_d, probs_d, *extra), 50)
+    edges = stream_edges(rac, torch, np, kind)
+    call_ms = cuda_ms(lambda: kern(data_d, probs_d, *extra), 50)
+    ms, _ops = device_ms(torch, lambda: kern(data_d, probs_d, *extra), 50,
+                         (f"decode_{kind}_kernel",))
     plain_ms = cuda_ms(lambda: plain(data_d, probs_d, *extra), 1)
     nbools = int(sum(lane_bools))
-    bound_ms, bound_by, chain_ms = bounds(need, nbools, max(lane_bools))
+    longest = int(np.argmax(lane_bools))
+    bound_ms, bound_by, chain_ms = bounds(need, nbools, lane_bools[longest])
+    # cycles in the kernel, its clock-reading instance, the best of five
+    timed, cycles = rac.stream_cycles(name, data_d, probs_d, *extra)
+    if not torch.equal(timed, out):
+        raise RuntimeError(f"{name}: the clock-reading instance differs")
+    cyc = min(int(rac.stream_cycles(name, data_d, probs_d, *extra)[1]
+                  [longest]) for _ in range(5))
+    cpb = cyc / lane_bools[longest]
+    chain_cpb, clock_hz = stream_chain(rac, torch, np, data[longest],
+                                       probs[longest, :8],
+                                       lane_bools[longest])
+    chain_clock_ms = lane_bools[longest] * chain_cpb / clock_hz * 1e3
+    # the instance the seeded lanes ran: untimed (and, for the tree, the
+    # one without the depth cap, as no symbol of theirs can reach it)
+    ptx = ptxas_of(KERNEL_SRC, {"bits": "decode_bits_kernelILb0E",
+                                "tree": "decode_tree_kernelILb0ELb0E"}[kind])
     # a token: one decoded bit (bits) or one tree symbol (tree)
-    say("kernels", f"{name}: S={S} K={K} ms={ms:.4f} plain_ms="
-        f"{plain_ms:.2f} launches={launches} tokens={S * K} tokens/s="
-        f"{S * K / (ms / 1e3):.4g} bools={nbools} bytes needed={need} "
-        f"(stream {used}) exact vs plain and spec")
+    say("kernels", f"{name}: S={STREAM_S} K={K} ms={ms:.5f} on the card's "
+        f"clock (the wrapper's call under CUDA events {call_ms:.5f}) "
+        f"plain_ms={plain_ms:.2f} "
+        f"launches={launches} tokens={STREAM_S * K} tokens/s="
+        f"{STREAM_S * K / (ms / 1e3):.4g} bools={nbools} bytes needed="
+        f"{need} (stream {used}) exact vs plain and spec; the longest lane "
+        f"({lane_bools[longest]} bools) {cpb:.2f} cycles a bool in the "
+        f"kernel (clock64), its chain alone {chain_cpb:.2f} cycles a bool "
+        f"= {chain_clock_ms:.6f} ms at the {clock_hz / 1e9:.3f} GHz that "
+        f"chain kernel ran at (kernel/chain {cpb / chain_cpb:.2f}); ptxas "
+        f"{ptx}; edges exact vs plain and spec at 4 row alignments: "
+        + "; ".join(edges))
     return {"name": name, "route": "cuda", "source": KERNEL_SRC,
             "replaces": PALLAS_SRC + (":189" if kind == "bits" else ":113"),
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "bools": nbools, "chain_bools": max(lane_bools),
-            "chain_bound_ms": chain_ms, "bytes_needed": need}
+            "bools": nbools, "chain_bools": lane_bools[longest],
+            "chain_bound_ms": chain_ms, "bytes_needed": need,
+            "call_ms": call_ms,
+            "cycles_per_bool": cpb, "chain_cycles_per_bool": chain_cpb,
+            "chain_kernel_clock_hz": clock_hz,
+            "chain_bound_measured_at_clock_ms": chain_clock_ms,
+            "ptxas": ptx, "edge_cases": edges}
 
 
 def coef_bytes_needed(groups):
@@ -555,12 +717,34 @@ def coef_walk_bytes(rac, fr, groups):
             + rac.coef_machine(8).nbytes + 4 * (fr.nout + S))
 
 
+# bools of the chain run that reads the card's clock: some 40 ms, so
+# that the launch is lost in its time
+CLOCK_BOOLS = 1 << 20
+
+
+def chain_clock_hz(rac, torch, args):
+    """The clock the card runs a chain kernel at: the cycles of
+    rac.bool_chain_cycles on `args` with CLOCK_BOOLS bools over its time
+    under CUDA events (the best of three)."""
+    run = args[:-1] + (CLOCK_BOOLS,)
+    best = 0.0
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cycles = rac.bool_chain_cycles(*run)
+        end.record()
+        end.synchronize()
+        best = max(best, cycles / (start.elapsed_time(end) / 1e3))
+    return best
+
+
 def chain_cycles(rac, torch, fr, lane, bools):
     """(cycles per bool, clock in Hz) of the longest lane's chain alone
     on the card (rac.bool_chain_cycles): its halfwords staged in shared
     memory, from its snapshot state, under the first 8 probabilities of
     its row held in registers, its bools rounded up to a multiple of 8;
-    the clock is the kernel's cycles over its device time."""
+    the clock from chain_clock_hz."""
     row = fr.lanes[lane].cpu().tolist()
     half = fr.half[row[rac.HALF_OFF]:row[rac.HALF_OFF] + row[rac.HALF_LEN]]
     p8 = fr.probs[row[rac.PROB_OFF]:row[rac.PROB_OFF] + 8].to(torch.int32)
@@ -569,10 +753,7 @@ def chain_cycles(rac, torch, fr, lane, bools):
             row[rac.NBITS], p8, K)
     rac.bool_chain_cycles(*args)         # warm-up
     cycles = min(rac.bool_chain_cycles(*args) for _ in range(5))
-    # the clock the card runs such a kernel at: its cycles over its time
-    ms, _ops = device_ms(torch, lambda: rac.bool_chain_cycles(*args), 5,
-                         ("bool_chain_kernel",))
-    return cycles / K, cycles / (ms / 1e3)
+    return cycles / K, chain_clock_hz(rac, torch, args)
 
 
 def coef_phase(rac, torch, np, packet):
@@ -689,7 +870,7 @@ def coef_phase(rac, torch, np, packet):
         f" {chain_ms:.6f} ms at a cycle a bool, {cpb:.2f} cycles a bool "
         f"alone (clock64) = {chain2_ms:.6f} ms at 1.98 GHz, "
         f"{chain2_clock_ms:.6f} ms at the {clock_hz / 1e9:.3f} GHz that "
-        "kernel ran at; native C pass A (whole "
+        "chain ran at; native C pass A (whole "
         f"frame, one host core) {native_ms:.2f} ms = "
         f"{tokens / (native_ms / 1e3):.4g} tokens/s; exact vs plain and "
         "host pass A")

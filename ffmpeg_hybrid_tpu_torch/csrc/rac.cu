@@ -19,9 +19,11 @@
 // Hopper. Here each lane (one independent bool stream) is one thread
 // that runs its own serial loop, reads its bytes or halfwords directly
 // (reads past the end return 0, the spec's zero-extension), and stops
-// at its own EOB. The tree and bits decoders branch on their own
-// symbols; the coefficient walk is table-driven (below), with its
-// tables, probabilities and energy cache in shared memory.
+// at its own end. Each kernel makes one bool a step, its tables in
+// shared memory or registers; the tree and bits steps branch only to
+// fill their lookahead, once every 4 bools. Their lanes sit one to a
+// block of one warp (kStreamLanes): lanes of a warp wait on each other's
+// loads and depths (measured: tools/rac_streams_ab_torch.py).
 //
 // What bounds it. A bool decode depends on the previous one (range and
 // value carry), so a lane is one serial dependency chain of a few
@@ -31,24 +33,27 @@
 // keyframe's blocks, 3.7 us at 3.35 TB/s). The other bytes moved and the
 // operations are far below what the card does in that time. So the
 // design keeps the chain short: the renormalization shift is one
-// count-leading-zeros, not a loop; the halfword feed refills once per
-// ~5 bools; in the coefficient walk, no device-memory load and no
-// branch of the token tree sits inside a bool.
+// count-leading-zeros, not a loop; the stream is fed a word at a time,
+// fetched before it is needed; no device-memory load and no branch of a
+// tree sits inside a bool. On an H100 a tree or bits bool takes some 80
+// cycles, six dependent operations with the find-leading-one among them,
+// against 73 for the halfword chain alone (bool_chain_kernel).
 //
-// Integer semantics follow the JAX reference exactly: the halfword bit
-// buffer is never masked and wraps (uint32 here, where signed overflow
-// would be undefined), the dequant product wraps in int32, 32x32
-// coefficients halve toward zero with the reference's int32 negation,
-// and 8-bit coefficients wrap to int16.
+// Integer semantics follow the JAX reference exactly: the byte-fed
+// decoders' value is int32 and wraps (the Pallas _MultiRac's; it parts
+// from the spec decoder's unbounded integer only on a stream whose first
+// byte is 0xff, which no encoder writes), the halfword bit buffer is
+// never masked and wraps (uint32 here, where signed overflow would be
+// undefined), the dequant product wraps in int32, 32x32 coefficients
+// halve toward zero with the reference's int32 negation, and 8-bit
+// coefficients wrap to int16.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-
 // One bool under `prob` (P(0) = prob/256), before renormalization:
-// the split compare shared by both feeds (vpx_rac.h:83-94).
+// the split compare of the halfword-fed decoder (vpx_rac.h:83-94).
 __device__ __forceinline__ int bool_split(int& value, int& rng, int prob) {
   const int split = 1 + (((rng - 1) * prob) >> 8);
   if (value >= split) {
@@ -73,77 +78,295 @@ __device__ __forceinline__ void renorm16(int& value, int& rng,
   nbits -= sh;
 }
 
-// Byte-fed decoder: one bit per renormalization step, as the spec
-// decoder (codecs/vp9/rac.py) and the Pallas _MultiRac read them.
-struct Rac8 {
-  const uint8_t* data;
-  int len, pos, value, rng, cache, cache_n;
+// A lane's row of an [S, n] uint8 tensor in device memory, read as the
+// aligned 32-bit words that hold it (a row may start at any byte). Only
+// words that hold a byte of the row are loaded; a word is used as it was
+// loaded, so nothing waits on a load until its bytes are taken, and
+// bytes4 zeroes the bytes at or past the row's end there.
+struct Row {
+  const uint32_t* w;  // the aligned word that holds the row's byte 0
+  int sh;             // bits of that word before byte 0
+  int end;            // the row's end, in bytes from w; 0 for an empty row
+  int n;              // the row's bytes
 
-  __device__ int next_bit() {
-    if (cache_n == 0) {
-      cache = pos < len ? data[pos] : 0;
-      cache_n = 8;
-      ++pos;
-    }
-    --cache_n;
-    return (cache >> cache_n) & 1;
+  __device__ void init(const uint8_t* base, int64_t off, int bytes) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(base + off);
+    w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
+    sh = static_cast<int>(a & 3) * 8;
+    n = bytes;
+    end = n > 0 ? static_cast<int>(a & 3) + n : 0;
   }
-
-  __device__ void init(const uint8_t* d, int l) {
-    data = d;
-    len = l;
-    pos = 0;
-    value = 0;
-    rng = 255;
-    cache = 0;
-    cache_n = 0;
-    for (int i = 0; i < 8; ++i) value = (value << 1) | next_bit();
+  // aligned word j as it lies in memory; 0, unloaded, past the row
+  __device__ __forceinline__ uint32_t load(int j) const {
+    uint32_t x = 0;
+    if (4 * j < end) x = __ldg(w + j);
+    return x;
   }
-
-  __device__ int get(int prob) {
-    const int bit = bool_split(value, rng, prob);
-    while (rng < 128) {
-      value = (value << 1) | next_bit();
-      rng <<= 1;
-    }
-    return bit;
+  // the row's bytes 4m..4m+3, little-endian, from its aligned words m
+  // and m + 1 as loaded, the bytes at or past its end zeroed
+  __device__ __forceinline__ uint32_t bytes4(uint32_t a, uint32_t b,
+                                             int m) const {
+    const uint32_t x = __funnelshift_r(a, b, sh);
+    const int valid = n - 4 * m;
+    return valid >= 4 ? x : valid <= 0 ? 0u : x & ((1u << (8 * valid)) - 1u);
   }
 };
 
-__global__ void decode_bits_kernel(const uint8_t* __restrict__ data, int S,
-                                   int L, const uint8_t* __restrict__ probs,
-                                   int K, int32_t* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  Rac8 rac;
-  rac.init(data + static_cast<int64_t>(s) * L, L);
-  const uint8_t* p = probs + static_cast<int64_t>(s) * K;
-  int32_t* o = out + static_cast<int64_t>(s) * K;
-  for (int i = 0; i < K; ++i) o[i] = rac.get(p[i]);
+__device__ __forceinline__ uint32_t big_endian(uint32_t x) {
+  return __byte_perm(x, 0, 0x0123);
 }
 
-__global__ void decode_tree_kernel(const uint8_t* __restrict__ data, int S,
-                                   int L, const uint8_t* __restrict__ probs,
-                                   int NN, const int32_t* __restrict__ tree,
-                                   int k, int max_depth,
-                                   int32_t* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  Rac8 rac;
-  rac.init(data + static_cast<int64_t>(s) * L, L);
-  const uint8_t* p = probs + static_cast<int64_t>(s) * NN;
-  for (int i = 0; i < k; ++i) {
-    int node = 0, val = 0;
-    for (int d = 0; d < max_depth; ++d) {
-      const int nxt = tree[2 * node + rac.get(p[node])];
-      if (nxt <= 0) {  // leaf: -value
-        val = -nxt;
-        break;
-      }
-      node = nxt;
-    }
-    out[static_cast<int64_t>(s) * k + i] = val;
+// The byte-fed decoder of decode_tree_multi and decode_bits_multi (the
+// spec decoder, codecs/vp9/rac.py, and the Pallas _MultiRac), in a
+// window: the BD_VALUE form of libvpx's vpx_dsp/bitreader.h, with the
+// value kept apart so that it wraps in int32 as the Pallas kernel's.
+// The bits after the value wait left-aligned in a 64-bit lookahead.
+// fill, once every 4 bools, tops it up when it holds fewer than the 28
+// bits 4 renormalizations may take (7 each): the next 32-bit word of the
+// stream goes in below its bits, and the word after it is fetched then,
+// a fill ahead of its use. A bool (get) is then the split compare and
+// one shift of value and lookahead by 7 - top, top the range's highest
+// set bit, with no branch; the range takes one shift after top's
+// find-leading-one. Its reads are those of the Pallas
+// ops/passa_device.py (there halfword-fed): get (_rac_get_prob), bits
+// (_rac_bits) and TreeWalk::step below (_rac_tree, a bool a step).
+struct Window {
+  Row row;
+  uint32_t a, b;  // aligned words k and k + 1 of the row, as loaded
+  int k;          // the stream word the next fill takes
+  uint64_t look;  // lookahead bits, left-aligned
+  int count;      // lookahead bits held
+  int value;      // the decoder's value (int32, wraps)
+  int rng;        // its range, [128, 255] between bools
+
+  // the spec decoder's init: the value is the stream's first byte
+  __device__ void init(const uint8_t* base, int64_t off, int n) {
+    row.init(base, off, n);
+    const uint32_t a0 = row.load(0);
+    a = row.load(1);
+    b = row.load(2);
+    const uint32_t w0 = big_endian(row.bytes4(a0, a, 0));
+    value = static_cast<int>(w0 >> 24);
+    look = static_cast<uint64_t>(w0 << 8) << 32;
+    count = 24;
+    k = 1;
+    rng = 255;
   }
+
+  // before every 4 bools: at least 28 lookahead bits
+  __device__ __forceinline__ void fill() {
+    if (count < 28) {
+      look |= static_cast<uint64_t>(big_endian(row.bytes4(a, b, k)))
+              << (32 - count);
+      count += 32;
+      a = b;
+      b = row.load(++k + 1);
+    }
+  }
+
+  // vpx_rac_get_prob: one bool with P(0) = prob/256, q = 256 - prob
+  __device__ __forceinline__ int get(int prob, int q) {
+    const int split = (rng * prob + q) >> 8;
+    const int bit = value >= split;
+    value = bit ? value - split : value;  // no overflow: value >= split
+    const int r = bit ? rng - split : split;  // in [1, 255]
+    const int top = 31 - __clz(r);
+    const int sh = 7 - top;
+    value = static_cast<int>(__funnelshift_l(
+        static_cast<uint32_t>(look >> 32), static_cast<uint32_t>(value), sh));
+    look <<= sh;
+    count -= sh;
+    rng = (r << 7) >> top;
+    return bit;
+  }
+
+  // 4N bools, most significant first, bool m under byte m of the
+  // little-endian words p4 (four probabilities a word, N words), a fill
+  // before every 4
+  template <int N>
+  __device__ __forceinline__ uint32_t bits(const uint32_t* p4) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int m = 0; m < 4 * N; ++m) {
+      if (m % 4 == 0) fill();
+      const int p = static_cast<int>((p4[m >> 2] >> (8 * (m & 3))) & 0xff);
+      v = (v << 1) | get(p, 256 - p);
+    }
+    return v;
+  }
+};
+
+// A tree symbol over a Window, one bool a step (vp89_rac_get_tree with
+// the Pallas kernel's depth cap), on a lane's transition table in shared
+// memory (stage_tree): a node's entry (32 bytes) holds its two tree
+// entries, the shared-memory offsets of both children's entries and
+// both children's probabilities; a leaf's child is the root, node 0.
+// While a bool decodes, step loads both children's entries, their
+// offsets read straight from the node's; the bit picks one, and the
+// next bool's probability is already in the node's entry. An entry <= 0
+// is the leaf -entry (wrapping). With kCap, a symbol that reaches
+// max_depth bools without a leaf is 0, and the next starts at the root;
+// without, the caller knows that no symbol can (an acyclic tree no
+// deeper than max_depth), and every step selects one of the two loaded
+// entries, so the compiler cannot sink their loads past the bit.
+template <bool kCap>
+struct TreeWalk {
+  const unsigned char* smem;  // the block's tables
+  int max_depth, depth, prob, prob_root;
+  int4 e, e_root;  // the node's entries and child offsets; the root's
+  int2 p, p_root;  // the node's children's probabilities; the root's
+
+  __device__ void init(const unsigned char* tables, int root, int md,
+                       int root_prob) {
+    smem = tables;
+    max_depth = md;
+    e_root = e = *reinterpret_cast<const int4*>(smem + root);
+    p_root = p = *reinterpret_cast<const int2*>(smem + root + 16);
+    prob_root = prob = root_prob;
+    depth = 0;
+  }
+
+  // one bool (a fill every 4 is the caller's); true when it ends a
+  // symbol, which is then in sym
+  __device__ __forceinline__ bool step(Window& w, int& sym) {
+    const int4 e0 = *reinterpret_cast<const int4*>(smem + e.z);
+    const int4 e1 = *reinterpret_cast<const int4*>(smem + e.w);
+    const int2 p0 = *reinterpret_cast<const int2*>(smem + e.z + 16);
+    const int2 p1 = *reinterpret_cast<const int2*>(smem + e.w + 16);
+    const int bit = w.get(prob, 256 - prob);
+    const int c = bit ? e.y : e.x;
+    sym = c <= 0 ? static_cast<int>(0u - static_cast<uint32_t>(c)) : 0;
+    prob = bit ? p.y : p.x;
+    e = bit ? e1 : e0;
+    p = bit ? p1 : p0;
+    if (!kCap) return c <= 0;
+    const bool cap = ++depth == max_depth;
+    depth = c <= 0 || cap ? 0 : depth;
+    prob = cap ? prob_root : prob;
+    e = cap ? e_root : e;
+    p = cap ? p_root : p;
+    return c <= 0 || cap;
+  }
+};
+
+// Lanes a block (of one warp) of the tree and bits kernels: 1 beat 8 and
+// 32 on every input of tools/rac_streams_ab_torch.py, which varies it.
+constexpr int kStreamLanes = 1;
+
+// Stage the transition tables of a block's lanes (nl rows of NN
+// probabilities from probs) for the tree [NN, 2]: entry (l, m) at byte
+// 32 (l NN + m) is {tree[m][0], tree[m][1], the offsets of entries
+// (l, max(tree[m][0], 0)) and (l, max(tree[m][1], 0))} and {the
+// probabilities of those two nodes}; the whole block, off the chain.
+__device__ void stage_tree(unsigned char* smem, const int32_t* tree, int NN,
+                           const uint8_t* probs, int nl) {
+  for (int j = threadIdx.x; j < nl * NN; j += blockDim.x) {
+    const int l = j / NN, m = j - l * NN;
+    const int e0 = tree[2 * m], e1 = tree[2 * m + 1];
+    const int n0 = max(e0, 0), n1 = max(e1, 0);
+    const int base = 32 * l * NN;
+    *reinterpret_cast<int4*>(smem + 32 * j) =
+        make_int4(e0, e1, base + 32 * n0, base + 32 * n1);
+    *reinterpret_cast<int2*>(smem + 32 * j + 16) =
+        make_int2(probs[l * NN + n0], probs[l * NN + n1]);
+  }
+}
+
+// decode_bits_multi. A lane a thread, kStreamLanes lanes to a block of
+// one warp. The probabilities are read 16 at a time as five aligned words,
+// the next 16's loaded while these decode (Window::bits<4>); the
+// outputs leave as four 16-byte stores (where the rows are 16-byte
+// aligned, K % 4 == 0). Bools past K decode on zero probabilities and
+// are not stored: each lane's outputs before them are already fixed.
+template <bool kTimed>
+__global__ void __launch_bounds__(32) decode_bits_kernel(
+    const uint8_t* __restrict__ data, int S, int L,
+    const uint8_t* __restrict__ probs, int K, int32_t* __restrict__ out,
+    long long* __restrict__ cycles) {
+  const int t = threadIdx.x;
+  const int s = blockIdx.x * kStreamLanes + t;
+  if (t >= kStreamLanes || s >= S) return;
+  Window w;
+  w.init(data, static_cast<int64_t>(s) * L, L);
+  Row pr;
+  pr.init(probs, static_cast<int64_t>(s) * K, K);
+  int32_t* o = out + static_cast<int64_t>(s) * K;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  uint32_t q0 = pr.load(0), q1 = pr.load(1), q2 = pr.load(2),
+           q3 = pr.load(3), q4 = pr.load(4);
+  long long t0 = 0;
+  if (kTimed) t0 = clock64();
+  for (int i = 0; i < K; i += 16) {
+    const int j = i >> 2;  // the aligned word of probability i
+    const uint32_t n1 = pr.load(j + 5), n2 = pr.load(j + 6),
+                   n3 = pr.load(j + 7), n4 = pr.load(j + 8);
+    const uint32_t p4[4] = {pr.bytes4(q0, q1, j), pr.bytes4(q1, q2, j + 1),
+                            pr.bytes4(q2, q3, j + 2),
+                            pr.bytes4(q3, q4, j + 3)};
+    const uint32_t v = w.bits<4>(p4);
+    if (vec && i + 16 <= K) {
+      int4* o4 = reinterpret_cast<int4*>(o + i);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        o4[m] = make_int4((v >> (15 - 4 * m)) & 1, (v >> (14 - 4 * m)) & 1,
+                          (v >> (13 - 4 * m)) & 1, (v >> (12 - 4 * m)) & 1);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 16; ++m)
+        if (i + m < K) o[i + m] = (v >> (15 - m)) & 1;
+    }
+    q0 = q4;
+    q1 = n1;
+    q2 = n2;
+    q3 = n3;
+    q4 = n4;
+  }
+  if (kTimed) cycles[s] = clock64() - t0;
+}
+
+// decode_tree_multi. A lane a thread, kStreamLanes lanes to a block of
+// one warp. The block stages its lanes' transition tables (stage_tree);
+// each lane then runs TreeWalk steps, 4 to a fill, every lane the same
+// instructions, and leaves when its k symbols are written (the steps
+// after the k-th of a group of 4 decode and are not stored).
+template <bool kTimed, bool kCap>
+__global__ void __launch_bounds__(32) decode_tree_kernel(
+    const uint8_t* __restrict__ data, int S, int L,
+    const uint8_t* __restrict__ probs, int NN,
+    const int32_t* __restrict__ tree, int k, int max_depth,
+    int32_t* __restrict__ out, long long* __restrict__ cycles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int lane0 = blockIdx.x * kStreamLanes;
+  const int nl = min(kStreamLanes, S - lane0);
+  stage_tree(smem, tree, NN, probs + static_cast<int64_t>(lane0) * NN, nl);
+  __syncthreads();
+  if (t >= nl) return;
+  const int s = lane0 + t;
+  int32_t* o = out + static_cast<int64_t>(s) * k;  // the next symbol's
+  int32_t* const end = o + k;
+  if (max_depth <= 0) {  // no bool is read: every symbol is 0
+    for (; o < end; ++o) *o = 0;
+    return;
+  }
+  Window w;
+  w.init(data, static_cast<int64_t>(s) * L, L);
+  TreeWalk<kCap> walk;
+  walk.init(smem, 32 * t * NN, max_depth,
+            probs[static_cast<int64_t>(s) * NN]);
+  long long t0 = 0;
+  if (kTimed) t0 = clock64();
+  while (o < end) {
+    w.fill();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      int sym;
+      const bool done = walk.step(w, sym);
+      if (done && o < end) *o = sym;
+      o += done;
+    }
+  }
+  if (kTimed) cycles[s] = clock64() - t0;
 }
 
 // The coefficient walk: decode_coeffs_b (vp9block.c:805-923) for one
@@ -371,24 +594,59 @@ __global__ void bool_chain_kernel(const int32_t* __restrict__ half, int len,
   sink[0] = acc ^ value ^ rng;
 }
 
-int blocks_for(int S) { return (S + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 extern "C" {
 
+// K bools of each of S streams (data [S, L] uint8) under probs [S, K]
+// uint8 into out [S, K] int32 on `stream`; cycles: null, or int64 [S]
+// that takes each lane's clock64 cycles from its first bool to its last
+// store (an instance of the kernel that reads the clock; with null, one
+// that does not).
 int rac_decode_bits(const uint8_t* data, int S, int L, const uint8_t* probs,
-                    int K, int32_t* out, cudaStream_t stream) {
-  decode_bits_kernel<<<blocks_for(S), kThreads, 0, stream>>>(data, S, L,
-                                                             probs, K, out);
+                    int K, int32_t* out, long long* cycles,
+                    cudaStream_t stream) {
+  if (S < 0 || L < 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!S || !K) return static_cast<int>(cudaSuccess);
+  const int blocks = (S + kStreamLanes - 1) / kStreamLanes;
+  if (cycles)
+    decode_bits_kernel<true><<<blocks, 32, 0, stream>>>(data, S, L, probs, K,
+                                                        out, cycles);
+  else
+    decode_bits_kernel<false><<<blocks, 32, 0, stream>>>(data, S, L, probs, K,
+                                                         out, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 
+// k symbols of the tree [NN, 2] int32 (every entry < NN; an entry <= 0
+// is the leaf -entry) from each of S streams (data [S, L] uint8) under
+// probs [S, NN] uint8 into out [S, k] int32 on `stream`; a symbol takes
+// at most max_depth bools, and capped is 0 only where none can reach
+// them (an acyclic tree no deeper than max_depth); cycles as
+// rac_decode_bits'. Shared memory: 32 kStreamLanes NN bytes, at most
+// 227 KB.
 int rac_decode_tree(const uint8_t* data, int S, int L, const uint8_t* probs,
                     int NN, const int32_t* tree, int k, int max_depth,
-                    int32_t* out, cudaStream_t stream) {
-  decode_tree_kernel<<<blocks_for(S), kThreads, 0, stream>>>(
-      data, S, L, probs, NN, tree, k, max_depth, out);
+                    int capped, int32_t* out, long long* cycles,
+                    cudaStream_t stream) {
+  if (S < 0 || L < 0 || NN < 1 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!S || !k) return static_cast<int>(cudaSuccess);
+  const int64_t smem = 32 * static_cast<int64_t>(kStreamLanes) * NN;
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = cycles ? (capped ? decode_tree_kernel<true, true>
+                                 : decode_tree_kernel<true, false>)
+                       : (capped ? decode_tree_kernel<false, true>
+                                 : decode_tree_kernel<false, false>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (S + kStreamLanes - 1) / kStreamLanes;
+  kernel<<<blocks, 32, static_cast<int>(smem), stream>>>(
+      data, S, L, probs, NN, tree, k, max_depth, out, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,9 @@ Each has a plain PyTorch version (`*_plain`): the lockstep form of the
 Pallas kernel, predication masks and all, which runs on either device.
 The public wrapper takes the plain version for tensors on the CPU and
 launches the CUDA kernel (csrc/rac.cu) for tensors on the card; it
-counts its kernel launches in LAUNCHES.
+counts its kernel launches in LAUNCHES. The tree and bits kernels run a
+lane a thread, a lane a block; stream_cycles reads each lane's cycles
+from them.
 
 The coefficient kernel walks every lane of a frame in one launch, from a
 packed form of the frame (pack_lanes: a lane table, deduplicated scan and
@@ -407,11 +409,14 @@ def decode_coeffs_multi_plain(half16, value0, rng0, bitbuf0, nbits0,
 
 _c = ctypes
 _SIGNATURES = {
+    # data, S, L, probs, K, out, cycles, stream
     "rac_decode_bits": [_c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p,
-                        _c.c_int, _c.c_void_p, _c.c_void_p],
+                        _c.c_int] + [_c.c_void_p] * 3,
+    # data, S, L, probs, NN, tree, k, max_depth, capped, out, cycles,
+    # stream
     "rac_decode_tree": [_c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p,
-                        _c.c_int, _c.c_void_p, _c.c_int, _c.c_int,
-                        _c.c_void_p, _c.c_void_p],
+                        _c.c_int, _c.c_void_p] + [_c.c_int] * 3 +
+                       [_c.c_void_p] * 3,
     # lanes, blocks, nblocks, half16, tables, probs, machine, bpp, smem,
     # coef, eob, stream
     "rac_decode_coeffs_frame": [_c.c_void_p, _c.c_void_p, _c.c_int] +
@@ -423,6 +428,11 @@ _SIGNATURES = {
 }
 
 
+# shared memory a block of the tree kernel may take: its lane's transition
+# table, 32 bytes a node
+TREE_SMEM = 227 * 1024
+
+
 @lru_cache(maxsize=64)
 def _tree_dev(tree_bytes, shape, device):
     """A tree table on `device`, copied there once per table."""
@@ -430,16 +440,36 @@ def _tree_dev(tree_bytes, shape, device):
     return torch.as_tensor(host.copy(), device=device)
 
 
-def decode_tree_multi(data_u8, probs_u8, tree, k, max_depth=12):
-    """Decode k tree symbols from each of S independent streams.
+@lru_cache(maxsize=64)
+def tree_depth(tree_bytes, NN):
+    """The most bools a symbol of the tree [NN, 2] (int32 bytes) takes
+    from the root, or 0 if a cycle is reachable from it."""
+    tree = np.frombuffer(tree_bytes, np.int32).reshape(NN, 2)
+    state, depth = [0] * NN, [0] * NN      # 0 new, 1 open, 2 done
+    stack = [(0, False)]
+    while stack:
+        n, post = stack.pop()
+        if post:
+            depth[n] = 1 + max(depth[e] if e > 0 else 0 for e in tree[n])
+            state[n] = 2
+            continue
+        if state[n] == 2:
+            continue
+        if state[n] == 1:
+            return 0
+        state[n] = 1
+        stack.append((n, True))
+        for e in tree[n]:
+            if e > 0 and state[e] == 1:
+                return 0
+            if e > 0 and state[e] == 0:
+                stack.append((int(e), False))
+    return depth[0]
 
-    data_u8: [S, L] uint8 stream bytes. probs_u8: [S, NN] uint8 per-node
-    probabilities. tree: [NN, 2] int32 (entry <= 0 encodes leaf -value,
-    like codecs/vp9/tables trees). Returns [S, k] int32 symbol values.
-    """
-    if data_u8.device.type == "cpu":
-        return decode_tree_multi_plain(data_u8, probs_u8, tree, k,
-                                       max_depth)
+
+def _launch_tree(data_u8, probs_u8, tree, k, max_depth, timed):
+    """The tree kernel on CUDA tensors: (out [S, k] int32, cycles [S]
+    int64 or None, launched)."""
     dev = data_u8.device
     S, L = data_u8.shape
     NN = probs_u8.shape[1]
@@ -447,13 +477,60 @@ def decode_tree_multi(data_u8, probs_u8, tree, k, max_depth=12):
     data = check_tensor(data_u8, u8, (S, L), dev, "data_u8")
     probs = check_tensor(probs_u8, u8, (S, NN), dev, "probs_u8")
     tree_h = np.ascontiguousarray(tree, np.int32)
-    tree_d = check_tensor(_tree_dev(tree_h.tobytes(), tree_h.shape, dev),
-                          (torch.int32,), (NN, 2), dev, "tree")
+    key = tree_h.tobytes()
+    if tree_h.shape != (NN, 2) or (tree_h >= NN).any():
+        raise ValueError(f"the tree must be [{NN}, 2] with every node "
+                         f"entry below {NN}")
+    if 32 * NN > TREE_SMEM:
+        raise ValueError(f"a {NN}-node tree takes {32 * NN} B of shared "
+                         f"memory, more than a block has ({TREE_SMEM})")
+    tree_d = _tree_dev(key, tree_h.shape, dev)
     out = torch.empty((S, k), dtype=torch.int32, device=dev)
-    if S and k:
-        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_tree", data, S, L,
-                     probs, NN, tree_d, k, max_depth, out)
-        LAUNCHES["decode_tree_multi"] += 1
+    cycles = torch.zeros(S, dtype=torch.int64, device=dev) if timed else None
+    if not (S and k):
+        return out, cycles, False
+    # the instance without the cap where no symbol can reach max_depth:
+    # 81.9 cycles a bool against the capped one's 86.5 on an H100
+    # (tools/rac_streams_ab_torch.py, variant cap, chip_smoke's lanes)
+    depth = tree_depth(key, NN)
+    capped = int(depth == 0 or depth > max_depth)
+    _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_tree", data, S, L,
+                 probs, NN, tree_d, k, max_depth, capped, out, cycles)
+    return out, cycles, True
+
+
+def _launch_bits(data_u8, probs_seq_u8, timed):
+    """The bits kernel on CUDA tensors: (out [S, K] int32, cycles [S]
+    int64 or None, launched)."""
+    dev = data_u8.device
+    S, L = data_u8.shape
+    K = probs_seq_u8.shape[1]
+    u8 = (torch.uint8,)
+    data = check_tensor(data_u8, u8, (S, L), dev, "data_u8")
+    probs = check_tensor(probs_seq_u8, u8, (S, K), dev, "probs_seq_u8")
+    out = torch.empty((S, K), dtype=torch.int32, device=dev)
+    cycles = torch.zeros(S, dtype=torch.int64, device=dev) if timed else None
+    if not (S and K):
+        return out, cycles, False
+    _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_bits", data, S, L,
+                 probs, K, out, cycles)
+    return out, cycles, True
+
+
+def decode_tree_multi(data_u8, probs_u8, tree, k, max_depth=12):
+    """Decode k tree symbols from each of S independent streams.
+
+    data_u8: [S, L] uint8 stream bytes. probs_u8: [S, NN] uint8 per-node
+    probabilities. tree: [NN, 2] int32 (entry <= 0 encodes leaf -value,
+    like codecs/vp9/tables trees; on the card every other entry must be
+    a node below NN). Returns [S, k] int32 symbol values.
+    """
+    if data_u8.device.type == "cpu":
+        return decode_tree_multi_plain(data_u8, probs_u8, tree, k,
+                                       max_depth)
+    out, _cycles, launched = _launch_tree(data_u8, probs_u8, tree, k,
+                                          max_depth, False)
+    LAUNCHES["decode_tree_multi"] += launched
     return out
 
 
@@ -462,18 +539,24 @@ def decode_bits_multi(data_u8, probs_seq_u8):
     sequence [S, K] (128 = literal bits). Returns [S, K] int32 bits."""
     if data_u8.device.type == "cpu":
         return decode_bits_multi_plain(data_u8, probs_seq_u8)
-    dev = data_u8.device
-    S, L = data_u8.shape
-    K = probs_seq_u8.shape[1]
-    u8 = (torch.uint8,)
-    data = check_tensor(data_u8, u8, (S, L), dev, "data_u8")
-    probs = check_tensor(probs_seq_u8, u8, (S, K), dev, "probs_seq_u8")
-    out = torch.empty((S, K), dtype=torch.int32, device=dev)
-    if S and K:
-        _cuda.launch("rac.cu", _SIGNATURES, "rac_decode_bits", data, S, L,
-                     probs, K, out)
-        LAUNCHES["decode_bits_multi"] += 1
+    out, _cycles, launched = _launch_bits(data_u8, probs_seq_u8, False)
+    LAUNCHES["decode_bits_multi"] += launched
     return out
+
+
+def stream_cycles(name, data_u8, probs_u8, tree=None, k=None,
+                  max_depth=12):
+    """The kernel of decode_tree_multi or decode_bits_multi (`name`) on
+    CUDA tensors, in its instance that reads the clock: (out, each lane's
+    clock64 cycles [S] int64 from its first bool to its last store).
+    tree, k and max_depth are the tree's. A measurement, not a path: it
+    counts no launch."""
+    if name == "decode_tree_multi":
+        out, cycles, _ = _launch_tree(data_u8, probs_u8, tree, k, max_depth,
+                                      True)
+    else:
+        out, cycles, _ = _launch_bits(data_u8, probs_u8, True)
+    return out, cycles
 
 
 # ---------------------------------------------------------------------------
