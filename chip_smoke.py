@@ -108,7 +108,8 @@ Phases, one status line each; any failure exits non-zero:
                clock with torch.profiler, since their wrappers' host
                work outlasts their kernels, with their device ops per
                call, beside an empty kernel's time in the same harness:
-               the launch floor)
+               the launch floor; each profiled reading scaled by the
+               kernels launched over the records the profiler kept)
   4. decode    each clip through VP9Decoder(device="cuda")
                .decode_stream, every MD5 against its framemd5: all 30
                frames of vectors/bench_1080p.ivf (no loop filter: the
@@ -141,7 +142,36 @@ Phases, one status line each; any failure exits non-zero:
                share in a serial decode under torch.profiler
   5. threads   two decoders of one geometry on two host threads at once,
                every frame bit-exact (each decoder owns its splat state)
-  6. cli       the command line, `python -m ffmpeg_hybrid_tpu_torch`, on
+  6. gop       GOP-parallel decode (parallel/gop.py), a worker's decoder
+               on its own CUDA stream: two decoders on two streams
+               interleaved frame by frame on bench_1080p_lf (each with
+               its own loop-filter schedule states); decode_gops_parallel
+               with 1, 2 and
+               4 workers on bench_1080p_lf (6 GOPs), each format clip (2
+               GOPs) and bench_1080p three times over (9 GOPs), every
+               frame bit-exact vs framemd5 with the plain versions set to
+               raise; each input's wall fps, host pass A ms/frame and the
+               card's busy share (torch.profiler) per worker count;
+               decode_gops_md5_multiprocess in 2 spawned processes on
+               bench_1080p_lf; a GOP cut short raising ValueError at its
+               place with every worker joined
+  7. sharded   the tile-sharded pass B (parallel/fullframe.py), every
+               frame bit-exact vs framemd5, the outputs installed as the
+               frames' planes: bench_1080p_lf on a (1, 4) mesh, the first
+               6 frames of bench_1080p (MC with stripe offsets),
+               fmt_420_10_1080p and fmt_444_1080p, resize_1080p (its
+               4-tile frames sharded, the others serial), bench_1080p_lf
+               on (2, 4) with two frames a step, bench_4k frame 0 on (1,
+               8); the kept coefficient buffers read zero after every
+               sharded frame; the launches counted from zero (the replay
+               kernel, csrc/lpf_replay.cu, twice a filtered sharded
+               frame); then the replay kernel on bench_1080p_lf and
+               bench_4k frame 0's own replay inputs against
+               lf_scan_sharded_plain, and with one stripe on the serial
+               schedule against lf_scan_plain, its time on the card's
+               clock (and the steps' chain alone), its bound terms and
+               ptxas's registers and spills
+  8. cli       the command line, `python -m ffmpeg_hybrid_tpu_torch`, on
                the card with every plain version set to raise:
                - a shell run on vectors/bench_1080p.ivf, its rows from
                  the data rows down equal to the framemd5's;
@@ -163,7 +193,7 @@ Phases, one status line each; any failure exits non-zero:
                - the CLI's wall fps on bench_1080p with -f null and -f
                  framemd5 (median of three runs), beside the decode
                  phase's, not gated
-  7. a JSON line {"kernels": [...]} and the card line, then the result
+  9. a JSON line {"kernels": [...]} and the card line, then the result
      line {"ok": true, "device": {...}}
 
 The script needs the repository around it and a CUDA device; without
@@ -266,6 +296,30 @@ CLI_MEM_FRAMES = 10
 RESUME_AT = {"bench_1080p": 10, RESIZE_CLIP: 3}
 # timed in-process CLI runs a format (the fps is their median)
 CLI_RUNS = 3
+# runs under torch.profiler while a device record is missing, and the
+# least share of the launches whose records the best run must keep
+PROFILE_TRIES = 3
+PROFILE_KEPT = 0.5
+# the gop phase: worker counts of decode_gops_parallel, spawned processes
+# of decode_gops_md5_multiprocess
+GOP_WORKERS = (1, 2, 4)
+GOP_PROCS = 2
+# the sharded phase: (label, clip, frames (None: all), mesh (gop, tile),
+# frames a step (one a gop row), the tile count of the frames it shards
+# (None: every frame; the others decode serially))
+SHARDED_RUNS = (
+    ("bench_1080p_lf", "bench_1080p_lf", None, (1, 4), 1, None),
+    ("bench_1080p", "bench_1080p", 6, (1, 4), 1, None),
+    ("fmt_420_10_1080p", "fmt_420_10_1080p", None, (1, 4), 1, None),
+    ("fmt_444_1080p", "fmt_444_1080p", None, (1, 4), 1, None),
+    (RESIZE_CLIP, RESIZE_CLIP, None, (1, 4), 1, 4),
+    ("bench_1080p_lf 2 a step", "bench_1080p_lf", None, (2, 4), 2, None),
+    ("bench_4k", "bench_4k", 1, (1, 8), 1, None),
+)
+LF_REPLAY_SRC = PKG + "/csrc/lpf_replay.cu"
+# _lf_scan, with the sharded scan of parallel/fullframe.py
+# (_lf_apply_step :163, _lf_scan_sharded :201)
+LF_REPLAY_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_tpu.py:115"
 
 
 def say(phase, msg):
@@ -296,29 +350,104 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps, names):
+def _device_us(e):
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_counts(prof, keys):
+    """{key: the device records the profiler kept whose names hold key}."""
+    from torch.autograd import DeviceType
+    return {k: sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and k in e.key)
+            for k in keys}
+
+
+def profiled(body, expect):
+    """(profiler, result, kept) of body() run under torch.profiler.
+    expect: a callable called before each run, which returns a callable
+    that gives, after it, {substring: count}, the kernels launched whose
+    names hold each substring. The profiler keeps fewer device records
+    than were launched, though it keeps every launch's host record: on an
+    H100 40 of 50 records of some kernels run after run, 0 to 20 of 20 of
+    others (a warm-up step of a schedule, or idle time before the work in
+    the profile, changed nothing). So the run is made again, PROFILE_TRIES
+    times in all, while a record is missing, and the run that kept the
+    largest share of the records is returned, with kept: {substring:
+    (records kept, launched)}. Its readings are scaled by launched over
+    kept (kept_scale): the mean of the records kept stands for the ones
+    lost. A best share under PROFILE_KEPT raises, and so does a record
+    more than was launched (the count is wrong)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    best = None
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            counted = expect()
+            out = body()
+        want = counted()
+        got = device_counts(prof, want)
+        if any(got[k] > want[k] for k in want):
+            raise RuntimeError(f"the profiler kept device records {got} of "
+                               f"{want} launched: a count is wrong")
+        launched = sum(want.values())
+        share = sum(got.values()) / launched if launched else 1.0
+        if best is None or share > best[0]:
+            best = (share, prof, out, {k: (got[k], want[k]) for k in want})
+        if share == 1.0:
+            break
+        host = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and "LaunchKernel" in e.key)
+        say("profile", f"run {attempt + 1}: the profiler kept device "
+            f"records {got} of {want} launched ({host} kernel-launch calls "
+            "recorded on the host)")
+    share, prof, out, kept = best
+    if share < PROFILE_KEPT:
+        raise RuntimeError(f"torch.profiler kept {kept} (records, launched) "
+                           f"at best in {PROFILE_TRIES} runs")
+    return prof, out, kept
+
+
+def kept_scale(kept):
+    """Launched over kept, over every substring of a profiled run's kept:
+    the factor that its device time and op count are scaled by."""
+    got = sum(g for g, _w in kept.values())
+    want = sum(w for _g, w in kept.values())
+    return want / got if got else 1.0
+
+
+def device_ms(torch, fn, reps, names, per_call, kernel=None):
     """(mean device ms, device operations) per call of fn over reps calls:
     the kernels and memsets whose names hold one of `names`, from
     torch.profiler: their summed device time, less the share by which
     their intervals overlap (a programmatic dependent launch runs beside
     the launch before it, and that time counts once). A wrapper whose
     host work outlasts its kernels reads as its host time under CUDA
-    events; this reads the card's own."""
+    events; this reads the card's own. A call launches per_call kernels
+    whose names hold `kernel` (names[0] when None): the time and the ops
+    are scaled by their launches over the records the profiler kept
+    (profiled)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+
+    key = names[0] if kernel is None else kernel
+    prof, _, kept = profiled(body, lambda: lambda: {key: reps * per_call})
+    scale = kept_scale(kept)
     us = ops = 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and any(k in e.key
                                                     for k in names):
-            us += getattr(e, "self_device_time_total", None) \
-                or getattr(e, "self_cuda_time_total", 0)
+            us += _device_us(e)
             ops += e.count
     if not us:
         raise RuntimeError(f"the profiler saw no device time of {names}")
@@ -333,7 +462,7 @@ def device_ms(torch, fn, reps, names):
             busy += b - max(a, end)
             end = b
     share = busy / total if total > 0 else 1.0
-    return us * share / 1e3 / reps, ops / reps
+    return us * share * scale / 1e3 / reps, ops * scale / reps
 
 
 # a kernel that does nothing, one block of one warp: its device time is
@@ -383,7 +512,7 @@ def load_empty(build):
 
 def launch_floor_ms(torch, empty, reps=50):
     """The empty kernel's device time, in device_ms like any kernel."""
-    return device_ms(torch, empty, reps, ("empty_kernel",))[0]
+    return device_ms(torch, empty, reps, ("empty_kernel",), 1)[0]
 
 
 def ptxas_of(src, kernel):
@@ -622,7 +751,7 @@ def stream_phase(rac, torch, np, kind):
     edges = stream_edges(rac, torch, np, kind)
     call_ms = cuda_ms(lambda: kern(data_d, probs_d, *extra), 50)
     ms, _ops = device_ms(torch, lambda: kern(data_d, probs_d, *extra), 50,
-                         (f"decode_{kind}_kernel",))
+                         (f"decode_{kind}_kernel",), launches)
     plain_ms = cuda_ms(lambda: plain(data_d, probs_d, *extra), 1)
     nbools = int(sum(lane_bools))
     longest = int(np.argmax(lane_bools))
@@ -807,7 +936,7 @@ def coef_phase(rac, torch, np, packet):
 
     def run():
         CP.decode_blocks(groups, fr, bpp=8)
-    k_ms, ops = device_ms(torch, run, 20, ("decode_coeffs_kernel",))
+    k_ms, ops = device_ms(torch, run, 20, ("decode_coeffs_kernel",), 1)
     ms = cuda_ms(run, 20)
     # the one-group entry alone, each group's arguments unpacked first:
     # under CUDA events, and on the card's clock with all its device ops
@@ -819,9 +948,10 @@ def coef_phase(rac, torch, np, packet):
             rac.decode_coeffs_multi(*a, n=(4 << tx) ** 2, bpp=8,
                                     is32=group[0]["is32"])
     group_ms = cuda_ms(one_group, 20)
-    group_dev_ms, group_ops = device_ms(torch, one_group, 20, ("",))
+    group_dev_ms, group_ops = device_ms(torch, one_group, 20, ("",),
+                                       len(groups), "decode_coeffs_kernel")
     group_k_ms, _ops = device_ms(torch, one_group, 20,
-                                 ("decode_coeffs_kernel",))
+                                 ("decode_coeffs_kernel",), len(groups))
     t0 = time.perf_counter()
     CP.decode_blocks(groups, fr, bpp=8, fn=rac.decode_coeffs_multi_plain)
     torch.cuda.synchronize()
@@ -977,6 +1107,8 @@ def lf_run(torch, LD, args):
     them in place with one launch; restore() is its copy alone."""
     planes, rest = args[:3], list(args[3:])
     work = [p.clone() for p in planes]
+    # one schedule state for every launch of the run, as a decoder keeps
+    schedules = {}
 
     def restore():
         for w, p in zip(work, planes):
@@ -984,7 +1116,7 @@ def lf_run(torch, LD, args):
 
     def run(do_y=True, do_uv=True):
         restore()
-        LD.lf_frame_(*work, *rest[:-2], do_y, do_uv)
+        LD.lf_frame_(*work, *rest[:-2], do_y, do_uv, schedules=schedules)
     return work, run, restore
 
 
@@ -1322,11 +1454,13 @@ def residual_phase(torch, np, scatter_calls, residual_calls):
 
         def residual():
             R.residual_planes(jobs, lossless, bpp)
-        k_sc, o_sc = device_ms(torch, pair, 50, ("scatter_kernel", "Memset"))
-        k_res, o_res = device_ms(torch, pair, 50, ("residual_kernel",))
+        k_sc, o_sc = device_ms(torch, pair, 50, ("scatter_kernel", "Memset"),
+                               1)
+        k_res, o_res = device_ms(torch, pair, 50, ("residual_kernel",), 1)
         k_scf, o_scf = device_ms(torch, fresh, 50, ("scatter_kernel",
-                                                    "Memset"))
-        k_res0, o_res0 = device_ms(torch, residual, 50, ("residual_kernel",))
+                                                    "Memset"), 1)
+        k_res0, o_res0 = device_ms(torch, residual, 50, ("residual_kernel",),
+                                   1)
         if not bufs.read_zero():
             raise RuntimeError(f"{clip}: the kept buffers do not read zero "
                                "after the timed pairs")
@@ -1585,7 +1719,7 @@ def mc_phase(torch, np, calls):
 
         def call():
             R.mc_planes(jobs, bpp, has_comp)
-        k_ms, _n = device_ms(torch, call, 50, ("mc_kernel",))
+        k_ms, _n = device_ms(torch, call, 50, ("mc_kernel",), 1)
         b = o = 0
         for job in jobs:
             jb, jo = mc_work(np, job, has_comp)
@@ -1945,7 +2079,7 @@ def mc_scaled_phase(torch, np, calls):
 
         def call():
             R.mc_planes_scaled(*args)
-        k_ms, _n = device_ms(torch, call, 20, ("mc_scaled_kernel",))
+        k_ms, _n = device_ms(torch, call, 20, ("mc_scaled_kernel",), 1)
         b, o = mc_scaled_work(np, args)
         jobs = args[0]
         inter = sum(int(j[1].sum()) for j in jobs)
@@ -2208,7 +2342,7 @@ def splat_phase(torch, np, calls, call_4k):
                 R._grids_from_records(recs, r4, c4, ss_h, ss_v,
                                       states=states)
             kernel_ms, dev_ops = device_ms(torch, call, 50,
-                                           ("splat_", "Memset"))
+                                           ("splat_", "Memset"), 2)
             b = recs.numel() * 2 + sum(o.numel() * o.element_size()
                                        for o in outs)
             o = SPLAT_CELL_OPS * (r4 * c4 + outs[8].numel())
@@ -2283,7 +2417,7 @@ def lf_grids_phase(torch, np, call, call_4k):
 
         def call_():
             LM.grids_device(lfl, lfm, luts, sb_rows, sb_cols, ss_h, ss_v)
-        ms, dev_ops = device_ms(torch, call_, 50, ("lf_grids_kernel",))
+        ms, dev_ops = device_ms(torch, call_, 50, ("lf_grids_kernel",), 1)
         quads = sum(g.numel() // 4 for g in grids)
         nbytes = lfl.numel() * 2 + (lfm.numel() + luts.numel()) * 4 \
             + quads * 16
@@ -2478,7 +2612,7 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
             def residual():
                 R.residual_planes(plain_jobs, lossless, bpp)
             k_ms = seeded_ms[clip] = device_ms(torch, residual, 20,
-                                               ("residual_kernel",))[0]
+                                               ("residual_kernel",), 1)[0]
             notes.append(f"{clip}: {cp.shape[0]} pair rows, roots {roots}; "
                          f"exact; {k_ms:.5f} ms on the card (no clear)")
             continue
@@ -2489,8 +2623,8 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
 
         def residual():
             R.residual_planes(plain_jobs, lossless, bpp)
-        k_ms, k_ops = device_ms(torch, pair, 20, ("residual_kernel",))
-        k0_ms, _o = device_ms(torch, residual, 20, ("residual_kernel",))
+        k_ms, k_ops = device_ms(torch, pair, 20, ("residual_kernel",), 1)
+        k0_ms, _o = device_ms(torch, residual, 20, ("residual_kernel",), 1)
         if not bufs.read_zero():
             raise RuntimeError(f"{clip}: the kept buffers do not read zero "
                                "after the timed pairs")
@@ -2710,7 +2844,7 @@ def resume_check(name, cut):
 
 
 def cli_phase(torch, launches, decode_fps):
-    """The port's command line on the card (phase 6 of the docstring).
+    """The port's command line on the card (phase 8 of the docstring).
     launches: each clip's kernel launches in the decode phase;
     decode_fps: bench_1080p's median fps there."""
     from ffmpeg_hybrid_tpu_torch.formats.ivf import read_ivf
@@ -2857,9 +2991,9 @@ def busy_share(torch, frames):
     """(the card's busy share, device ops a frame) of a serial decode of
     `frames` under torch.profiler after a warm-up decode: the device time
     of its kernels over the wall time, as tools/profile_stages_torch.py
-    reads it."""
+    reads it, scaled by the port's kernels' launches over their records
+    kept (profiled, launch_records)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
 
     def run():
@@ -2868,19 +3002,21 @@ def busy_share(torch, frames):
             dec.decode(fd)
         torch.cuda.synchronize()
 
-    run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def timed():
         t0 = time.perf_counter()
         run()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    run()
+    prof, wall, kept = profiled(timed, launch_records)
+    scale = kept_scale(kept)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0) for e in kernels)
+    us = sum(_device_us(e) for e in kernels)
     if not us:
         raise RuntimeError("the profiler saw no device time in the decode")
-    return us / 1e6 / wall, sum(e.count for e in kernels) / len(frames)
+    return (us * scale / 1e6 / wall,
+            sum(e.count for e in kernels) * scale / len(frames))
 
 
 def read_clip(name):
@@ -2898,19 +3034,46 @@ def read_clip(name):
     return frames, want
 
 
+# the port's kernels whose device records a profiled decode must hold,
+# by the launch counts (main_path_launches) that count their wrappers'
+# calls: {name substring: (counter keys, kernels a call)}. The scatter
+# is left out: a call with no rows launches nothing
+COUNTED_KERNELS = {"intra_kernel": (("intra",), 1),
+                   "lpf_kernel": (("lf_dense",), 1),
+                   "lf_grids_kernel": (("lf_grids",), 1),
+                   "splat_": (("splat",), 2),
+                   "mc_kernel": (("mc",), 1),
+                   "mc_scaled_kernel": (("mc_scaled",), 1),
+                   "residual_kernel": (("residual", "residual_hbd"), 1)}
+
+
+def launch_records():
+    """A profiled() expect: the device records of COUNTED_KERNELS that
+    the launches counted from this call on make."""
+    before = main_path_launches()
+
+    def after():
+        now = main_path_launches()
+        return {name: per * sum(now[k] - before[k] for k in keys)
+                for name, (keys, per) in COUNTED_KERNELS.items()}
+    return after
+
+
 def main_path_launches():
     """Every kernel wrapper's launch count since main_path_run began."""
-    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
+    from ffmpeg_hybrid_tpu_torch.ops import (lpf_dense, lpf_masks,
+                                             lpf_replay, rac, recon)
     return dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **lpf_masks.LAUNCHES,
-                **recon.LAUNCHES)
+                **recon.LAUNCHES, **lpf_replay.LAUNCHES)
 
 
 @contextlib.contextmanager
 def main_path_run():
     """A run of the main path: every launch count set to zero at its
     start, and every kernel's plain version set to raise within it."""
-    from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, rac, recon
-    for mod in (rac, lpf_dense, lpf_masks, recon):
+    from ffmpeg_hybrid_tpu_torch.ops import (lpf_dense, lpf_masks,
+                                             lpf_replay, rac, recon)
+    for mod in (rac, lpf_dense, lpf_masks, recon, lpf_replay):
         mod.reset_launches()
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
@@ -2918,7 +3081,9 @@ def main_path_run():
                  "mc_planes_scaled_plain", "_scatter_pairs16",
                  "_scatter_pairs32", "_consume_plain")),
         (lpf_masks, ("grids_device_plain",)),
-        (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")))
+        (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")),
+        (lpf_replay, ("lf_scan_plain", "lf_scan_sharded_plain",
+                      "apply_step_plain")))
         for fn in fns]
     saved = [getattr(mod, fn) for mod, fn in plains]
 
@@ -3037,6 +3202,383 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
         f"{len(dec.coef_bufs)}, splat states {len(dec.splat_states)}")
     return (fps, fps_runs, stages, launches, intra_frames, inter_frames, host,
             (len(dec.coef_bufs), len(dec.splat_states)))
+
+
+# ---------------------------------------------------------------------------
+# parallel decode: GOP workers and the tile-sharded pass B
+
+
+def gop_inputs(clips):
+    """The gop phase's streams: (label, packets, each frame's MD5):
+    bench_1080p_lf (6 GOPs), each format clip (2 GOPs), and bench_1080p
+    three times over (9 GOPs), as tests/test_gop.py builds streams."""
+    out = [("bench_1080p_lf", *clips["bench_1080p_lf"])]
+    out += [(c, *clips[c]) for c in FORMAT_CLIPS]
+    frames, want = clips["bench_1080p"]
+    out.append(("bench_1080p x3", frames * 3, want * 3))
+    return out
+
+
+def two_streams_check(torch, clips):
+    """Two decoders, each on its own CUDA stream, interleaved frame by
+    frame on bench_1080p_lf (fault 3.1: each decoder's loop-filter
+    schedule states, lf_schedules, are its own, so their launches may run
+    at once): every frame's MD5 against its framemd5, the two decoders'
+    schedule states disjoint."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    frames, want = clips["bench_1080p_lf"]
+    decs = [VP9Decoder(device=DEVICE) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = [[], []]
+    for fd in frames:
+        outs = []
+        for dec, st in zip(decs, streams):
+            with torch.cuda.stream(st):
+                outs.append(dec.decode(fd))
+        for i, (st, out) in enumerate(zip(streams, outs)):
+            st.synchronize()
+            got[i] += [hashlib.md5(f.to_bytes()).hexdigest() for f in out]
+    a, b = (set(map(id, d.lf_schedules.values())) for d in decs)
+    if got != [want, want] or not a or a & b:
+        raise RuntimeError("two decoders on two streams: bench_1080p_lf not "
+                           "bit-exact, or schedule states shared")
+    say("gop", "two decoders on two CUDA streams, interleaved frame by "
+        "frame on bench_1080p_lf: every frame bit-exact vs framemd5, each "
+        "decoder on its own loop-filter schedule states")
+
+
+def gop_busy(torch, packets, workers):
+    """The card's busy share of one decode_gops_parallel pass under
+    torch.profiler: the device time of its kernels over the wall time
+    (with workers on several streams, kernels that overlap count each),
+    scaled by the port's kernels' launches over their records kept."""
+    from torch.autograd import DeviceType
+    from ffmpeg_hybrid_tpu_torch.parallel.gop import decode_gops_parallel
+
+    def timed():
+        t0 = time.perf_counter()
+        for _f in decode_gops_parallel(packets, workers=workers):
+            pass
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prof, wall, kept = profiled(timed, launch_records)
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("the profiler saw no device time in a GOP pass")
+    return us * kept_scale(kept) / 1e6 / wall
+
+
+def gop_phase(torch, clips):
+    """GOP-parallel decode on the card (phase 6 of the docstring): first
+    two decoders on two streams (two_streams_check); then
+    decode_gops_parallel with each of GOP_WORKERS workers on every gop
+    input, every frame's MD5 against its framemd5, on the main path (the
+    launches of the conformance passes counted from zero, the plain
+    versions set to raise); per input and worker count a timed pass (wall
+    fps, host pass A ms/frame summed over the workers' threads) and the
+    card's busy share under torch.profiler; decode_gops_md5_multiprocess
+    in GOP_PROCS spawned processes on bench_1080p_lf; a GOP whose packet
+    is cut short raises ValueError at its place with every worker joined.
+    Returns {label: {workers: (fps, pass A ms/frame, busy share)}}."""
+    from ffmpeg_hybrid_tpu_torch.parallel import gop as PG
+    from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
+    inputs = gop_inputs(clips)
+    t0 = time.perf_counter()
+    with main_path_run():
+        two_streams_check(torch, clips)
+        for label, packets, want in inputs:
+            for workers in GOP_WORKERS:
+                got = [hashlib.md5(f.to_bytes()).hexdigest()
+                       for f in PG.decode_gops_parallel(packets,
+                                                        workers=workers)]
+                if got != want:
+                    bad = next((i for i, (a, b) in enumerate(zip(got, want))
+                                if a != b), min(len(got), len(want)))
+                    raise RuntimeError(f"gop: {label} with {workers} "
+                                       f"workers: frame {bad} of {len(got)} "
+                                       f"(of {len(want)}) is not bit-exact")
+    launches = main_path_launches()
+    for key in ("splat", "scatter", "residual", "residual_hbd", "mc",
+                "intra", "lf_dense", "lf_grids"):
+        if not launches[key]:
+            raise RuntimeError(f"gop: the {key} kernel never launched in "
+                               f"the GOP passes: {launches}")
+    say("gop", f"decode_gops_parallel with {GOP_WORKERS} workers on "
+        + ", ".join(f"{label} ({len(PG.split_gops(p))} GOPs, {len(w)} "
+                    "frames)" for label, p, w in inputs)
+        + f": every frame bit-exact vs framemd5 in "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}")
+    results = {}
+    card = card_line()
+    for label, packets, _want in inputs:
+        for workers in GOP_WORKERS:
+            gc.collect()
+            metrics.enable()
+            metrics.reset()
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                n = sum(1 for _f in PG.decode_gops_parallel(
+                    packets, workers=workers))
+                torch.cuda.synchronize()
+                fps = n / (time.perf_counter() - t1)
+                pass_a = metrics.report()["decode.pass_a"]["total_s"] \
+                    * 1e3 / n
+            finally:
+                metrics.disable()
+            busy = gop_busy(torch, packets, workers)
+            results.setdefault(label, {})[workers] = (fps, pass_a, busy)
+        say("gop", f"{label}: " + "; ".join(
+            f"{w} worker{'s' if w > 1 else ''} {fps:.3f} fps (host pass A "
+            f"{pa:.3f} ms/frame summed over the workers, the card busy "
+            f"{100 * b:.2f}%)" for w, (fps, pa, b) in results[label].items())
+            + f" on {card}")
+    t1 = time.perf_counter()
+    path = os.path.join(ROOT, "vectors", "bench_1080p_lf.ivf")
+    got = [m for _n, m in PG.decode_gops_md5_multiprocess(path,
+                                                          n_procs=GOP_PROCS)]
+    if got != clips["bench_1080p_lf"][1]:
+        raise RuntimeError("gop: the multiprocess decode of bench_1080p_lf "
+                           "is not bit-exact")
+    say("gop", f"decode_gops_md5_multiprocess, {GOP_PROCS} spawned "
+        "processes on bench_1080p_lf (loading the built kernels): every "
+        f"frame bit-exact vs framemd5, {time.perf_counter() - t1:.1f} s")
+    frames, want = clips["bench_1080p_lf"]
+    bad = frames[:3] + [frames[3][:9]] + frames[4:]
+    got = []
+    try:
+        for f in PG.decode_gops_parallel(bad, workers=2):
+            got.append(hashlib.md5(f.to_bytes()).hexdigest())
+    except ValueError as e:
+        err = e
+    else:
+        raise RuntimeError("gop: a GOP cut short raised nothing")
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("ThreadPoolExecutor")]
+    if got != want[:3] or alive:
+        raise RuntimeError(f"gop: the cut GOP raised after {len(got)} frames"
+                           f" (expected 3 bit-exact ones); workers alive "
+                           f"{alive}")
+    say("gop", f"bench_1080p_lf with GOP 3's packet cut to 9 bytes: the "
+        f"generator yields GOPs 0-2 bit-exact, then raises ValueError "
+        f"({err}); every worker joined")
+    return results
+
+
+def serial_steps(np, tsteps, x0, halo):
+    """The serial schedule [S, D, 7] of per-stripe steps [T, S, D, 7]
+    (pack_schedule_tiles): the same (wave, substep) rows and lanes, each
+    record's px back in the frame's columns (x0: the stripes' offsets;
+    halo: the columns before a stripe's own)."""
+    out = np.zeros(tsteps.shape[1:], np.int32)
+    for t, a in enumerate(x0):
+        live = tsteps[t, ..., 3] > 0
+        rec = tsteps[t].copy()
+        rec[..., 1] += a - halo
+        out[live] = rec[live]
+    return out
+
+
+def lf_replay_checks(torch, np, captured):
+    """The replay kernel (csrc/lpf_replay.cu) on the sharded runs' own
+    inputs, as sharded_decode_pass_b hands them over (captured: {clip:
+    [(buffers, steps, wreal, bpp) for Y, U+V]}): the sharded launch
+    against lf_scan_sharded_plain; the stripes joined and the serial
+    schedule through the one-stripe launch (lf_scan) against
+    lf_scan_plain and against the sharded result; each launch's time
+    under CUDA events, and the chain alone (the same steps with every
+    record a no-op: its barriers and record loads); the bound terms.
+    Returns the kernels-line entry."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
+    err, rows = 0, {}
+    for clip, sets in captured.items():
+        for which, (buf, steps, wreal, bpp) in zip(("Y", "U+V"), sets):
+            T, B, H, Wb = buf.shape
+            want, plain_ms = host_ms(torch, lambda: LR.lf_scan_sharded_plain(
+                buf, steps, wreal, bpp))
+            got = LR.lf_scan_sharded(buf.clone(), steps, wreal, bpp)
+            e = int((got - want).abs().max())
+            x0 = np.concatenate([[0], np.cumsum(wreal)[:-1]])
+            joined = torch.cat([buf[t, :, :, LR.HALO:LR.HALO + w]
+                                for t, w in enumerate(wreal)], dim=2)
+            ssteps = serial_steps(np, steps, x0, LR.HALO)
+            swant, splain_ms = host_ms(torch, lambda: LR.lf_scan_plain(
+                joined, ssteps, bpp))
+            sgot = LR.lf_scan(joined, ssteps, bpp)
+            sharded_joined = torch.cat([got[t, :, :, LR.HALO:LR.HALO + w]
+                                        for t, w in enumerate(wreal)], dim=2)
+            e = max(e, int((sgot - swant).abs().max()),
+                    int((sharded_joined - swant).abs().max()))
+            if e:
+                raise RuntimeError(f"lf_replay on {clip} {which}: kernel != "
+                                   f"plain (max |diff| {e})")
+            err = max(err, e)
+            # CUDA events (the card's timestamps) around launches whose
+            # steps are on the card already (the run's upload is host work;
+            # the profiler kept no record of some of these long launches),
+            # less the copies that restore their inputs
+            run = LR.steps_run(steps)
+            sdev = torch.as_tensor(steps[:, :max(run, 1)], device=DEVICE)
+            srun = LR.steps_run(ssteps[None])
+            ssdev = torch.as_tensor(ssteps[:max(srun, 1)], device=DEVICE)
+            work = buf.clone()
+            copy_ms = cuda_ms(lambda: work.copy_(buf), 10)
+            ms = cuda_ms(lambda: (work.copy_(buf), LR.lf_scan_sharded(
+                work, sdev, wreal, bpp)), 10) - copy_ms
+            clone_ms = cuda_ms(lambda: joined.clone(), 10)
+            sms = cuda_ms(lambda: LR.lf_scan(joined, ssdev, bpp), 10) \
+                - clone_ms
+            idle = sdev.clone()
+            idle[..., 3] = 0
+            chain_ms = cuda_ms(lambda: LR.lf_scan_sharded(
+                work, idle, wreal, bpp), 10)
+            nrec = int((steps[..., 3] > 0).sum())
+            # the frame's columns of the plane set read and written once
+            # (not the halos or the padding of the stripe buffers), each
+            # record read once; the edge decision of every lane of every
+            # record, a floor. The halo copy, each tail read and its
+            # mirror written once a stripe after the first, is its own term
+            nbytes = 2 * B * H * int(sum(wreal)) * 4 + nrec * 7 * 4
+            halo_bytes = 2 * (T - 1) * B * H * LR.HALO * 4
+            nops = nrec * 8 * B * LF_DECISION_OPS
+            bound_ms, bound_by, chain_bound = bounds(nbytes, nops, run)
+            rows[(clip, which)] = dict(
+                ms=ms, serial_ms=sms, chain_ms=chain_ms, plain_ms=plain_ms,
+                serial_plain_ms=splain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, steps=run, records=nrec,
+                stripes=T, shape=(B, H, Wb), bytes=nbytes,
+                halo_bytes=halo_bytes, ops=nops,
+                us_per_step=ms * 1e3 / max(run, 1),
+                chain_bound_ms=chain_bound)
+            say("kernels", f"lf_replay on {clip} frame 0 {which} ({T} stripes"
+                f" of {B} x {H} x {Wb}; {nrec} records in {run} steps): "
+                f"sharded ms={ms:.4f} ({ms * 1e3 / max(run, 1):.3f} us a "
+                f"step), the same steps as no-ops {chain_ms:.4f} ms, one "
+                f"stripe (the serial schedule) {sms:.4f} ms; plain "
+                f"{plain_ms:.1f} ms sharded, {splain_ms:.1f} ms serial; "
+                f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {nops} "
+                f"ops; the halo copy {halo_bytes} B more); exact vs both "
+                "plain versions and sharded == serial")
+    say("kernels", "lf_replay ptxas: "
+        + ptxas_of(LF_REPLAY_SRC, "lf_replay"))
+    lf = [rows[("bench_1080p_lf", w)] for w in ("Y", "U+V")]
+    return {"name": "lf_replay", "route": "cuda", "source": LF_REPLAY_SRC,
+            "replaces": LF_REPLAY_REPLACES, "launches": None,
+            "max_abs_err": err, "ms": sum(r["ms"] for r in lf),
+            "plain_ms": sum(r["plain_ms"] for r in lf),
+            "bound_ms": sum(r["bound_ms"] for r in lf),
+            "bound_by": lf[0]["bound_by"], "library_ms": None,
+            "per": f"frame (a Y and a U+V launch, {lf[0]['stripes']} "
+                   "stripes) of bench_1080p_lf frame 0",
+            "chain_ms": sum(r["chain_ms"] for r in lf),
+            "by_input": {f"{c} {w}": r for (c, w), r in rows.items()}}
+
+
+def sharded_run(torch, label, frames, want, mesh_shape, step=1, only=None):
+    """sharded_decode_pass_b over a (gop, tile) mesh, `step` frames a step
+    (rows of one step decoded by one decoder's pass A in order), each
+    output installed as its frame's planes; a frame whose tile count is
+    not the mesh's (only: the tile count to shard) decodes serially. Every
+    frame's MD5 against `want`; after every sharded frame the decoder's
+    kept coefficient buffers read zero. Returns (sharded frames, filtered
+    sharded frames, wall ms/frame of the pass)."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.parallel import fullframe as PF
+    from ffmpeg_hybrid_tpu_torch.parallel.mesh import make_mesh
+    gop, ntile = mesh_shape
+    mesh = make_mesh(gop * ntile, gop)
+    dec = VP9Decoder(device=DEVICE)
+    got, nshard, nlf = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(frames), step):
+        jobs = [dec.decode_pass_a(fd) for fd in frames[i:i + step]]
+        shard = [j for j in jobs if j.ready is None and (
+            only is None or j.header.tile_cols == only)]
+        for j in jobs:
+            if j.ready is None and j not in shard:
+                dec.decode_pass_b(dec.precompute_job(j))
+        if shard:
+            outs = PF.sharded_decode_pass_b(shard, make_mesh(
+                len(shard) * ntile, len(shard)) if len(shard) != gop
+                else mesh)
+            for j, planes in zip(shard, outs):
+                PF.install(j, planes)
+                nshard += 1
+                nlf += bool(j.header.filter_level)
+            if not all(b.read_zero() and b.consumed
+                       for b in dec.coef_bufs.values()):
+                raise RuntimeError(f"sharded: {label} frame {i}: a kept "
+                                   "coefficient buffer does not read zero")
+        for j in jobs:
+            got += [hashlib.md5(f.to_bytes()).hexdigest()
+                    for f in (j.ready if j.ready is not None else j.outputs)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    if got != want[:len(got)] or len(got) != len(want):
+        bad = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                   len(got))
+        raise RuntimeError(f"sharded: {label} on {mesh_shape}: frame {bad} "
+                           f"of {len(got)} is not bit-exact")
+    return nshard, nlf, ms
+
+
+def sharded_phase(torch, np, clips):
+    """The tile-sharded pass B on the card (phase 7 of the docstring):
+    sharded_decode_pass_b on each SHARDED_RUNS input, every frame
+    bit-exact, on the main path (launches counted from zero, the plain
+    versions set to raise; the replay kernel twice a filtered sharded
+    frame); then lf_replay_checks on the replay inputs of bench_1080p_lf
+    and bench_4k frame 0. Returns the kernels-line entry of lf_replay."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
+    captured = {}
+    real = LR.lf_scan_sharded
+
+    def capture_first(clip):
+        def wrapped(pl, steps, wreal, bpp):
+            sets = captured.setdefault(clip, [])
+            if len(sets) < 2:
+                sets.append((pl.clone(), np.array(steps), list(wreal), bpp))
+            return real(pl, steps, wreal, bpp)
+        return wrapped
+
+    t0 = time.perf_counter()
+    lines = []
+    with main_path_run():
+        nlf_total = 0
+        for label, clip, nframes, mesh_shape, step, only in SHARDED_RUNS:
+            frames, want = clips[clip]
+            n = len(frames) if nframes is None else nframes
+            if label in ("bench_1080p_lf", "bench_4k"):
+                LR.lf_scan_sharded = capture_first(clip)
+            try:
+                nshard, nlf, ms = sharded_run(torch, label, frames[:n],
+                                              want[:n], mesh_shape, step,
+                                              only)
+            finally:
+                LR.lf_scan_sharded = real
+            nlf_total += nlf
+            lines.append(f"{label} on {mesh_shape}: {n} frames ({nshard} "
+                         f"sharded) bit-exact, {ms:.2f} ms/frame")
+    launches = main_path_launches()
+    if launches["lf_replay"] != 2 * nlf_total:
+        raise RuntimeError(f"sharded: lf_replay launched "
+                           f"{launches['lf_replay']} times for {nlf_total} "
+                           "filtered sharded frames (expected one a plane "
+                           "set a frame)")
+    for key in ("splat", "scatter", "residual", "residual_hbd", "mc",
+                "mc_scaled", "intra", "lf_replay"):
+        if not launches[key]:
+            raise RuntimeError(f"sharded: the {key} kernel never launched: "
+                               f"{launches}")
+    say("sharded", "sharded_decode_pass_b: " + "; ".join(lines)
+        + f"; kernel launches {launches} (lf_replay twice a filtered sharded "
+        f"frame, {nlf_total} frames); {time.perf_counter() - t0:.1f} s")
+    entry = lf_replay_checks(torch, np, captured)
+    entry["launches"] = launches["lf_replay"]
+    return entry
 
 
 def main():
@@ -3238,6 +3780,8 @@ def main():
             + busy)
 
     two_decoders_phase(torch, clips)
+    gop_phase(torch, clips)
+    by_name["lf_replay"] = sharded_phase(torch, np, clips)
     del clips
     cli_phase(torch, clip_launches, clip_fps["bench_1080p"])
 

@@ -17,8 +17,9 @@ card loads into a decoder on the CPU and back. Take it between
 pass-A worker runs frames ahead of the ones it has yielded. The
 decoder's own device state needs no entry: its kept coefficient
 buffers (`coef_bufs`) read zero after every residual, and its splat
-index states (`splat_states`) are epoch-tagged, so a restored decoder
-starts both fresh.
+index states (`splat_states`) and loop-filter schedule states
+(`lf_schedules`) are epoch-tagged, so a restored decoder starts them
+fresh.
 """
 from __future__ import annotations
 

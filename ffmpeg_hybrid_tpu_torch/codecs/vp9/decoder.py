@@ -149,7 +149,7 @@ class FrameJob:
     the decoder) while this frame's pass B is still dispatching."""
     __slots__ = ("ready", "outputs", "refs", "lim_lut", "mblim_lut",
                  "device", "pre", "_uv_levels", "coef_bufs",
-                 "splat_states") + tuple(
+                 "splat_states", "lf_schedules") + tuple(
         a for a in (
             "header", "cur_frame_obj", "mvscale", "mvstep", "blocks",
             "block_records", "coef_y", "coef_u", "coef_v", "eob_y",
@@ -163,9 +163,11 @@ class FrameJob:
         # the dense coefficient buffers pass B scatters into (recon's
         # CoefBuffers by key): the decoder's own, kept from frame to
         # frame; a job made elsewhere starts with none. splat_states
-        # likewise: the splat's index state (recon_cuda.SplatState by key)
+        # likewise: the splat's index state (recon_cuda.SplatState by key),
+        # and lf_schedules the loop filter's (lpf_dense.schedule_state)
         self.coef_bufs = {}
         self.splat_states = {}
+        self.lf_schedules = {}
 
 
 _JOB_ATTRS = (
@@ -224,9 +226,12 @@ class VP9Decoder:
         # CoefBuffers), this decoder's alone: its frames' scatters and
         # consuming residuals alternate on them in decode order; and the
         # splat's index state (ops/recon_cuda.py SplatState), which two
-        # decoders of one geometry on two threads must not share
+        # decoders of one geometry on two threads must not share, and the
+        # loop filter's schedule states (ops/lpf_dense.py schedule_state),
+        # which two decoders on two streams must not share
         self.coef_bufs = {}
         self.splat_states = {}
+        self.lf_schedules = {}
 
     # -- pass A frame context API used by TileDecoder ------------------
     def counts_factory(self):
@@ -738,6 +743,7 @@ class VP9Decoder:
             job.device = self.device
             job.coef_bufs = self.coef_bufs
             job.splat_states = self.splat_states
+            job.lf_schedules = self.lf_schedules
             job.outputs = [] if h.invisible else [self.cur_frame_obj]
 
         # reference slot rotation (reference: vp9.c:1688-1692, 1849-1851)

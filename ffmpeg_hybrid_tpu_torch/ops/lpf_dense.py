@@ -294,13 +294,20 @@ class _Schedule:
             return self.epoch
 
 
-# the schedules by (device, sb_rows, sb_cols, sets), shared by every
-# decoder: safe only while every kernel runs on one stream. Stream order
-# then runs each launch alone, and a launch waits only on flags of its own
-# epoch, which its own superblocks write, so launches may even reach the
-# stream out of the order of their epochs (two decoders on two host
-# threads), as long as no epoch is taken twice (next_epoch's lock).
-_SCHEDULES = {}
+def schedule_state(store, dev, sb_rows, sb_cols, nsets):
+    """The _Schedule of (device, geometry, number of sets) in `store` (a
+    dict: a decoder's lf_schedules, which its FrameJobs carry), made at
+    first use. Its ticket counter and flags serve one stream: a launch
+    takes tickets from the counter and waits only on flags of its own
+    epoch, which its own superblocks write, so two launches on one state
+    must not run at once. Each decoder owns its store, so decoders on
+    streams of their own (the GOP workers of parallel/gop.py) never share
+    a state."""
+    key = (torch.device(dev), sb_rows, sb_cols, nsets)
+    sch = store.get(key)
+    if sch is None:
+        sch = store[key] = _Schedule(dev, sb_rows, sb_cols, nsets)
+    return sch
 
 
 # ---------------------------------------------------------------------------
@@ -326,9 +333,11 @@ def _plane_sets(y, u, v, Vy, Hy, Vu, Hu, ss_h, ss_v, do_y, do_uv):
         ([((u, v), Vu, Hu, 64 >> ss_h, 64 >> ss_v)] if do_uv else [])
 
 
-def _launch(sets, sb_rows, sb_cols, bpp):
+def _launch(sets, sb_rows, sb_cols, bpp, schedules=None):
     """One launch of csrc/lpf.cu on the plane sets [(planes, V, H, sbwx,
-    sbwy)], each plane filtered in place, after checking every tensor."""
+    sbwy)], each plane filtered in place, after checking every tensor, on
+    the schedule state of the caller's store `schedules` (a decoder's
+    lf_schedules), or on a fresh one of this call when it is None."""
     if bpp not in (8, 10, 12):
         raise ValueError(f"bpp={bpp}")
     dev = sets[0][0][0].device
@@ -351,10 +360,8 @@ def _launch(sets, sb_rows, sb_cols, bpp):
         dims += [len(planes), sbwx, sbwy]
     ptrs += [None] * (8 - len(ptrs))
     dims = np.asarray(dims + [0] * (6 - len(dims)), np.int32)
-    key = (dev, sb_rows, sb_cols, len(sets))
-    sch = _SCHEDULES.get(key)
-    if sch is None:
-        sch = _SCHEDULES[key] = _Schedule(dev, sb_rows, sb_cols, len(sets))
+    sch = schedule_state({} if schedules is None else schedules, dev,
+                         sb_rows, sb_cols, len(sets))
     _cuda.launch("lpf.cu", _SIGNATURES, "lpf_frame", *ptrs, len(sets),
                  dims.ctypes.data, sb_rows, sb_cols, sch.table, sch.ntickets,
                  sch.state, sch.next_epoch(), bpp)
@@ -362,14 +369,16 @@ def _launch(sets, sb_rows, sb_cols, bpp):
 
 
 def lf_frame_(y, u, v, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h, ss_v, bpp,
-              do_y=True, do_uv=True):
+              do_y=True, do_uv=True, schedules=None):
     """Loop-filter a frame's planes IN PLACE: y [sb_rows * 64, sb_cols *
     64] int32 with its grids Vy, Hy if do_y; u and v [sb_rows * (64 >>
     ss_v), sb_cols * (64 >> ss_h)] int32 with Vu, Hu if do_uv (grids as
     lf_dense takes them). The caller owns the planes: recon_frame hands
     over the planes it has just reconstructed, and nothing reads them
     unfiltered afterwards. CPU planes take lf_frame_plain_; planes on the
-    card the kernel, one launch for both sets, which runs U+V beside Y."""
+    card the kernel, one launch for both sets, which runs U+V beside Y,
+    on the schedule state of `schedules` (schedule_state; None: a fresh
+    one)."""
     sets = _plane_sets(y, u, v, Vy, Hy, Vu, Hu, ss_h, ss_v, do_y, do_uv)
     if not sets:
         return
@@ -377,19 +386,21 @@ def lf_frame_(y, u, v, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h, ss_v, bpp,
         lf_frame_plain_(y, u, v, Vy, Hy, Vu, Hu, sb_rows, sb_cols, ss_h,
                         ss_v, bpp, do_y, do_uv)
         return
-    _launch(sets, sb_rows, sb_cols, bpp)
+    _launch(sets, sb_rows, sb_cols, bpp, schedules)
 
 
-def lf_dense(planes, vpar, hpar, sb_rows, sb_cols, sbwx, sbwy, bpp):
+def lf_dense(planes, vpar, hpar, sb_rows, sb_cols, sbwx, sbwy, bpp,
+             schedules=None):
     """Loop-filter planes [B, Hp, Wp] int32 (Hp = sb_rows * sbwy, Wp =
     sb_cols * sbwx) with the dense grids vpar [Hp/8, Wp/4, 4] and hpar
     [Hp/4, Wp/8, 4] int32. Returns the filtered planes; the input is
     not modified. CPU tensors take lf_dense_plain; any other device the
-    kernel of lf_frame_ on a copy, as one plane set."""
+    kernel of lf_frame_ on a copy, as one plane set (schedules as
+    lf_frame_ takes it)."""
     if planes.device.type == "cpu":
         return lf_dense_plain(planes, vpar, hpar, sb_rows, sb_cols, sbwx,
                               sbwy, bpp)
     out = planes.clone(memory_format=torch.contiguous_format)
     _launch([(tuple(out.unbind(0)), vpar, hpar, sbwx, sbwy)], sb_rows,
-            sb_cols, bpp)
+            sb_cols, bpp, schedules)
     return out

@@ -1953,7 +1953,7 @@ def _loop_filter(s, outs, dev):
     with metrics.timer("recon.lf"):
         lpf_dense.lf_frame_(*outs, Vy, Hy, Vu, Hu, s.sb_rows, s.sb_cols,
                             h.ss_h, h.ss_v, h.bpp, bool(y_any),
-                            bool(uv_any))
+                            bool(uv_any), schedules=s.lf_schedules)
     return outs
 
 
@@ -2012,22 +2012,17 @@ def _ref_planes(s, plane_idx, ss_x, ss_y):
             tuple(d if d is not None else dims[k] for d in dims))
 
 
-def recon_frame(s):
-    """Reconstruct one frame on its device from the pass-A snapshot
-    (s: a FrameJob). Sets s.cur_frame_obj.dev to the three int32
-    planes. A frame whose inter blocks use a reference of invalid
-    dimensions raises ValueError before any launch."""
+def frame_residuals(s):
+    """The first stages of a frame's pass B on its device (s: a
+    FrameJob, made ready by precompute_host and upload_job): the splat of
+    its block records into the cell grids, the scatter of its coefficient
+    pairs into the decoder's kept buffers and the consuming residuals of
+    the three planes. Returns (plane_grids: per plane (inter4, txsz4,
+    txtype4, comp, filt, refsel, mv16), residuals: per plane [H, W]
+    int32, has_inter_frame, has_comp)."""
     h = s.header
-    bpp = h.bpp
-    device = s.device
-    cur = s.cur_frame_obj
-    if getattr(s, "pre", None) is None:
-        precompute_host(s)
     pre = s.pre
-    _check_refs(s, pre["recs"])
-    upload_job(s)
     dev = pre["dev"]
-
     r4, c4 = s.txsz4.shape
     with metrics.timer("recon.splat"):
         (inter4_d, txsz4_d, txtype4_d, comp4_d, filt4_d, refsel_d, mv16_d,
@@ -2054,33 +2049,69 @@ def recon_frame(s):
         residuals = residual_planes(
             [(coef, eob, g[1], g[2])
              for (coef, eob), g in zip(coefs, plane_grids)],
-            bool(h.lossless), bpp, consume=consume)
+            bool(h.lossless), h.bpp, consume=consume)
+    return plane_grids, residuals, has_inter_frame, has_comp
+
+
+def inter_planes_scaled(s, plane_grids, residuals, has_comp):
+    """The inter pass of a frame with a reference of another size than
+    its own (mc_planes_scaled, each slot at its own size) on the frame's
+    planes: arguments as frame_residuals returns them."""
+    h = s.header
+    dev = s.pre["dev"]
+    r4, c4 = s.txsz4.shape
+    jobs = []
+    for plane_idx, (residual, g) in enumerate(zip(residuals, plane_grids)):
+        ss_x, ss_y = (h.ss_h, h.ss_v) if plane_idx else (0, 0)
+        refplanes, dims = _ref_planes(s, plane_idx, ss_x, ss_y)
+        inter4_p, _tx, _tt, comp_p, filt_p, refsel_p, mv16_p = g
+        jobs.append((residual, inter4_p, comp_p, filt_p, refsel_p, mv16_p,
+                     refplanes, dims, ss_x, ss_y))
+    index = None if s.device.type == "cpu" else \
+        recon_cuda.splat_state(s.splat_states, dev["recs"].device, r4, c4)
+    return mc_planes_scaled(jobs, h.bpp, has_comp, dev["recs"], s.mvscale,
+                            s.mvstep, s.cols, s.rows, index)
+
+
+def recon_frame(s):
+    """Reconstruct one frame on its device from the pass-A snapshot
+    (s: a FrameJob). Sets s.cur_frame_obj.dev to the three int32
+    planes. A frame whose inter blocks use a reference of invalid
+    dimensions raises ValueError before any launch."""
+    h = s.header
+    bpp = h.bpp
+    device = s.device
+    cur = s.cur_frame_obj
+    if getattr(s, "pre", None) is None:
+        precompute_host(s)
+    pre = s.pre
+    _check_refs(s, pre["recs"])
+    upload_job(s)
+    dev = pre["dev"]
+    plane_grids, residuals, has_inter_frame, has_comp = frame_residuals(s)
 
     if has_inter_frame:
-        # a reference of another size than the frame (mvscale nonzero)
-        # takes the scaled inter pass, each slot at its own size
-        scaled = any(sc[0] for sc in s.mvscale)
-        jobs = []
-        for plane_idx, (residual, g) in enumerate(zip(residuals,
-                                                      plane_grids)):
-            ss_x, ss_y = (h.ss_h, h.ss_v) if plane_idx else (0, 0)
-            w, hh = cur.size
-            w, hh = (w + ss_x) >> ss_x, (hh + ss_y) >> ss_y
-            refplanes, dims = _ref_planes(s, plane_idx, ss_x, ss_y)
-            inter4_p, _tx, _tt, comp_p, filt_p, refsel_p, mv16_p = g
-            grids_p = (residual, inter4_p, comp_p, filt_p, refsel_p, mv16_p,
-                       refplanes)
-            jobs.append(grids_p + ((dims, ss_x, ss_y) if scaled else
-                                   (w, hh, 2 >> ss_x, 2 >> ss_y)))
         with metrics.timer("recon.mc"):
-            if scaled:
-                index = None if device.type == "cpu" else \
-                    recon_cuda.splat_state(s.splat_states, dev["recs"].device,
-                                           r4, c4)
-                outs = mc_planes_scaled(jobs, bpp, has_comp, dev["recs"],
-                                        s.mvscale, s.mvstep, s.cols, s.rows,
-                                        index)
+            # a reference of another size than the frame (mvscale
+            # nonzero) takes the scaled inter pass, each slot at its own
+            # size
+            if any(sc[0] for sc in s.mvscale):
+                outs = inter_planes_scaled(s, plane_grids, residuals,
+                                           has_comp)
             else:
+                jobs = []
+                for plane_idx, (residual, g) in enumerate(
+                        zip(residuals, plane_grids)):
+                    ss_x, ss_y = (h.ss_h, h.ss_v) if plane_idx else (0, 0)
+                    w, hh = cur.size
+                    w, hh = (w + ss_x) >> ss_x, (hh + ss_y) >> ss_y
+                    refplanes, _dims = _ref_planes(s, plane_idx, ss_x,
+                                                   ss_y)
+                    inter4_p, _tx, _tt, comp_p, filt_p, refsel_p, \
+                        mv16_p = g
+                    jobs.append((residual, inter4_p, comp_p, filt_p,
+                                 refsel_p, mv16_p, refplanes, w, hh,
+                                 2 >> ss_x, 2 >> ss_y))
                 outs = mc_planes(jobs, bpp, has_comp)
     else:
         outs = [torch.zeros(r.shape, dtype=torch.int32, device=device)

@@ -566,6 +566,34 @@ def pack_pairs_native(coef, eob4, txg, cp_out, ep_out, cbase=0,
     return True
 
 
+def lpf_record_native(s):
+    """Record the loop-filter edge-call sequence for the replay
+    (ops/lpf_replay.py): native/vp9_lpf.c's vp9_lpf_record walks the
+    frame's level and mask grids in the reference's order. Returns
+    (y_recs, ny, uv_recs, nuv) int16 [n, 8] arrays (sb, py, px, dir, wd,
+    E, I, H)."""
+    h = s.header
+    y_max = uv_max = 1 << 19
+    y_rec = np.zeros((y_max, 8), np.int16)
+    uv_rec = np.zeros((uv_max, 8), np.int16)
+    ny = C.c_int32(0)
+    nuv = C.c_int32(0)
+    lim = np.ascontiguousarray(s.lim_lut.astype(np.int32))
+    mblim = np.ascontiguousarray(s.mblim_lut.astype(np.int32))
+    lib().vp9_lpf_record(
+        _p(s.lf_level, u8p), _p(s.lf_mask, i32p),
+        C.c_int(s.sb_rows), C.c_int(s.sb_cols),
+        C.c_int(s.ss_h), C.c_int(s.ss_v),
+        _p(lim, i32p), _p(mblim, i32p), C.c_int(h.bpp),
+        _p(y_rec, i16p), C.c_int(y_max), C.byref(ny),
+        _p(uv_rec, i16p), C.c_int(uv_max), C.byref(nuv))
+    if ny.value >= y_max or nuv.value >= uv_max:
+        # the recorder stops at a full buffer: the stream would be cut
+        raise RuntimeError(f"loop-filter recorder overflow ({ny.value}, "
+                           f"{nuv.value} records)")
+    return y_rec, ny.value, uv_rec, nuv.value
+
+
 _MODE_CONV_ARR = None
 
 

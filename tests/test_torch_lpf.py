@@ -438,7 +438,8 @@ def test_lf_dense_on_the_card_goes_to_the_kernel(monkeypatch):
 def test_kernel_state_takes_a_new_epoch_per_launch(monkeypatch):
     """The flags need no reset: each launch of a geometry passes an epoch
     above every earlier one, on one cached table and state per (device,
-    geometry, number of sets); at the wrap the state is cleared."""
+    geometry, number of sets) in the caller's store; at the wrap the state
+    is cleared. A call without a store gets a fresh state of its own."""
     epochs, tables = [], set()
 
     def recorded(source, signatures, name, *args):
@@ -447,15 +448,20 @@ def test_kernel_state_takes_a_new_epoch_per_launch(monkeypatch):
         epochs.append(epoch)
 
     monkeypatch.setattr(_cuda, "launch", recorded)
-    monkeypatch.setattr(PD, "_SCHEDULES", {})
     y, u, v, grids = _meta_frame()
+    store = {}
     for _ in range(3):
-        PD.lf_frame_(y, u, v, *grids, 2, 3, 1, 1, 8)
+        PD.lf_frame_(y, u, v, *grids, 2, 3, 1, 1, 8, schedules=store)
     assert epochs == [1, 2, 3] and len(tables) == 1
     assert tables.pop()[2] == (2 * 2 * 3 + 2,)
-    sch = PD._SCHEDULES[(y.device, 2, 3, 2)]
+    sch = store[(y.device, 2, 3, 2)]
     sch.epoch = 0x7fffffff
     assert sch.next_epoch() == 1
+    made = []
+    monkeypatch.setattr(PD, "_Schedule", lambda *a: made.append(a) or sch)
+    for _ in range(2):
+        PD.lf_frame_(y, u, v, *grids, 2, 3, 1, 1, 8)
+    assert len(made) == 2
 
 
 @pytest.mark.cuda

@@ -44,9 +44,9 @@ def start_build(variant, tag):
     with open(stem + ".cu", "w") as f:
         f.write(src)
     return stem + ".so", subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", stem + ".so",
-         stem + ".cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+         "-o", stem + ".so", stem + ".cu"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
 
 
 def load(path, proc):
