@@ -140,6 +140,28 @@ Phases, one status line each; any failure exits non-zero:
                its three sizes (a size returned to reuses its own), the
                peak device memory over its passes and the card's busy
                share in a serial decode under torch.profiler
+  4b. passa    the on-device pass A for intra frames (csrc/passa.cu via
+               ops/passa_device.py): the walk kernel against
+               decode_frame_plain (run on the host CPU) on every intra
+               frame of the vectors/passa_* clips
+               (tools/make_passa_vectors_torch.py), every output exact;
+               against the native C pass A on frame 0 of bench_1080p_lf
+               and each format clip (dense coefficient planes, eob grids,
+               records), with its time under CUDA events, the bools a
+               lane, the longest lane's cycles a bool (clock64) beside the
+               bool chain's 73.5, its bytes and chain bounds and the
+               native pass A's time; on frame 0 of PASSA_PLAIN_CLIPS
+               the kernel against decode_frame_plain too, every output
+               exact, with the plain version's time; ptxas's registers
+               and spills; then VP9Decoder(device="cuda",
+               pass_a_impl="device").decode_stream over those six clips
+               with every plain version set to raise, every MD5 against
+               its framemd5, the walk once a frame and no frame through
+               the host pass A (each decoder's pass_a_host_frames); a
+               serial decode of bench_1080p_lf with every stage timer
+               synchronised; fps with the device pass A and with the
+               host's in turns, with decode.pass_a, decode.pass_a_replay,
+               decode.pass_b and upload.flat ms/frame
   5. threads   two decoders of one geometry on two host threads at once,
                every frame bit-exact (each decoder owns its splat state)
   6. gop       GOP-parallel decode (parallel/gop.py), a worker's decoder
@@ -300,6 +322,14 @@ CLI_RUNS = 3
 # least share of the launches whose records the best run must keep
 PROFILE_TRIES = 3
 PROFILE_KEPT = 0.5
+# launches in one profiled run of a single-launch call: the profiler lost
+# 9-11 device records of each run whatever its length (41 of 50, 11 of
+# 20, 9 of 20 on an H100), so runs of 20 fell to PROFILE_KEPT
+PROFILE_REPS = 50
+# pad launches before and after the body of each profiled run: the
+# profiler dropped the device records of the first kernels of a profile
+# (4 of 12 kept, 9 of 20) late in a long run (profiled)
+PROFILE_PAD = 32
 # the gop phase: worker counts of decode_gops_parallel, spawned processes
 # of decode_gops_md5_multiprocess
 GOP_WORKERS = (1, 2, 4)
@@ -316,6 +346,24 @@ SHARDED_RUNS = (
     ("bench_1080p_lf 2 a step", "bench_1080p_lf", None, (2, 4), 2, None),
     ("bench_4k", "bench_4k", 1, (1, 8), 1, None),
 )
+PASSA_SRC = PKG + "/csrc/passa.cu"
+# the intra half of _decode_jit (inter=0), a jnp program
+PASSA_REPLACES = "ffmpeg_hybrid_tpu/ops/passa_device.py:620"
+# the walk's small clips (tools/make_passa_vectors_torch.py): the
+# kernel against its plain version on every intra frame
+PASSA_CLIPS = ("passa_s2", "passa_s4", "passa_s5", "passa_s7", "passa_s41",
+               "passa_s42", "passa_s51", "passa_seg", "passa_wide",
+               "passa_10bit", "passa_444_12", "passa_lossless",
+               "passa_intraonly")
+# the keyframe clips of the passa phase: the kernel against the native
+# pass A on frame 0 and decode_stream with pass_a_impl="device"
+PASSA_FRAME_CLIPS = ("bench_1080p_lf",) + tuple(FORMAT_CLIPS)
+# the 1080p frames also held to the plain walk: the clip the kernels line
+# reports, and the frame with the most bools
+PASSA_PLAIN_CLIPS = ("bench_1080p_lf", "fmt_444_1080p")
+# cycles a bool of the halfword bool chain alone on an H100, as
+# rac.bool_chain_cycles measures it: the walk's chain bound
+BOOL_CHAIN_CYCLES = 73.5
 LF_REPLAY_SRC = PKG + "/csrc/lpf_replay.cu"
 # _lf_scan, with the sharded scan of parallel/fullframe.py
 # (_lf_apply_step :163, _lf_scan_sharded :201)
@@ -377,7 +425,10 @@ def profiled(body, expect):
     (records kept, launched)}. Its readings are scaled by launched over
     kept (kept_scale): the mean of the records kept stands for the ones
     lost. A best share under PROFILE_KEPT raises, and so does a record
-    more than was launched (the count is wrong)."""
+    more than was launched (the count is wrong). Once load_empty has run,
+    each run is padded with PROFILE_PAD launches of pad_kernel before the
+    body and after it (left out of every reading): late in a long run the
+    profiler dropped the records of a profile's first kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -386,8 +437,12 @@ def profiled(body, expect):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for pad in _PAD:
+                pad()
             counted = expect()
             out = body()
+            for pad in _PAD:
+                pad()
         want = counted()
         got = device_counts(prof, want)
         if any(got[k] > want[k] for k in want):
@@ -420,7 +475,7 @@ def kept_scale(kept):
     return want / got if got else 1.0
 
 
-def device_ms(torch, fn, reps, names, per_call, kernel=None):
+def device_ms(torch, fn, reps, names, per_call=1, kernel=None):
     """(mean device ms, device operations) per call of fn over reps calls:
     the kernels and memsets whose names hold one of `names`, from
     torch.profiler: their summed device time, less the share by which
@@ -428,9 +483,9 @@ def device_ms(torch, fn, reps, names, per_call, kernel=None):
     the launch before it, and that time counts once). A wrapper whose
     host work outlasts its kernels reads as its host time under CUDA
     events; this reads the card's own. A call launches per_call kernels
-    whose names hold `kernel` (names[0] when None): the time and the ops
-    are scaled by their launches over the records the profiler kept
-    (profiled)."""
+    (one by default) whose names hold `kernel` (names[0] when None): the
+    time and the ops are scaled by their launches over the records the
+    profiler kept (profiled)."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
@@ -445,8 +500,8 @@ def device_ms(torch, fn, reps, names, per_call, kernel=None):
     scale = kept_scale(kept)
     us = ops = 0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and any(k in e.key
-                                                    for k in names):
+        if e.device_type == DeviceType.CUDA and PAD_KERNEL not in e.key \
+                and any(k in e.key for k in names):
             us += _device_us(e)
             ops += e.count
     if not us:
@@ -454,6 +509,7 @@ def device_ms(torch, fn, reps, names, per_call, kernel=None):
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
+                   and PAD_KERNEL not in e.name
                    and any(k in e.name for k in names))
     total = sum(b - a for a, b in spans)
     busy, end = 0.0, float("-inf")
@@ -466,14 +522,24 @@ def device_ms(torch, fn, reps, names, per_call, kernel=None):
 
 
 # a kernel that does nothing, one block of one warp: its device time is
-# the floor that a small kernel's time is read against
+# the floor that a small kernel's time is read against; its twin pads
+# every profiled run (profiled)
 EMPTY_CU = """#include <cuda_runtime.h>
 __global__ void empty_kernel() {}
+__global__ void pad_kernel() {}
 extern "C" int empty(cudaStream_t stream) {
   empty_kernel<<<1, 32, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
+extern "C" int pad(int n, cudaStream_t stream) {
+  for (int i = 0; i < n; ++i) pad_kernel<<<1, 32, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
 """
+# the pad kernel's name (left out of every profiled reading) and its
+# launcher, once load_empty has loaded it
+PAD_KERNEL = "pad_kernel"
+_PAD = []
 
 
 def start_empty_build():
@@ -502,11 +568,20 @@ def load_empty(build):
     lib = ctypes.CDLL(path)
     lib.empty.argtypes = [ctypes.c_void_p]
     lib.empty.restype = ctypes.c_int
+    lib.pad.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.pad.restype = ctypes.c_int
 
     def fn():
         rc = lib.empty(torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"empty kernel: CUDA error {rc}")
+
+    def pad():
+        rc = lib.pad(PROFILE_PAD, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc:
+            raise RuntimeError(f"pad kernel: CUDA error {rc}")
+    _PAD[:] = [pad]
     return fn
 
 
@@ -936,7 +1011,8 @@ def coef_phase(rac, torch, np, packet):
 
     def run():
         CP.decode_blocks(groups, fr, bpp=8)
-    k_ms, ops = device_ms(torch, run, 20, ("decode_coeffs_kernel",), 1)
+    k_ms, ops = device_ms(torch, run, PROFILE_REPS, ("decode_coeffs_kernel",),
+                          1)
     ms = cuda_ms(run, 20)
     # the one-group entry alone, each group's arguments unpacked first:
     # under CUDA events, and on the card's clock with all its device ops
@@ -2079,7 +2155,8 @@ def mc_scaled_phase(torch, np, calls):
 
         def call():
             R.mc_planes_scaled(*args)
-        k_ms, _n = device_ms(torch, call, 20, ("mc_scaled_kernel",), 1)
+        k_ms, _n = device_ms(torch, call, PROFILE_REPS, ("mc_scaled_kernel",),
+                             1)
         b, o = mc_scaled_work(np, args)
         jobs = args[0]
         inter = sum(int(j[1].sum()) for j in jobs)
@@ -2611,7 +2688,7 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
         if clip not in HBD_CLIPS:
             def residual():
                 R.residual_planes(plain_jobs, lossless, bpp)
-            k_ms = seeded_ms[clip] = device_ms(torch, residual, 20,
+            k_ms = seeded_ms[clip] = device_ms(torch, residual, PROFILE_REPS,
                                                ("residual_kernel",), 1)[0]
             notes.append(f"{clip}: {cp.shape[0]} pair rows, roots {roots}; "
                          f"exact; {k_ms:.5f} ms on the card (no clear)")
@@ -2623,8 +2700,10 @@ def residual_hbd_phase(torch, np, scatter_calls, residual_calls,
 
         def residual():
             R.residual_planes(plain_jobs, lossless, bpp)
-        k_ms, k_ops = device_ms(torch, pair, 20, ("residual_kernel",), 1)
-        k0_ms, _o = device_ms(torch, residual, 20, ("residual_kernel",), 1)
+        k_ms, k_ops = device_ms(torch, pair, PROFILE_REPS,
+                                ("residual_kernel",), 1)
+        k0_ms, _o = device_ms(torch, residual, PROFILE_REPS,
+                              ("residual_kernel",), 1)
         if not bufs.read_zero():
             raise RuntimeError(f"{clip}: the kept buffers do not read zero "
                                "after the timed pairs")
@@ -3011,7 +3090,8 @@ def busy_share(torch, frames):
     prof, wall, kept = profiled(timed, launch_records)
     scale = kept_scale(kept)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and PAD_KERNEL not in e.key]
     us = sum(_device_us(e) for e in kernels)
     if not us:
         raise RuntimeError("the profiler saw no device time in the decode")
@@ -3062,9 +3142,11 @@ def launch_records():
 def main_path_launches():
     """Every kernel wrapper's launch count since main_path_run began."""
     from ffmpeg_hybrid_tpu_torch.ops import (lpf_dense, lpf_masks,
-                                             lpf_replay, rac, recon)
+                                             lpf_replay, passa_device, rac,
+                                             recon)
     return dict(rac.LAUNCHES, **lpf_dense.LAUNCHES, **lpf_masks.LAUNCHES,
-                **recon.LAUNCHES, **lpf_replay.LAUNCHES)
+                **recon.LAUNCHES, **lpf_replay.LAUNCHES,
+                **passa_device.LAUNCHES)
 
 
 @contextlib.contextmanager
@@ -3072,8 +3154,9 @@ def main_path_run():
     """A run of the main path: every launch count set to zero at its
     start, and every kernel's plain version set to raise within it."""
     from ffmpeg_hybrid_tpu_torch.ops import (lpf_dense, lpf_masks,
-                                             lpf_replay, rac, recon)
-    for mod in (rac, lpf_dense, lpf_masks, recon, lpf_replay):
+                                             lpf_replay, passa_device, rac,
+                                             recon)
+    for mod in (rac, lpf_dense, lpf_masks, recon, lpf_replay, passa_device):
         mod.reset_launches()
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
@@ -3083,7 +3166,8 @@ def main_path_run():
         (lpf_masks, ("grids_device_plain",)),
         (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")),
         (lpf_replay, ("lf_scan_plain", "lf_scan_sharded_plain",
-                      "apply_step_plain")))
+                      "apply_step_plain")),
+        (passa_device, ("decode_frame_plain",)))
         for fn in fns]
     saved = [getattr(mod, fn) for mod, fn in plains]
 
@@ -3205,6 +3289,276 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
 
 
 # ---------------------------------------------------------------------------
+# the on-device pass A for intra frames
+
+
+def walk_host(out):
+    """decode_frame's outputs on the host, as numpy arrays."""
+    return [t.cpu().numpy() for t in out]
+
+
+def walk_diff(np, got, want, S):
+    """Where two walks' outputs differ (None if nowhere): every lane's
+    rows of records and pairs, the counts, the err words and the bools a
+    lane."""
+    for i, c in ((0, 1), (2, 3), (4, 5)):
+        if not np.array_equal(got[c], want[c]):
+            return f"row counts of output {i}: {got[c]} != {want[c]}"
+        for s in range(S):
+            m = int(want[c][s])
+            if not np.array_equal(got[i][s, :m], want[i][s, :m]):
+                return f"lane {s}: rows of output {i}"
+    for i, what in ((6, "counts"), (7, "err")):
+        if not np.array_equal(got[i], want[i]):
+            return what
+    if not np.array_equal(got[8][:, 0], want[8][:, 0]):
+        return f"bools a lane {got[8][:, 0]} != {want[8][:, 0]}"
+    return None
+
+
+def walk_vs_native(np, dec, got, S):
+    """Where the walk's outputs differ from the native pass A that dec
+    has just run on the frame (None if nowhere): the dense coefficient
+    planes and eob grids the pairs make, and the records (row, col,
+    tile, bs, seg, skip, intra, tx, uvtx, modes, uvmode, comp) in (row,
+    col) order."""
+    cp, ep = dec.coef_pairs
+    pos = (cp[:, 0].astype(np.int64) << 16) | (cp[:, 1].astype(np.int64)
+                                              & 0xffff)
+    val = cp[:, 2].astype(np.int64) if cp.shape[1] == 3 else (
+        (cp[:, 2].astype(np.int64) << 16) | (cp[:, 3].astype(np.int64)
+                                             & 0xffff))
+    epos = (ep[:, 0].astype(np.int64) << 16) | (ep[:, 1].astype(np.int64)
+                                               & 0xffff)
+    for what, n, p, v, k in (
+            ("coefficients", dec.coef_y.size + 2 * dec.coef_u.size, pos,
+             val, 2),
+            ("eob cells", dec.eob_y.size + 2 * dec.eob_u.size, epos,
+             ep[:, 2].astype(np.int64), 4)):
+        native = np.zeros(n, np.int64)
+        native[p] = v
+        walk = np.zeros(n, np.int64)
+        for s in range(S):
+            m = int(got[k + 1][s])
+            walk[got[k][s, :m, 0]] = got[k][s, :m, 1]
+        if not np.array_equal(native, walk):
+            return f"{what}: {int((native != walk).sum())} differ"
+    recs_n = np.asarray(dec.block_records[:, :15], np.int64)
+    recs_w = np.concatenate([got[0][s, :int(got[1][s]), :15]
+                             for s in range(S)]).astype(np.int64)
+
+    def by_pos(r):
+        return r[np.lexsort((r[:, 1], r[:, 0]))]
+    if recs_n.shape != recs_w.shape or not np.array_equal(by_pos(recs_n),
+                                                          by_pos(recs_w)):
+        return f"records: {len(recs_w)} against the native {len(recs_n)}"
+    return None
+
+
+def native_pass_a_ms(fd, reps=3):
+    """The native C pass A of a frame, ms: (decode.pass_a, its
+    passa.c_decode), the median of reps fresh decoders."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
+    runs = []
+    metrics.enable()
+    try:
+        for _ in range(reps):
+            metrics.reset()
+            VP9Decoder(device=DEVICE).decode_pass_a(fd)
+            rep = metrics.report()
+            runs.append((rep["decode.pass_a"]["total_s"] * 1e3,
+                         rep["passa.c_decode"]["total_s"] * 1e3))
+    finally:
+        metrics.disable()
+    return sorted(runs)[reps // 2]
+
+
+def passa_phase(torch, np, clips):
+    """The on-device pass A for intra frames (phase 4b of the docstring):
+    csrc/passa.cu against decode_frame_plain on every intra frame of the
+    PASSA_CLIPS (the plain version on the host CPU); against the native
+    pass A on frame 0 of each PASSA_FRAME_CLIPS clip, with its times, and
+    against the plain version on frame 0 of each PASSA_PLAIN_CLIPS clip;
+    then decode_stream with pass_a_impl="device" over those clips on the
+    main path (launches counted from zero, every plain version set to
+    raise), every MD5 against the framemd5, one walk launch a frame and
+    no frame through the host pass A; a serial decode with synchronised
+    stage timers; and its fps beside the host pass A's in one timed pass
+    each. Returns the kernels-line entry."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.ops import passa_device as PD
+    from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
+    t0 = time.perf_counter()
+    nframes = 0
+    for name in PASSA_CLIPS:
+        frames, _want = read_clip(name)
+        dec = VP9Decoder(device=DEVICE)
+        for fd in frames:
+            if dec.decode_pass_a(fd).ready is not None:
+                continue
+            inputs, meta = PD.prep_keyframe(dec, fd)
+            got = walk_host(PD.decode_frame(inputs, meta, DEVICE,
+                                            stats=True))
+            want = [t.numpy() for t in PD.decode_frame_plain(inputs, meta)]
+            diff = walk_diff(np, got, want, meta["S"])
+            if diff or got[7].any():
+                raise RuntimeError(f"passa: {name}: the kernel against its "
+                                   f"plain version: {diff or got[7]}")
+            nframes += 1
+    say("passa", f"csrc/passa.cu against decode_frame_plain (run on the "
+        f"host CPU) on {nframes} intra frames of {len(PASSA_CLIPS)} clips "
+        "(vectors/passa_*): records, pairs, counts, err words and bools a "
+        "lane exact")
+    say("kernels", "passa_walk ptxas: " + ptxas_of(PASSA_SRC,
+                                                   "passa_kernel"))
+    rows = {}
+    for clip in PASSA_FRAME_CLIPS:
+        fd = clips[clip][0][0]
+        dec = VP9Decoder(device=DEVICE)
+        dec.decode_pass_a(fd)
+        inputs, meta = PD.prep_keyframe(dec, fd)
+        got = walk_host(PD.decode_frame(inputs, meta, DEVICE, stats=True))
+        diff = walk_vs_native(np, dec, got, meta["S"])
+        if diff or got[7].any():
+            raise RuntimeError(f"passa: {clip} frame 0: the kernel against "
+                               f"the native pass A: {diff or got[7]}")
+        plain_ms = None
+        if clip in PASSA_PLAIN_CLIPS:
+            t = time.perf_counter()
+            want = walk_host(PD.decode_frame_plain(inputs, meta))
+            plain_ms = (time.perf_counter() - t) * 1e3
+            diff = walk_diff(np, got, want, meta["S"])
+            if diff:
+                raise RuntimeError(f"passa: {clip} frame 0: the kernel "
+                                   f"against its plain version: {diff}")
+
+        def walk():
+            PD.decode_frame(inputs, meta, DEVICE)
+        # CUDA events, not torch.profiler: it kept 1 of 3 device records
+        # of this kernel, run after run (tens of ms a launch, where the
+        # wrapper's uploads take some 0.1 ms); beside it the longest
+        # lane's own clock64 cycles at the boost clock
+        ms = cuda_ms(walk, 3)
+        bools, cycles = got[8][:, 0], got[8][:, 1]
+        longest = int(np.argmax(cycles))
+        lane_ms = cycles[longest] / BOOST_HZ * 1e3
+        S = meta["S"]
+        written = (4 * 34 * int(got[1].sum()) + 8 * int(got[3].sum())
+                   + 8 * int(got[5].sum()) + 4 * S * PD.CNT_TOTAL + 16 * S)
+        read = int(np.sum(inputs["tile_len"])) + len(PD.probs8(inputs))
+        bound, bound_by, _ = bounds(read + written, int(bools.sum()), 0)
+        chain = int(bools.max()) * BOOL_CHAIN_CYCLES / BOOST_HZ * 1e3
+        pass_a, c_decode = native_pass_a_ms(fd)
+        rows[clip] = {
+            "ms": ms, "longest_lane_ms": lane_ms, "bools": bools.tolist(),
+            "cycles_a_bool": (cycles / np.maximum(bools, 1)).tolist(),
+            "longest_lane": longest, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": read + written,
+            "chain_ms": chain, "native_pass_a_ms": pass_a,
+            "native_c_decode_ms": c_decode, "plain_ms": plain_ms}
+        say("kernels", f"passa_walk on {clip} frame 0 (S={S}): exact "
+            f"against the native pass A; {ms:.3f} ms a call under CUDA "
+            f"events (the longest lane's clock64 cycles at "
+            f"{BOOST_HZ / 1e9:.2f} GHz: {lane_ms:.3f}); bools a lane "
+            f"{bools.tolist()}, the longest lane's "
+            f"{cycles[longest] / max(bools[longest], 1):.2f} cycles a bool "
+            f"(clock64; the chain alone {BOOL_CHAIN_CYCLES}); bound "
+            f"{bound:.6f} ms ({bound_by}, {read + written} B); chain bound "
+            f"{chain:.3f} ms; native pass A {pass_a:.3f} ms "
+            f"(passa.c_decode {c_decode:.3f}) on {card_line()}")
+        if plain_ms is not None:
+            say("kernels", f"passa_walk on {clip} frame 0: exact against "
+                "decode_frame_plain (records, pairs, counts, err words, "
+                f"bools a lane); the plain version {plain_ms:.1f} ms on the "
+                "host CPU")
+    # the main path: decode_stream with the device pass A
+    with main_path_run():
+        nwant = host_frames = 0
+        for clip in PASSA_FRAME_CLIPS:
+            frames, want = clips[clip]
+            dec = VP9Decoder(device=DEVICE, pass_a_impl="device")
+            got = [hashlib.md5(f.to_bytes()).hexdigest()
+                   for f in dec.decode_stream(iter(frames))]
+            if got != want:
+                raise RuntimeError(f"passa: {clip} with the device pass A "
+                                   "is not bit-exact")
+            nwant += len(want)
+            host_frames += dec.pass_a_host_frames
+    launches = main_path_launches()
+    if launches["passa"] != nwant or host_frames:
+        raise RuntimeError(f"passa: the walk launched {launches['passa']} "
+                           f"times for {nwant} frames, {host_frames} frames "
+                           "through the host pass A")
+    for key in ("splat", "scatter", "intra", "lf_grids", "lf_dense"):
+        if not launches[key]:
+            raise RuntimeError(f"passa: the {key} kernel never launched")
+    say("passa", f"decode_stream(pass_a_impl=\"device\") on "
+        f"{', '.join(PASSA_FRAME_CLIPS)}: {nwant} frames bit-exact vs "
+        f"framemd5, the walk once a frame; frames through the host pass "
+        f"A (pass_a_host_frames) {host_frames}; kernel launches "
+        f"{launches}")
+    # a serial decode, every stage timer synchronised to the card: what
+    # each stage costs when none waits behind another
+    frames, _want = clips["bench_1080p_lf"]
+    metrics.enable()
+    metrics.reset()
+    metrics.sync = torch.cuda.synchronize
+    try:
+        dec = VP9Decoder(device=DEVICE, pass_a_impl="device")
+        for fd in frames:
+            dec.decode(fd)
+        torch.cuda.synchronize()
+    finally:
+        metrics.sync = None
+        metrics.disable()
+    serial = {k: round(v["total_s"] * 1e3 / len(frames), 3)
+              for k, v in metrics.report().items() if "total_s" in v}
+    say("passa", "bench_1080p_lf with the device pass A, serial, every "
+        "stage timer synchronised, ms/frame: "
+        + json.dumps(serial, sort_keys=True) + f" on {card_line()}")
+    rows["bench_1080p_lf"]["serial_stage_ms"] = serial
+    # one timed pass each, the device pass A and the host's, in turns
+    gc.collect()
+    fps = {}
+    metrics.enable()
+    try:
+        for clip in PASSA_FRAME_CLIPS:
+            frames, _want = clips[clip]
+            for impl in ("device", "host", "host", "device"):
+                metrics.reset()
+                dec = VP9Decoder(device=DEVICE, pass_a_impl=impl)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                n = sum(1 for _f in dec.decode_stream(iter(frames)))
+                torch.cuda.synchronize()
+                rep = metrics.report()
+                per = {k: round(rep[k]["total_s"] * 1e3 / n, 3)
+                       for k in ("decode.pass_a", "decode.pass_a_replay",
+                                 "decode.pass_b", "upload.flat")
+                       if k in rep}
+                fps.setdefault(clip, []).append(
+                    (impl, n / (time.perf_counter() - t), per))
+    finally:
+        metrics.disable()
+    for clip, runs in fps.items():
+        say("passa", f"{clip}: decode_stream fps in turns "
+            + "; ".join(f"{impl} {v:.3f} (ms/frame {per})"
+                        for impl, v, per in runs) + f" on {card_line()}")
+        rows[clip]["fps"] = [(impl, v) for impl, v, _per in runs]
+        rows[clip]["stage_ms"] = [(impl, per) for impl, _v, per in runs]
+    say("passa", f"phase {time.perf_counter() - t0:.1f} s")
+    lf = rows["bench_1080p_lf"]
+    return {"name": "passa_walk", "route": "cuda", "source": PASSA_SRC,
+            "replaces": PASSA_REPLACES, "launches": launches["passa"],
+            "max_abs_err": 0, "ms": lf["ms"], "plain_ms": lf["plain_ms"],
+            "bound_ms": lf["bound_ms"], "bound_by": lf["bound_by"],
+            "library_ms": None, "chain_ms": lf["chain_ms"],
+            "per": "bench_1080p_lf frame 0 (4 tiles, one launch)",
+            "by_input": rows}
+
+
+# ---------------------------------------------------------------------------
 # parallel decode: GOP workers and the tile-sharded pass B
 
 
@@ -3264,7 +3618,7 @@ def gop_busy(torch, packets, workers):
 
     prof, wall, kept = profiled(timed, launch_records)
     us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA and PAD_KERNEL not in e.key)
     if not us:
         raise RuntimeError("the profiler saw no device time in a GOP pass")
     return us * kept_scale(kept) / 1e6 / wall
@@ -3589,7 +3943,8 @@ def main():
         return 1
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
-            for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)):
+            for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)
+            + PASSA_CLIPS):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -3779,6 +4134,7 @@ def main():
             + f"; peak device memory over the clip's passes {peak} B"
             + busy)
 
+    by_name["passa_walk"] = passa_phase(torch, np, clips)
     two_decoders_phase(torch, clips)
     gop_phase(torch, clips)
     by_name["lf_replay"] = sharded_phase(torch, np, clips)

@@ -196,14 +196,15 @@ class VP9Decoder:
             from ...passa_native import available
             use_native = available()
         self.use_native = use_native
-        # pass A runs on the host; the on-device pass-A walk
-        # (pass_a_impl="device") is not ported yet
-        if pass_a_impl == "device":
-            raise NotImplementedError(
-                "the on-device pass-A walk waits for the device pass-A "
-                "slice of the port")
-        if pass_a_impl not in (None, "host"):
+        # pass A on the host (native C or pure Python), or with
+        # pass_a_impl="device" the walk of ops/passa_device.py on
+        # self.device for intra frames (the kernel on the card, its
+        # plain version on the CPU); inter frames wait for the inter walk
+        if pass_a_impl not in (None, "host", "device"):
             raise ValueError(f"unknown pass_a_impl {pass_a_impl!r}")
+        self.pass_a_impl = pass_a_impl or "host"
+        # the frames the device pass A sent to the host pass A
+        self.pass_a_host_frames = 0
         self.header: Header | None = None
         self.prob_ctx = [None, None, None, None]  # 4 frame contexts
         self.refs: list[Frame | None] = [None] * 8
@@ -605,6 +606,11 @@ class VP9Decoder:
             job.ready = [f]
             return job
 
+        if self.pass_a_impl == "device" and not (h.keyframe or h.intraonly):
+            raise NotImplementedError(
+                "the on-device pass A of inter frames is the inter walk, "
+                "ROADMAP step 11b; decode them with pass_a_impl='host'")
+
         # advance the shared pool slot (geometry arrays, probs, counts)
         self._slot = (self._slot + 1) % POOL_DEPTH
 
@@ -706,8 +712,15 @@ class VP9Decoder:
                          + h.compressed_header_size:]
         self.coef_counts = None  # set by the native pass A
         self.coef_pairs = None    # set by the native pass A (pair emission)
+        if self.pass_a_impl == "device" and h.tile_rows > 1:
+            # the walk gives each tile-row lane its own zeroed above
+            # ctx; the reference carries it across tile rows
+            # (vp9.c:1720): such frames take the host pass A
+            self.pass_a_host_frames += 1
         with metrics.timer("decode.pass_a"):
-            if self.use_native:
+            if self.pass_a_impl == "device" and h.tile_rows == 1:
+                counts = self._decode_tiles_device(data)
+            elif self.use_native:
                 from ...passa_native import decode_tiles_native
                 if self._counts_pool is None:
                     self._counts_pool = [Counts()
@@ -769,6 +782,95 @@ class VP9Decoder:
         return job.outputs
 
     # ------------------------------------------------------------------
+    def _decode_tiles_device(self, data: bytes) -> Counts:
+        """Pass A of an intra frame with one tile row by the walk of
+        ops/passa_device.py on self.device (on the card one launch, on
+        the current stream). The walk returns block records and
+        coefficient and eob pairs; the replay (timer
+        decode.pass_a_replay) hands pass B the native pass A's layouts:
+        the records as 36-column int16 rows in decode order
+        (tile-row band, superblock row, tile column, within-lane order:
+        vp9.c:1302-1438), the pairs as the native emitter's rows, the
+        loop filter's levels and masks (mask_edges, block by block) and
+        the segmentation map. When backward adaptation will run, the
+        walk's per-lane counts are merged (the vp9.c:1816-1819 tile
+        merge). Raises ValueError on a tile size the packet does not
+        hold, a stream that ends before a superblock or a full output."""
+        from ...ops import passa_device as PD
+        from ...passa_native import LazyBlocks
+        from .blockdec import mask_edges
+        h = self.header
+        inputs, meta = PD.prep_keyframe(self, data)
+        recs, lane, cp, ep, cnts, err = (
+            v.numpy() if torch.is_tensor(v) else v
+            for v in _walk_to_host(PD.decode_frame(inputs, meta,
+                                                   self.device)))
+        PD.check_err(err)
+        with metrics.timer("decode.pass_a_replay"):
+            S = meta["S"]
+            order = np.argsort((recs[:, 0] >> 3) * S + lane, kind="stable")
+            rec36 = np.zeros((len(recs), 36), np.int16)
+            rec36[:, :34] = recs[order]
+            self.block_records = rec36
+            self.blocks = LazyBlocks(rec36)
+            wide = h.bpp > 8
+            cprow = np.empty((len(cp), 4 if wide else 3), np.int16)
+            pos, val = cp[:, 0].astype(np.int64), cp[:, 1].astype(np.int64)
+            cprow[:, 0], cprow[:, 1] = pos >> 16, pos & 0xffff
+            if wide:
+                cprow[:, 2], cprow[:, 3] = val >> 16, val & 0xffff
+            else:
+                cprow[:, 2] = val
+            eprow = np.empty((len(ep), 3), np.int16)
+            epos = ep[:, 0].astype(np.int64)
+            eprow[:, 0], eprow[:, 1], eprow[:, 2] = \
+                epos >> 16, epos & 0xffff, ep[:, 1]
+            self.coef_pairs = (cprow, eprow)
+            # the loop filter's levels and masks, and the segmentation
+            # map, from the records (vp9block.c:1142-1262, 777-801)
+            self.lf_level.fill(0)
+            self.lf_mask.fill(0)
+            seg_write = h.seg_enabled and (h.seg_update_map or h.keyframe
+                                           or h.intraonly)
+            if h.filter_level or seg_write:
+                self._replay_lf_seg(rec36, seg_write, mask_edges)
+        counts = Counts()
+        if meta["want_counts"]:
+            PD.counts_from_device(cnts, counts)
+        return counts
+
+    def _replay_lf_seg(self, recs, seg_write, mask_edges):
+        """Levels, edge masks and segment ids of a frame's records (intra
+        blocks)."""
+        h = self.header
+        cols, rows = self.cols, self.rows
+        for r in recs.tolist():
+            row, col, bs, seg_id, tx, uvtx = r[0], r[1], r[3], r[4], \
+                r[7], r[8]
+            bw4, bh4 = int(T.BWH_TAB[1, bs, 0]), int(T.BWH_TAB[1, bs, 1])
+            if seg_write:
+                self.cur_segmap[row:row + bh4, col:col + bw4] = seg_id
+            if not h.filter_level:
+                continue
+            # an intra block: reference slot 0, a mode other than ZEROMV
+            lvl = int(h.seg_feat[seg_id].lflvl[0, 1])
+            if lvl <= 0:
+                continue
+            x_end, y_end = min(cols - col, bw4), min(rows - row, bh4)
+            row7, col7 = row & 7, col & 7
+            sbr, sbc = row >> 3, col >> 3
+            self.lf_level[sbr, sbc, row7:row7 + bh4, col7:col7 + bw4] = lvl
+            mask_edges(self.lf_mask[sbr, sbc, 0], 0, 0, row7, col7, x_end,
+                       y_end, 0, 0, tx, False)
+            if self.ss_h or self.ss_v:
+                mask_edges(
+                    self.lf_mask[sbr, sbc, 1], self.ss_h, self.ss_v, row7,
+                    col7, x_end, y_end,
+                    (cols & 7) if (cols & 1) and col + bw4 >= cols else 0,
+                    (rows & 7) if (rows & 1) and row + bh4 >= rows else 0,
+                    uvtx, False)
+
+    # ------------------------------------------------------------------
     def _decode_tiles(self, data: bytes) -> Counts:
         """reference: decode_tiles (vp9.c:1302-1438)."""
         h = self.header
@@ -811,6 +913,23 @@ class VP9Decoder:
                             raise ValueError("bitstream end mid-tile")
                         td.decode_sb(row, col, 0)
         return total_counts
+
+
+def _walk_to_host(out):
+    """The walk's outputs (ops/passa_device.decode_frame) on the host:
+    (records [n, 34] int32 in lane order, each record's lane [n],
+    coefficient pairs [nc, 2], eob pairs [ne, 2], counts [S, CNT_TOTAL],
+    err [S]): the counts read back first, then every lane's rows in one
+    copy each."""
+    blocks, nblk, cpairs, ncp, epairs, nep, cnts, err = out
+    n = torch.stack([nblk, ncp, nep, err]).cpu().numpy()
+    S = n.shape[1]
+
+    def rows(t, k):
+        return torch.cat([t[s, :int(n[k, s])] for s in range(S)]).cpu()
+    lane = np.repeat(np.arange(S), n[0])
+    return (rows(blocks, 0), lane, rows(cpairs, 1), rows(epairs, 2),
+            cnts.cpu(), n[3])
 
 
 def _tile_offset(idx, log2_n, n_sb):

@@ -177,12 +177,19 @@ def test_out_of_slice_frames_raise():
 
 
 def test_device_pass_a_waits_for_its_slice():
+    """pass_a_impl="device" takes intra frames (the walk of
+    ops/passa_device.py); an inter frame waits for the inter walk's
+    slice (ROADMAP step 11b) and raises, never falling back to the host
+    pass A."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
-    with pytest.raises(NotImplementedError, match="device pass-A"):
-        VP9Decoder(device="cpu", use_native=False, pass_a_impl="device")
+    key, inter = _chain(64, 64, 1)
+    dec = VP9Decoder(device="cpu", use_native=False, pass_a_impl="device")
+    assert len(dec.decode(key)) == 1
+    with pytest.raises(NotImplementedError, match="11b"):
+        dec.decode(inter)
     with pytest.raises(ValueError):
         VP9Decoder(device="cpu", pass_a_impl="gpu")
-    VP9Decoder(device="cpu", pass_a_impl="host")  # the slice's pass A
+    VP9Decoder(device="cpu", pass_a_impl="host")  # the host pass A
 
 
 def _bench_1080p_md5s(device, n):

@@ -102,8 +102,8 @@ def build(variants):
         with open(stem + ".cu", "w") as f:
             f.write(variant_source(kernel, _parse(v)[0]))
         procs[kernel, v] = (stem, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", stem + ".so",
-             stem + ".cu"], stdout=subprocess.PIPE,
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", stem + ".so", stem + ".cu"], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (stem, proc) in procs.items():

@@ -123,8 +123,8 @@ def build(variants):
         with open(stem + ".cu", "w") as f:
             f.write(text)
         procs.append((text, stem, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", stem + ".so",
-             stem + ".cu"], stdout=subprocess.PIPE,
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", stem + ".so", stem + ".cu"], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for text, stem, proc in procs:
