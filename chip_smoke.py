@@ -140,27 +140,38 @@ Phases, one status line each; any failure exits non-zero:
                its three sizes (a size returned to reuses its own), the
                peak device memory over its passes and the card's busy
                share in a serial decode under torch.profiler
-  4b. passa    the on-device pass A for intra frames (csrc/passa.cu via
+  4b. passa    the on-device pass A (csrc/passa.cu via
                ops/passa_device.py): the walk kernel against
                decode_frame_plain (run on the host CPU) on every intra
                frame of the vectors/passa_* clips
-               (tools/make_passa_vectors_torch.py), every output exact;
-               against the native C pass A on frame 0 of bench_1080p_lf
-               and each format clip (dense coefficient planes, eob grids,
-               records), with its time under CUDA events, the bools a
-               lane, the longest lane's cycles a bool (clock64) beside the
-               bool chain's 73.5, its bytes and chain bounds and the
-               native pass A's time; on frame 0 of PASSA_PLAIN_CLIPS
-               the kernel against decode_frame_plain too, every output
-               exact, with the plain version's time; ptxas's registers
-               and spills; then VP9Decoder(device="cuda",
-               pass_a_impl="device").decode_stream over those six clips
-               with every plain version set to raise, every MD5 against
-               its framemd5, the walk once a frame and no frame through
-               the host pass A (each decoder's pass_a_host_frames); a
-               serial decode of bench_1080p_lf with every stage timer
-               synchronised; fps with the device pass A and with the
-               host's in turns, with decode.pass_a, decode.pass_a_replay,
+               (tools/make_passa_vectors_torch.py) and every frame of
+               the vectors/passa_inter_* clips
+               (tools/make_passa_inter_vectors_torch.py) with the symbol
+               counts forced on, every output exact, the MV and
+               reference grids too; against the native C pass A on
+               frame 0 of bench_1080p_lf and each format clip and on
+               every inter frame of bench_1080p, bench_4k and
+               resize_1080p (dense coefficient planes, eob grids,
+               records, and the grids against cur_mv and cur_ref), each
+               inter frame from a decoder run through the frames before
+               it; against decode_frame_plain on frame 0 of
+               PASSA_PLAIN_CLIPS and on PASSA_INTER_PLAIN (bench_1080p
+               frames 1 and 6, resize_1080p frame 4); timed on those
+               keyframes and on PASSA_INTER_TIMED (bench_1080p frames 1
+               and 6, bench_4k frame 1, resize_1080p frames 3 and 4):
+               the time under CUDA events, the bools a lane, the longest
+               lane's cycles a bool (clock64) beside the bool chain's
+               73.5, the MV quanta's cycles an inter block, bytes and
+               chain bounds and the native pass A's time on the same
+               frame; ptxas's registers and spills; then
+               VP9Decoder(device="cuda", pass_a_impl="device")
+               .decode_stream over all nine clips with every plain
+               version set to raise, every MD5 against its framemd5, the
+               walk once a frame and no frame through the host pass A
+               (each decoder's pass_a_host_frames); a serial decode of
+               bench_1080p_lf with every stage timer synchronised; fps
+               with the device pass A and with the host's in turns on
+               the nine clips, with decode.pass_a, decode.pass_a_replay,
                decode.pass_b and upload.flat ms/frame
   5. threads   two decoders of one geometry on two host threads at once,
                every frame bit-exact (each decoder owns its splat state)
@@ -347,8 +358,22 @@ SHARDED_RUNS = (
     ("bench_4k", "bench_4k", 1, (1, 8), 1, None),
 )
 PASSA_SRC = PKG + "/csrc/passa.cu"
-# the intra half of _decode_jit (inter=0), a jnp program
+# _decode_jit, a jnp program (inter=0 and inter=1)
 PASSA_REPLACES = "ffmpeg_hybrid_tpu/ops/passa_device.py:620"
+# the walk's small inter clips (tools/make_passa_inter_vectors_torch.py):
+# the kernel against its plain version on every frame, counts forced on
+PASSA_INTER_CLIPS = ("passa_inter_modes", "passa_inter_seg",
+                     "passa_inter_tiles")
+# the clips whose every inter frame the kernel takes against the native
+# pass A, and the frames also held to the plain walk (a typical and the
+# densest P frame of bench_1080p; a compound frame of resize_1080p that
+# uses the last frame's MVs)
+PASSA_INTER_FRAME_CLIPS = ("bench_1080p", "bench_4k", RESIZE_CLIP)
+PASSA_INTER_PLAIN = (("bench_1080p", 1), ("bench_1080p", 6),
+                     (RESIZE_CLIP, 4))
+# the inter frames timed against the native pass A
+PASSA_INTER_TIMED = (("bench_1080p", 1), ("bench_1080p", 6), ("bench_4k", 1),
+                     (RESIZE_CLIP, 3), (RESIZE_CLIP, 4))
 # the walk's small clips (tools/make_passa_vectors_torch.py): the
 # kernel against its plain version on every intra frame
 PASSA_CLIPS = ("passa_s2", "passa_s4", "passa_s5", "passa_s7", "passa_s41",
@@ -356,8 +381,11 @@ PASSA_CLIPS = ("passa_s2", "passa_s4", "passa_s5", "passa_s7", "passa_s41",
                "passa_10bit", "passa_444_12", "passa_lossless",
                "passa_intraonly")
 # the keyframe clips of the passa phase: the kernel against the native
-# pass A on frame 0 and decode_stream with pass_a_impl="device"
+# pass A on frame 0
 PASSA_FRAME_CLIPS = ("bench_1080p_lf",) + tuple(FORMAT_CLIPS)
+# decode_stream with pass_a_impl="device" on the main path: all nine
+# clips; the fps with each pass A, in turns
+PASSA_DECODE_CLIPS = PASSA_FRAME_CLIPS + PASSA_INTER_FRAME_CLIPS
 # the 1080p frames also held to the plain walk: the clip the kernels line
 # reports, and the frame with the most bools
 PASSA_PLAIN_CLIPS = ("bench_1080p_lf", "fmt_444_1080p")
@@ -3289,7 +3317,7 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
 
 
 # ---------------------------------------------------------------------------
-# the on-device pass A for intra frames
+# the on-device pass A
 
 
 def walk_host(out):
@@ -3299,8 +3327,8 @@ def walk_host(out):
 
 def walk_diff(np, got, want, S):
     """Where two walks' outputs differ (None if nowhere): every lane's
-    rows of records and pairs, the counts, the err words and the bools a
-    lane."""
+    rows of records and pairs, the counts, the err words, the bools a
+    lane and, on an inter frame, the MV and reference grids."""
     for i, c in ((0, 1), (2, 3), (4, 5)):
         if not np.array_equal(got[c], want[c]):
             return f"row counts of output {i}: {got[c]} != {want[c]}"
@@ -3313,15 +3341,34 @@ def walk_diff(np, got, want, S):
             return what
     if not np.array_equal(got[8][:, 0], want[8][:, 0]):
         return f"bools a lane {got[8][:, 0]} != {want[8][:, 0]}"
+    if len(got) != len(want):
+        return "the grids of one walk alone"
+    for i, what in ((9, "MV grid"), (10, "reference grid")):
+        if i < len(got) and not np.array_equal(got[i], want[i]):
+            return what
     return None
+
+
+def canon_records(np, recs):
+    """Records with the fields a block does not write zeroed (the JAX
+    package's test _canon): an intra block's references, filter and MVs,
+    an inter block's uv mode, a single-reference block's second
+    reference."""
+    r = np.array(recs[:, :34], np.int64)
+    intra = r[:, 6] != 0
+    r[intra, 15:] = 0
+    r[~intra, 13] = 0
+    r[~intra & (r[:, 14] == 0), 16] = 0
+    return r
 
 
 def walk_vs_native(np, dec, got, S):
     """Where the walk's outputs differ from the native pass A that dec
     has just run on the frame (None if nowhere): the dense coefficient
-    planes and eob grids the pairs make, and the records (row, col,
-    tile, bs, seg, skip, intra, tx, uvtx, modes, uvmode, comp) in (row,
-    col) order."""
+    planes and eob grids the pairs make, the records in (row, col) order
+    with their unwritten fields zeroed (canon_records), and on an inter
+    frame the MV and reference grids against the decoder's cur_mv and
+    cur_ref."""
     cp, ep = dec.coef_pairs
     pos = (cp[:, 0].astype(np.int64) << 16) | (cp[:, 1].astype(np.int64)
                                               & 0xffff)
@@ -3343,29 +3390,36 @@ def walk_vs_native(np, dec, got, S):
             walk[got[k][s, :m, 0]] = got[k][s, :m, 1]
         if not np.array_equal(native, walk):
             return f"{what}: {int((native != walk).sum())} differ"
-    recs_n = np.asarray(dec.block_records[:, :15], np.int64)
-    recs_w = np.concatenate([got[0][s, :int(got[1][s]), :15]
-                             for s in range(S)]).astype(np.int64)
+    recs_n = canon_records(np, dec.block_records)
+    recs_w = canon_records(np, np.concatenate(
+        [got[0][s, :int(got[1][s])] for s in range(S)]))
 
     def by_pos(r):
         return r[np.lexsort((r[:, 1], r[:, 0]))]
     if recs_n.shape != recs_w.shape or not np.array_equal(by_pos(recs_n),
                                                           by_pos(recs_w)):
         return f"records: {len(recs_w)} against the native {len(recs_n)}"
+    if len(got) > 9 and not (np.array_equal(got[9], dec.cur_mv)
+                             and np.array_equal(got[10], dec.cur_ref)):
+        return "the MV and reference grids against cur_mv and cur_ref"
     return None
 
 
-def native_pass_a_ms(fd, reps=3):
-    """The native C pass A of a frame, ms: (decode.pass_a, its
-    passa.c_decode), the median of reps fresh decoders."""
+def native_pass_a_ms(frames, i=0, reps=3):
+    """The native C pass A of frame i of a clip, ms: (decode.pass_a, its
+    passa.c_decode), the median of reps fresh decoders, each taking
+    frames 0..i-1's pass A untimed first."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
     runs = []
     metrics.enable()
     try:
         for _ in range(reps):
+            dec = VP9Decoder(device=DEVICE)
+            for fd in frames[:i]:
+                dec.decode_pass_a(fd)
             metrics.reset()
-            VP9Decoder(device=DEVICE).decode_pass_a(fd)
+            dec.decode_pass_a(frames[i])
             rep = metrics.report()
             runs.append((rep["decode.pass_a"]["total_s"] * 1e3,
                          rep["passa.c_decode"]["total_s"] * 1e3))
@@ -3374,18 +3428,130 @@ def native_pass_a_ms(fd, reps=3):
     return sorted(runs)[reps // 2]
 
 
+def prep_frame(PD, dec, fd):
+    """The walk's inputs of the frame dec has just parsed."""
+    h = dec.header
+    prep = PD.prep_keyframe if h.keyframe or h.intraonly else PD.prep_inter
+    return prep(dec, fd)
+
+
+def kernel_vs_plain(np, PD, inputs, meta, what):
+    """csrc/passa.cu against decode_frame_plain (the host CPU) on one
+    frame's inputs, every output exact (walk_diff); raises where they
+    differ. Returns (the kernel's outputs, the plain walk's ms)."""
+    got = walk_host(PD.decode_frame(inputs, meta, DEVICE))
+    t = time.perf_counter()
+    want = walk_host(PD.decode_frame_plain(inputs, meta))
+    plain_ms = (time.perf_counter() - t) * 1e3
+    diff = walk_diff(np, got, want, meta["S"])
+    if diff or got[7].any():
+        raise RuntimeError(f"passa: {what}: the kernel against its plain "
+                           f"version: {diff or got[7]}")
+    return got, plain_ms
+
+
+def walk_prev_bytes(np, hflags, recs, meta):
+    """The bytes of the previous frame's grids that an inter frame's walk
+    reads (csrc/passa.cu), from its records: the MV (8 B) and reference
+    (2 B) cell at the block's own position, once for each inter block
+    with a mode other than ZEROMV, when the frame uses the last frame's
+    MVs (find_ref_mv's temporal slots; counted whether or not the
+    candidate scan reached them); and the segment id cells of each block
+    whose id is predicted, clipped to the frame, when the frame predicts
+    ids from a previous map. A block whose id was predicted under
+    temporal prediction (update_map and temporal) is not told by its
+    record, so those reads are left out: the count stays a lower one."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9 import tables as T
+    seg_en, seg_upd, _seg_tmp, have_pseg = (int(v) for v in hflags[:4])
+    use_prev = int(hflags[13])
+    inter = recs[:, 6] == 0
+    n = 0
+    if use_prev:
+        n += 10 * int((inter & (recs[:, 9:13] != 12).any(axis=1)).sum())
+    if seg_en and have_pseg and not seg_upd:
+        bwh = np.asarray(T.BWH_TAB[1], np.int64)[recs[:, 3]]
+        w = np.minimum(meta["cols"] - recs[:, 1], bwh[:, 0])
+        h = np.minimum(meta["rows"] - recs[:, 0], bwh[:, 1])
+        n += int((w * h).sum())
+    return n
+
+
+def walk_row(np, PD, inputs, meta, got, frames, i, plain_ms):
+    """The walk's measures on one frame (got: its outputs with stats):
+    ms under CUDA events, the longest lane's clock64 time and cycles a
+    bool, the MV quanta's cycles an inter block, bytes and chain bounds,
+    and the native pass A's ms on the same frame."""
+    def walk():
+        PD.decode_frame(inputs, meta, DEVICE)
+    # CUDA events, not torch.profiler: it kept 1 of 3 device records
+    # of this kernel, run after run (tens of ms a launch, where the
+    # wrapper's uploads take some 0.1 ms); beside it the longest
+    # lane's own clock64 cycles at the boost clock
+    ms = cuda_ms(walk, 3)
+    bools, cycles, mv_cycles = got[8][:, 0], got[8][:, 1], got[8][:, 2]
+    longest = int(np.argmax(cycles))
+    S = meta["S"]
+    recs = np.concatenate([got[0][s, :int(got[1][s])] for s in range(S)])
+    inter_blocks = [int((got[0][s, :int(got[1][s]), 6] == 0).sum())
+                    for s in range(S)]
+    written = (4 * 34 * int(got[1].sum()) + 8 * int(got[3].sum())
+               + 8 * int(got[5].sum()) + 4 * S * PD.CNT_TOTAL + 24 * S)
+    read = int(np.sum(inputs["tile_len"])) + len(PD.probs8(inputs))
+    if meta.get("inter"):
+        read += walk_prev_bytes(np, inputs["aux"]["hflags"], recs, meta)
+        # the frame's MV (8 B) and reference (2 B) cells the blocks write
+        written += 10 * meta["rows"] * meta["cols"]
+    bound, bound_by, _ = bounds(read + written, int(bools.sum()), 0)
+    pass_a, c_decode = native_pass_a_ms(frames, i)
+    return {
+        "ms": ms, "longest_lane_ms": cycles[longest] / BOOST_HZ * 1e3,
+        "bools": bools.tolist(),
+        "cycles_a_bool": (cycles / np.maximum(bools, 1)).tolist(),
+        "longest_lane": longest, "bound_ms": bound, "bound_by": bound_by,
+        "bytes": read + written,
+        "chain_ms": int(bools.max()) * BOOL_CHAIN_CYCLES / BOOST_HZ * 1e3,
+        "mv_cycles": mv_cycles.tolist(), "inter_blocks": inter_blocks,
+        "mv_cycles_a_block": float(mv_cycles.sum()) / max(sum(inter_blocks),
+                                                          1),
+        "mv_share": float(mv_cycles.sum()) / max(float(cycles.sum()), 1),
+        "native_pass_a_ms": pass_a, "native_c_decode_ms": c_decode,
+        "plain_ms": plain_ms}
+
+
+def say_walk_row(label, row):
+    say("kernels", f"passa_walk on {label}: {row['ms']:.3f} ms a call "
+        f"under CUDA events (the longest lane's clock64 cycles at "
+        f"{BOOST_HZ / 1e9:.2f} GHz: {row['longest_lane_ms']:.3f}); bools a "
+        f"lane {row['bools']}, the longest lane's "
+        f"{row['cycles_a_bool'][row['longest_lane']]:.2f} cycles a bool "
+        f"(clock64; the chain alone {BOOL_CHAIN_CYCLES}); MV quanta "
+        f"{row['mv_cycles_a_block']:.1f} cycles an inter block "
+        f"({sum(row['inter_blocks'])} blocks, {100 * row['mv_share']:.2f}% "
+        f"of the lanes' cycles); bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}, {row['bytes']} B); chain bound "
+        f"{row['chain_ms']:.3f} ms; native pass A "
+        f"{row['native_pass_a_ms']:.3f} ms (passa.c_decode "
+        f"{row['native_c_decode_ms']:.3f})"
+        + (f"; the plain version {row['plain_ms']:.1f} ms on the host CPU"
+           if row["plain_ms"] is not None else "") + f" on {card_line()}")
+
+
 def passa_phase(torch, np, clips):
-    """The on-device pass A for intra frames (phase 4b of the docstring):
-    csrc/passa.cu against decode_frame_plain on every intra frame of the
-    PASSA_CLIPS (the plain version on the host CPU); against the native
-    pass A on frame 0 of each PASSA_FRAME_CLIPS clip, with its times, and
-    against the plain version on frame 0 of each PASSA_PLAIN_CLIPS clip;
-    then decode_stream with pass_a_impl="device" over those clips on the
-    main path (launches counted from zero, every plain version set to
-    raise), every MD5 against the framemd5, one walk launch a frame and
-    no frame through the host pass A; a serial decode with synchronised
-    stage timers; and its fps beside the host pass A's in one timed pass
-    each. Returns the kernels-line entry."""
+    """The on-device pass A (phase 4b of the docstring): csrc/passa.cu
+    against decode_frame_plain on every intra frame of the PASSA_CLIPS
+    and every frame of the PASSA_INTER_CLIPS, the counts forced on (the
+    plain version on the host CPU); against the native pass A on frame 0
+    of each PASSA_FRAME_CLIPS clip and every inter frame of each
+    PASSA_INTER_FRAME_CLIPS clip (records, planes, eob grids, and the MV
+    and reference grids), against the plain version on frame 0 of each
+    PASSA_PLAIN_CLIPS clip and the PASSA_INTER_PLAIN frames, timed on
+    those and the PASSA_INTER_TIMED frames; then decode_stream with
+    pass_a_impl="device" over the nine clips on the main path (launches
+    counted from zero, every plain version set to raise), every MD5
+    against the framemd5, one walk launch a frame and no frame through
+    the host pass A; a serial decode with synchronised stage timers; and
+    the fps beside the host pass A's in turns. Returns the kernels-line
+    entry."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
     from ffmpeg_hybrid_tpu_torch.ops import passa_device as PD
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
@@ -3398,84 +3564,92 @@ def passa_phase(torch, np, clips):
             if dec.decode_pass_a(fd).ready is not None:
                 continue
             inputs, meta = PD.prep_keyframe(dec, fd)
-            got = walk_host(PD.decode_frame(inputs, meta, DEVICE,
-                                            stats=True))
-            want = [t.numpy() for t in PD.decode_frame_plain(inputs, meta)]
-            diff = walk_diff(np, got, want, meta["S"])
-            if diff or got[7].any():
-                raise RuntimeError(f"passa: {name}: the kernel against its "
-                                   f"plain version: {diff or got[7]}")
+            kernel_vs_plain(np, PD, inputs, meta, name)
             nframes += 1
     say("passa", f"csrc/passa.cu against decode_frame_plain (run on the "
         f"host CPU) on {nframes} intra frames of {len(PASSA_CLIPS)} clips "
         "(vectors/passa_*): records, pairs, counts, err words and bools a "
         "lane exact")
+    ninter = nframes = 0
+    for name in PASSA_INTER_CLIPS:
+        frames, _want = read_clip(name)
+        dec = VP9Decoder(device=DEVICE)
+        for fd in frames:
+            if dec.decode_pass_a(fd).ready is not None:
+                continue
+            inputs, meta = prep_frame(PD, dec, fd)
+            meta["want_counts"] = 1
+            got, _ms = kernel_vs_plain(np, PD, inputs, meta, name)
+            if meta.get("inter") and not got[6].any():
+                raise RuntimeError(f"passa: {name}: no symbol counted")
+            ninter += bool(meta.get("inter"))
+            nframes += 1
+    say("passa", f"csrc/passa.cu against decode_frame_plain on the "
+        f"{nframes} frames ({ninter} inter) of {len(PASSA_INTER_CLIPS)} "
+        "inter clips (vectors/passa_inter_*), the symbol counts forced on: "
+        "records, pairs, counts, err words, bools a lane and the MV and "
+        "reference grids exact")
     say("kernels", "passa_walk ptxas: " + ptxas_of(PASSA_SRC,
                                                    "passa_kernel"))
     rows = {}
     for clip in PASSA_FRAME_CLIPS:
-        fd = clips[clip][0][0]
+        frames = clips[clip][0]
         dec = VP9Decoder(device=DEVICE)
-        dec.decode_pass_a(fd)
-        inputs, meta = PD.prep_keyframe(dec, fd)
-        got = walk_host(PD.decode_frame(inputs, meta, DEVICE, stats=True))
+        dec.decode_pass_a(frames[0])
+        inputs, meta = PD.prep_keyframe(dec, frames[0])
+        got = walk_host(PD.decode_frame(inputs, meta, DEVICE))
         diff = walk_vs_native(np, dec, got, meta["S"])
         if diff or got[7].any():
             raise RuntimeError(f"passa: {clip} frame 0: the kernel against "
                                f"the native pass A: {diff or got[7]}")
         plain_ms = None
         if clip in PASSA_PLAIN_CLIPS:
-            t = time.perf_counter()
-            want = walk_host(PD.decode_frame_plain(inputs, meta))
-            plain_ms = (time.perf_counter() - t) * 1e3
-            diff = walk_diff(np, got, want, meta["S"])
-            if diff:
-                raise RuntimeError(f"passa: {clip} frame 0: the kernel "
-                                   f"against its plain version: {diff}")
-
-        def walk():
-            PD.decode_frame(inputs, meta, DEVICE)
-        # CUDA events, not torch.profiler: it kept 1 of 3 device records
-        # of this kernel, run after run (tens of ms a launch, where the
-        # wrapper's uploads take some 0.1 ms); beside it the longest
-        # lane's own clock64 cycles at the boost clock
-        ms = cuda_ms(walk, 3)
-        bools, cycles = got[8][:, 0], got[8][:, 1]
-        longest = int(np.argmax(cycles))
-        lane_ms = cycles[longest] / BOOST_HZ * 1e3
-        S = meta["S"]
-        written = (4 * 34 * int(got[1].sum()) + 8 * int(got[3].sum())
-                   + 8 * int(got[5].sum()) + 4 * S * PD.CNT_TOTAL + 16 * S)
-        read = int(np.sum(inputs["tile_len"])) + len(PD.probs8(inputs))
-        bound, bound_by, _ = bounds(read + written, int(bools.sum()), 0)
-        chain = int(bools.max()) * BOOL_CHAIN_CYCLES / BOOST_HZ * 1e3
-        pass_a, c_decode = native_pass_a_ms(fd)
-        rows[clip] = {
-            "ms": ms, "longest_lane_ms": lane_ms, "bools": bools.tolist(),
-            "cycles_a_bool": (cycles / np.maximum(bools, 1)).tolist(),
-            "longest_lane": longest, "bound_ms": bound,
-            "bound_by": bound_by, "bytes": read + written,
-            "chain_ms": chain, "native_pass_a_ms": pass_a,
-            "native_c_decode_ms": c_decode, "plain_ms": plain_ms}
-        say("kernels", f"passa_walk on {clip} frame 0 (S={S}): exact "
-            f"against the native pass A; {ms:.3f} ms a call under CUDA "
-            f"events (the longest lane's clock64 cycles at "
-            f"{BOOST_HZ / 1e9:.2f} GHz: {lane_ms:.3f}); bools a lane "
-            f"{bools.tolist()}, the longest lane's "
-            f"{cycles[longest] / max(bools[longest], 1):.2f} cycles a bool "
-            f"(clock64; the chain alone {BOOL_CHAIN_CYCLES}); bound "
-            f"{bound:.6f} ms ({bound_by}, {read + written} B); chain bound "
-            f"{chain:.3f} ms; native pass A {pass_a:.3f} ms "
-            f"(passa.c_decode {c_decode:.3f}) on {card_line()}")
-        if plain_ms is not None:
-            say("kernels", f"passa_walk on {clip} frame 0: exact against "
-                "decode_frame_plain (records, pairs, counts, err words, "
-                f"bools a lane); the plain version {plain_ms:.1f} ms on the "
-                "host CPU")
+            _got, plain_ms = kernel_vs_plain(np, PD, inputs, meta,
+                                             f"{clip} frame 0")
+        rows[clip] = walk_row(np, PD, inputs, meta, got, frames, 0,
+                              plain_ms)
+        say_walk_row(f"{clip} frame 0 (S={meta['S']}), exact against the "
+                     "native pass A" + (" and decode_frame_plain"
+                                        if plain_ms is not None else ""),
+                     rows[clip])
+    ninter = 0
+    for clip in PASSA_INTER_FRAME_CLIPS:
+        frames = clips[clip][0]
+        dec = VP9Decoder(device=DEVICE)
+        for i, fd in enumerate(frames):
+            if dec.decode_pass_a(fd).ready is not None:
+                continue
+            if dec.header.keyframe or dec.header.intraonly:
+                continue
+            inputs, meta = PD.prep_inter(dec, fd)
+            got = walk_host(PD.decode_frame(inputs, meta, DEVICE))
+            diff = walk_vs_native(np, dec, got, meta["S"])
+            if diff or got[7].any():
+                raise RuntimeError(f"passa: {clip} frame {i}: the kernel "
+                                   "against the native pass A: "
+                                   f"{diff or got[7]}")
+            ninter += 1
+            plain_ms = None
+            if (clip, i) in PASSA_INTER_PLAIN:
+                _got, plain_ms = kernel_vs_plain(np, PD, inputs, meta,
+                                                 f"{clip} frame {i}")
+            if (clip, i) in PASSA_INTER_TIMED:
+                key = f"{clip} frame {i}"
+                rows[key] = walk_row(np, PD, inputs, meta, got, frames, i,
+                                     plain_ms)
+                say_walk_row(f"{key} (S={meta['S']}, inter), exact against "
+                             "the native pass A" + (
+                                 " and decode_frame_plain"
+                                 if plain_ms is not None else ""), rows[key])
+    say("passa", f"csrc/passa.cu against the native pass A on the {ninter} "
+        f"inter frames of {', '.join(PASSA_INTER_FRAME_CLIPS)}: records, "
+        "coefficient planes, eob grids and the MV and reference grids "
+        "(cur_mv, cur_ref) exact; against decode_frame_plain on "
+        + ", ".join(f"{c} frame {i}" for c, i in PASSA_INTER_PLAIN))
     # the main path: decode_stream with the device pass A
     with main_path_run():
         nwant = host_frames = 0
-        for clip in PASSA_FRAME_CLIPS:
+        for clip in PASSA_DECODE_CLIPS:
             frames, want = clips[clip]
             dec = VP9Decoder(device=DEVICE, pass_a_impl="device")
             got = [hashlib.md5(f.to_bytes()).hexdigest()
@@ -3490,11 +3664,12 @@ def passa_phase(torch, np, clips):
         raise RuntimeError(f"passa: the walk launched {launches['passa']} "
                            f"times for {nwant} frames, {host_frames} frames "
                            "through the host pass A")
-    for key in ("splat", "scatter", "intra", "lf_grids", "lf_dense"):
+    for key in ("splat", "scatter", "intra", "lf_grids", "lf_dense", "mc",
+                "mc_scaled"):
         if not launches[key]:
             raise RuntimeError(f"passa: the {key} kernel never launched")
     say("passa", f"decode_stream(pass_a_impl=\"device\") on "
-        f"{', '.join(PASSA_FRAME_CLIPS)}: {nwant} frames bit-exact vs "
+        f"{', '.join(PASSA_DECODE_CLIPS)}: {nwant} frames bit-exact vs "
         f"framemd5, the walk once a frame; frames through the host pass "
         f"A (pass_a_host_frames) {host_frames}; kernel launches "
         f"{launches}")
@@ -3523,7 +3698,7 @@ def passa_phase(torch, np, clips):
     fps = {}
     metrics.enable()
     try:
-        for clip in PASSA_FRAME_CLIPS:
+        for clip in PASSA_DECODE_CLIPS:
             frames, _want = clips[clip]
             for impl in ("device", "host", "host", "device"):
                 metrics.reset()
@@ -3545,7 +3720,7 @@ def passa_phase(torch, np, clips):
         say("passa", f"{clip}: decode_stream fps in turns "
             + "; ".join(f"{impl} {v:.3f} (ms/frame {per})"
                         for impl, v, per in runs) + f" on {card_line()}")
-        rows[clip]["fps"] = [(impl, v) for impl, v, _per in runs]
+        rows.setdefault(clip, {})["fps"] = [(impl, v) for impl, v, _p in runs]
         rows[clip]["stage_ms"] = [(impl, per) for impl, _v, per in runs]
     say("passa", f"phase {time.perf_counter() - t0:.1f} s")
     lf = rows["bench_1080p_lf"]
@@ -3944,7 +4119,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
             for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)
-            + PASSA_CLIPS):
+            + PASSA_CLIPS + PASSA_INTER_CLIPS):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1

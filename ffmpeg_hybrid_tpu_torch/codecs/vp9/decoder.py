@@ -198,8 +198,8 @@ class VP9Decoder:
         self.use_native = use_native
         # pass A on the host (native C or pure Python), or with
         # pass_a_impl="device" the walk of ops/passa_device.py on
-        # self.device for intra frames (the kernel on the card, its
-        # plain version on the CPU); inter frames wait for the inter walk
+        # self.device (the kernel on the card, its plain version on the
+        # CPU), for every frame with one tile row
         if pass_a_impl not in (None, "host", "device"):
             raise ValueError(f"unknown pass_a_impl {pass_a_impl!r}")
         self.pass_a_impl = pass_a_impl or "host"
@@ -606,11 +606,6 @@ class VP9Decoder:
             job.ready = [f]
             return job
 
-        if self.pass_a_impl == "device" and not (h.keyframe or h.intraonly):
-            raise NotImplementedError(
-                "the on-device pass A of inter frames is the inter walk, "
-                "ROADMAP step 11b; decode them with pass_a_impl='host'")
-
         # advance the shared pool slot (geometry arrays, probs, counts)
         self._slot = (self._slot + 1) % POOL_DEPTH
 
@@ -783,16 +778,19 @@ class VP9Decoder:
 
     # ------------------------------------------------------------------
     def _decode_tiles_device(self, data: bytes) -> Counts:
-        """Pass A of an intra frame with one tile row by the walk of
+        """Pass A of a frame with one tile row by the walk of
         ops/passa_device.py on self.device (on the card one launch, on
-        the current stream). The walk returns block records and
-        coefficient and eob pairs; the replay (timer
-        decode.pass_a_replay) hands pass B the native pass A's layouts:
-        the records as 36-column int16 rows in decode order
-        (tile-row band, superblock row, tile column, within-lane order:
-        vp9.c:1302-1438), the pairs as the native emitter's rows, the
-        loop filter's levels and masks (mask_edges, block by block) and
-        the segmentation map. When backward adaptation will run, the
+        the current stream): prep_keyframe for intra frames, prep_inter
+        for inter frames. The walk returns block records and coefficient
+        and eob pairs, and on inter frames the frame's MV and reference
+        grids, which become cur_mv and cur_ref in one copy each (the
+        next frame's prev_mv and prev_ref, whichever pass A decodes it).
+        The replay (timer decode.pass_a_replay) hands pass B the native
+        pass A's layouts: the records as 36-column int16 rows in decode
+        order (tile-row band, superblock row, tile column, within-lane
+        order: vp9.c:1302-1438), the pairs as the native emitter's rows,
+        the loop filter's levels and masks (mask_edges, block by block)
+        and the segmentation map. When backward adaptation will run, the
         walk's per-lane counts are merged (the vp9.c:1816-1819 tile
         merge). Raises ValueError on a tile size the packet does not
         hold, a stream that ends before a superblock or a full output."""
@@ -800,12 +798,18 @@ class VP9Decoder:
         from ...passa_native import LazyBlocks
         from .blockdec import mask_edges
         h = self.header
-        inputs, meta = PD.prep_keyframe(self, data)
+        if h.keyframe or h.intraonly:
+            inputs, meta = PD.prep_keyframe(self, data)
+        else:
+            inputs, meta = PD.prep_inter(self, data)
+        out = PD.decode_frame(inputs, meta, self.device)
         recs, lane, cp, ep, cnts, err = (
             v.numpy() if torch.is_tensor(v) else v
-            for v in _walk_to_host(PD.decode_frame(inputs, meta,
-                                                   self.device)))
+            for v in _walk_to_host(out[:8]))
         PD.check_err(err)
+        if meta.get("inter"):
+            self.cur_mv[...] = out[9].cpu().numpy()
+            self.cur_ref[...] = out[10].cpu().numpy()
         with metrics.timer("decode.pass_a_replay"):
             S = meta["S"]
             order = np.argsort((recs[:, 0] >> 3) * S + lane, kind="stable")
@@ -840,35 +844,39 @@ class VP9Decoder:
         return counts
 
     def _replay_lf_seg(self, recs, seg_write, mask_edges):
-        """Levels, edge masks and segment ids of a frame's records (intra
-        blocks)."""
+        """Levels, edge masks and segment ids of a frame's records: the
+        level by segment, reference (intra 0, else ref[0] + 1) and mode
+        (ZEROMV or not), the masks without the inner edges of a skipped
+        inter block (JAX decoder.py _decode_tiles_device)."""
+        from .blockdec import ZEROMV
         h = self.header
         cols, rows = self.cols, self.rows
         for r in recs.tolist():
-            row, col, bs, seg_id, tx, uvtx = r[0], r[1], r[3], r[4], \
-                r[7], r[8]
+            row, col, bs, seg_id, skip, intra, tx, uvtx = \
+                r[0], r[1], r[3], r[4], r[5], r[6], r[7], r[8]
             bw4, bh4 = int(T.BWH_TAB[1, bs, 0]), int(T.BWH_TAB[1, bs, 1])
             if seg_write:
                 self.cur_segmap[row:row + bh4, col:col + bw4] = seg_id
             if not h.filter_level:
                 continue
-            # an intra block: reference slot 0, a mode other than ZEROMV
-            lvl = int(h.seg_feat[seg_id].lflvl[0, 1])
+            lvl = int(h.seg_feat[seg_id].lflvl[0 if intra else r[15] + 1,
+                                               int(r[12] != ZEROMV)])
             if lvl <= 0:
                 continue
+            skip_inter = bool(skip and not intra)
             x_end, y_end = min(cols - col, bw4), min(rows - row, bh4)
             row7, col7 = row & 7, col & 7
             sbr, sbc = row >> 3, col >> 3
             self.lf_level[sbr, sbc, row7:row7 + bh4, col7:col7 + bw4] = lvl
             mask_edges(self.lf_mask[sbr, sbc, 0], 0, 0, row7, col7, x_end,
-                       y_end, 0, 0, tx, False)
+                       y_end, 0, 0, tx, skip_inter)
             if self.ss_h or self.ss_v:
                 mask_edges(
                     self.lf_mask[sbr, sbc, 1], self.ss_h, self.ss_v, row7,
                     col7, x_end, y_end,
                     (cols & 7) if (cols & 1) and col + bw4 >= cols else 0,
                     (rows & 7) if (rows & 1) and row + bh4 >= rows else 0,
-                    uvtx, False)
+                    uvtx, skip_inter)
 
     # ------------------------------------------------------------------
     def _decode_tiles(self, data: bytes) -> Counts:

@@ -1,6 +1,6 @@
-"""On-device pass A for intra frames: the keyframe block-syntax walk of
-S tile streams — the counterpart of the intra half of the JAX package's
-ops/passa_device.py (`_decode_jit` with inter=0).
+"""On-device pass A: the block-syntax walk of S tile streams of a frame,
+keyframes, intra-only and inter frames — the counterpart of the JAX
+package's ops/passa_device.py (`_decode_jit`, inter=0 and inter=1).
 
 Every lane is one independent VP9 tile bool stream (vp9.c:1342). A lane
 runs a phase machine, one bounded quantum a step:
@@ -8,21 +8,33 @@ runs a phase machine, one bounded quantum a step:
   PART  one partition-tree node: the partition symbol (full tree, the
         edge-forced single bit or the forced split, vp9.c:1115-1193),
         or the node's next child or leaf block;
-  MODE  the keyframe mode bundle of one block (seg id, skip, the tx
-        ladder, the context-coupled intra mode trees, the uv mode and
-        the SET_CTXS splats, vp9block.c:80-330);
+  MODE  the mode bundle of one block (seg id, with temporal prediction
+        on inter frames; skip; the intra/inter flag; the tx ladder; the
+        keyframe's context-coupled intra mode trees, or on inter frames
+        the fixed-table intra modes, the compound and single reference
+        with their context chains, the whole-block inter mode and the
+        interpolation filter; the SET_CTXS splats, vp9block.c:80-802);
+  MV    one (sub-block, reference) of an inter block: the sub-block's
+        inter mode, the find_ref_mvs candidate scan over the frame's
+        MV grid, hp rounding and a NEWMV's joint and components
+        (vp9mvs.c:37-365); after the last, the deferred context splats
+        and the grid write-back (vp9block.c:682-801);
   COEF  one scan position of the current transform block (the token
         cascade of vp9block.c:805-923), with transform-block and plane
-        transitions folded into the quantum;
-  DONE  the tile is drained (or the lane stopped on an error);
-  MV    reserved for the inter walk (the same numbering as JAX's).
+        transitions folded into the quantum; an inter block of 8x8 or
+        more that codes no coefficient is skipped after the fact
+        (vp9block.c:1310-1314);
+  DONE  the tile is drained (or the lane stopped on an error).
 
 Outputs per lane: block records in the native 34-column layout (row,
 col, tile_col_start, bs, seg, skip, intra, tx, uvtx, mode[4], uvmode,
 comp, ref[2], filter, mv[4][2][2]), nonzero coefficient pairs (flat
 plane position with its plane base, dequantized value), eob pairs (flat
 eob-grid position with its plane base, count), the symbol counts of the
-vp9prob.c taxonomy when the frame adapts, and an error word.
+vp9prob.c taxonomy when the frame adapts, and an error word; on inter
+frames also the frame's MV and reference grids, in the host decoder's
+layout (codecs/vp9/decoder.py Frame.mv and Frame.refs), as the native
+pass A leaves them (vp9block.c:777-801).
 
 `decode_frame` runs the walk: on a CUDA device one launch of the
 hand-written kernel csrc/passa.cu (a block of one warp a lane, one
@@ -43,8 +55,9 @@ decoder's bits: the first byte that would make them differ (0xff) sets
 the marker, an error on either.
 
 Reference: vp9block.c:80-923 (decode_mode / decode_coeffs /
-decode_block), vp9.c:1115-1193 (decode_sb), vp9prob.c (the count
-taxonomy), vpx_rac.h:83-94 (the bool decoder).
+decode_block), vp9.c:1115-1193 (decode_sb), vp9mvs.c:37-365 (MV
+prediction and decode), vp9prob.c (the count taxonomy), vpx_rac.h:83-94
+(the bool decoder).
 """
 from __future__ import annotations
 
@@ -56,9 +69,10 @@ import torch
 from . import _cuda
 from ..codecs.vp9 import tables as T
 from ..codecs.vp9.blockdec import (ABOVE_CTX, LEFT_CTX, MAX_TX_FOR_BL_BP,
-                                   BAND_COUNTS)
+                                   BAND_COUNTS, INTER_MODE_CTX_LUT)
+from ..codecs.vp9.mvs import MV_REF_BLK_OFF
 
-# phases (MV is the inter walk's, kept so that it extends this machine)
+# phases (the numbering of the JAX walk)
 PART, MODE, COEF, DONE, MV = 0, 1, 2, 3, 4
 
 # err bits of a lane
@@ -120,8 +134,36 @@ def _tree_arrays(tree):
 _PTREE, _PDEPTH = _tree_arrays(T.PARTITION_TREE)
 _MTREE, _MDEPTH = _tree_arrays(T.INTRAMODE_TREE)
 _STREE, _SDEPTH = _tree_arrays(T.SEGMENTATION_TREE)
-# size group of a block size (the inter walk's y-mode context)
+_IMTREE, _IMDEPTH = _tree_arrays(T.INTER_MODE_TREE)
+_FTREE, _FDEPTH = _tree_arrays(T.FILTER_TREE)
+_JTREE, _JDEPTH = _tree_arrays(T.MV_JOINT_TREE)
+_CLTREE, _CLDEPTH = _tree_arrays(T.MV_CLASS_TREE)
+_FPTREE, _FPDEPTH = _tree_arrays(T.MV_FP_TREE)
+# size group of a block size (an inter frame's y-mode context)
 _SZGROUP = np.asarray([3, 3, 3, 3, 2, 2, 2, 1, 1, 1, 0, 0, 0], np.int32)
+_FLUT = np.asarray(T.FILTER_LUT, np.int32)          # filter symbol -> type
+_IMCTX = np.asarray(INTER_MODE_CTX_LUT, np.int32)   # [14, 14]
+# the inter-mode context reads the above/left mode context this far into
+# a 64x64 or 32x32 block (SUB8X8_OFF, vp9block.c:584)
+_MOFF = np.asarray([3, 0, 0, 1] + [0] * 9, np.int32)
+# the mv and mode slot each sub-block takes after the MV phase
+# (vp9block.c:732-766): 8x4 copies slots 0 and 2, 4x8 slots 0 and 1
+_SUBSRC = np.asarray([[0, 0, 0, 0]] * 10 + [[0, 0, 2, 2], [0, 1, 0, 1],
+                                            [0, 1, 2, 3]], np.int32)
+# find_ref_mvs' candidates (vp9mvs.c:37-234) as a fixed list of 32 slots
+# walked in order, the first that returns ending the scan. Kinds: 0 a
+# direct sub-block mv of this block, 1 the above mv context, 2 the left
+# one, 3 a spatial neighbour with the same reference, 4 the previous
+# frame's mv here with the same reference, 5/6 a spatial neighbour's
+# first/second mv with another reference, 7/8 the previous frame's.
+# PAR: the direct slot's sub-block, or the neighbour's MV_REF_BLK_OFF row.
+_SLOT_KIND = np.asarray([0, 0, 0, 1, 2] + [3] * 8 + [4]
+                        + [v for _i in range(8) for v in (5, 6)] + [7, 8],
+                        np.int32)
+_SLOT_PAR = np.asarray([2, 1, 0, 0, 0] + list(range(8)) + [0]
+                       + [i for i in range(8) for _ in (0, 1)] + [0, 0],
+                       np.int32)
+_MVREF = np.asarray(MV_REF_BLK_OFF, np.int32)       # [13, 8, (col, row)]
 
 _CAT6_8 = [254, 254, 254, 252, 249, 243, 230, 196, 177, 153,
            140, 133, 130, 129]
@@ -242,6 +284,97 @@ def prep_keyframe(dec, data):
     return _prep_common(dec, data)
 
 
+def prep_inter(dec, data):
+    """Host prep of an inter frame (neither keyframe nor intra-only):
+    prep_keyframe's inputs plus inputs["aux"], the frame's probability
+    set, the coefficient probabilities of both reference kinds, the
+    previous frame's MV, reference and segmentation grids (the JAX
+    walk's layout: a cell a row of rows x cols, padded to gmax rows),
+    and the header scalars the inter syntax reads (vp9block.c:80-802,
+    vp9mvs.c); meta gains inter=1 and gmax. The previous grids are
+    those the decoder's state names: its prev_mv and prev_ref when the
+    frame uses the last frame's MVs, its prev_segmap unless the frame is
+    error resilient. aux is JAX's array for array; the port's walks read
+    the previous grids in the host layout instead, the frame's own
+    grids' (grid_shapes): inputs["prev_grids"] holds the decoder's
+    arrays (prev_mv, prev_ref, prev_segmap), each None where the frame
+    does not read it."""
+    h = dec.header
+    if h.keyframe or h.intraonly:
+        raise ValueError("prep_inter takes inter frames")
+    inputs, meta = _prep_common(dec, data)
+    p = dec.probs
+    rows, cols = dec.rows, dec.cols
+    gmax = 1024
+    while gmax < rows * cols:
+        gmax *= 2
+    prev_mv = np.zeros((gmax, 2, 2), np.int32)
+    prev_ref = np.full((gmax, 2), -1, np.int32)
+    prev_seg = np.zeros(gmax, np.int32)
+    use_prev = int(h.use_last_frame_mvs and dec.prev_mv is not None)
+    if use_prev:
+        prev_mv[:rows * cols] = np.asarray(
+            dec.prev_mv[:rows, :cols], np.int32).reshape(-1, 2, 2)
+        prev_ref[:rows * cols] = np.asarray(
+            dec.prev_ref[:rows, :cols], np.int32).reshape(-1, 2)
+    have_prevseg = int(not h.errorres and dec.prev_segmap is not None)
+    if have_prevseg:
+        prev_seg[:rows * cols] = np.asarray(
+            dec.prev_segmap[:rows, :cols], np.int32).reshape(-1)
+    # a frame reads the previous grids only at its own size (the header's
+    # use_last_frame_mvs asks for it; the decoder drops its segmap frame
+    # on a size change)
+    grids = (dec.prev_mv if use_prev else None,
+             dec.prev_ref if use_prev else None,
+             dec.prev_segmap if have_prevseg else None)
+    for g in grids:
+        if g is not None and g.shape[:2] != (dec.sb_rows * 8,
+                                             dec.sb_cols * 8):
+            raise ValueError("a previous grid of another frame size")
+    inputs["prev_grids"] = grids
+    segf = h.seg_feat
+    refseg_en = np.zeros(8, np.int32)
+    refseg_val = np.zeros(8, np.int32)
+    for sid in range(8):
+        refseg_en[sid] = int(h.seg_enabled and segf[sid].ref_enabled)
+        refseg_val[sid] = int(segf[sid].ref_val)
+    hflags = np.asarray([
+        int(h.seg_enabled), int(h.seg_update_map), int(h.seg_temporal),
+        have_prevseg, int(h.comppredmode), int(h.fixcompref),
+        int(h.varcompref[0]), int(h.varcompref[1]),
+        int(h.signbias[0]), int(h.signbias[1]), int(h.signbias[2]),
+        int(h.filtermode), int(h.highprecisionmvs), use_prev,
+    ], np.int32)
+    i32 = np.int32
+    inputs["aux"] = dict(
+        coef11i=np.asarray(dec.coef11, i32).reshape(16, 36, 11),
+        prev_mv=prev_mv, prev_ref=prev_ref, prev_seg=prev_seg,
+        hflags=hflags, refseg_en=refseg_en, refseg_val=refseg_val,
+        segpredp=np.asarray(h.seg_pred_prob, i32),
+        partp=np.asarray(p.partition, i32),
+        intrap=np.asarray(p.intra, i32),
+        compp=np.asarray(p.comp, i32),
+        comprefp=np.asarray(p.comp_ref, i32),
+        singlerefp=np.asarray(p.single_ref, i32),
+        ymodep=np.asarray(p.y_mode, i32),
+        uvmodep=np.asarray(p.uv_mode, i32),
+        mvmodep=np.asarray(p.mv_mode, i32),
+        filterp=np.asarray(p.filter, i32),
+        mvjointp=np.asarray(p.mv_joint, i32),
+        mvsignp=np.asarray(p.mv_sign, i32),
+        mvclassesp=np.asarray(p.mv_classes, i32),
+        mvclass0p=np.asarray(p.mv_class0, i32),
+        mvbitsp=np.asarray(p.mv_bits, i32),
+        mvc0fpp=np.asarray(p.mv_class0_fp, i32),
+        mvfpp=np.asarray(p.mv_fp, i32),
+        mvc0hpp=np.asarray(p.mv_class0_hp, i32),
+        mvhpp=np.asarray(p.mv_hp, i32),
+    )
+    meta["inter"] = 1
+    meta["gmax"] = gmax
+    return inputs, meta
+
+
 def _prep_common(dec, data):
     from ..codecs.vp9.rac import BoolDecoder
     from .rac import pack_windows, snapshot_to_state
@@ -360,29 +493,55 @@ class _Tables:
         self.skipp = lst(inputs["skipp"])
         self.tx8p, self.tx16p, self.tx32p = (
             lst(inputs[k]) for k in ("tx8p", "tx16p", "tx32p"))
-        self.coef = lst(np.asarray(inputs["coef11"]).reshape(288, 11))
         self.qmul = lst(inputs["qmul"])
         self.skipseg = lst(inputs["skipseg"])
         self.segprob = lst(inputs["segprob"])
         self.scans = lst(np.asarray(inputs["scans"]).reshape(-1))
         self.nbs = lst(np.asarray(inputs["nbs"]).reshape(-1))
-        self.kf_part = lst(T.DEFAULT_KF_PARTITION_PROBS)     # [4][4][3]
         self.kf_ym = lst(T.DEFAULT_KF_YMODE_PROBS)           # [10][10][9]
         self.kf_uvm = lst(T.DEFAULT_KF_UVMODE_PROBS)         # [10][9]
         self.bwh = lst(_BWH)
         self.bands = lst(_BANDS.reshape(-1))
         self.cat = lst(_cat_table(meta["bpp"]))
         self.catn = lst(_CAT_NBITS[meta["bpp"]])
+        aux = inputs.get("aux") if meta.get("inter") else None
+        if aux is None:
+            # coefficient rows (tx * 2 + plane type) * 2 + is_inter: an
+            # intra frame's blocks take the is_inter=0 rows alone
+            coef = np.zeros((8, 2, 36, 11), np.int64)
+            coef[:, 0] = np.asarray(inputs["coef11"]).reshape(8, 36, 11)
+            self.coef = lst(coef.reshape(576, 11))
+            self.part = lst(T.DEFAULT_KF_PARTITION_PROBS)    # [4][4][3]
+            return
+        self.coef = lst(np.asarray(aux["coef11i"]).reshape(576, 11))
+        self.part = lst(aux["partp"])
+        for k in ("hflags", "refseg_en", "refseg_val", "segpredp", "intrap",
+                  "compp", "comprefp", "singlerefp", "ymodep", "uvmodep",
+                  "mvmodep", "filterp", "mvjointp", "mvsignp", "mvclassesp",
+                  "mvclass0p", "mvbitsp", "mvc0fpp", "mvfpp", "mvc0hpp",
+                  "mvhpp"):
+            setattr(self, k, lst(aux[k]))
+        # the previous grids in the host layout, C8 cells a row, as the
+        # frame's own (empty where the frame reads none)
+        pmv, pref, pseg = inputs["prev_grids"]
+        self.prev_mv = [] if pmv is None else lst(pmv.reshape(-1, 4))
+        self.prev_ref = [] if pref is None else lst(pref.reshape(-1, 2))
+        self.prev_seg = [] if pseg is None else lst(pseg.reshape(-1))
+        self.mvref = lst(_MVREF)
+        self.imctx = lst(_IMCTX)
 
 
-def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
-               caps):
+def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds, caps,
+               grid):
     """One lane's walk (the kernel's thread): its records, coefficient
-    and eob pairs, counts, err word and bools read, as lists."""
+    and eob pairs, counts, err word and bools read, as lists. On an
+    inter frame `grid` is the frame's (mv, ref) grids as flat lists in
+    the host layout, which the lane writes its blocks into."""
     rows, cols = meta["rows"], meta["cols"]
     ss_h, ss_v, bpp = meta["ss_h"], meta["ss_v"], meta["bpp"]
     lossless, txfmmode = meta["lossless"], meta["txfmmode"]
     seg, want_counts = meta["seg"], meta["want_counts"]
+    inter = bool(meta.get("inter"))
     W64, W64uv, c16, c16uv, ysz, usz, eysz, eusz = _frame_dims(meta)
     bcap, ccap, ecap = caps
     r0, r1, c0, c1 = bounds
@@ -427,21 +586,248 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
     ptree, mtree, stree = (_PTREE.tolist(), _MTREE.tolist(),
                            _STREE.tolist())
     cnts = [0] * CNT_TOTAL
+    O = CNT_OFF
     blocks, cpairs, epairs = [], [], []
-    # above ctx, frame-absolute; left ctx, per superblock row
+    # above ctx, frame-absolute; left ctx, per superblock row. The mode
+    # contexts start at DC_PRED on intra frames, NEARESTMV on inter
+    # frames (vp9.c:1720-1730)
+    mode0 = 10 if inter else 2
     W = cols + 16
     a_part, a_skip, a_txfm = [0] * W, [0] * W, [0] * W
-    a_mode = [2] * (2 * W)
+    a_mode = [mode0] * (2 * W)
     a_nnz = [[0] * (2 * W) for _ in range(3)]
     l_part, l_skip, l_txfm = [0] * 8, [0] * 8, [0] * 8
-    l_mode = [2] * 16
+    l_mode = [mode0] * 16
     l_nnz = [[0] * 16 for _ in range(3)]
+    if inter:
+        (seg_en, seg_upd, seg_tmp, have_pseg, comppredmode, fixref,
+         varref0, varref1, sb0, sb1, sb2, filtermode, highprec,
+         use_prev) = tb.hflags
+        sbias = (sb0, sb1, sb2)
+        imtree, ftree, jtree = (_IMTREE.tolist(), _FTREE.tolist(),
+                                _JTREE.tolist())
+        cltree, fptree = _CLTREE.tolist(), _FPTREE.tolist()
+        gmv, gref = grid
+        C8 = meta["sb_cols"] * 8
+        a_intra, a_comp, a_ref, a_filter, a_segpred = (
+            [0] * W for _ in range(5))
+        l_intra, l_comp, l_ref, l_filter, l_segpred = (
+            [0] * 8 for _ in range(5))
+        zero2 = ((0, 0), (0, 0))
+        a_mv = [zero2] * (2 * W)        # [ref][x, y] a 4x4 column
+        l_mv = [zero2] * 16
+    # the current block; on inter frames its fields that a block does not
+    # write keep the last block's values, as the reference's one Block
+    b_uvmode, b_comp, b_ref, b_filter, b_filterid = 0, 0, [0, 0], 0, 0
+    b_mv = [[(0, 0), (0, 0)] for _ in range(4)]
+    b_modectx = anycoef = intra = 0
+    mv_k = mv_z = 0
     bwh = tb.bwh
     err = 0
     phase = PART
     sb_r, sb_c = r0, c0
     stack = []          # partition nodes: [bl, r, c, bp, emitted]
-    blk = None          # the current block's record (34 values)
+
+    def read_mv_comp(comp, hp):
+        """One MV component (vp9mvs.c:236-289), with libvpx's count of
+        an hp bit that is not coded (vp9mvs.c:263-266)."""
+        sign = rd(tb.mvsignp[comp])
+        cl = tree(cltree, tb.mvclassesp[comp])
+        if want_counts:
+            cnts[O["mv_sign"] + comp * 2 + sign] += 1
+            cnts[O["mv_classes"] + comp * 11 + cl] += 1
+        if cl:
+            n = 0
+            for m in range(cl):
+                bit = rd(tb.mvbitsp[comp][m])
+                n |= bit << m
+                if want_counts:
+                    cnts[O["mv_bits"] + comp * 20 + m * 2 + bit] += 1
+            fp = tree(fptree, tb.mvfpp[comp])
+            hpb = rd(tb.mvhpp[comp]) if hp else 1
+            n = ((n << 3) | (fp << 1) | hpb) + (8 << cl)
+            if want_counts:
+                cnts[O["mv_fp"] + comp * 4 + fp] += 1
+                cnts[O["mv_hp"] + comp * 2 + hpb] += 1
+        else:
+            n0 = rd(tb.mvclass0p[comp])
+            fp = tree(fptree, tb.mvc0fpp[comp][n0])
+            hpb = rd(tb.mvc0hpp[comp]) if hp else 1
+            n = (n0 << 3) | (fp << 1) | hpb
+            if want_counts:
+                cnts[O["mv_class0"] + comp * 2 + n0] += 1
+                cnts[O["mv_class0_fp"] + comp * 8 + n0 * 4 + fp] += 1
+                cnts[O["mv_class0_hp"] + comp * 2 + hpb] += 1
+        return -(n + 1) if sign else n + 1
+
+    def find_ref_mv(refz, z, idxn, sbp):
+        """find_ref_mvs (vp9mvs.c:37-234) over the 32 candidate slots:
+        the predicted (x, y) for reference `refz`, NEARMV's second
+        distinct candidate when idxn, sub-block sbp (-1: the whole
+        block), with the reference decoder's quirks."""
+        bw8, bh8 = bwh[1][bs]
+        minx, miny = -(128 + bc * 64), -(128 + br * 64)
+        maxx = 128 + (cols - bc - bw8) * 64
+        maxy = 128 + (rows - br - bh8) * 64
+        offs = tb.mvref[bs]
+        sbc = min(max(sbp, 0), 3)
+        pi = br * C8 + bc
+        msets = m8s = False
+        mx = my = m8x = m8y = 0
+        for j in range(32):
+            kind, par = _SLOT_KIND_L[j], _SLOT_PAR_L[j]
+            flip = False
+            if kind == 0:
+                if not (sbp >= 1 if par == 0 else sbp == 3):
+                    continue
+                vx, vy = b_mv[par][z]
+            elif kind == 1 or kind == 2:
+                if sbp < 0 or (br == 0 if kind == 1 else bc <= c0):
+                    continue
+                gi = (br - 1) * C8 + bc if kind == 1 else br * C8 + bc - 1
+                g0, g1 = gref[2 * gi], gref[2 * gi + 1]
+                if g0 != refz and g1 != refz:
+                    continue
+                ctx = a_mv[2 * bc + (sbc & 1)] if kind == 1 \
+                    else l_mv[2 * row7 + (sbc >> 1)]
+                vx, vy = ctx[0 if g0 == refz else 1]
+            elif kind == 3 or kind == 5 or kind == 6:
+                if kind == 3 and sbp >= 0 and par < 2:
+                    continue
+                nc, nr = bc + offs[par][0], br + offs[par][1]
+                if not (c0 <= nc < cols and 0 <= nr < rows):
+                    continue
+                gi = nr * C8 + nc
+                g0, g1 = gref[2 * gi], gref[2 * gi + 1]
+                v0 = (gmv[4 * gi], gmv[4 * gi + 1])
+                v1 = (gmv[4 * gi + 2], gmv[4 * gi + 3])
+                if kind == 3:
+                    if g0 != refz and g1 != refz:
+                        continue
+                    vx, vy = v0 if g0 == refz else v1
+                elif kind == 5:
+                    if g0 < 0 or g0 == refz:
+                        continue
+                    vx, vy = v0
+                    flip = sbias[g0] != sbias[refz]
+                else:
+                    # libvpx's condition, whether or not the first mv was
+                    # taken (vp9mvs.c:206-208)
+                    if g1 < 0 or g1 == refz or v0 == v1:
+                        continue
+                    vx, vy = v1
+                    flip = sbias[g1] != sbias[refz]
+            else:
+                if not use_prev:
+                    continue
+                p0, p1 = tb.prev_ref[pi]
+                pm = tb.prev_mv[pi]
+                v0, v1 = (pm[0], pm[1]), (pm[2], pm[3])
+                if kind == 4:
+                    if p0 != refz and p1 != refz:
+                        continue
+                    vx, vy = v0 if p0 == refz else v1
+                elif kind == 7:
+                    if p0 < 0 or p0 == refz:
+                        continue
+                    vx, vy = v0
+                    flip = sbias[p0] != sbias[refz]
+                else:
+                    if p1 < 0 or p1 == refz or v0 == v1:
+                        continue
+                    vx, vy = v1
+                    flip = sbias[p1] != sbias[refz]
+            if flip:
+                vx, vy = -vx, -vy
+            if kind == 0:
+                # RETURN_DIRECT_MV: unclamped
+                if not idxn:
+                    return vx, vy
+                if not msets:
+                    msets, mx, my = True, vx, vy
+                elif (vx, vy) != (mx, my):
+                    return vx, vy
+                continue
+            # RETURN_MV: clamped; a sub-block past the first compares in
+            # two stages, with libvpx's zero return
+            cx = min(max(vx, minx), maxx)
+            cy = min(max(vy, miny), maxy)
+            if sbp > 0:
+                memdif = not msets or (cx, cy) != (mx, my)
+                if not m8s:
+                    if memdif:
+                        return cx, cy
+                    m8s, m8x, m8y = True, vx, vy
+                elif (vx, vy) != (m8x, m8y):
+                    return (cx, cy) if memdif else (0, 0)
+            elif not idxn:
+                return cx, cy
+            elif not msets:
+                msets, mx, my = True, vx, vy
+            elif (vx, vy) != (mx, my):
+                return cx, cy
+        return min(max(0, minx), maxx), min(max(0, miny), maxy)
+
+    def splat(arr, b0, v, n):
+        arr[b0:b0 + n] = [v] * n
+
+    def set_ctxs_nonkf():
+        """The non-keyframe SET_CTXS and the write-back of the block's
+        mvs and references into the frame grid (vp9block.c:682-801)."""
+        nw, nh = bwh[1][bs]
+        w4c, h4c = min(cols - bc, nw), min(rows - br, nh)
+        splat(a_intra, bc, intra, nw)
+        splat(a_comp, bc, b_comp, nw)
+        splat(a_mode, bc, modes[3], nw)
+        splat(l_intra, row7, intra, nh)
+        splat(l_comp, row7, b_comp, nh)
+        splat(l_mode, row7, modes[3], nh)
+        if not intra:
+            vref = b_ref[sbias[varref0]] if b_comp else b_ref[0]
+            splat(a_ref, bc, vref, nw)
+            splat(l_ref, row7, vref, nh)
+            if filtermode == 4:
+                splat(a_filter, bc, b_filterid, nw)
+                splat(l_filter, row7, b_filterid, nh)
+            mv1, mv2, mv3 = (tuple(b_mv[q]) for q in (1, 2, 3))
+            if bs > 9:
+                l_mv[2 * row7], l_mv[2 * row7 + 1] = mv1, mv3
+                a_mv[2 * bc], a_mv[2 * bc + 1] = mv2, mv3
+            else:
+                splat(a_mv, 2 * bc, mv3, 2 * w4c)
+                splat(l_mv, 2 * row7, mv3, 2 * h4c)
+        g0 = -1 if intra else b_ref[0]
+        g1 = b_ref[1] if not intra and b_comp else -1
+        for y in range(h4c):
+            for x in range(w4c):
+                gi = (br + y) * C8 + bc + x
+                gref[2 * gi], gref[2 * gi + 1] = g0, g1
+                if not intra:
+                    gmv[4 * gi], gmv[4 * gi + 1] = b_mv[3][0]
+                    if b_comp:
+                        gmv[4 * gi + 2], gmv[4 * gi + 3] = b_mv[3][1]
+
+    def record():
+        if inter:
+            tail = [b_uvmode, b_comp, b_ref[0], b_ref[1], b_filter] \
+                + [v for q in range(4) for p in b_mv[q] for v in p]
+        else:
+            tail = [b_uvmode] + [0] * 20
+        return [br, bc, c0, bs, seg_id, skip, intra, tx, uvtx] + modes \
+            + tail
+
+    def zero_nnz():
+        """A skipped block zeroes its nnz contexts (vp9block.c:1316)."""
+        bw4, bh4 = bwh[1][bs]
+        for arr, b0, n in ((a_nnz[0], bc * 2, bw4 * 2),
+                           (l_nnz[0], row7 * 2, bh4 * 2),
+                           (a_nnz[1], (bc * 2) >> ss_h, (bw4 * 2) >> ss_h),
+                           (a_nnz[2], (bc * 2) >> ss_h, (bw4 * 2) >> ss_h),
+                           (l_nnz[1], (row7 * 2) >> ss_v, (bh4 * 2) >> ss_v),
+                           (l_nnz[2], (row7 * 2) >> ss_v,
+                            (bh4 * 2) >> ss_v)):
+            arr[b0:b0 + n] = [0] * n
+
     while phase != DONE:
         if phase == PART:
             if not stack:
@@ -463,7 +849,7 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
             if bp < 0:
                 pctx = ((a_part[c] >> (3 - bl)) & 1) \
                     | (((l_part[r & 7] >> (3 - bl)) & 1) << 1)
-                pp = tb.kf_part[bl][pctx]
+                pp = tb.part[bl][pctx]
                 if bl == 3 or (col_in and row_in):
                     bp = tree(ptree, pp)
                 elif col_in:
@@ -474,8 +860,7 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
                     bp = 3
                 node[3] = bp
                 if want_counts:
-                    cnts[CNT_OFF["partition"] + (bl * 4 + pctx) * 4
-                         + bp] += 1
+                    cnts[O["partition"] + (bl * 4 + pctx) * 4 + bp] += 1
             split = bp == 3 and bl < 3
             if split:
                 kids = [(0, 0)] + ([(0, 1)] if col_in else []) \
@@ -496,8 +881,10 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
                         sb_c = c0
                         sb_r += 8
                         l_part, l_skip = [0] * 8, [0] * 8
-                        l_mode = [2] * 16
+                        l_mode = [mode0] * 16
                         l_nnz = [[0] * 16 for _ in range(3)]
+                        if inter:
+                            l_segpred = [0] * 8
                 continue
             node[4] = em + 1
             if split:
@@ -513,19 +900,68 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
         if phase == MODE:
             row7 = br & 7
             bw4, bh4 = bwh[1][bs]
-            seg_id = tree(stree, tb.segprob) if seg else 0
+            have_a, have_l = br > 0, bc > c0
+            # --- seg id; on inter frames with temporal prediction from
+            # the previous frame's map (vp9block.c:101-142) ---
+            if inter:
+                use_pred = m_tree = False
+                if seg_en:
+                    pbit = 0
+                    if seg_upd and seg_tmp:
+                        pbit = rd(tb.segpredp[a_segpred[bc]
+                                              + l_segpred[row7]])
+                    use_pred = not seg_upd or (seg_tmp and pbit)
+                    m_tree = seg_upd and not (seg_tmp and pbit)
+                w4c, h4c = min(cols - bc, bw4), min(rows - br, bh4)
+                if use_pred:
+                    # the least id of the previous map over the clipped
+                    # block (vp9block.c:115-127)
+                    ps = tb.prev_seg
+                    seg_id = min(ps[(br + y) * C8 + bc + x]
+                                 for y in range(h4c)
+                                 for x in range(w4c)) if have_pseg else 0
+                elif m_tree:
+                    seg_id = tree(stree, tb.segprob)
+                else:
+                    seg_id = 0
+                if seg_en:
+                    splat(a_segpred, bc, int(use_pred), w4c)
+                    splat(l_segpred, row7, int(use_pred), h4c)
+            else:
+                seg_id = tree(stree, tb.segprob) if seg else 0
             # --- skip ---
-            if tb.skipseg[seg_id]:
+            forced_skip = tb.skipseg[seg_id]
+            if forced_skip:
                 skip = 1
             else:
                 sctx = l_skip[row7] + a_skip[bc]
                 skip = rd(tb.skipp[sctx])
                 if want_counts:
-                    cnts[CNT_OFF["skip"] + sctx * 2 + skip] += 1
-            # --- tx size ---
+                    cnts[O["skip"] + sctx * 2 + skip] += 1
+            # --- the intra/inter flag (vp9block.c:283-298); the seg REF
+            # feature sets it without a bool ---
+            if inter:
+                rs_en, rs_val = tb.refseg_en[seg_id], tb.refseg_val[seg_id]
+                a_in, l_in = a_intra[bc], l_intra[row7]
+                if rs_en:
+                    intra = int(rs_val == 0)
+                else:
+                    if have_a and have_l:
+                        ctx = a_in + l_in + (a_in + l_in == 2)
+                    elif have_a or have_l:
+                        ctx = 2 * (a_in if have_a else l_in)
+                    else:
+                        ctx = 0
+                    ibit = rd(tb.intrap[ctx])
+                    intra = 1 - ibit
+                    if want_counts:
+                        cnts[O["intra"] + ctx * 2 + ibit] += 1
+            else:
+                intra = 1
+            # --- tx size: coded when switchable, on an inter frame only
+            # for intra blocks and blocks that are not skipped ---
             mtx = _MAXTX[bs]
-            if txfmmode == 4:
-                have_a, have_l = br > 0, bc > c0
+            if txfmmode == 4 and (intra or not skip):
                 a_sk, l_sk = a_skip[bc], l_skip[row7]
                 a_t = mtx if a_sk else a_txfm[bc]
                 l_t = mtx if l_sk else l_txfm[row7]
@@ -544,16 +980,16 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
                         tx += rd(p[1])
                         if tx == 2:
                             tx += rd(p[2])
-                    cidx = CNT_OFF["tx32p"] + txctx * 4 + tx
+                    cidx = O["tx32p"] + txctx * 4 + tx
                 elif mtx == 2:
                     p = tb.tx16p[txctx]
                     tx = rd(p[0])
                     if tx:
                         tx += rd(p[1])
-                    cidx = CNT_OFF["tx16p"] + txctx * 3 + tx
+                    cidx = O["tx16p"] + txctx * 3 + tx
                 elif mtx == 1:
                     tx = rd(tb.tx8p[txctx][0])
-                    cidx = CNT_OFF["tx8p"] + txctx * 2 + tx
+                    cidx = O["tx8p"] + txctx * 2 + tx
                 else:
                     tx, cidx = 0, -1
                 if want_counts and cidx >= 0:
@@ -562,63 +998,236 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
                 tx = min(mtx, txfmmode)
             uvtx = tx - int((ss_h and bw4 * 2 == (1 << tx))
                             or (ss_v and bh4 * 2 == (1 << tx)))
-            # --- keyframe modes: the context-coupled trees ---
-            a0, a1, l0, l1 = bc * 2, bc * 2 + 1, row7 * 2, row7 * 2 + 1
-            kf_ym = tb.kf_ym
-            if bs > 9:      # sub-8x8: per-4x4 mode slots
-                m0 = tree(mtree, kf_ym[a_mode[a0]][l_mode[l0]])
-                a_mode[a0] = m0
-                m1 = m0 if bs == 10 else \
-                    tree(mtree, kf_ym[a_mode[a1]][m0])
-                l_mode[l0] = a_mode[a1] = m1
-                if bs == 11:
-                    m2 = m0
+            if not inter:
+                # --- keyframe modes: the context-coupled trees ---
+                a0, a1, l0, l1 = bc * 2, bc * 2 + 1, row7 * 2, row7 * 2 + 1
+                kf_ym = tb.kf_ym
+                if bs > 9:      # sub-8x8: per-4x4 mode slots
+                    m0 = tree(mtree, kf_ym[a_mode[a0]][l_mode[l0]])
+                    a_mode[a0] = m0
+                    m1 = m0 if bs == 10 else \
+                        tree(mtree, kf_ym[a_mode[a1]][m0])
+                    l_mode[l0] = a_mode[a1] = m1
+                    if bs == 11:
+                        m2 = m0
+                    else:
+                        m2 = tree(mtree, kf_ym[a_mode[a0]][l_mode[l1]])
+                        a_mode[a0] = m2
+                    if bs == 11:
+                        m3 = m1
+                    elif bs == 10:
+                        m3 = m2
+                    else:
+                        m3 = tree(mtree, kf_ym[a_mode[a1]][m2])
+                    l_mode[l1] = a_mode[a1] = m3
+                    modes = [m0, m1, m2, m3]
                 else:
-                    m2 = tree(mtree, kf_ym[a_mode[a0]][l_mode[l1]])
-                    a_mode[a0] = m2
-                if bs == 11:
-                    m3 = m1
-                elif bs == 10:
-                    m3 = m2
+                    m = tree(mtree, kf_ym[a_mode[a0]][l_mode[l0]])
+                    n4w, n4h = bwh[0][bs]
+                    a_mode[a0:a0 + n4w] = [m] * n4w
+                    l_mode[l0:l0 + n4h] = [m] * n4h
+                    modes = [m] * 4
+                b_uvmode = tree(mtree, tb.kf_uvm[modes[3]])
+            elif intra:
+                # --- an intra block of an inter frame: the frame's fixed
+                # tables, no above/left coupling (vp9block.c:380-411) ---
+                yp0 = tb.ymodep[0]
+                if bs > 9:
+                    ms = [tree(mtree, yp0)]
+                    ms.append(ms[0] if bs == 10 else tree(mtree, yp0))
+                    ms.append(ms[0] if bs == 11 else tree(mtree, yp0))
+                    ms.append(ms[1] if bs == 11 else ms[2] if bs == 10
+                              else tree(mtree, yp0))
+                    if want_counts:
+                        coded = [True, bs != 10, bs != 11,
+                                 bs != 10 and bs != 11]
+                        for m, cd in zip(ms, coded):
+                            if cd:
+                                cnts[O["y_mode"] + m] += 1
+                    modes = ms
                 else:
-                    m3 = tree(mtree, kf_ym[a_mode[a1]][m2])
-                l_mode[l1] = a_mode[a1] = m3
-                modes = [m0, m1, m2, m3]
+                    szg = int(_SZGROUP[bs])
+                    m = tree(mtree, tb.ymodep[szg])
+                    if want_counts:
+                        cnts[O["y_mode"] + szg * 10 + m] += 1
+                    modes = [m] * 4
+                b_uvmode = tree(mtree, tb.uvmodep[modes[3]])
+                if want_counts:
+                    cnts[O["uv_mode"] + modes[3] * 10 + b_uvmode] += 1
+                b_comp = 0
             else:
-                m = tree(mtree, kf_ym[a_mode[a0]][l_mode[l0]])
-                n4w, n4h = bwh[0][bs]
-                a_mode[a0:a0 + n4w] = [m] * n4w
-                l_mode[l0:l0 + n4h] = [m] * n4h
-                modes = [m] * 4
-            uvmode = tree(mtree, tb.kf_uvm[modes[3]])
+                # --- an inter block: compound flag and references
+                # (vp9block.c:331-575), the whole-block inter mode, the
+                # interpolation filter ---
+                a_cm, l_cm = a_comp[bc], l_comp[row7]
+                a_rf, l_rf = a_ref[bc], l_ref[row7]
+                if rs_en:
+                    b_comp, b_ref = 0, [rs_val - 1, 0]
+                else:
+                    if comppredmode == 2:
+                        if have_a and have_l:
+                            if a_cm and l_cm:
+                                ctx = 4
+                            elif a_cm:
+                                ctx = 2 + (l_in == 1 or l_rf == fixref)
+                            elif l_cm:
+                                ctx = 2 + (a_in == 1 or a_rf == fixref)
+                            else:
+                                ctx = int((a_in == 0 and a_rf == fixref)
+                                          != (l_in == 0 and l_rf == fixref))
+                        elif have_a:
+                            ctx = 3 if a_cm else int(a_in == 0
+                                                     and a_rf == fixref)
+                        elif have_l:
+                            ctx = 3 if l_cm else int(l_in == 0
+                                                     and l_rf == fixref)
+                        else:
+                            ctx = 1
+                        b_comp = rd(tb.compp[ctx])
+                        if want_counts:
+                            cnts[O["comp"] + ctx * 2 + b_comp] += 1
+                    else:
+                        b_comp = int(comppredmode == 1)
+                    if b_comp:
+                        ctx = _comp_ref_ctx(have_a, have_l, a_in, l_in,
+                                            a_cm, l_cm, a_rf, l_rf, fixref,
+                                            varref0, varref1)
+                        bit = rd(tb.comprefp[ctx])
+                        if want_counts:
+                            cnts[O["comp_ref"] + ctx * 2 + bit] += 1
+                        var = varref1 if bit else varref0
+                        b_ref = [fixref, var] if sbias[fixref] == 0 \
+                            else [var, fixref]
+                    else:
+                        ctx = _single_ref_ctx1(have_a, have_l, a_in, l_in,
+                                               a_cm, l_cm, a_rf, l_rf,
+                                               fixref)
+                        bit0 = rd(tb.singlerefp[ctx][0])
+                        if want_counts:
+                            cnts[O["single_ref"] + ctx * 4 + bit0] += 1
+                        ref0 = 0
+                        if bit0:
+                            ctx = _single_ref_ctx2(have_a, have_l, a_in,
+                                                   l_in, a_cm, l_cm, a_rf,
+                                                   l_rf, fixref)
+                            bit1 = rd(tb.singlerefp[ctx][1])
+                            if want_counts:
+                                cnts[O["single_ref"] + ctx * 4 + 2
+                                     + bit1] += 1
+                            ref0 = 1 + bit1
+                        b_ref = [ref0, 0]
+                # the mode context reads into a 64x64 or 32x32 block
+                moff = int(_MOFF[bs])
+                b_modectx = tb.imctx[a_mode[bc + moff]][l_mode[row7 + moff]]
+                if bs <= 9:
+                    if forced_skip:
+                        m = 12          # the seg SKIP feature: ZEROMV
+                    else:
+                        m = tree(imtree, tb.mvmodep[b_modectx])
+                        if want_counts:
+                            cnts[O["mv_mode"] + b_modectx * 4 + m - 10] += 1
+                    modes = [m] * 4
+                else:
+                    modes = [0] * 4     # read sub-block by sub-block
+                if filtermode == 4:
+                    ca = have_a and a_mode[bc] >= 10
+                    cl_ = have_l and l_mode[row7] >= 10
+                    af, lf = a_filter[bc], l_filter[row7]
+                    if ca:
+                        ctx = (lf if af == lf else 3) if cl_ else af
+                    else:
+                        ctx = lf if cl_ else 3
+                    b_filterid = tree(ftree, tb.filterp[ctx])
+                    if want_counts:
+                        cnts[O["filter"] + ctx * 3 + b_filterid] += 1
+                    b_filter = int(_FLUT[b_filterid])
+                else:
+                    b_filter, b_filterid = filtermode, 0
             # --- SET_CTXS splats ---
-            a_skip[bc:bc + bw4] = [skip] * bw4
-            a_txfm[bc:bc + bw4] = [tx] * bw4
-            a_part[bc:bc + bw4] = [_ACTX[bs]] * bw4
-            l_skip[row7:row7 + bh4] = [skip] * bh4
-            l_txfm[row7:row7 + bh4] = [tx] * bh4
-            l_part[row7:row7 + bh4] = [_LCTX[bs]] * bh4
-            # --- the record; then a skipped block zeroes its nnz ctx
-            # (vp9block.c:1316) and takes the next node, the others walk
-            # their coefficients ---
+            splat(a_skip, bc, skip, bw4)
+            splat(a_txfm, bc, tx, bw4)
+            splat(a_part, bc, int(_ACTX[bs]), bw4)
+            splat(l_skip, row7, skip, bh4)
+            splat(l_txfm, row7, tx, bh4)
+            splat(l_part, row7, int(_LCTX[bs]), bh4)
+            if inter and not intra:
+                # an inter block's mvs come next, a quantum a
+                # (sub-block, reference)
+                mv_k = mv_z = 0
+                phase = MV
+                continue
+            if inter:
+                set_ctxs_nonkf()
+            # --- the record; then a skipped block zeroes its nnz ctx and
+            # takes the next node, the others walk their coefficients ---
             if len(blocks) >= bcap:
                 err |= ERR_OVERFLOW
                 phase = DONE
                 continue
-            blocks.append([br, bc, c0, bs, seg_id, skip, 1, tx, uvtx]
-                          + modes + [uvmode] + [0] * 20)
+            blocks.append(record())
             if skip:
-                for arr, b0, n in ((a_nnz[0], bc * 2, bw4 * 2),
-                                   (l_nnz[0], row7 * 2, bh4 * 2),
-                                   (a_nnz[1], (bc * 2) >> ss_h,
-                                    (bw4 * 2) >> ss_h),
-                                   (a_nnz[2], (bc * 2) >> ss_h,
-                                    (bw4 * 2) >> ss_h),
-                                   (l_nnz[1], (row7 * 2) >> ss_v,
-                                    (bh4 * 2) >> ss_v),
-                                   (l_nnz[2], (row7 * 2) >> ss_v,
-                                    (bh4 * 2) >> ss_v)):
-                    arr[b0:b0 + n] = [0] * n
+                zero_nnz()
+                phase = PART
+                continue
+            c_pl, c_x, c_y, c_modeidx, c_init = 0, 0, 0, 0, True
+            phase = COEF
+            continue
+
+        if phase == MV:
+            # ============ MV: one (sub-block k, reference z) ============
+            sub8 = bs > 9
+            if sub8 and mv_z == 0:
+                m = tree(imtree, tb.mvmodep[b_modectx])
+                if want_counts:
+                    cnts[O["mv_mode"] + b_modectx * 4 + m - 10] += 1
+                modes[mv_k] = m
+            mode_k = modes[mv_k]
+            if mode_k == 12:
+                # ZEROMV zeroes both references' mvs
+                b_mv[mv_k] = [(0, 0), (0, 0)]
+            else:
+                rx, ry = find_ref_mv(b_ref[mv_z], mv_z, mode_k == 11,
+                                     -1 if mode_k == 13 or not sub8
+                                     else mv_k)
+                hp = highprec and abs(rx) < 64 and abs(ry) < 64
+                if (mode_k == 13 or not sub8) and not hp:
+                    # odd components rounded toward zero (vp9mvs.c:
+                    # 300-321)
+                    if ry & 1:
+                        ry += 1 if ry < 0 else -1
+                    if rx & 1:
+                        rx += 1 if rx < 0 else -1
+                if mode_k == 13:
+                    j = tree(jtree, tb.mvjointp)
+                    if want_counts:
+                        cnts[O["mv_joint"] + j] += 1
+                    if j >= 2:
+                        ry += read_mv_comp(0, hp)
+                    if j & 1:
+                        rx += read_mv_comp(1, hp)
+                b_mv[mv_k][mv_z] = (rx, ry)
+            if b_comp and mv_z == 0 and mode_k != 12:
+                mv_z = 1
+                continue
+            mv_z = 0
+            nk = mv_k + (2 if bs == 10 else 1)
+            if sub8 and nk <= (3 if bs == 12 else 1 if bs == 11 else 2):
+                mv_k = nk
+                continue
+            # the last (sub-block, reference): the shared slots, the
+            # deferred contexts and grids; then the skip or coef path
+            src = _SUBSRC[bs]
+            b_mv = [list(b_mv[q]) for q in src]
+            modes = [modes[q] for q in src]
+            set_ctxs_nonkf()
+            anycoef = 0
+            if skip:
+                zero_nnz()
+                if len(blocks) >= bcap:
+                    err |= ERR_OVERFLOW
+                    phase = DONE
+                    continue
+                blocks.append(record())
                 phase = PART
                 continue
             c_pl, c_x, c_y, c_modeidx, c_init = 0, 0, 0, 0, True
@@ -653,7 +1262,8 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
             scfg = (4 * lossless + tx_p) * 4 + txtp
             scan_o = scfg * 1024
             band_o = tx_p * 1024
-            prow = tx_p * 2 + (0 if is_y else 1)
+            # coefficient rows (tx * 2 + plane type) * 2 + is_inter
+            prow = ((tx_p * 2 + (0 if is_y else 1)) * 2 + 1 - intra) * 36
             n_tot = 16 << (2 * tx_p)
             qs = tb.qmul[seg_id]
             qdc, qac = (qs[0], qs[1]) if is_y else (qs[2], qs[3])
@@ -676,12 +1286,12 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
             c_count = 0
             c_init = False
         bc36 = tb.bands[band_o + ci] * 6 + nnz
-        tp = tb.coef[prow * 36 + bc36]
+        tp = tb.coef[prow + bc36]
         done = False
         if not skipeob:
             bb = rd(tp[0])
             if want_counts:
-                cnts[CNT_EOB + ((prow * 2 * 36) + bc36) * 2 + bb] += 1
+                cnts[CNT_EOB + (prow + bc36) * 2 + bb] += 1
             done = bb == 0
         if not done:
             sc = tb.scans[scan_o + ci]
@@ -728,7 +1338,7 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
                     cpairs.append((cpos0 + (sc >> shift) * Wp
                                    + (sc & ((1 << shift) - 1)), prod))
             if want_counts:
-                cnts[CNT_COEF + ((prow * 2 * 36) + bc36) * 3 + tok] += 1
+                cnts[CNT_COEF + (prow + bc36) * 3 + tok] += 1
             cache[sc] = energy
             c_count = ci + 1
             nb = (scan_o + ci) * 2
@@ -746,6 +1356,7 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
             n = min(step, end - cc)
             arr[b0 + cc:b0 + cc + n] = [nzf] * n
         if c_count:
+            anycoef = 1
             if len(epairs) >= ecap:
                 err |= ERR_OVERFLOW
                 phase = DONE
@@ -763,7 +1374,117 @@ def _walk_lane(tb, meta, half16, rac0, win_start, tile_len, bounds,
                 c_pl += 1
                 if c_pl == 3:
                     phase = PART
+                    if inter and not intra:
+                        # an inter block of 8x8 or more without a
+                        # coefficient is skipped after the fact; its
+                        # record follows its coefficients
+                        if bs <= 9 and not anycoef:
+                            skip = 1
+                            splat(a_skip, bc, 1, min(cols - bc,
+                                                     bwh[1][bs][0]))
+                            splat(l_skip, row7, 1, min(rows - br,
+                                                       bwh[1][bs][1]))
+                        if len(blocks) >= bcap:
+                            err |= ERR_OVERFLOW
+                            phase = DONE
+                            continue
+                        blocks.append(record())
     return blocks, cpairs, epairs, cnts, err, bools
+
+
+_SLOT_KIND_L = _SLOT_KIND.tolist()
+_SLOT_PAR_L = _SLOT_PAR.tolist()
+
+
+def _comp_ref_ctx(have_a, have_l, a_in, l_in, a_cm, l_cm, a_rf, l_rf,
+                  fixref, varref0, varref1):
+    """The compound reference's context (vp9block.c:414-477)."""
+    if have_a and have_l:
+        if a_in:
+            return 2 if l_in else 1 + 2 * (l_rf != varref1)
+        if l_in:
+            return 1 + 2 * (a_rf != varref1)
+        if l_rf == a_rf and a_rf == varref1:
+            return 0
+        if not l_cm and not a_cm:
+            if (a_rf == fixref and l_rf == varref0) or \
+                    (l_rf == fixref and a_rf == varref0):
+                return 4
+            return 3 if a_rf == l_rf else 1
+        if not l_cm:
+            if a_rf == varref1 and l_rf != varref1:
+                return 1
+            return 2 if l_rf == varref1 and a_rf != varref1 else 4
+        if not a_cm:
+            if l_rf == varref1 and a_rf != varref1:
+                return 1
+            return 2 if a_rf == varref1 and l_rf != varref1 else 4
+        return 4 if l_rf == a_rf else 2
+    if have_a or have_l:
+        inn, cm, rf = (a_in, a_cm, a_rf) if have_a else (l_in, l_cm, l_rf)
+        if inn:
+            return 2
+        return (4 if cm else 3) * (rf != varref1)
+    return 2
+
+
+def _single_ref_ctx1(have_a, have_l, a_in, l_in, a_cm, l_cm, a_rf, l_rf,
+                     fixref):
+    """The first single-reference bit's context (vp9block.c:479-520)."""
+    nf, nlr, nar = fixref == 0, l_rf == 0, a_rf == 0
+    a_ok, l_ok = have_a and not a_in, have_l and not l_in
+    if a_ok and l_ok:
+        if l_cm:
+            return 1 + (nf or nlr or nar) if a_cm \
+                else 3 * nar + (nf or nlr)
+        return 3 * nlr + (nf or nar) if a_cm else 2 * nlr + 2 * nar
+    if a_ok:
+        return 1 + (nf or nar) if a_cm else 4 * nar
+    if l_ok:
+        return 1 + (nf or nlr) if l_cm else 4 * nlr
+    return 2
+
+
+def _single_ref_ctx2(have_a, have_l, a_in, l_in, a_cm, l_cm, a_rf, l_rf,
+                     fixref):
+    """The second single-reference bit's context (vp9block.c:522-572),
+    with the reference's dead arms."""
+    f1, ar1, lr1 = fixref == 1, a_rf == 1, l_rf == 1
+    nar, nlr = a_rf == 0, l_rf == 0
+    if have_a and have_l:
+        if l_in:
+            if a_in:
+                return 2
+            if a_cm:
+                return 1 + 2 * (f1 or ar1)
+            return 3 if nar else 4 * ar1
+        if a_in:
+            if l_cm:
+                return 1 + 2 * (f1 or lr1)
+            return 3 if nlr else 4 * lr1
+        if a_cm:
+            if l_cm:
+                return 3 * (f1 or lr1) if l_rf == a_rf else 2
+            return 1 + 2 * (f1 or ar1) if nlr else 3 * lr1 + (f1 or ar1)
+        if l_cm:
+            return 1 + 2 * (f1 or lr1) if nar else 3 * ar1 + (f1 or lr1)
+        if nar:
+            return 3 if nlr else 4 * lr1
+        return 4 * ar1 if nlr else 2 * lr1 + 2 * ar1
+    if have_a or have_l:
+        inn, cm, n0, r1 = (a_in, a_cm, nar, ar1) if have_a \
+            else (l_in, l_cm, nlr, lr1)
+        if inn or (not cm and n0):
+            return 2
+        return 3 * (f1 or r1) if cm else 4 * r1
+    return 2
+
+
+def grid_shapes(meta):
+    """The frame's MV grid [R8, C8, 2, 2] and reference grid [R8, C8, 2]
+    in the host layout (codecs/vp9/decoder.py Frame.mv, Frame.refs)."""
+    R8, C8 = meta["sb_rows"] * 8, meta["sb_cols"] * 8
+    return (R8, C8, 2, 2), (R8, C8, 2)
 
 
 def decode_frame_plain(inputs, meta, device="cpu"):
@@ -771,15 +1492,21 @@ def decode_frame_plain(inputs, meta, device="cpu"):
     kernel's thread, one after another), its outputs as decode_frame's
     on `device`, each lane's rows sized by lane_caps."""
     S = meta["S"]
+    inter = bool(meta.get("inter"))
     caps = lane_caps(inputs, meta)
     tb = _Tables(inputs, meta)
+    grid = None
+    if inter:
+        mv_shape, ref_shape = grid_shapes(meta)
+        grid = ([0] * int(np.prod(mv_shape)),
+                [-1] * int(np.prod(ref_shape)))
     half16 = np.asarray(inputs["half16"]).tolist()
     rac0 = np.asarray(inputs["rac0"], np.int64)
     bounds = np.asarray(inputs["bounds"]).tolist()
     res = [_walk_lane(tb, meta, half16[s], [int(v) for v in rac0[:, s]],
                       int(inputs["win_start"][s]),
                       int(inputs["tile_len"][s]), bounds[s],
-                      [int(c[s]) for c in caps])
+                      [int(c[s]) for c in caps], grid)
            for s in range(S)]
     nbmax, ncmax, nemax = (int(np.max(c)) if S else 0 for c in caps)
     blocks = np.zeros((S, nbmax, 34), np.int32)
@@ -787,7 +1514,7 @@ def decode_frame_plain(inputs, meta, device="cpu"):
     epairs = np.zeros((S, nemax, 2), np.int32)
     counts = np.zeros((S, CNT_TOTAL), np.int32)
     n = np.zeros((4, S), np.int32)
-    stats = np.zeros((S, 2), np.int64)
+    stats = np.zeros((S, 3), np.int64)
     for s, (blk, cp, ep, cn, err, bools) in enumerate(res):
         for arr, rows in ((blocks, blk), (cpairs, cp), (epairs, ep)):
             if rows:
@@ -795,10 +1522,12 @@ def decode_frame_plain(inputs, meta, device="cpu"):
         counts[s] = cn
         n[:, s] = len(blk), len(cp), len(ep), err
         stats[s, 0] = bools
+    arrs = [blocks, n[0], cpairs, n[1], epairs, n[2], counts, n[3], stats]
+    if inter:
+        arrs += [np.asarray(grid[0], np.int16).reshape(mv_shape),
+                 np.asarray(grid[1], np.int8).reshape(ref_shape)]
     dev = torch.device(device)
-    out = [torch.as_tensor(a, device=dev) for a in (
-        blocks, n[0], cpairs, n[1], epairs, n[2], counts, n[3], stats)]
-    return tuple(out)
+    return tuple(torch.as_tensor(a, device=dev) for a in arrs)
 
 
 # ---------------------------------------------------------------------------
@@ -806,25 +1535,44 @@ def decode_frame_plain(inputs, meta, device="cpu"):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # packet, tile_off, tile_len, bounds, caps, probs8, qmul, scans, nbs,
-# bands, S, rows, cols, sb_cols, sb_rows, txfmmode, seg, lossless, bpp,
-# ss_h, ss_v, want_counts, bmax, cmax, emax, blocks, nblk, cpairs, ncp,
-# epairs, nep, counts, err, stats, stream
-_SIGNATURES = {"passa_walk": [_P] * 10 + [_I] * 15 + [_P] * 9 + [_P]}
+# bands, prev_mv, prev_ref, prev_seg, hflags (a host array); nprobs, S,
+# rows, cols, sb_cols, sb_rows, txfmmode, seg, lossless, bpp, ss_h, ss_v,
+# want_counts, inter, bmax, cmax, emax; blocks, nblk, cpairs, ncp,
+# epairs, nep, counts, err, stats, grid_mv, grid_ref; stream
+_SIGNATURES = {"passa_walk": [_P] * 14 + [_I] * 17 + [_P] * 11 + [_P]}
 
 # the kernel's shared-memory above ctx holds a tile this wide (b8): VP9
 # tiles are at most 64 superblocks wide (MAX_TILE_WIDTH_B64)
 MAX_TILE_B8 = 512
+
+# an inter frame's tables in probs8, after the intra frame's
+_INTER_PROBS = ("partp", "intrap", "compp", "comprefp", "singlerefp",
+                "ymodep", "uvmodep", "mvmodep", "filterp", "mvjointp",
+                "mvsignp", "mvclassesp", "mvclass0p", "mvbitsp", "mvc0fpp",
+                "mvfpp", "mvc0hpp", "mvhpp", "segpredp", "refseg_en",
+                "refseg_val")
 
 
 def probs8(inputs):
     """The frame's probability tables in the kernel's one uint8 array:
     skip[3], tx8p[2][1], tx16p[2][2], tx32p[2][3], segprob[7],
     skipseg[8], kf partition[4][4][3], kf y mode[10][10][9], kf uv
-    mode[10][9], coef[8][36][11]."""
+    mode[10][9], coef[8][36][11] (intra blocks'); on an inter frame
+    (inputs with "aux") then the inter blocks' coef[8][36][11], the
+    frame's partition[4][4][3], intra[4], comp[5], comp_ref[5],
+    single_ref[5][2], y mode[4][9], uv mode[10][9], mv mode[7][3],
+    filter[4][2], the MV tables (joint[3], sign[2], classes[2][10],
+    class0[2], bits[2][10], class0_fp[2][2][3], fp[2][3], class0_hp[2],
+    hp[2]), seg_pred_prob[3] and the seg REF feature's enables[8] and
+    values[8]."""
     parts = [inputs["skipp"], inputs["tx8p"], inputs["tx16p"],
              inputs["tx32p"], inputs["segprob"], inputs["skipseg"],
              T.DEFAULT_KF_PARTITION_PROBS, T.DEFAULT_KF_YMODE_PROBS,
              T.DEFAULT_KF_UVMODE_PROBS, inputs["coef11"]]
+    aux = inputs.get("aux")
+    if aux is not None:
+        parts.append(np.asarray(aux["coef11i"]).reshape(8, 2, 36, 11)[:, 1])
+        parts += [aux[k] for k in _INTER_PROBS]
     return np.concatenate([np.asarray(p).reshape(-1) for p in parts]) \
         .astype(np.uint8)
 
@@ -847,9 +1595,12 @@ def _tables_dev(dev):
 
 def _launch(inputs, meta, dev):
     """One launch of csrc/passa.cu on CUDA device `dev`: decode_frame's
-    outputs, each lane's rows sized by lane_caps, and stats [S, 2] int64
-    (bools read, clock64 cycles of the lane's walk)."""
+    outputs, each lane's rows sized by lane_caps, stats [S, 3] int64
+    (bools read, clock64 cycles of the lane's walk and of its MV
+    quanta), and on an inter frame the grids, made on `dev` with 0 and
+    -1 before the launch."""
     S = meta["S"]
+    inter = int(bool(meta.get("inter")))
     caps = lane_caps(inputs, meta)
     b = np.asarray(inputs["bounds"])
     if S and int((b[:, 3] - b[:, 2]).max()) > MAX_TILE_B8:
@@ -865,7 +1616,8 @@ def _launch(inputs, meta, dev):
     bounds = torch.as_tensor(np.ascontiguousarray(b, np.int32), device=dev)
     caps_d = torch.as_tensor(np.stack([np.asarray(c, np.int32) for c in caps],
                                       1), device=dev)
-    p8 = torch.as_tensor(probs8(inputs), device=dev)
+    p8np = probs8(inputs)
+    p8 = torch.as_tensor(p8np, device=dev)
     qmul = torch.as_tensor(np.asarray(inputs["qmul"], np.int32), device=dev)
     scans, nbs, bands = _tables_dev(dev)
     i32 = torch.int32
@@ -875,38 +1627,54 @@ def _launch(inputs, meta, dev):
     nblk, ncp, nep, err = (torch.empty(S, dtype=i32, device=dev)
                            for _ in range(4))
     counts = torch.empty((S, CNT_TOTAL), dtype=i32, device=dev)
-    stats = torch.empty((S, 2), dtype=torch.int64, device=dev)
+    stats = torch.empty((S, 3), dtype=torch.int64, device=dev)
+    prev = (None, None, None)
+    grids = (None, None)
+    hflags = None
+    if inter:
+        aux = inputs["aux"]
+        prev = tuple(None if g is None else torch.as_tensor(
+            np.ascontiguousarray(g, dt), device=dev)
+            for g, dt in zip(inputs["prev_grids"],
+                             (np.int16, np.int8, np.uint8)))
+        mv_shape, ref_shape = grid_shapes(meta)
+        grids = (torch.zeros(mv_shape, dtype=torch.int16, device=dev),
+                 torch.full(ref_shape, -1, dtype=torch.int8, device=dev))
+        hflags = np.ascontiguousarray(aux["hflags"], np.int32)
     if S:
         _cuda.launch("passa.cu", _SIGNATURES, "passa_walk", packet,
                      tile_off, tile_len, bounds, caps_d, p8, qmul, scans, nbs,
-                     bands, S, meta["rows"], meta["cols"], meta["sb_cols"],
+                     bands, *prev,
+                     hflags.ctypes.data if inter else None, len(p8np), S,
+                     meta["rows"], meta["cols"], meta["sb_cols"],
                      meta["sb_rows"], meta["txfmmode"], meta["seg"],
                      meta["lossless"], meta["bpp"], meta["ss_h"],
-                     meta["ss_v"], meta["want_counts"], bcap, ccap, ecap,
-                     blocks, nblk, cpairs, ncp, epairs, nep, counts, err,
-                     stats)
+                     meta["ss_v"], meta["want_counts"], inter, bcap, ccap,
+                     ecap, blocks, nblk, cpairs, ncp, epairs, nep, counts,
+                     err, stats, *grids)
         LAUNCHES["passa"] += 1
-    return (blocks, nblk, cpairs, ncp, epairs, nep, counts, err, stats)
+    out = (blocks, nblk, cpairs, ncp, epairs, nep, counts, err, stats)
+    return out + grids if inter else out
 
 
-def decode_frame(inputs, meta, device, stats=False):
+def decode_frame(inputs, meta, device):
     """Run the walk on `device`: the kernel on a CUDA device, the plain
-    version on the CPU. inputs, meta: prep_keyframe's. Each lane may
-    write the rows lane_caps gives it (blocks, coefficient pairs, eob
-    pairs), which no tile can overflow. Returns torch tensors on
-    `device`: (blocks [S, bmax, 34], nblk [S], cpairs [S, cmax, 2], ncp
-    [S], epairs [S, emax, 2], nep [S], counts [S, CNT_TOTAL] (zeros
-    unless meta['want_counts']), err [S] int32 (ERR_* bits)), and with
-    stats=True also [S, 2] int64 (bools a lane; the kernel's clock64
-    cycles a lane, 0 on the CPU)."""
+    version on the CPU. inputs, meta: prep_keyframe's or prep_inter's.
+    Each lane may write the rows lane_caps gives it (blocks, coefficient
+    pairs, eob pairs), which no tile can overflow. Returns torch tensors
+    on `device`: (blocks [S, bmax, 34], nblk [S], cpairs [S, cmax, 2],
+    ncp [S], epairs [S, emax, 2], nep [S], counts [S, CNT_TOTAL] (zeros
+    unless meta['want_counts']), err [S] int32 (ERR_* bits), stats [S,
+    3] int64 (a lane's bools; the kernel's clock64 cycles of the lane's
+    walk and of its MV phases, 0 on the CPU)); on an inter frame then
+    the frame's MV grid and reference grid (grid_shapes, int16 and
+    int8: the host decoder's cur_mv and cur_ref after the frame)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type == "cpu":
-        out = decode_frame_plain(inputs, meta, dev)
-    else:
-        out = _launch(inputs, meta, dev)
-    return out if stats else out[:8]
+        return decode_frame_plain(inputs, meta, dev)
+    return _launch(inputs, meta, dev)
 
 
 def check_err(err):

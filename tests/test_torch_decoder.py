@@ -177,16 +177,20 @@ def test_out_of_slice_frames_raise():
 
 
 def test_device_pass_a_waits_for_its_slice():
-    """pass_a_impl="device" takes intra frames (the walk of
-    ops/passa_device.py); an inter frame waits for the inter walk's
-    slice (ROADMAP step 11b) and raises, never falling back to the host
-    pass A."""
+    """pass_a_impl="device" takes intra and inter frames (the walk of
+    ops/passa_device.py, its plain version on the CPU): the inter frame
+    that waited for the inter walk's slice now decodes on the device pass
+    A, as the host pass A decodes it, and never through the host pass A;
+    an unknown pass_a_impl raises ValueError."""
     from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
-    key, inter = _chain(64, 64, 1)
+    pkts = _chain(64, 64, 1)
     dec = VP9Decoder(device="cpu", use_native=False, pass_a_impl="device")
-    assert len(dec.decode(key)) == 1
-    with pytest.raises(NotImplementedError, match="11b"):
-        dec.decode(inter)
+    host = VP9Decoder(device="cpu", use_native=False, pass_a_impl="host")
+    for pkt in pkts:
+        (got,) = dec.decode(pkt)
+        (want,) = host.decode(pkt)
+        assert got.to_bytes() == want.to_bytes()
+    assert not dec.header.keyframe and dec.pass_a_host_frames == 0
     with pytest.raises(ValueError):
         VP9Decoder(device="cpu", pass_a_impl="gpu")
     VP9Decoder(device="cpu", pass_a_impl="host")  # the host pass A

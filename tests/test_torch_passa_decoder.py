@@ -1,16 +1,20 @@
-"""VP9Decoder(pass_a_impl="device") of the port: intra frames with one
-tile row take the on-device pass A (ops/passa_device.py: the kernel on
-the card, its plain version under device="cpu"), whose records and
-pairs are replayed into pass B's native layouts. On the CPU: filtered
-keyframes bit-exact with the port's host pass A and the JAX package's
-golden decoder, with the native and the pure-Python pass A's buffers;
-a refreshctx keyframe adapting the frame context as the host does; a
-frame of two tile rows through the host pass A, counted; a tile size
-past the packet, a cut tile and a full output raising ValueError. Inter
-frames raise NotImplementedError (tests/test_torch_decoder.py). On the
-card (`cuda`, skipped here; no JAX needed): the kernel against the plain
-version on every vectors/passa_* frame, and the decoder on the card on
-those clips against their framemd5."""
+"""VP9Decoder(pass_a_impl="device") of the port: frames with one tile
+row take the on-device pass A (ops/passa_device.py: the kernel on the
+card, its plain version under device="cpu"), whose records and pairs are
+replayed into pass B's native layouts, and on inter frames whose MV and
+reference grids become the frame's cur_mv and cur_ref. On the CPU:
+filtered keyframes bit-exact with the port's host pass A and the JAX
+package's golden decoder, with the native and the pure-Python pass A's
+buffers; a refreshctx keyframe adapting the frame context as the host
+does; the small inter clips (vectors/passa_inter_*) and the inter chains
+of tests/test_torch_decoder.py bit-exact with their framemd5 and the
+host pass A, with cur_mv, cur_ref, the segmentation map and the loop
+filter's levels and masks equal to the native pass A's after every
+frame; a frame of two tile rows through the host pass A, counted; a tile
+size past the packet, a cut tile and a full output raising ValueError.
+On the card (`cuda`, skipped here; no JAX needed): the kernel against
+the plain version on every vectors/passa_* frame, intra and inter, and
+the decoder on the card on those clips against their framemd5."""
 import hashlib
 import os
 import sys
@@ -32,6 +36,8 @@ VEC = os.path.join(ROOT, "vectors")
 CLIPS = ("passa_s2", "passa_s4", "passa_s5", "passa_s7", "passa_s41",
          "passa_s42", "passa_s51", "passa_seg", "passa_wide", "passa_10bit",
          "passa_444_12", "passa_lossless", "passa_intraonly")
+# the inter clips (tools/make_passa_inter_vectors_torch.py)
+INTER_CLIPS = ("passa_inter_modes", "passa_inter_seg", "passa_inter_tiles")
 
 
 def _mini():
@@ -96,6 +102,56 @@ def test_refreshctx_keyframe_adapts_as_the_host():
         assert np.array_equal(getattr(ref.prob_ctx[0], fld),
                               getattr(dev.prob_ctx[0], fld)), fld
     assert (ref.prob_ctx[0].coef != Probs.defaults().coef).any()
+
+
+def _lockstep(pkts, native):
+    """The device pass A's decoder (pure-Python pass B buffers unless
+    native) beside the native host pass A's, frame by frame: the state
+    each frame's pass A leaves (cur_mv, cur_ref, the segmentation map,
+    the loop filter's levels and masks) equal; returns the device
+    decoder's MD5s, the host's and the device decoder."""
+    dev = VP9Decoder(device="cpu", use_native=native, pass_a_impl="device")
+    ref = VP9Decoder(device="cpu", use_native=True)
+    got, want = [], []
+    for pkt in pkts:
+        for fd in (f for _pts, f in split_superframe(pkt, 0)):
+            jd, jr = dev.decode_pass_a(fd), ref.decode_pass_a(fd)
+            if jd.ready is None:
+                for a in ("cur_mv", "cur_ref", "cur_segmap", "lf_level",
+                          "lf_mask"):
+                    assert np.array_equal(getattr(dev, a), getattr(ref, a)), a
+            got += [hashlib.md5(f.to_bytes()).hexdigest()
+                    for f in dev.decode_pass_b(jd)]
+            want += [hashlib.md5(f.to_bytes()).hexdigest()
+                     for f in ref.decode_pass_b(jr)]
+    return got, want, dev
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+@pytest.mark.parametrize("name", INTER_CLIPS)
+def test_inter_clip_matches_framemd5_and_the_native_pass_a(name, native):
+    """Every frame of the inter clip through the device pass A (the plain
+    walk): its MD5 equals the framemd5's (the golden decoder's) and the
+    host pass A's; after every frame the state pass A leaves equals the
+    native pass A's; no frame takes the host route."""
+    frames, md5s = _clip(name)
+    got, want, dev = _lockstep(frames, native)
+    assert got == want == md5s
+    assert dev.pass_a_host_frames == 0
+
+
+@pytest.mark.parametrize("chain", ["chain", "filtered_chain"])
+def test_decoder_chains_on_the_device_pass_a(chain):
+    """tests/test_torch_decoder.py's inter chains (compound prediction,
+    switchable filters, intra blocks, coefficients; then loop filter,
+    lf deltas and an alt-LF segment) through the device pass A: every
+    frame as the host pass A's, every state as the native one's."""
+    import test_torch_decoder as D
+    pkts = D._chain(128, 128, 3) if chain == "chain" \
+        else D._filtered_chain(128, 64, 2)
+    got, want, dev = _lockstep(pkts, True)
+    assert got == want and len(got) == len(pkts)
+    assert dev.pass_a_host_frames == 0
 
 
 def test_two_tile_rows_take_the_host_pass_a():
@@ -199,11 +255,12 @@ def _clip(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CLIPS)
+@pytest.mark.parametrize("name", CLIPS + INTER_CLIPS)
 def test_kernel_matches_plain_on_the_card(name):
-    """csrc/passa.cu against decode_frame_plain on each intra frame of
-    the clip: every output row, the err words, the counts and the bools
-    a lane, exact; one launch a frame."""
+    """csrc/passa.cu against decode_frame_plain on each frame of the clip
+    that is not a show-existing one, the counts forced on: every output
+    row, the err words, the counts, the bools a lane and on inter frames
+    the MV and reference grids, exact; one launch a frame."""
     _card()
     frames, _want = _clip(name)
     dec = VP9Decoder(device="cuda", use_native=True)
@@ -211,30 +268,37 @@ def test_kernel_matches_plain_on_the_card(name):
     for fd in frames:
         if dec.decode_pass_a(fd).ready is not None:
             continue
-        inputs, meta = PD.prep_keyframe(dec, fd)
+        h = dec.header
+        prep = PD.prep_keyframe if h.keyframe or h.intraonly \
+            else PD.prep_inter
+        inputs, meta = prep(dec, fd)
+        meta["want_counts"] = 1
         PD.reset_launches()
         got = [t.cpu().numpy() for t in PD.decode_frame(
-            inputs, meta, "cuda", stats=True)]
+            inputs, meta, "cuda")]
         assert PD.LAUNCHES["passa"] == 1
         want = [t.numpy() for t in PD.decode_frame_plain(inputs, meta)]
+        assert len(got) == len(want) == (11 if meta.get("inter") else 9)
         for i, c in ((0, 1), (2, 3), (4, 5)):
             assert np.array_equal(got[c], want[c])
             for s in range(meta["S"]):
                 m = int(want[c][s])
                 assert np.array_equal(got[i][s, :m], want[i][s, :m])
-        assert np.array_equal(got[6], want[6])
+        assert np.array_equal(got[6], want[6]) and got[6].any()
         assert np.array_equal(got[7], want[7]) and not got[7].any()
         assert np.array_equal(got[8][:, 0], want[8][:, 0])
+        for i in range(9, len(got)):
+            assert np.array_equal(got[i], want[i])
         n += 1
-    assert n >= 1
+    assert n == (2 if name == "passa_intraonly" else len(frames))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CLIPS)
+@pytest.mark.parametrize("name", CLIPS + INTER_CLIPS)
 def test_decoder_on_the_card(name):
     """VP9Decoder(device="cuda", pass_a_impl="device").decode_stream on
-    the clip: every MD5 as its framemd5, one walk launch an intra
-    frame, no frame through the host pass A."""
+    the clip: every MD5 as its framemd5, one walk launch a decoded frame
+    (not a show-existing one), no frame through the host pass A."""
     _card()
     frames, want = _clip(name)
     PD.reset_launches()
@@ -242,5 +306,6 @@ def test_decoder_on_the_card(name):
     got = [hashlib.md5(f.to_bytes()).hexdigest()
            for f in dec.decode_stream(frames)]
     assert got == want
-    assert PD.LAUNCHES["passa"] == (2 if name == "passa_intraonly" else 1)
+    assert PD.LAUNCHES["passa"] == (2 if name == "passa_intraonly"
+                                    else len(frames))
     assert dec.pass_a_host_frames == 0
