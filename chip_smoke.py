@@ -204,6 +204,25 @@ Phases, one status line each; any failure exits non-zero:
                schedule against lf_scan_plain, its time on the card's
                clock (and the steps' chain alone), its bound terms and
                ptxas's registers and spills
+  7b. gop_pipeline
+               the chained-GOP stripe pipeline (parallel/gop_pipeline.py)
+               on vectors/chained_1080p.ivf (tools/
+               make_chained_vectors_torch.py: a 1080p keyframe and four
+               chained, filtered inter frames): decode_chained_gop on a
+               [4, 1] mesh of the one card, 17 stripes of 64 rows at a
+               lag of 2, on the main path (launches from zero, the plain
+               versions set to raise): every frame's MD5 against the
+               framemd5 and its coded area against the serial decode of
+               the same call; mc_planes launched once a frame's stripe and
+               lf_replay once a band of Y and of U+V with a record, as the
+               schedule gives, no kernel off the path; the run alone under
+               CUDA events after a warm-up beside the serial
+               decode_pass_b of the same frames, the replay's steps a
+               band and one band's time; the dry runs
+               (parallel/dryrun.py: dryrun_multichip(8),
+               dryrun_gop_pipeline(4)); decode_chained_gop on
+               vectors/dryrun_chained.ivf on the card equal to the CPU's
+               (the plain versions) on the whole padded planes
   8. cli       the command line, `python -m ffmpeg_hybrid_tpu_torch`, on
                the card with every plain version set to raise:
                - a shell run on vectors/bench_1080p.ivf, its rows from
@@ -357,6 +376,19 @@ SHARDED_RUNS = (
     ("bench_1080p_lf 2 a step", "bench_1080p_lf", None, (2, 4), 2, None),
     ("bench_4k", "bench_4k", 1, (1, 8), 1, None),
 )
+# the gop_pipeline phase (parallel/gop_pipeline.py): the 1080p chained
+# clip (tools/make_chained_vectors_torch.py) on a [PIPE_G, 1] mesh, stripes
+# of PIPE_HS rows at a lag of PIPE_LAG steps, PIPE_REPS timed runs after a
+# warm-up; the dry runs (parallel/dryrun.py) on DRYRUN_SLOTS slots and
+# PIPE_G gop rows
+CHAINED_CLIP = "chained_1080p"
+PIPE_G, PIPE_HS, PIPE_LAG, PIPE_REPS = 4, 64, 2, 3
+DRYRUN_SLOTS = 8
+# kernels-line entries and their launch counters on the pipeline's path
+PIPE_KERNELS = {"_grids_from_records": "splat", "scatter_coef": "scatter",
+                "residual_planes": "residual", "mc_planes": "mc",
+                "_intra_scan_planes": "intra", "grids_device": "lf_grids",
+                "lf_dense": "lf_dense", "lf_replay": "lf_replay"}
 PASSA_SRC = PKG + "/csrc/passa.cu"
 # _decode_jit, a jnp program (inter=0 and inter=1)
 PASSA_REPLACES = "ffmpeg_hybrid_tpu/ops/passa_device.py:620"
@@ -4110,6 +4142,194 @@ def sharded_phase(torch, np, clips):
     return entry
 
 
+def band_stats(np, frames, which):
+    """The replay steps and records of the pipeline's bands of one plane
+    set (prepare_frame's `ysteps` or `uvsteps` of every frame): (steps a
+    band, records a band) as numpy arrays over the bands with a record."""
+    bands = [s for fr in frames for s in fr[which] if s is not None]
+    steps = np.asarray([s.shape[0] for s in bands])
+    recs = np.asarray([int((s[..., 3] > 0).sum()) for s in bands])
+    return steps, recs
+
+
+def spread(np, a):
+    """min-median-max of a, or "none"."""
+    return f"{int(a.min())}-{int(np.median(a))}-{int(a.max())}" \
+        if len(a) else "none"
+
+
+def gop_pipeline_phase(torch, np, by_name):
+    """The chained-GOP stripe pipeline on the card (phase 7b of the
+    docstring): the serial decode of CHAINED_CLIP (its MD5s, each inter
+    frame's decode_pass_b under CUDA events); decode_chained_gop on the
+    main path (launches from zero, the plain versions set to raise), its
+    frames' MD5s against the framemd5 and their coded areas against the
+    serial decode, the MC and replay launches against the schedule's
+    count; the run alone timed under CUDA events after a warm-up, the
+    replay's steps a band and one band's time; the dry runs; the card
+    against the CPU on the small chained clip. Adds the path's launches to
+    the kernels-line entries (`launches_by_path`)."""
+    from ffmpeg_hybrid_tpu_torch.codecs.vp9.decoder import VP9Decoder
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
+    from ffmpeg_hybrid_tpu_torch.parallel import dryrun
+    from ffmpeg_hybrid_tpu_torch.parallel import gop_pipeline as GP
+    from ffmpeg_hybrid_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    packets, want = read_clip(CHAINED_CLIP)
+    if len(packets) != PIPE_G + 1:
+        raise RuntimeError(f"{CHAINED_CLIP}: {len(packets)} packets")
+    mesh = make_mesh(PIPE_G, PIPE_G)
+
+    dec = VP9Decoder(device=DEVICE)
+    serial, serial_ms = [], []
+    for i, fd in enumerate(packets):
+        job = dec.precompute_job(dec.decode_pass_a(fd))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        serial += dec.decode_pass_b(job)
+        end.record()
+        end.synchronize()
+        if i:
+            serial_ms.append(start.elapsed_time(end))
+    if [hashlib.md5(f.to_bytes()).hexdigest() for f in serial] != want:
+        raise RuntimeError(f"gop_pipeline: the serial decode of "
+                           f"{CHAINED_CLIP} is not bit-exact")
+
+    with main_path_run():
+        (oy, ou, ov), jobs = GP.decode_chained_gop(packets, mesh, PIPE_HS,
+                                                   PIPE_LAG)
+        torch.cuda.synchronize()
+        launches = main_path_launches()
+    got = [hashlib.md5(j.cur_frame_obj.to_bytes()).hexdigest() for j in jobs]
+    if got != want[1:]:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want[1:]))
+                   if a != b)
+        raise RuntimeError(f"gop_pipeline: {CHAINED_CLIP} chained frame "
+                           f"{bad} does not match the framemd5")
+    w, h = serial[0].size
+    cw, ch = ((w + 7) >> 3) * 8, ((h + 7) >> 3) * 8
+    for g in range(PIPE_G):
+        for p, out in enumerate((oy, ou, ov)):
+            ph, pw = (ch, cw) if p == 0 else (ch >> 1, cw >> 1)
+            if not torch.equal(out[g][:ph, :pw],
+                               serial[1 + g].dev[p][:ph, :pw]):
+                raise RuntimeError(f"gop_pipeline: frame {g} plane {p} "
+                                   "differs from the serial decode")
+
+    t1 = time.perf_counter()
+    run, frames, ref0, _jobs = GP.prepare_chained_gop(packets, mesh, PIPE_HS,
+                                                      PIPE_LAG)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t1) * 1e3
+    S_f = len(frames[0]["ysteps"])
+    ysteps, yrecs = band_stats(np, frames, "ysteps")
+    uvsteps, uvrecs = band_stats(np, frames, "uvsteps")
+    # the schedule: an MC launch a frame's stripe, a replay launch a band
+    # of Y and one of U+V with a record (2 * G * S_f when all have one)
+    want_l = {"mc": PIPE_G * S_f, "lf_replay": len(ysteps) + len(uvsteps)}
+    for key, n in launches.items():
+        if key in want_l and n != want_l[key]:
+            raise RuntimeError(f"gop_pipeline: {key} launched {n} times, "
+                               f"the schedule gives {want_l[key]}")
+        if key not in PIPE_KERNELS.values() and n:
+            raise RuntimeError(f"gop_pipeline: {key} launched {n} times "
+                               "off the path")
+    for key in PIPE_KERNELS.values():
+        if not launches[key]:
+            raise RuntimeError(f"gop_pipeline: the {key} kernel never "
+                               f"launched: {launches}")
+    for name, key in PIPE_KERNELS.items():
+        by_name[name].setdefault("launches_by_path", {})[
+            "gop_pipeline " + CHAINED_CLIP] = launches[key]
+
+    run(frames, ref0)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(PIPE_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        tw = time.perf_counter()
+        start.record()
+        outs = run(frames, ref0)
+        end.record()
+        end.synchronize()
+        runs.append((start.elapsed_time(end),
+                     (time.perf_counter() - tw) * 1e3))
+    for g in range(PIPE_G):
+        if not all(torch.equal(outs[g][p], out[g])
+                   for p, out in enumerate((oy, ou, ov))):
+            raise RuntimeError(f"gop_pipeline: a timed run's frame {g} "
+                               "differs from the first run's")
+    dev_ms = sorted(r[0] for r in runs)[PIPE_REPS // 2]
+    wall_ms = sorted(r[1] for r in runs)[PIPE_REPS // 2]
+    # one band of each plane set alone: frame 0's band with the median
+    # steps, its launch under CUDA events on its rows of the output
+    band, bpp = {}, jobs[0].header.bpp
+    for which, Hp, planes in (("ysteps", PIPE_HS, (oy,)),
+                              ("uvsteps", PIPE_HS >> 1, (ou, ov))):
+        live = [(s.shape[0], j, s) for j, s in enumerate(frames[0][which])
+                if s is not None]
+        n, j, s = sorted(live, key=lambda t: t[0])[len(live) // 2]
+        y0, y1 = max(j * Hp - 8, 0), (j + 1) * Hp
+        pl = torch.stack([p[0][y0:y1] for p in planes])
+        ms = cuda_ms(lambda: LR.lf_scan(pl, s, bpp), 10) \
+            - cuda_ms(lambda: pl.clone(), 10)
+        band[which] = (n, j, ms, ms * 1e3 / n)
+    say("gop_pipeline", f"decode_chained_gop on {CHAINED_CLIP} ({w}x{h}, "
+        f"{PIPE_G} chained inter frames on a [{PIPE_G}, 1] mesh of "
+        f"{mesh.row_device(0)}, {S_f} stripes of {PIPE_HS} rows, lag "
+        f"{PIPE_LAG}, {S_f + (PIPE_G - 1) * PIPE_LAG} steps): every frame "
+        f"bit-exact vs framemd5 and vs the serial decode; launches {launches}"
+        f" (mc {want_l['mc']} = G x S_f, lf_replay {want_l['lf_replay']} "
+        f"bands with a record of {2 * PIPE_G * S_f})")
+    say("gop_pipeline", f"the run (CUDA events, median of {PIPE_REPS} after "
+        f"a warm-up, [ms]: {[round(r[0], 3) for r in runs]}): "
+        f"{dev_ms / PIPE_G:.3f} ms a frame ({dev_ms:.3f} for {PIPE_G}; "
+        f"host wall {wall_ms / PIPE_G:.3f}); the serial decode_pass_b of "
+        f"the same frames {np.mean(serial_ms):.3f} ms a frame "
+        f"({[round(x, 3) for x in serial_ms]}); the pipeline's preparation "
+        f"(keyframe decode, pass A, grids, residuals, records, host wall) "
+        f"{prep_ms / PIPE_G:.3f} ms a frame; on {card_line()}")
+    say("gop_pipeline", "replay steps a band (min-median-max): Y "
+        f"{spread(np, ysteps)} ({int(ysteps.sum())} in {len(ysteps)} bands, "
+        f"records {spread(np, yrecs)}), U+V {spread(np, uvsteps)} "
+        f"({int(uvsteps.sum())} in {len(uvsteps)}, records "
+        f"{spread(np, uvrecs)}); frame 0's median band alone: " + ", ".join(
+            f"{label} stripe {j} {n} steps {ms:.4f} ms ({us:.3f} us a step)"
+            for label, (n, j, ms, us) in (("Y", band["ysteps"]),
+                                          ("U+V", band["uvsteps"]))))
+
+    with main_path_run():
+        dryrun.dryrun_multichip(DRYRUN_SLOTS)
+        dryrun.dryrun_gop_pipeline(PIPE_G)
+        small, _want = dryrun.read_clip(dryrun.CHAINED_CLIP)
+        card, _jobs = GP.decode_chained_gop(small, make_mesh(PIPE_G, PIPE_G))
+        torch.cuda.synchronize()
+        small_launches = main_path_launches()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tc = time.perf_counter()
+        cpu, _jobs = GP.decode_chained_gop(
+            small, make_mesh(PIPE_G, PIPE_G, device="cpu"))
+        cpu_s = time.perf_counter() - tc
+    finally:
+        torch.set_num_threads(threads)
+    for p in range(3):
+        if not torch.equal(card[p].cpu(), cpu[p]):
+            raise RuntimeError(f"gop_pipeline: {dryrun.CHAINED_CLIP} plane {p}"
+                               ": the card's pipeline differs from the CPU's")
+    say("gop_pipeline", f"dry runs passed on the card; {dryrun.CHAINED_CLIP}: "
+        f"the card's decode_chained_gop equal to the CPU's (plain versions, "
+        f"{cpu_s:.1f} s), whole padded planes {tuple(card[0].shape)}; "
+        f"launches of the dry runs and the card run {small_launches}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return {"ms_a_frame": dev_ms / PIPE_G, "serial_ms": serial_ms,
+            "steps": (ysteps, uvsteps), "band": band}
+
+
 def main():
     import numpy as np
     import torch
@@ -4119,7 +4339,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
             for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)
-            + PASSA_CLIPS + PASSA_INTER_CLIPS):
+            + PASSA_CLIPS + PASSA_INTER_CLIPS + (CHAINED_CLIP,)):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -4314,6 +4534,7 @@ def main():
     gop_phase(torch, clips)
     by_name["lf_replay"] = sharded_phase(torch, np, clips)
     del clips
+    gop_pipeline_phase(torch, np, by_name)
     cli_phase(torch, clip_launches, clip_fps["bench_1080p"])
 
     print(json.dumps({"kernels": list(by_name.values())}))
