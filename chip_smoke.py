@@ -223,6 +223,24 @@ Phases, one status line each; any failure exits non-zero:
                dryrun_gop_pipeline(4)); decode_chained_gop on
                vectors/dryrun_chained.ivf on the card equal to the CPU's
                (the plain versions) on the whole padded planes
+  7c. mesh_mp  the mesh whose tile axis crosses processes (parallel/
+               dist.py, decode_mesh_multiprocess): two spawned gloo ranks
+               sharing the card, each with its slots of the mesh, on the
+               main path (launches from zero in each rank, the plain
+               versions set to raise there): dryrun_mesh_2x4 on [2, 4]
+               split 2+2, all frames; bench_1080p_lf on (1, 4) split
+               2+2, all 6 frames; bench_4k frame 0 on (1, 8) split 4+4;
+               bench_1080p frames 0-5 on (1, 4) split 2+2, chained. Every
+               gathered frame's MD5 against the clip's framemd5; in each
+               rank the lf_replay launches equal its plans' segments and
+               its swaps its cross-rank steps plus the first ones; each
+               rank's ms a frame (CUDA events), replay ms, swap ms and
+               bytes, gather ms, segments and launches a frame; each
+               rank's segments of bench_1080p_lf and bench_4k frame 0
+               alone in this process beside one launch of its stripes;
+               whether gloo's send and receive take CUDA tensors (two
+               spawned processes, not gated); "nccl" on the shared card
+               raising before any rank starts
   8. cli       the command line, `python -m ffmpeg_hybrid_tpu_torch`, on
                the card with every plain version set to raise:
                - a shell run on vectors/bench_1080p.ivf, its rows from
@@ -428,6 +446,13 @@ LF_REPLAY_SRC = PKG + "/csrc/lpf_replay.cu"
 # _lf_scan, with the sharded scan of parallel/fullframe.py
 # (_lf_apply_step :163, _lf_scan_sharded :201)
 LF_REPLAY_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_tpu.py:115"
+# the mesh_mp phase (parallel/dist.py): (clip, frames (None: all), mesh
+# (gop, tile)) through two spawned ranks, each with half of a row's tiles
+MESH_MP_RUNS = (("dryrun_mesh_2x4", None, (2, 4)),
+                ("bench_1080p_lf", None, (1, 4)),
+                ("bench_4k", 1, (1, 8)),
+                ("bench_1080p", 6, (1, 4)))
+MESH_MP_TIMEOUT = 300
 
 
 def say(phase, msg):
@@ -4139,7 +4164,7 @@ def sharded_phase(torch, np, clips):
         f"frame, {nlf_total} frames); {time.perf_counter() - t0:.1f} s")
     entry = lf_replay_checks(torch, np, captured)
     entry["launches"] = launches["lf_replay"]
-    return entry
+    return entry, captured
 
 
 def band_stats(np, frames, which):
@@ -4330,6 +4355,214 @@ def gop_pipeline_phase(torch, np, by_name):
             "steps": (ysteps, uvsteps), "band": band}
 
 
+def mesh_rank_setup(_rank):
+    """rank_setup of the mesh_mp phase's ranks: the main path's run in
+    each (launches from zero, the plain versions set to raise), held open
+    for the rank's life."""
+    main_path_run().__enter__()
+
+
+def segments_alone(torch, np, captured, split):
+    """Each rank's replay segments (lf_scan_sharded_dist) on a clip's
+    frame-0 replay inputs (captured: [(buffers, steps, wreal, bpp)] for
+    Y and U+V, as sharded_decode_pass_b hands them over) in this process
+    alone, the swaps bringing back what was sent (so the merges keep the
+    rank's own columns and no other process shares the card): the
+    launches' device ms (CUDA events around each), the span of the
+    scan under CUDA events with its host wall ms, beside one launch of
+    the rank's stripes over the same steps (lf_scan_sharded). Returns
+    {rank: (launches, their device ms, span ms, host ms, one launch
+    ms)} summed over Y and U+V."""
+    from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
+    from ffmpeg_hybrid_tpu_torch.parallel import dist as D
+
+    class Own(D.HaloExchange):
+        def swap(self, peer, send=None, like=None):
+            self.exchanges += 1
+            return None if like is None else like.clone()
+
+    ranks = list(np.repeat([0, 1], split))
+    out = {}
+    for rank in (0, 1):
+        tot = np.zeros(5)
+        for buf, steps, wreal, bpp in captured:
+            lo, hi, _cuts, _segs = LR.segment_plan(steps, wreal, ranks, rank)
+            local = buf[lo:hi].clone()
+            work = local.clone()
+            copy_ms = cuda_ms(lambda: work.copy_(local), 5)
+            ex = Own(rank, timed=True)
+            work.copy_(local)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            LR.lf_scan_sharded_dist(work, steps, wreal, bpp, ranks, ex)
+            end.record()
+            end.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            sdev = torch.as_tensor(steps[lo:hi, :max(LR.steps_run(steps), 1)],
+                                   device=DEVICE)
+            one = cuda_ms(lambda: (work.copy_(local), LR.lf_scan_sharded(
+                work, sdev, wreal[lo:hi], bpp)), 5) - copy_ms
+            tot += (len(ex.replay_events), ex.replay_ms(),
+                    start.elapsed_time(end), host, one)
+        out[rank] = tuple(tot)
+    return out
+
+
+def gloo_cuda_probe(rank, store, results):
+    """One rank of gloo_cuda_check: a gloo send (rank 0) or receive (rank
+    1) of a CUDA tensor, and what came of it, put on results."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=2,
+                                timeout=timedelta(seconds=20))
+        want = torch.arange(16, dtype=torch.int32)
+        t = (want if rank == 0 else torch.zeros_like(want)).cuda()
+        try:
+            if rank == 0:
+                dist.send(t, 1)
+                out = "returned"
+            else:
+                dist.recv(t, 0)
+                out = "returned, " + ("the values sent" if torch.equal(
+                    t.cpu(), want) else "other values")
+        except Exception as e:  # noqa: BLE001 - the outcome is the reading
+            out = f"raised {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        results.put((rank, out))
+    except Exception as e:  # noqa: BLE001 - the outcome is the reading
+        results.put((rank, f"failed before the call: {e}"))
+
+
+def gloo_cuda_check():
+    """Whether gloo's point-to-point calls take CUDA tensors on this
+    machine (parallel/dist.py stages through host buffers on the premise
+    that they do not): two spawned processes, a send and a receive of a
+    CUDA tensor; returns what each reported, or its exit code."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="gloo_probe_")
+    procs = [ctx.Process(target=gloo_cuda_probe, args=(
+        r, os.path.join(tmp, "store"), results)) for r in range(2)]
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 90
+        while len(got) < 2 and time.monotonic() < deadline:
+            try:
+                rank, out = results.get(timeout=1.0)
+                got[rank] = out
+            except queue.Empty:
+                if all(p.exitcode is not None for p in procs):
+                    break
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {r: got.get(r, f"no word (exit code {procs[r].exitcode})")
+            for r in range(2)}
+
+
+def mesh_mp_phase(torch, np, by_name, replay_inputs):
+    """The rank mesh on the card (phase 7c of the docstring): each
+    MESH_MP_RUNS input through decode_mesh_multiprocess in two ranks on
+    the main path, every frame's MD5 against the framemd5, the counts
+    held to the plans; each rank's times a frame; then each rank's
+    segments of bench_1080p_lf and bench_4k frame 0 alone in this process
+    (segments_alone, replay_inputs from the sharded phase). Adds the
+    ranks' launches to the kernels line (`launches_by_path`)."""
+    from ffmpeg_hybrid_tpu_torch.parallel import dist as D
+    t0 = time.perf_counter()
+    try:
+        D.decode_mesh_multiprocess([], 1, 4, 2, backend="nccl")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("mesh_mp: nccl on one shared card did not raise")
+    card = card_line()
+    for clip, nframes, (gop, ntile) in MESH_MP_RUNS:
+        frames, want = read_clip(clip)
+        n = len(frames) if nframes is None else nframes
+        tc = time.perf_counter()
+        md5s, stats = D.decode_mesh_multiprocess(
+            frames[:n], gop, ntile, 2, timeout=MESH_MP_TIMEOUT,
+            rank_setup=mesh_rank_setup)
+        if md5s != want[:n]:
+            bad = next((i for i, (a, b) in enumerate(zip(md5s, want))
+                        if a != b), len(md5s))
+            raise RuntimeError(f"mesh_mp: {clip} frame {bad} of {len(md5s)} "
+                               "is not bit-exact")
+        label = f"{clip} on {[gop, ntile]} split " + "+".join(
+            str(st["slots"][0][2] - st["slots"][0][1]) for st in stats)
+        for st in stats:
+            k = st["frames"]
+            lr = st["launches"]["lf_replay"]
+            if lr != st["segments"] or st["exchanges"] != (
+                    st["cut_steps"] + st["initial"]):
+                raise RuntimeError(
+                    f"mesh_mp: {label} rank {st['rank']}: {lr} lf_replay "
+                    f"launches for {st['segments']} segments, "
+                    f"{st['exchanges']} swaps for {st['cut_steps']} "
+                    f"cross-rank steps and {st['initial']} first swaps")
+            for key in ("splat",):
+                if st["launches"][key] != k:
+                    raise RuntimeError(f"mesh_mp: {label} rank {st['rank']}"
+                                       f": {key} launched "
+                                       f"{st['launches'][key]} times for {k}"
+                                       " frames")
+            for name in ("lf_replay", "_grids_from_records", "scatter_coef",
+                         "residual_planes", "mc_planes",
+                         "_intra_scan_planes"):
+                key = PIPE_KERNELS[name]
+                by_name[name].setdefault("launches_by_path", {})[
+                    f"mesh_mp {clip} rank {st['rank']}"] = \
+                    st["launches"][key]
+            say("mesh_mp", f"{label} rank {st['rank']} (slots "
+                f"{st['slots']}): {k} frames, {st['ms']:.3f} ms a frame "
+                f"(CUDA events: the sharded step, gather and install); "
+                f"a frame: replay {st['replay_ms'] / k:.3f} ms in "
+                f"{lr / k:.1f} launches ({st['segments'] / k:.1f} segments, "
+                f"{st['cut_steps'] / k:.1f} cross-rank steps), "
+                f"{st['exchanges'] / k:.1f} swaps {st['exchange_ms'] / k:.3f}"
+                f" ms {st['exchange_bytes'] / k:.0f} B "
+                f"({st['exchange_ms'] / max(st['exchanges'], 1) * 1e3:.1f} "
+                f"us a swap, {st['wire_ms'] / k:.3f} ms of it in gloo's "
+                f"send and receive; {st['sync_ms'] / k:.3f} ms waiting for "
+                f"the rank's own stream before them), gather "
+                f"{st['gather_ms'] / k:.3f} ms "
+                f"{st['gather_bytes'] / k:.0f} B; launches "
+                f"{st['launches']}; on {card}")
+        say("mesh_mp", f"{label}: {n} frames bit-exact vs framemd5 on both "
+            f"ranks, {time.perf_counter() - tc:.1f} s with the ranks' start")
+    for clip, ntile in (("bench_1080p_lf", 4), ("bench_4k", 8)):
+        split = (ntile // 2, ntile // 2)
+        for rank, (n, dev_ms, span, host, one) in segments_alone(
+                torch, np, replay_inputs[clip], split).items():
+            say("mesh_mp", f"{clip} frame 0, rank {rank} of split "
+                f"{'+'.join(map(str, split))} alone in this process (swaps "
+                f"bring back what was sent): {int(n)} segment launches "
+                f"{dev_ms:.3f} ms on the card (CUDA events around each), the "
+                f"scan's span {span:.3f} ms (host wall {host:.3f}); one "
+                f"launch of its stripes over the same steps {one:.3f} ms; on "
+                f"{card}")
+    probe = gloo_cuda_check()
+    say("mesh_mp", f"gloo point-to-point on CUDA tensors (not gated): the "
+        f"send {probe[0]}; the receive {probe[1]}")
+    say("mesh_mp", f"nccl on the shared card refused: {refused}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -4339,7 +4572,8 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
             for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)
-            + PASSA_CLIPS + PASSA_INTER_CLIPS + (CHAINED_CLIP,)):
+            + PASSA_CLIPS + PASSA_INTER_CLIPS + (CHAINED_CLIP,)
+            + tuple(r[0] for r in MESH_MP_RUNS)):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -4532,9 +4766,10 @@ def main():
     by_name["passa_walk"] = passa_phase(torch, np, clips)
     two_decoders_phase(torch, clips)
     gop_phase(torch, clips)
-    by_name["lf_replay"] = sharded_phase(torch, np, clips)
+    by_name["lf_replay"], replay_inputs = sharded_phase(torch, np, clips)
     del clips
     gop_pipeline_phase(torch, np, by_name)
+    mesh_mp_phase(torch, np, by_name, replay_inputs)
     cli_phase(torch, clip_launches, clip_fps["bench_1080p"])
 
     print(json.dumps({"kernels": list(by_name.values())}))

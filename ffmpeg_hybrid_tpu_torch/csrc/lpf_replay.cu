@@ -8,7 +8,9 @@
 // Pallas kernels. The port's plain versions are ops/lpf_replay.py's
 // lf_scan_plain and lf_scan_sharded_plain.
 //
-//   lf_replay  T stripes (1-8) of a plane set, in place, one launch
+//   lf_replay       T stripes (1-8) of a plane set, in place, one launch
+//   lf_replay_from  the same, steps [first, run) alone: a segment of a
+//                   replay whose stripes are split across processes
 //
 // Semantics. planes: [T, B, H, Wb] int32, B = 1 (Y) or 2 (U and V: the
 // chroma records apply to both). steps: [T, S, D, 7] int32 records (py,
@@ -35,6 +37,16 @@
 // barrier when T is 1 (the serial _lf_scan). The host trims the
 // bucket's trailing no-op steps (`run`).
 //
+// Segments. When a frame's stripes are split across processes (parallel/
+// dist.py), each process replays its own run of stripes in segments, one
+// launch each, and swaps the columns on its boundary with the other
+// process's between them (ops/lpf_replay.py, lf_scan_sharded_dist). A
+// launch from a later step (first > 0) continues a replay whose halos
+// already mirror their tails, and makes no copy. The first and last
+// stripe of a launch have no neighbour in it (has_left and has_right
+// follow the launch's own T): the columns on a process boundary are not
+// mirrored here.
+//
 // What bounds it. The work is small: the frame's planes read and
 // written once, halos and padding not counted, and each record read once
 // (1080p frame 0 of bench_1080p_lf: 18,936 Y and 7,646 U+V records, 25.8
@@ -57,7 +69,7 @@ struct Args {
   int32_t* pl;          // [T, B, H, Wb]
   const int32_t* steps;  // [T, S, D, 7]
   int wreal[kMaxStripes];
-  int T, B, H, Wb, S, D, run, halo, bpp;
+  int T, B, H, Wb, S, D, first, run, halo, bpp;
 };
 
 // Every thread of the launch's stripes: the cluster's barrier when there
@@ -82,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) lf_replay_kernel(const Args a) {
   const int wr = a.wreal[t];
   const int wl = has_left ? a.wreal[t - 1] : 0;
   // the halo takes a copy of the left neighbour's tail
-  if (has_left) {
+  if (has_left && a.first == 0) {
     const int32_t* left = own - set;
     for (int i = threadIdx.x; i < a.B * a.H * kHalo; i += blockDim.x) {
       const size_t row = static_cast<size_t>(i / kHalo) * a.Wb;
@@ -92,8 +104,9 @@ __global__ void __launch_bounds__(kThreads) lf_replay_kernel(const Args a) {
   }
   step_barrier(a.T);
   const int items = a.B * a.D * 8;
-  const int32_t* recs = a.steps + static_cast<size_t>(t) * a.S * a.D * 7;
-  for (int s = 0; s < a.run; ++s, recs += a.D * 7) {
+  const int32_t* recs = a.steps +
+                        (static_cast<size_t>(t) * a.S + a.first) * a.D * 7;
+  for (int s = a.first; s < a.run; ++s, recs += a.D * 7) {
     for (int i = threadIdx.x; i < items; i += blockDim.x) {
       const int lane = i & 7;
       const int d = (i >> 3) % a.D;
@@ -138,17 +151,18 @@ __global__ void __launch_bounds__(kThreads) lf_replay_kernel(const Args a) {
 
 extern "C" {
 
-// Replay `run` steps of steps ([T, S, D, 7] int32) over planes ([T, B, H,
-// Wb] int32, in place) on `stream`: one launch, a block of kThreads a
-// stripe, the T (1-8) blocks in one cluster. wreal: T ints on the host,
-// each stripe's real width (its tail at columns wreal .. wreal + 7); halo:
-// whether the stripes exchange halos (T > 1). bpp: 8-12.
-int lf_replay(int32_t* planes, const int32_t* steps, const int* wreal, int T,
-              int B, int H, int Wb, int S, int D, int run, int halo, int bpp,
-              cudaStream_t stream) {
+// Replay steps first .. run - 1 of steps ([T, S, D, 7] int32) over planes
+// ([T, B, H, Wb] int32, in place) on `stream`: one launch, a block of
+// kThreads a stripe, the T (1-8) blocks in one cluster. wreal: T ints on
+// the host, each stripe's real width (its tail at columns wreal ..
+// wreal + 7); halo: whether the stripes exchange halos (T > 1); the halos
+// take their copies only when first is 0. bpp: 8-12.
+int lf_replay_from(int32_t* planes, const int32_t* steps, const int* wreal,
+                   int T, int B, int H, int Wb, int S, int D, int first,
+                   int run, int halo, int bpp, cudaStream_t stream) {
   if (!planes || !steps || !wreal || T < 1 || T > kMaxStripes || B < 1 ||
-      B > 2 || H < 1 || Wb < 1 || S < 0 || D < 1 || run < 0 || run > S ||
-      bpp < 8 || bpp > 12 || (halo && T < 2))
+      B > 2 || H < 1 || Wb < 1 || S < 0 || D < 1 || first < 0 ||
+      run < first || run > S || bpp < 8 || bpp > 12 || (halo && T < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.pl = planes;
@@ -164,6 +178,7 @@ int lf_replay(int32_t* planes, const int32_t* steps, const int* wreal, int T,
   a.Wb = Wb;
   a.S = S;
   a.D = D;
+  a.first = first;
   a.run = run;
   a.halo = halo != 0;
   a.bpp = bpp;
@@ -182,6 +197,14 @@ int lf_replay(int32_t* planes, const int32_t* steps, const int* wreal, int T,
   const cudaError_t err = cudaLaunchKernelEx(&cfg, lf_replay_kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole replay: lf_replay_from with first 0.
+int lf_replay(int32_t* planes, const int32_t* steps, const int* wreal, int T,
+              int B, int H, int Wb, int S, int D, int run, int halo, int bpp,
+              cudaStream_t stream) {
+  return lf_replay_from(planes, steps, wreal, T, B, H, Wb, S, D, 0, run, halo,
+                        bpp, stream);
 }
 
 }  // extern "C"

@@ -26,6 +26,14 @@ for planes on the CPU the plain versions, lf_scan_plain and
 lf_scan_sharded_plain, a Python loop over the steps. Launches are counted
 in LAUNCHES.
 
+`lf_scan_sharded_dist` replays the stripes of one process when a frame's
+stripes are split across torch.distributed ranks (parallel/mesh.py,
+parallel/dist.py): the rank's run of stripes in segments, each one launch
+(csrc/lpf_replay.cu's lf_replay_from, on steps uploaded once) that ends at
+a step writing a column on a boundary with another rank
+(`segment_plan`), then a swap of those columns with the neighbour rank
+and the same merge. Its plain version is lf_scan_sharded_dist_plain.
+
 JAX clamps gather indices and drops scatters outside the array; here a
 window's reads clamp to the buffer and only a record's written range
 (wd > 0) is stored, inside the buffer.
@@ -56,6 +64,9 @@ _SIGNATURES = {
     # bpp, stream
     "lf_replay": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
         ctypes.c_int] * 9 + [ctypes.c_void_p],
+    # ... S, D, first, run, halo, bpp, stream
+    "lf_replay_from": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 
 
@@ -189,18 +200,35 @@ def _live_steps(steps):
     return np.nonzero(np.asarray(live))[0].tolist()
 
 
-def _edge_steps(steps, wreal):
-    """The steps of [T, S, D, 7] in which some record may write a halo
-    column (< HALO) or a tail column (wreal[t] .. wreal[t] + HALO) of its
-    stripe: a dir 0 record writes at most columns px - 7 .. px + 6, a
-    dir 1 record px .. px + 7."""
+def _writes(steps, wreal):
+    """Which records of [T, S, D, 7] may write a halo column (< HALO)
+    and which a tail column (wreal[t] .. wreal[t] + HALO) of their stripe:
+    two bool arrays [T, S, D]. A dir 0 record writes at most columns px -
+    7 .. px + 6, a dir 1 record px .. px + 7."""
     st = steps.cpu().numpy() if torch.is_tensor(steps) else np.asarray(steps)
     px, dr, wd = st[..., 1], st[..., 2], st[..., 3]
     c0 = np.where(dr == 0, px - 7, px)
     c1 = np.where(dr == 0, px + 6, px + 7)
     wr = np.asarray(wreal, np.int64)[:, None, None]
-    hit = (wd > 0) & ((c0 < HALO) | ((c1 >= wr) & (c0 < wr + HALO)))
-    return set(np.nonzero(hit.any(axis=(0, 2)))[0].tolist())
+    return ((wd > 0) & (c0 < HALO),
+            (wd > 0) & (c1 >= wr) & (c0 < wr + HALO))
+
+
+def _edge_steps(steps, wreal):
+    """The steps of [T, S, D, 7] in which some record may write a halo
+    or a tail column of its stripe."""
+    halo, tail = _writes(steps, wreal)
+    return set(np.nonzero((halo | tail).any(axis=(0, 2)))[0].tolist())
+
+
+def boundary_steps(steps, wreal, t):
+    """The steps of [T, S, D, 7] after which the copies across the
+    boundary between stripes t - 1 and t may differ: a record of stripe
+    t - 1 may write its tail, or one of stripe t its halo (_edge_steps'
+    column rule on that boundary alone). Sorted."""
+    halo, tail = _writes(steps, wreal)
+    hit = tail[t - 1].any(axis=1) | halo[t].any(axis=1)
+    return np.nonzero(hit)[0].tolist()
 
 
 def _cols(pl, start, n=HALO):
@@ -224,19 +252,27 @@ def lf_scan_sharded_plain(pl, steps, wreal, bpp):
     right neighbour's halo where that one's step did, else each keeps its
     own (fullframe.py:224-238 of the JAX package)."""
     pl = pl.clone()
-    T = pl.shape[0]
     steps = torch.as_tensor(np.asarray(steps) if not torch.is_tensor(steps)
                             else steps, dtype=torch.int32, device=pl.device)
+    if pl.shape[0] > 1:
+        pl[1:, :, :, :HALO] = _cols(pl, wreal)[:-1]
+    _replay_plain(pl, steps, wreal, bpp, _live_steps(steps))
+    return pl
+
+
+def _replay_plain(pl, steps, wreal, bpp, todo):
+    """Steps `todo` of steps [T, S, D, 7] (a tensor) over the stripes pl
+    in place, each followed by lf_scan_sharded_plain's merge of the
+    stripes' copies."""
+    T = pl.shape[0]
     wreal = [int(w) for w in wreal]
 
     def put_tails(pl, tails):
         for t in range(T):
             pl[t, :, :, wreal[t]:wreal[t] + HALO] = tails[t]
 
-    if T > 1:
-        pl[1:, :, :, :HALO] = _cols(pl, wreal)[:-1]
     edge = _edge_steps(steps, wreal) if T > 1 else set()
-    for s in _live_steps(steps):
+    for s in todo:
         if s not in edge:
             # no record of the step writes a halo or a tail: the merge
             # would leave every copy as it is
@@ -260,17 +296,108 @@ def lf_scan_sharded_plain(pl, steps, wreal, bpp):
                              recv_halo, new_tail)
         put_tails(pl, tail_m)
         pl[..., :HALO] = halo_m
+
+
+def segment_plan(steps, wreal, ranks, rank):
+    """How rank replays its stripes of a gop row whose T stripes the
+    ranks `ranks` [T] own (a contiguous run each; steps [T, S, D, 7] and
+    wreal [T] of the whole row). Returns (lo, hi, cuts, segments): the
+    rank's stripes lo .. hi - 1; cuts {"left": [steps], "right": [steps]}
+    the boundary_steps of its boundaries with other ranks (a side without
+    one is absent); segments [(first, end, sides)]: the live steps up to
+    the row's last one, cut after every step of cuts, steps first .. end -
+    1 each, `sides` the boundaries whose columns are swapped after it.
+    With no boundary: one segment, or none when the row has no record."""
+    ranks = [int(r) for r in ranks]
+    mine = [t for t, r in enumerate(ranks) if r == rank]
+    if not mine or mine != list(range(mine[0], mine[-1] + 1)):
+        raise ValueError(f"rank {rank}'s stripes {mine} of {ranks} are not "
+                         "one contiguous run")
+    lo, hi = mine[0], mine[-1] + 1
+    cuts = {}
+    if lo > 0:
+        cuts["left"] = boundary_steps(steps, wreal, lo)
+    if hi < len(ranks):
+        cuts["right"] = boundary_steps(steps, wreal, hi)
+    run = steps_run(steps)
+    at = sorted(set().union(*cuts.values()))
+    segments, first = [], 0
+    for c in at:
+        segments.append((first, c + 1, [side for side in ("left", "right")
+                                        if c in cuts.get(side, ())]))
+        first = c + 1
+    if first < run:
+        segments.append((first, run, []))
+    return lo, hi, cuts, segments
+
+
+def _scan_dist(pl, plan, wreal, ranks, exchange, replay):
+    """The segment loop of lf_scan_sharded_dist on the rank's stripes pl
+    (in place), plan its segment_plan: the first swap (the left
+    boundary's halo takes the left rank's tail), then each segment: a
+    snapshot of the columns it cuts on, replay(first, end), a swap of
+    those columns with the neighbour rank, and the merge of
+    fullframe.py:234-237 of the JAX package: the neighbour's value where
+    it differs from the snapshot, else our own (the wave's records never
+    change one pixel on both sides)."""
+    lo, hi, cuts, segments = plan
+    wr = int(wreal[hi - 1])
+    cols = {"left": (0, slice(0, HALO)),
+            "right": (hi - lo - 1, slice(wr, wr + HALO))}
+    peer = {"left": ranks[lo - 1] if lo > 0 else None,
+            "right": ranks[hi] if hi < len(ranks) else None}
+
+    def view(side):
+        t, c = cols[side]
+        return pl[t, :, :, c]
+
+    if "left" in cuts:
+        view("left").copy_(exchange.swap(peer["left"], None, view("left")))
+    if "right" in cuts:
+        exchange.swap(peer["right"], view("right"), None)
+    for first, end, sides in segments:
+        old = {side: view(side).clone() for side in sides}
+        replay(first, end)
+        for side in sides:
+            own = view(side)
+            got = exchange.swap(peer[side], own, own)
+            own.copy_(torch.where(got != old[side], got, own))
+    exchange.note_plan(len(segments), sum(len(c) for c in cuts.values()),
+                       len(cuts))
+
+
+def lf_scan_sharded_dist_plain(pl, steps, wreal, bpp, ranks, exchange):
+    """The plain version of lf_scan_sharded_dist on CPU tensors: the
+    rank's stripes pl [hi - lo, B, H, HALO + Wpad] -> the filtered
+    stripes, a new tensor; each segment runs _replay_plain on its live
+    steps."""
+    pl = pl.clone()
+    steps = np.asarray(steps)
+    plan = segment_plan(steps, wreal, ranks, exchange.rank)
+    lo, hi = plan[:2]
+    local = torch.as_tensor(steps[lo:hi], dtype=torch.int32)
+    wl = [int(w) for w in wreal[lo:hi]]
+    if hi - lo > 1:
+        pl[1:, :, :, :HALO] = _cols(pl, wl)[:-1]
+    live = _live_steps(local)
+
+    def replay(first, end):
+        _replay_plain(pl, local, wl, bpp, [s for s in live
+                                           if first <= s < end])
+
+    _scan_dist(pl, plan, wreal, ranks, exchange, replay)
     return pl
 
 
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, CUDA kernel on the card
 
-def _launch(pl, steps, wreal, halo, bpp):
+def _launch(pl, steps, wreal, halo, bpp, first=None, end=None):
     """csrc/lpf_replay.cu on pl [T, B, H, Wb] in place, after checking
     every tensor: steps [T, S, D, 7] int32 (a host array, whose trailing
     no-op steps the launch skips, or a tensor on pl's device), wreal [T]
-    (halo exchange when halo is set), bpp 8-12."""
+    (halo exchange when halo is set), bpp 8-12. With first and end (a
+    tensor's steps): lf_replay_from, steps first .. end - 1."""
     if pl.dim() != 4 or steps.ndim != 4 or steps.shape[-1] != 7:
         raise ValueError(f"buffers of shape {tuple(pl.shape)} and steps of "
                          f"shape {tuple(steps.shape)}")
@@ -286,7 +413,7 @@ def _launch(pl, steps, wreal, halo, bpp):
                          "filters them in place")
     S, D = steps.shape[1], steps.shape[2]
     if torch.is_tensor(steps):
-        run = S
+        run = S if end is None else end
     else:
         # only the steps the launch runs go up
         run = steps_run(steps) if S else 0
@@ -299,8 +426,15 @@ def _launch(pl, steps, wreal, halo, bpp):
                                          for w in wr)):
         raise ValueError(f"real widths {wr.tolist()} in buffers of {Wb} "
                          "columns")
-    _cuda.launch("lpf_replay.cu", _SIGNATURES, "lf_replay", pl, steps,
-                 wr.ctypes.data, T, B, H, Wb, S, D, run, int(halo), bpp)
+    if first is None:
+        _cuda.launch("lpf_replay.cu", _SIGNATURES, "lf_replay", pl, steps,
+                     wr.ctypes.data, T, B, H, Wb, S, D, run, int(halo), bpp)
+    else:
+        if not 0 <= first <= run <= S:
+            raise ValueError(f"steps {first} .. {run} of {S}")
+        _cuda.launch("lpf_replay.cu", _SIGNATURES, "lf_replay_from", pl,
+                     steps, wr.ctypes.data, T, B, H, Wb, S, D, first, run,
+                     int(halo), bpp)
     LAUNCHES["lf_replay"] += 1
     return pl
 
@@ -329,3 +463,41 @@ def lf_scan_sharded(pl, steps, wreal, bpp):
     if pl.device.type == "cpu":
         return lf_scan_sharded_plain(pl, steps, wreal, bpp)
     return _launch(pl, steps, wreal, pl.shape[0] > 1, bpp)
+
+
+def lf_scan_sharded_dist(pl, steps, wreal, bpp, ranks, exchange):
+    """Replay the stripes of one rank when a gop row's T stripes are
+    split across ranks: pl [hi - lo, B, H, HALO + Wpad] int32, the
+    stripes lo .. hi - 1 that `ranks` [T] (the row's rank a slot, a
+    contiguous run each) gives exchange.rank; steps [T, S, D, 7] and wreal
+    [T] of the whole row (every rank holds the whole job; the cuts read
+    the neighbours' records); exchange: a parallel/dist.py HaloExchange
+    (swap, note_plan, rank). Equal, stripe for stripe, to
+    lf_scan_sharded_plain over all T stripes. CPU tensors take
+    lf_scan_sharded_dist_plain (a new tensor); on the card the steps go
+    up once and each segment of segment_plan is one lf_replay_from launch
+    on pl in place, which is returned. The segment launches are timed
+    under CUDA events into exchange.replay_events when exchange.timed."""
+    if pl.device.type == "cpu":
+        return lf_scan_sharded_dist_plain(pl, steps, wreal, bpp, ranks,
+                                          exchange)
+    steps = np.asarray(steps)
+    run = max(steps_run(steps), 1)
+    plan = segment_plan(steps, wreal, ranks, exchange.rank)
+    lo, hi = plan[:2]
+    local = torch.from_numpy(np.ascontiguousarray(
+        steps[lo:hi, :run], np.int32)).to(pl.device)
+    wl = [int(w) for w in wreal[lo:hi]]
+
+    def replay(first, end):
+        ev = exchange.timed and (torch.cuda.Event(enable_timing=True),
+                                 torch.cuda.Event(enable_timing=True))
+        if ev:
+            ev[0].record()
+        _launch(pl, local, wl, hi - lo > 1, bpp, first, end)
+        if ev:
+            ev[1].record()
+            exchange.replay_events.append(ev)
+
+    _scan_dist(pl, plan, wreal, ranks, exchange, replay)
+    return pl

@@ -43,6 +43,20 @@ planes, so later frames take them as references.
 The gop axis runs the rows' frames one after another on their devices
 (gop row g on cuda:(g % device_count)), each with its decoder's own kept
 buffers and states.
+
+On a mesh whose tile axis crosses torch.distributed ranks
+(parallel/mesh.py's make_rank_mesh, parallel/dist.py), every rank holds
+the whole job, as every JAX process builds the whole tensors
+(`prepare_gop_tensors`): its decoder runs pass A of every frame, and the
+splat, the coefficient scatter and the residual run frame-wide on every
+rank (about 0.03 ms on the card). MC and intra run on the rank's own
+stripes (`local_tensors` takes its slices, by `put_spec`), the loop
+filter through ops/lpf_replay.py's lf_scan_sharded_dist, which swaps the
+halos on the boundaries with the other ranks. `sharded_decode_pass_b`
+then returns each frame's `Stripes` (the rank's share), and
+`gather_planes` rebuilds the frame's padded planes on every rank, so that
+`install` chains frames: MC reads whole reference planes, replicated as
+the JAX package's P("gop") places them.
 """
 from __future__ import annotations
 
@@ -51,6 +65,7 @@ import torch
 
 from ..ops import lpf_replay, lpf_walk, recon
 from ..utils.metrics import metrics
+from .dist import all_gather_stripes
 
 HALO = lpf_replay.HALO
 
@@ -339,15 +354,16 @@ def _stripe_planes(s, t, cfg, plane_grids, residuals, has_inter, has_comp):
     return outs
 
 
-def _sharded_lf(t, cfg, outs):
+def _sharded_lf(cfg, outs, scan):
     """The cross-tile loop filter of the stacked planes outs: the stripes
     of Y, then of U and V together, in buffers [T, B, H, HALO + Wpad],
-    one lf_scan_sharded a set. Returns the frame's three padded planes."""
+    one scan(buf, steps key, real widths key) a set. Returns the three
+    planes' filtered stripes, [T, H, Wpad] each."""
     T = cfg["ntile"]
-    planes = []
-    for which, idx, H, wp, wreal in (
-            ("ysteps", (0,), cfg["Hy"], cfg["Wpad"], t["wreal"]),
-            ("uvsteps", (1, 2), cfg["Hu"], cfg["Wpadu"], t["wrealu"])):
+    stripes = []
+    for which, wkey, idx, H, wp in (
+            ("ysteps", "wreal", (0,), cfg["Hy"], cfg["Wpad"]),
+            ("uvsteps", "wrealu", (1, 2), cfg["Hu"], cfg["Wpadu"])):
         dev = outs[0].device
         buf = torch.zeros((T, len(idx), H, HALO + wp), dtype=torch.int32,
                           device=dev)
@@ -355,34 +371,143 @@ def _sharded_lf(t, cfg, outs):
             buf[:, b, :, HALO:] = outs[p].view(T, H, wp)
         if cfg["lf"]:
             with metrics.timer("recon.lf"):
-                buf = lpf_replay.lf_scan_sharded(buf, t[which], wreal,
-                                                 cfg["bpp"])
-        for b in range(len(idx)):
-            planes.append(_unstack(buf[:, b, :, HALO:], wreal))
-    return planes
+                buf = scan(buf, which, wkey)
+        stripes += [buf[:, b, :, HALO:] for b in range(len(idx))]
+    return stripes
 
 
-def build_sharded_step(mesh, cfg):
+class Stripes:
+    """A rank's share of a frame's sharded pass B on a mesh whose tile
+    axis crosses ranks: planes [y, u, v], each [hi - lo, H, Wpad] (stripe
+    lo + i's real columns first), the stripes lo .. hi - 1 of a gop row
+    whose slots `ranks` [T] own; wreal and wrealu every stripe's real
+    width in Y and in chroma."""
+
+    def __init__(self, planes, lo, hi, ranks, wreal, wrealu):
+        self.planes, self.lo, self.hi = planes, lo, hi
+        self.ranks, self.wreal, self.wrealu = ranks, wreal, wrealu
+
+
+# The frame_tensors keys as they are placed on a mesh, after the JAX
+# package's put_spec: a stripe's own slice along the tile axis for every
+# key. The JAX package's replicated tensors (its _NON_TILED, P("gop"):
+# the reference planes and the scaled MC's and geometry's scalars) have
+# no counterpart among them: MC reads the references from the frame's
+# decoder, which every rank runs, and the scalars ride in cfg.
+TILED = ("x0", "x0u", "wreal", "wrealu", "ysteps", "uvsteps", "yslab",
+         "uvslab")
+
+
+def put_spec(name, ndim):
+    """The placement of frame_tensors' key `name` (ndim dimensions with
+    the gop axis), as the JAX package's put_spec gives it: ("gop",
+    "tile", None ...) for a key split along the tile axis."""
+    if name not in TILED:
+        raise KeyError(f"{name} is not a frame_tensors key")
+    return ("gop", "tile") + (None,) * (ndim - 2)
+
+
+def _local_slab(slab, lo, hi, Hp, Wpad):
+    """The stacked intra slab (_stripe_slab) of stripes lo .. hi - 1
+    alone: their rows moved up by lo stripes, the other stripes' rows made
+    inert (past the stacked plane of hi - lo stripes)."""
+    buf, L, sizes, caps = slab
+    out = buf.copy()
+    row = buf[:, 0].astype(np.int64)
+    keep = (row >= lo * Hp) & (row < hi * Hp)
+    out[keep, 0] = row[keep] - lo * Hp
+    out[~keep, 0] = (hi - lo) * Hp + 64
+    out[~keep, 1] = Wpad + 64
+    return out, L, sizes, caps
+
+
+def local_tensors(t, cfg, lo, hi):
+    """The frame_tensors t of stripes lo .. hi - 1 (a rank's slots of a
+    gop row): every put_spec key sliced along the tile axis, the slabs
+    moved to the local stacking."""
+    out = {}
+    for k in TILED:
+        v = t.get(k)
+        if v is None:
+            out[k] = None
+        elif k in ("yslab", "uvslab"):
+            Hp, wp = ((cfg["Hy"], cfg["Wpad"]) if k == "yslab"
+                      else (cfg["Hu"], cfg["Wpadu"]))
+            out[k] = _local_slab(v, lo, hi, Hp, wp)
+        else:
+            out[k] = v[lo:hi]
+    return out
+
+
+def build_sharded_step(mesh, cfg, exchange=None, g=0):
     """The sharded pass-B step for one frame geometry: a callable
     step(s, t) that reconstructs the frame s (a FrameJob; t, its
     frame_tensors) on its row's device and returns its three padded
-    planes, filtered, as int32 tensors there."""
-    if cfg["ntile"] != mesh.devices.shape[1]:
+    planes, filtered, as int32 tensors there. On a mesh of several ranks
+    (exchange: this rank's HaloExchange; g: the frame's gop row) the step
+    reconstructs the rank's stripes of the row alone, filters them with
+    lf_scan_sharded_dist and returns their Stripes."""
+    ntile = mesh.devices.shape[1]
+    if cfg["ntile"] != ntile:
         raise ValueError(f"stream has {cfg['ntile']} tile cols, mesh wants "
-                         f"{mesh.devices.shape[1]}")
-    if cfg["ntile"] > lpf_replay.MAX_STRIPES:
-        raise ValueError(f"{cfg['ntile']} tile columns: the replay kernel "
+                         f"{ntile}")
+    lo, hi = 0, ntile
+    if mesh.world > 1:
+        if exchange is None:
+            raise ValueError(f"a mesh of {mesh.world} ranks needs the "
+                             "rank's HaloExchange")
+        slots = {row: (a, b) for row, a, b in
+                 mesh.local_slots(exchange.rank)}
+        if g not in slots:
+            raise ValueError(f"rank {exchange.rank} owns no slot of gop row "
+                             f"{g}")
+        lo, hi = slots[g]
+    if hi - lo > lpf_replay.MAX_STRIPES:
+        raise ValueError(f"{hi - lo} tile columns: the replay kernel "
                          f"takes at most {lpf_replay.MAX_STRIPES}")
 
-    def step(s, t):
+    def frame(s):
         recon.upload_job(s)
-        plane_grids, residuals, has_inter, has_comp = \
-            recon.frame_residuals(s)
-        outs = _stripe_planes(s, t, cfg, plane_grids, residuals, has_inter,
-                              has_comp)
-        return _sharded_lf(t, cfg, outs)
+        return recon.frame_residuals(s)
 
-    return step
+    if mesh.world == 1:
+        def step(s, t):
+            outs = _stripe_planes(s, t, cfg, *frame(s))
+
+            def scan(buf, which, wkey):
+                return lpf_replay.lf_scan_sharded(buf, t[which], t[wkey],
+                                                  cfg["bpp"])
+            stripes = _sharded_lf(cfg, outs, scan)
+            return [_unstack(p, w) for p, w in zip(
+                stripes, (t["wreal"], t["wrealu"], t["wrealu"]))]
+        return step
+
+    ranks = [int(r) for r in mesh.ranks[g]]
+    local_cfg = dict(cfg, ntile=hi - lo)
+
+    def dist_step(s, t):
+        outs = _stripe_planes(s, local_tensors(t, cfg, lo, hi), local_cfg,
+                              *frame(s))
+
+        def scan(buf, which, wkey):
+            return lpf_replay.lf_scan_sharded_dist(
+                buf, t[which], t[wkey], cfg["bpp"], ranks, exchange)
+        return Stripes(_sharded_lf(local_cfg, outs, scan), lo, hi, ranks,
+                       t["wreal"], t["wrealu"])
+
+    return dist_step
+
+
+def gather_planes(out, exchange=None):
+    """A frame's three padded planes on every rank from each rank's
+    Stripes (all_gather_stripes; every rank of the group calls it, in
+    the same order); anything else (a single-process output, a
+    show-existing job's planes) is returned as it is."""
+    if not isinstance(out, Stripes):
+        return out
+    return [_unstack(all_gather_stripes(p, out.ranks, exchange), w)
+            for p, w in zip(out.planes, (out.wreal, out.wrealu,
+                                         out.wrealu))]
 
 
 def _device_key(dev):
@@ -406,7 +531,7 @@ def _ready_planes(j):
     return [torch.as_tensor(np.asarray(p, np.int32)) for p in f.planes]
 
 
-def sharded_decode_pass_b(jobs, mesh):
+def sharded_decode_pass_b(jobs, mesh, exchange=None):
     """Decode pass B for `jobs` (a list of FrameJob, one per gop row)
     sharded over the mesh's (gop, tile) slots: per-stripe residual + MC +
     intra, then the cross-tile loop filter with its halo exchange.
@@ -414,7 +539,10 @@ def sharded_decode_pass_b(jobs, mesh):
     per job, bit-exact with the serial decode (a show-existing job's: its
     referenced frame's planes). The frames may differ in geometry and in
     scaled references; bpp, lossless, subsampling and tile count must
-    match. A job's decoder must be on its row's device."""
+    match. A job's decoder must be on its row's device. On a mesh of
+    several ranks each rank calls it with the same jobs and its
+    HaloExchange, and gets each job's Stripes (gather_planes rebuilds the
+    planes)."""
     gop, _ntile = mesh.devices.shape
     if len(jobs) != gop:
         raise ValueError(f"{len(jobs)} jobs for {gop} gop rows")
@@ -423,12 +551,14 @@ def sharded_decode_pass_b(jobs, mesh):
     if not active:
         return outs
     built, cfg = prepare_gop_tensors([j for _g, j in active], _ntile)
+    rank = 0 if exchange is None else exchange.rank
     for (g, j), (t, c) in zip(active, built):
-        if _device_key(j.device) != _device_key(mesh.row_device(g)):
-            raise ValueError(f"gop row {g} is on {mesh.row_device(g)}, its "
-                             f"frame's decoder on {j.device}")
+        dev = mesh.row_device(g, rank)
+        if _device_key(j.device) != _device_key(dev):
+            raise ValueError(f"gop row {g} is on {dev}, its frame's decoder "
+                             f"on {j.device}")
         with metrics.timer("sharded.step"):
-            outs[g] = build_sharded_step(mesh, c)(j, t)
+            outs[g] = build_sharded_step(mesh, c, exchange, g)(j, t)
     return outs
 
 
