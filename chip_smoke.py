@@ -139,7 +139,21 @@ Phases, one status line each; any failure exits non-zero:
                kept coefficient buffer sets and three splat states for
                its three sizes (a size returned to reuses its own), the
                peak device memory over its passes and the card's busy
-               share in a serial decode under torch.profiler
+               share in a serial decode under torch.profiler; then the
+               five inter clips of profiles 1-3 (tools/
+               make_format_inter_vectors_torch.py: 1080p, 4 tiles, a
+               keyframe, a lossless inter frame with every inter syntax
+               element and two lossy filtered ones with every transform
+               size, at 4:2:2, 4:4:0, 4:4:4, 10-bit 4:2:0 and 12-bit
+               4:4:4) the same way, MC once per inter frame, the loop
+               filter once per filtered frame (3 of 4). In every clip's
+               conformance pass each frame's three visible planes also
+               go through plane_digest (csrc/digest.cu, utils/digest.py:
+               two mod-2^32 weighted sums a plane, a launch a plane,
+               flushed in one copy), held to its plain version on the
+               card and to plane_digest_host on the frame's bytes; its
+               time on the three planes of fmt_inter_444_12_1080p's last
+               frame beside its bound and the plain version's
   4b. passa    the on-device pass A (csrc/passa.cu via
                ops/passa_device.py): the walk kernel against
                decode_frame_plain (run on the host CPU) on every intra
@@ -150,28 +164,31 @@ Phases, one status line each; any failure exits non-zero:
                counts forced on, every output exact, the MV and
                reference grids too; against the native C pass A on
                frame 0 of bench_1080p_lf and each format clip and on
-               every inter frame of bench_1080p, bench_4k and
-               resize_1080p (dense coefficient planes, eob grids,
+               every inter frame of bench_1080p, bench_4k, resize_1080p
+               and the five inter format clips (dense coefficient planes,
+               eob grids,
                records, and the grids against cur_mv and cur_ref), each
                inter frame from a decoder run through the frames before
                it; against decode_frame_plain on frame 0 of
                PASSA_PLAIN_CLIPS and on PASSA_INTER_PLAIN (bench_1080p
-               frames 1 and 6, resize_1080p frame 4); timed on those
-               keyframes and on PASSA_INTER_TIMED (bench_1080p frames 1
-               and 6, bench_4k frame 1, resize_1080p frames 3 and 4):
+               frames 1 and 6, resize_1080p frame 4, and an inter frame
+               of each inter format clip with the symbol counts forced
+               on); timed on those keyframes and on PASSA_INTER_TIMED
+               (bench_1080p frames 1 and 6, bench_4k frame 1,
+               resize_1080p frames 3 and 4, the inter format frames):
                the time under CUDA events, the bools a lane, the longest
                lane's cycles a bool (clock64) beside the bool chain's
                73.5, the MV quanta's cycles an inter block, bytes and
                chain bounds and the native pass A's time on the same
                frame; ptxas's registers and spills; then
                VP9Decoder(device="cuda", pass_a_impl="device")
-               .decode_stream over all nine clips with every plain
+               .decode_stream over all fourteen clips with every plain
                version set to raise, every MD5 against its framemd5, the
                walk once a frame and no frame through the host pass A
                (each decoder's pass_a_host_frames); a serial decode of
                bench_1080p_lf with every stage timer synchronised; fps
                with the device pass A and with the host's in turns on
-               the nine clips, with decode.pass_a, decode.pass_a_replay,
+               the fourteen clips, with decode.pass_a, decode.pass_a_replay,
                decode.pass_b and upload.flat ms/frame
   5. threads   two decoders of one geometry on two host threads at once,
                every frame bit-exact (each decoder owns its splat state)
@@ -181,7 +198,9 @@ Phases, one status line each; any failure exits non-zero:
                its own loop-filter schedule states); decode_gops_parallel
                with 1, 2 and
                4 workers on bench_1080p_lf (6 GOPs), each format clip (2
-               GOPs) and bench_1080p three times over (9 GOPs), every
+               GOPs), bench_1080p three times over (9 GOPs) and
+               fmt_inter_422_1080p and fmt_inter_444_12_1080p twice over
+               (2 GOPs each), every
                frame bit-exact vs framemd5 with the plain versions set to
                raise; each input's wall fps, host pass A ms/frame and the
                card's busy share (torch.profiler) per worker count;
@@ -192,7 +211,8 @@ Phases, one status line each; any failure exits non-zero:
                frame bit-exact vs framemd5, the outputs installed as the
                frames' planes: bench_1080p_lf on a (1, 4) mesh, the first
                6 frames of bench_1080p (MC with stripe offsets),
-               fmt_420_10_1080p and fmt_444_1080p, resize_1080p (its
+               fmt_420_10_1080p, fmt_444_1080p and
+               fmt_inter_444_12_1080p, resize_1080p (its
                4-tile frames sharded, the others serial), bench_1080p_lf
                on (2, 4) with two frames a step, bench_4k frame 0 on (1,
                8); the kept coefficient buffers read zero after every
@@ -245,7 +265,8 @@ Phases, one status line each; any failure exits non-zero:
                the card with every plain version set to raise:
                - a shell run on vectors/bench_1080p.ivf, its rows from
                  the data rows down equal to the framemd5's;
-               - main(argv) in this process on each of the nine clips,
+               - main(argv) in this process on each of the fourteen
+                 clips,
                  its rows equal to the framemd5's and its kernel
                  launches equal to the decode phase's for that clip;
                - bench_1080p and resize_1080p remuxed to WebM (as
@@ -289,6 +310,18 @@ FORMAT_CLIPS = {"fmt_422_1080p": (8, 1, 0), "fmt_440_1080p": (8, 0, 1),
                 "fmt_444_1080p": (8, 0, 0), "fmt_420_10_1080p": (10, 1, 1),
                 "fmt_444_12_1080p": (12, 0, 0)}
 HBD_CLIPS = ("fmt_420_10_1080p", "fmt_444_12_1080p")
+# inter frames of profiles 1-3 at 1080p
+# (tools/make_format_inter_vectors_torch.py): a keyframe, a lossless inter
+# frame with every inter syntax element, two lossy filtered ones with
+# every transform size; name: (bpp, ss_h, ss_v)
+FORMAT_INTER_CLIPS = {"fmt_inter_422_1080p": (8, 1, 0),
+                      "fmt_inter_440_1080p": (8, 0, 1),
+                      "fmt_inter_444_1080p": (8, 0, 0),
+                      "fmt_inter_420_10_1080p": (10, 1, 1),
+                      "fmt_inter_444_12_1080p": (12, 0, 0)}
+# every clip whose residual is the high-bit-depth kernel's
+HBD_ALL = HBD_CLIPS + tuple(c for c, (bpp, _h, _v)
+                            in FORMAT_INTER_CLIPS.items() if bpp > 8)
 PKG = "ffmpeg_hybrid_tpu_torch"
 KERNEL_SRC = PKG + "/csrc/rac.cu"
 PALLAS_SRC = "ffmpeg_hybrid_tpu/ops/rac_pallas.py"
@@ -305,6 +338,9 @@ MC_SCALED_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:352"
 # the resize clip (tools/make_resize_vector_torch.py): every inter frame
 # predicts from a reference of another size
 RESIZE_CLIP = "resize_1080p"
+# the decode phase's clips, in its order
+DECODE_CLIPS = CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,) \
+    + tuple(FORMAT_INTER_CLIPS)
 INTRA_SRC = PKG + "/csrc/intra.cu"
 INTRA_REPLACES = "ffmpeg_hybrid_tpu/ops/recon_tpu.py:706"
 SPLAT_SRC = PKG + "/csrc/splat.cu"
@@ -314,7 +350,8 @@ LF_GRIDS_REPLACES = "ffmpeg_hybrid_tpu/ops/lpf_masks.py:172"
 # loop-filter launches of the conformance passes, of the filter and of
 # its grids: one per filtered frame (Y and U+V in one launch)
 LF_LAUNCHES = {"bench_1080p": 0, "bench_1080p_lf": 6, "bench_4k": 1,
-               **dict.fromkeys(FORMAT_CLIPS, 2), RESIZE_CLIP: 6}
+               **dict.fromkeys(FORMAT_CLIPS, 2), RESIZE_CLIP: 6,
+               **dict.fromkeys(FORMAT_INTER_CLIPS, 3)}
 SUBSAMPLINGS = ((1, 1), (1, 0), (0, 1), (0, 0))
 # race stress of the loop-filter kernel: launches on bench_1080p_lf frame
 # 0's inputs, on a full-size random-grid frame, and on one at 10 bpp
@@ -349,6 +386,15 @@ MC_CELL_MACS = 480
 # (int32), refsel (2 x int32), mv16 (4 x int32)
 MC_CELL_BYTES = 30
 DEVICE = "cuda"
+DIGEST_SRC = PKG + "/csrc/digest.cu"
+# _make_digest, a jitted XLA program (no Pallas kernel)
+DIGEST_REPLACES = "ffmpeg_hybrid_tpu/utils/digest.py:68"
+# integer operations of one pixel's digest: W (2 multiply-adds), the two
+# products, the xor and multiply of d2's weight, two adds, the load's
+# address
+DIGEST_PIXEL_OPS = 10
+# the frame the digest is timed on: the last of this clip (three planes)
+DIGEST_TIMED = "fmt_inter_444_12_1080p"
 # MC on seeded full-size frames of other depths and layouts: (bpp, ss_h,
 # ss_v), every bpp and every chroma layout at least once
 MC_FORMATS = ((10, 1, 0), (12, 0, 0), (10, 0, 1), (12, 1, 1))
@@ -382,6 +428,8 @@ PROFILE_PAD = 32
 # of decode_gops_md5_multiprocess
 GOP_WORKERS = (1, 2, 4)
 GOP_PROCS = 2
+# inter clips of profiles 1-3 the gop phase decodes twice over
+GOP_INTER_CLIPS = ("fmt_inter_422_1080p", "fmt_inter_444_12_1080p")
 # the sharded phase: (label, clip, frames (None: all), mesh (gop, tile),
 # frames a step (one a gop row), the tile count of the frames it shards
 # (None: every frame; the others decode serially))
@@ -390,6 +438,8 @@ SHARDED_RUNS = (
     ("bench_1080p", "bench_1080p", 6, (1, 4), 1, None),
     ("fmt_420_10_1080p", "fmt_420_10_1080p", None, (1, 4), 1, None),
     ("fmt_444_1080p", "fmt_444_1080p", None, (1, 4), 1, None),
+    ("fmt_inter_444_12_1080p", "fmt_inter_444_12_1080p", None, (1, 4), 1,
+     None),
     (RESIZE_CLIP, RESIZE_CLIP, None, (1, 4), 1, 4),
     ("bench_1080p_lf 2 a step", "bench_1080p_lf", None, (2, 4), 2, None),
     ("bench_4k", "bench_4k", 1, (1, 8), 1, None),
@@ -418,12 +468,24 @@ PASSA_INTER_CLIPS = ("passa_inter_modes", "passa_inter_seg",
 # pass A, and the frames also held to the plain walk (a typical and the
 # densest P frame of bench_1080p; a compound frame of resize_1080p that
 # uses the last frame's MVs)
-PASSA_INTER_FRAME_CLIPS = ("bench_1080p", "bench_4k", RESIZE_CLIP)
+PASSA_INTER_FRAME_CLIPS = ("bench_1080p", "bench_4k", RESIZE_CLIP) \
+    + tuple(FORMAT_INTER_CLIPS)
+# the format clips' inter frames held to the plain walk with the symbol
+# counts forced on, one a clip: the lossless frames (1) of the 4:4:4
+# clips (sub-8x8 chroma, compound, hp MVs), the lossy ones (2) of 4:2:2
+# and 10-bit 4:2:0 (the chroma transform size rule, long tokens) and the
+# frame of 4:4:0 that takes the previous frame's MVs (3)
+PASSA_FORMAT_INTER_PLAIN = (("fmt_inter_422_1080p", 2),
+                            ("fmt_inter_440_1080p", 3),
+                            ("fmt_inter_444_1080p", 1),
+                            ("fmt_inter_420_10_1080p", 2),
+                            ("fmt_inter_444_12_1080p", 1))
 PASSA_INTER_PLAIN = (("bench_1080p", 1), ("bench_1080p", 6),
-                     (RESIZE_CLIP, 4))
+                     (RESIZE_CLIP, 4)) + PASSA_FORMAT_INTER_PLAIN
 # the inter frames timed against the native pass A
 PASSA_INTER_TIMED = (("bench_1080p", 1), ("bench_1080p", 6), ("bench_4k", 1),
-                     (RESIZE_CLIP, 3), (RESIZE_CLIP, 4))
+                     (RESIZE_CLIP, 3), (RESIZE_CLIP, 4)) \
+    + PASSA_FORMAT_INTER_PLAIN
 # the walk's small clips (tools/make_passa_vectors_torch.py): the
 # kernel against its plain version on every intra frame
 PASSA_CLIPS = ("passa_s2", "passa_s4", "passa_s5", "passa_s7", "passa_s41",
@@ -433,7 +495,7 @@ PASSA_CLIPS = ("passa_s2", "passa_s4", "passa_s5", "passa_s7", "passa_s41",
 # the keyframe clips of the passa phase: the kernel against the native
 # pass A on frame 0
 PASSA_FRAME_CLIPS = ("bench_1080p_lf",) + tuple(FORMAT_CLIPS)
-# decode_stream with pass_a_impl="device" on the main path: all nine
+# decode_stream with pass_a_impl="device" on the main path: all fourteen
 # clips; the fps with each pass A, in turns
 PASSA_DECODE_CLIPS = PASSA_FRAME_CLIPS + PASSA_INTER_FRAME_CLIPS
 # the 1080p frames also held to the plain walk: the clip the kernels line
@@ -3241,7 +3303,9 @@ def main_path_run():
     from ffmpeg_hybrid_tpu_torch.ops import (lpf_dense, lpf_masks,
                                              lpf_replay, passa_device, rac,
                                              recon)
-    for mod in (rac, lpf_dense, lpf_masks, recon, lpf_replay, passa_device):
+    from ffmpeg_hybrid_tpu_torch.utils import digest
+    for mod in (rac, lpf_dense, lpf_masks, recon, lpf_replay, passa_device,
+                digest):
         mod.reset_launches()
     plains = [(mod, fn) for mod, fns in (
         (recon, ("_grids_from_records_plain", "residual_plane_plain",
@@ -3252,7 +3316,8 @@ def main_path_run():
         (lpf_dense, ("lf_frame_plain_", "lf_dense_plain")),
         (lpf_replay, ("lf_scan_plain", "lf_scan_sharded_plain",
                       "apply_step_plain")),
-        (passa_device, ("decode_frame_plain",)))
+        (passa_device, ("decode_frame_plain",)),
+        (digest, ("plane_digest_plain",)))
         for fn in fns]
     saved = [getattr(mod, fn) for mod, fn in plains]
 
@@ -3268,9 +3333,94 @@ def main_path_run():
             setattr(mod, fn, real)
 
 
-def decode_phase(torch, name, frames, want, windows=WINDOWS):
+def digest_entry(torch, np, digests):
+    """The kernels-line entry of the plane digest (csrc/digest.cu): the
+    launches and the largest |kernel - plain| of the decode phase's
+    digest steps (digest_check); its time on the card's clock on the
+    three visible planes of the last frame of DIGEST_TIMED, a launch a
+    plane (device_ms: the kernel and its memset of the two words), the
+    plain version's on the card and the bound: the cropped planes read
+    once (4 B a pixel) and the words written, or DIGEST_PIXEL_OPS a pixel
+    at the int32 rate. No single PyTorch call computes the mod-2^32
+    weighted sums: library_ms is null."""
+    from ffmpeg_hybrid_tpu_torch.utils import digest as DG
+    planes = digests[DIGEST_TIMED][3]
+
+    def kernel():
+        for c in planes:
+            DG.plane_digest_dev_async(c, *c.shape)
+
+    def plain():
+        for c in planes:
+            DG.plane_digest_plain(c, *c.shape)
+    ms, dev_ops = device_ms(torch, kernel, 50,
+                            ("plane_digest_kernel", "Memset"), per_call=3,
+                            kernel="plane_digest_kernel")
+    plain_ms = cuda_ms(plain, 10)
+    pixels = sum(c.numel() for c in planes)
+    nbytes = 4 * pixels + 8 * len(planes)
+    bound_ms, bound_by, _chain = bounds(nbytes, DIGEST_PIXEL_OPS * pixels, 0)
+    launches = sum(v[1] for v in digests.values())
+    err = max(v[2] for v in digests.values())
+    say("kernels", f"plane_digest on the three visible planes of "
+        f"{DIGEST_TIMED}'s last frame ({[tuple(c.shape) for c in planes]}, "
+        f"int32): ms={ms:.5f} on the card's clock in {dev_ops:g} device ops "
+        f"(three launches and their memsets), plain_ms={plain_ms:.4f} (torch "
+        f"int64 on the card), bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} "
+        f"B); on every frame of the {len(digests)} decode-phase clips "
+        f"({sum(v[0] for v in digests.values())} planes, {launches} "
+        f"launches): kernel = plain = plane_digest_host; on {card_line()}")
+    return {"name": "plane_digest", "route": "cuda", "source": DIGEST_SRC,
+            "replaces": DIGEST_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": f"the three planes of {DIGEST_TIMED}'s last frame",
+            "bytes_needed": nbytes, "ops": DIGEST_PIXEL_OPS * pixels,
+            "device_ops_per_call": dev_ops}
+
+
+def visible_planes(np, raw, f):
+    """The host planes of a frame's rawvideo bytes, and each plane's
+    (height, width)."""
+    w, h = f.size
+    cw, ch = (w + f.ss_h) >> f.ss_h, (h + f.ss_v) >> f.ss_v
+    a = np.frombuffer(raw, np.uint8 if f.bpp == 8 else np.dtype("<u2"))
+    crops = ((h, w), (ch, cw), (ch, cw))
+    planes, at = [], 0
+    for ph, pw in crops:
+        planes.append(a[at:at + ph * pw].reshape(ph, pw))
+        at += ph * pw
+    return planes, crops
+
+
+def digest_check(np, name, taken):
+    """The digest step of a clip's conformance pass: the kernel's words
+    (plane_digest_dev_async, flushed in one copy) against the plain
+    version on the card on the same cropped planes and against
+    plane_digest_host on the frames' rawvideo bytes, every word exact.
+    taken: [(async pair, cropped plane, host digest)]. Returns the
+    largest |kernel - plain| (0)."""
+    from ffmpeg_hybrid_tpu_torch.utils import digest as DG
+    got = DG.digests_to_host([p for p, _c, _h in taken]).astype(np.int64)
+    plain = DG.digests_to_host([DG.plane_digest_plain(c, *c.shape)
+                                for _p, c, _h in taken]).astype(np.int64)
+    host = np.array([h for _p, _c, h in taken], np.int64)
+    err = int(np.abs(got - plain).max())
+    if err or not np.array_equal(got, host):
+        bad = int(np.nonzero((got != plain).any(1) | (got != host).any(1))
+                  [0][0])
+        raise RuntimeError(f"{name}: plane digest {bad}: kernel "
+                           f"{got[bad]}, plain {plain[bad]}, host "
+                           f"{host[bad]}")
+    return err
+
+
+def decode_phase(torch, np, name, frames, want, windows, digests):
     """Conformance, then timing (`windows` timed passes), of one clip on
-    the main path. Returns
+    the main path. In the conformance pass each frame's three visible
+    planes also go through the digest kernel (digest_check, after the
+    pass); digests[name] gets (planes digested, launches, max |diff|,
+    the last frame's cropped planes). Returns
     (median fps, all fps, per-stage ms/frame, launches of the
     conformance pass by kernel, frames with intra blocks, frames with
     inter blocks, host ms/frame of pass A and pass B beside each timed
@@ -3281,7 +3431,9 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
     from ffmpeg_hybrid_tpu_torch.utils.metrics import metrics
     # conformance pass: the main path's run, launches counted from zero,
     # with every kernel's plain version set to raise
+    from ffmpeg_hybrid_tpu_torch.utils import digest as DG
     t0 = time.perf_counter()
+    taken = []
     with main_path_run():
         dec = VP9Decoder(device=DEVICE)
         n = 0
@@ -3289,18 +3441,34 @@ def decode_phase(torch, name, frames, want, windows=WINDOWS):
             if f.dev is None or f.dev[0].device.type != DEVICE:
                 raise RuntimeError(f"frame {n} was not reconstructed on "
                                    "the card")
-            got = hashlib.md5(f.to_bytes()).hexdigest()
+            raw = f.to_bytes()
+            got = hashlib.md5(raw).hexdigest()
             if got != want[n]:
                 raise RuntimeError(f"{name} frame {n}: md5 {got} != "
                                    f"{want[n]}")
+            for plane, host, (ph, pw) in zip(f.dev,
+                                             *visible_planes(np, raw, f)):
+                taken.append((DG.plane_digest_dev_async(plane, ph, pw),
+                              plane[:ph, :pw].clone(),
+                              DG.plane_digest_host(host, ph, pw)))
             n += 1
+        digest_launches = DG.LAUNCHES["digest"]
+    if digest_launches != 3 * n:
+        raise RuntimeError(f"{name}: the digest kernel launched "
+                           f"{digest_launches} times for {n} frames")
+    err = digest_check(np, name, taken)
+    digests[name] = (len(taken), digest_launches, err,
+                     [c for _p, c, _h in taken[-3:]])
+    del taken
     if n != len(want):
         raise RuntimeError(f"{name}: decoded {n} frames, expected "
                            f"{len(want)}")
     launches = main_path_launches()
     say("decode", f"{name}: {n} frames bit-exact vs framemd5 in "
         f"{time.perf_counter() - t0:.1f} s (first pass, incl. warm-up); "
-        f"kernel launches on this path: {launches}")
+        f"kernel launches on this path: {launches}; plane digests of the "
+        f"{3 * n} visible planes: the kernel ({digest_launches} launches) "
+        "equal to its plain version and to plane_digest_host")
     # timed pipelined passes (frames stay on the device): the host clock
     # spreads on a host-bound path, so report the median of WINDOWS; the
     # unsynchronised stage timers give each pass's host pass A and pass B
@@ -3603,7 +3771,7 @@ def passa_phase(torch, np, clips):
     and reference grids), against the plain version on frame 0 of each
     PASSA_PLAIN_CLIPS clip and the PASSA_INTER_PLAIN frames, timed on
     those and the PASSA_INTER_TIMED frames; then decode_stream with
-    pass_a_impl="device" over the nine clips on the main path (launches
+    pass_a_impl="device" over the fourteen clips on the main path (launches
     counted from zero, every plain version set to raise), every MD5
     against the framemd5, one walk launch a frame and no frame through
     the host pass A; a serial decode with synchronised stage timers; and
@@ -3687,7 +3855,15 @@ def passa_phase(torch, np, clips):
                                    f"{diff or got[7]}")
             ninter += 1
             plain_ms = None
-            if (clip, i) in PASSA_INTER_PLAIN:
+            if (clip, i) in PASSA_FORMAT_INTER_PLAIN:
+                # the symbol counts forced on, as on the small clips
+                counted, plain_ms = kernel_vs_plain(
+                    np, PD, inputs, dict(meta, want_counts=1),
+                    f"{clip} frame {i}")
+                if not counted[6].any():
+                    raise RuntimeError(f"passa: {clip} frame {i}: no "
+                                       "symbol counted")
+            elif (clip, i) in PASSA_INTER_PLAIN:
                 _got, plain_ms = kernel_vs_plain(np, PD, inputs, meta,
                                                  f"{clip} frame {i}")
             if (clip, i) in PASSA_INTER_TIMED:
@@ -3702,7 +3878,10 @@ def passa_phase(torch, np, clips):
         f"inter frames of {', '.join(PASSA_INTER_FRAME_CLIPS)}: records, "
         "coefficient planes, eob grids and the MV and reference grids "
         "(cur_mv, cur_ref) exact; against decode_frame_plain on "
-        + ", ".join(f"{c} frame {i}" for c, i in PASSA_INTER_PLAIN))
+        + ", ".join(f"{c} frame {i}" for c, i in PASSA_INTER_PLAIN)
+        + " (the format clips' with the symbol counts forced on: records, "
+        "pairs, counts, err words, bools a lane and the MV and reference "
+        "grids exact)")
     # the main path: decode_stream with the device pass A
     with main_path_run():
         nwant = host_frames = 0
@@ -3796,12 +3975,17 @@ def passa_phase(torch, np, clips):
 
 def gop_inputs(clips):
     """The gop phase's streams: (label, packets, each frame's MD5):
-    bench_1080p_lf (6 GOPs), each format clip (2 GOPs), and bench_1080p
-    three times over (9 GOPs), as tests/test_gop.py builds streams."""
+    bench_1080p_lf (6 GOPs), each format clip (2 GOPs), bench_1080p
+    three times over (9 GOPs) and each GOP_INTER_CLIPS clip twice over (2
+    GOPs of a keyframe and three inter frames), as tests/test_gop.py
+    builds streams."""
     out = [("bench_1080p_lf", *clips["bench_1080p_lf"])]
     out += [(c, *clips[c]) for c in FORMAT_CLIPS]
     frames, want = clips["bench_1080p"]
     out.append(("bench_1080p x3", frames * 3, want * 3))
+    for c in GOP_INTER_CLIPS:
+        frames, want = clips[c]
+        out.append((f"{c} x2", frames * 2, want * 2))
     return out
 
 
@@ -4571,9 +4755,8 @@ def main():
         return 1
     if not os.path.isdir(os.path.join(ROOT, PKG)) or not all(
             os.path.exists(os.path.join(ROOT, "vectors", c + ".ivf"))
-            for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)
-            + PASSA_CLIPS + PASSA_INTER_CLIPS + (CHAINED_CLIP,)
-            + tuple(r[0] for r in MESH_MP_RUNS)):
+            for c in DECODE_CLIPS + PASSA_CLIPS + PASSA_INTER_CLIPS
+            + (CHAINED_CLIP,) + tuple(r[0] for r in MESH_MP_RUNS)):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -4616,8 +4799,7 @@ def main():
                         or "Compiling" in line:
                     say("build", f"{src}: {line.strip()}")
 
-    clips = {c: read_clip(c)
-             for c in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,)}
+    clips = {c: read_clip(c) for c in DECODE_CLIPS}
     from ffmpeg_hybrid_tpu_torch.ops import lpf_dense, lpf_masks, recon
     lf_calls = capture_inputs(torch, [(lpf_dense, "lf_frame_"),
                                       (recon, "_intra_scan_planes"),
@@ -4692,17 +4874,18 @@ def main():
                  "mc_planes_scaled": "mc_scaled",
                  "_intra_scan_planes": "intra",
                  "_grids_from_records": "splat", "grids_device": "lf_grids"}
-    clip_launches, clip_fps = {}, {}
-    for name in CLIPS + tuple(FORMAT_CLIPS) + (RESIZE_CLIP,):
+    clip_launches, clip_fps, digests = {}, {}, {}
+    for name in DECODE_CLIPS:
         frames, want = clips[name]
-        # the format clips' passes are two frames each, the resize clip's
-        # six: three timed ones
+        # the format clips' passes are two or four frames each, the resize
+        # clip's six: three timed ones
         windows = WINDOWS if name in CLIPS else 3
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         (fps, fps_runs, stages, launches, intra_frames, inter_frames,
-         host, kept) = decode_phase(torch, name, frames, want, windows)
+         host, kept) = decode_phase(torch, np, name, frames, want, windows,
+                                    digests)
         clip_launches[name], clip_fps[name] = launches, fps
         peak = torch.cuda.max_memory_allocated()
         busy = ""
@@ -4717,7 +4900,7 @@ def main():
                                    f" times, expected {LF_LAUNCHES[name]}")
         # one residual launch a frame: the high-bit-depth one on the
         # 10/12-bit clips, the 8-bit one elsewhere
-        hbd = name in HBD_CLIPS
+        hbd = name in HBD_ALL
         for key, n in (("splat", len(want)), ("scatter", len(want)),
                        ("residual", 0 if hbd else len(want)),
                        ("residual_hbd", len(want) if hbd else 0)):
@@ -4762,6 +4945,8 @@ def main():
             + ", ".join(f"{k} {v}" for v, k in top)
             + f"; peak device memory over the clip's passes {peak} B"
             + busy)
+    by_name["plane_digest"] = digest_entry(torch, np, digests)
+    del digests
 
     by_name["passa_walk"] = passa_phase(torch, np, clips)
     two_decoders_phase(torch, clips)

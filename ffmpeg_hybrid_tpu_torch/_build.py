@@ -20,7 +20,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("rac.cu", "lpf.cu", "itxfm.cu", "intra.cu", "splat.cu",
-           "lf_grids.cu", "mc.cu", "lpf_replay.cu", "passa.cu")
+           "lf_grids.cu", "mc.cu", "lpf_replay.cu", "passa.cu", "digest.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
