@@ -178,9 +178,12 @@ Phases, one status line each; any failure exits non-zero:
                resize_1080p frames 3 and 4, the inter format frames):
                the time under CUDA events, the bools a lane, the longest
                lane's cycles a bool (clock64) beside the bool chain's
-               73.5, the MV quanta's cycles an inter block, bytes and
-               chain bounds and the native pass A's time on the same
-               frame; ptxas's registers and spills; then
+               73.5, the MV quanta's cycles an inter block, the longest
+               lane's debug sections (decode_frame_sections, the
+               instance that times them, its outputs held to the
+               kernel's), bytes and chain bounds and the native pass
+               A's time on the same frame; ptxas's registers, stack and
+               spills of the kernel's four instances; then
                VP9Decoder(device="cuda", pass_a_impl="device")
                .decode_stream over all fourteen clips with every plain
                version set to raise, every MD5 against its framemd5, the
@@ -737,18 +740,30 @@ def launch_floor_ms(torch, empty, reps=50):
     return device_ms(torch, empty, reps, ("empty_kernel",), 1)[0]
 
 
-def ptxas_of(src, kernel):
-    """ptxas's registers and spills of the kernel whose entry name holds
-    `kernel`, from the build log of `src` (a path in the repository)."""
+def ptxas_entries(src, kernel):
+    """ptxas's stack, spill and register lines of every entry function of
+    `src`'s build whose name holds `kernel` (each template instance):
+    [(entry name, its lines joined)]."""
     from ffmpeg_hybrid_tpu_torch import _build
     with open(_build.lib_path(os.path.basename(src)) + ".log") as f:
         lines = f.read().splitlines()
+    out = []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
-            props = [ln.strip() for ln in lines[i + 1:i + 4]
+            props = [ln.split("ptxas info    :")[-1].strip()
+                     for ln in lines[i + 1:i + 4]
                      if "spill" in ln or "registers" in ln]
-            return "; ".join(props)
-    raise RuntimeError(f"no ptxas report of {kernel} in {src}'s build")
+            out.append((line.split("'")[1], "; ".join(props)))
+    if not out:
+        raise RuntimeError(f"no ptxas report of {kernel} in {src}'s build")
+    return out
+
+
+def ptxas_of(src, kernel):
+    """ptxas's registers and spills of the kernel whose entry name holds
+    `kernel`, from the build log of `src` (a path in the repository); the
+    first such entry."""
+    return ptxas_entries(src, kernel)[0][1]
 
 
 def bounds(nbytes, nops, chain):
@@ -3701,11 +3716,24 @@ def walk_prev_bytes(np, hflags, recs, meta):
     return n
 
 
+def walk_sections(np, PD, inputs, meta, got, what):
+    """The kernel's debug sections on one frame (decode_frame_sections:
+    the instance that times them), its outputs held to `got` (walk_diff):
+    each lane's row as a dict of PD.SECTIONS."""
+    out, sec = PD.decode_frame_sections(inputs, meta, DEVICE)
+    diff = walk_diff(np, walk_host(out), got, meta["S"])
+    if diff:
+        raise RuntimeError(f"passa: {what}: the sections instance against "
+                           f"the kernel: {diff}")
+    return [dict(zip(PD.SECTIONS, (int(v) for v in row))) for row in sec]
+
+
 def walk_row(np, PD, inputs, meta, got, frames, i, plain_ms):
     """The walk's measures on one frame (got: its outputs with stats):
     ms under CUDA events, the longest lane's clock64 time and cycles a
-    bool, the MV quanta's cycles an inter block, bytes and chain bounds,
-    and the native pass A's ms on the same frame."""
+    bool, the MV quanta's cycles an inter block, the longest lane's debug
+    sections, bytes and chain bounds, and the native pass A's ms on the
+    same frame."""
     def walk():
         PD.decode_frame(inputs, meta, DEVICE)
     # CUDA events, not torch.profiler: it kept 1 of 3 device records
@@ -3728,7 +3756,10 @@ def walk_row(np, PD, inputs, meta, got, frames, i, plain_ms):
         written += 10 * meta["rows"] * meta["cols"]
     bound, bound_by, _ = bounds(read + written, int(bools.sum()), 0)
     pass_a, c_decode = native_pass_a_ms(frames, i)
+    sections = walk_sections(np, PD, inputs, meta, got,
+                             f"frame {i}")[longest]
     return {
+        "sections": sections,
         "ms": ms, "longest_lane_ms": cycles[longest] / BOOST_HZ * 1e3,
         "bools": bools.tolist(),
         "cycles_a_bool": (cycles / np.maximum(bools, 1)).tolist(),
@@ -3759,6 +3790,16 @@ def say_walk_row(label, row):
         f"{row['native_c_decode_ms']:.3f})"
         + (f"; the plain version {row['plain_ms']:.1f} ms on the host CPU"
            if row["plain_ms"] is not None else "") + f" on {card_line()}")
+    sec = row["sections"]
+    say("kernels", f"passa_walk sections on {label.split(' (')[0]}, the "
+        "longest lane (clock64 cycles of the instance that reads them, "
+        "bools): " + ", ".join(f"{k} {v}" for k, v in sec.items())
+        + f"; the token loop's ZERO runs "
+        f"{sec['coef_run'] / max(sec['run_positions'], 1):.1f} cycles a "
+        "position, its other COEF bools "
+        f"{sec['coef_loop'] / max(sec['bools_coef'] - sec['run_positions'], 1):.1f}"
+        f" cycles each, {sec['mv_scan'] / max(sec['mv_scans'], 1):.1f} "
+        "cycles an MV scan")
 
 
 def passa_phase(torch, np, clips):
@@ -3814,8 +3855,8 @@ def passa_phase(torch, np, clips):
         "inter clips (vectors/passa_inter_*), the symbol counts forced on: "
         "records, pairs, counts, err words, bools a lane and the MV and "
         "reference grids exact")
-    say("kernels", "passa_walk ptxas: " + ptxas_of(PASSA_SRC,
-                                                   "passa_kernel"))
+    for entry, props in ptxas_entries(PASSA_SRC, "passa_kernel"):
+        say("kernels", f"passa_walk ptxas, {entry}: {props}")
     rows = {}
     for clip in PASSA_FRAME_CLIPS:
         frames = clips[clip][0]
@@ -3966,6 +4007,7 @@ def passa_phase(torch, np, clips):
             "bound_ms": lf["bound_ms"], "bound_by": lf["bound_by"],
             "library_ms": None, "chain_ms": lf["chain_ms"],
             "per": "bench_1080p_lf frame 0 (4 tiles, one launch)",
+            "ptxas": dict(ptxas_entries(PASSA_SRC, "passa_kernel")),
             "by_input": rows}
 
 

@@ -38,7 +38,9 @@ pass A leaves them (vp9block.c:777-801).
 
 `decode_frame` runs the walk: on a CUDA device one launch of the
 hand-written kernel csrc/passa.cu (a block of one warp a lane, one
-thread walking it with its contexts in shared memory), on the CPU the
+thread walking it with its contexts in shared memory, the warp joining
+for an inter block's MV candidate scan and grid writes; its tables as
+packed_scans and coef16_rows stage them), on the CPU the
 plain version `decode_frame_plain`, which runs the same phase machine a
 lane after another in Python integers, as the kernel's threads do. (The
 JAX walk's lockstep form, every lane's state a tensor and every branch a
@@ -1534,12 +1536,23 @@ def decode_frame_plain(inputs, meta, device="cpu"):
 # the kernel (csrc/passa.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# packet, tile_off, tile_len, bounds, caps, probs8, qmul, scans, nbs,
-# bands, prev_mv, prev_ref, prev_seg, hflags (a host array); nprobs, S,
+# packet, tile_off, tile_len, bounds, caps, probs8, coef16, qmul, scanw,
+# scan_off, prev_mv, prev_ref, prev_seg, hflags (a host array); nprobs, S,
 # rows, cols, sb_cols, sb_rows, txfmmode, seg, lossless, bpp, ss_h, ss_v,
 # want_counts, inter, bmax, cmax, emax; blocks, nblk, cpairs, ncp,
-# epairs, nep, counts, err, stats, grid_mv, grid_ref; stream
-_SIGNATURES = {"passa_walk": [_P] * 14 + [_I] * 17 + [_P] * 11 + [_P]}
+# epairs, nep, counts, err, stats, grid_mv, grid_ref, sections; stream
+_SIGNATURES = {"passa_walk": [_P] * 14 + [_I] * 17 + [_P] * 12 + [_P]}
+
+# the kernel's debug sections (csrc/passa.cu enum Sec), a lane's int64
+# row of decode_frame_sections: clock64 cycles of the PART quanta, the
+# MODE quanta, the MV candidate scans without their bools, the rest of
+# the MV quanta, the COEF token loops outside and inside the runs of ZERO
+# tokens (a bool a position), the rest of COEF, the records' emit and the
+# warp's handovers around an MV quantum; the bools read in PART, MODE, MV
+# and COEF; the MV scans; the positions of the ZERO runs
+SECTIONS = ("part", "mode", "mv_scan", "mv", "coef_loop", "coef_run",
+            "coef", "emit", "sync", "bools_part", "bools_mode", "bools_mv",
+            "bools_coef", "mv_scans", "run_positions")
 
 # the kernel's shared-memory above ctx holds a tile this wide (b8): VP9
 # tiles are at most 64 superblocks wide (MAX_TILE_WIDTH_B64)
@@ -1577,28 +1590,81 @@ def probs8(inputs):
         .astype(np.uint8)
 
 
+# the kernel's staged scan words (csrc/passa.cu kScanWords, kScanRows)
+SCAN_WORDS, SCAN_ROWS = 2048, 20
+_PACKED = None
+
+
+def packed_scans():
+    """The token loop's scan tables as the kernel stages them: (words
+    uint32 [SCAN_WORDS], offs int32 [SCAN_ROWS]). Row r = (4 * lossless
+    + tx) * 4 + txtype of _scans_i32 starts at words[offs[r]]; position
+    i's word holds its scan index (bits 0-9) and the two neighbours its
+    context reads (bits 10-19, 20-29: those _scans_i32's neighbour table
+    gives at i - 1; 0 at position 0). Rows of equal content share their
+    words (the 32x32 rows are one, the lossless WHT's the 4x4 DCT's), and
+    three words of padding follow the last, which the kernel reads past a
+    row's end and never uses."""
+    global _PACKED
+    if _PACKED is None:
+        sc, nb = _scans_i32()
+        words, offs, seen = [], np.zeros(SCAN_ROWS, np.int32), {}
+        for r in range(SCAN_ROWS):
+            tx = r // 4
+            n = 16 << (2 * tx) if tx < 4 else 16
+            w = sc[r, :n].astype(np.uint32).copy()
+            w[1:] |= (nb[r, :n - 1, 0].astype(np.uint32) << 10) \
+                | (nb[r, :n - 1, 1].astype(np.uint32) << 20)
+            key = w.tobytes()
+            if key not in seen:
+                seen[key] = len(words)
+                words.extend(w.tolist())
+            offs[r] = seen[key]
+        if len(words) + 3 > SCAN_WORDS:
+            raise RuntimeError("the packed scans outgrow kScanWords")
+        _PACKED = (np.asarray(words + [0] * (SCAN_WORDS - len(words)),
+                              np.uint32), offs)
+    return _PACKED
+
+
+# probs8's coefficient tables: [8 (tx * 2 + plane type)][36 (band * 6 +
+# context)][11] for intra blocks, then on inter frames for inter blocks
+_COEF_OFF, _COEF_OFF_INTER, _COEF_ROWS = 1068, 4236, 8 * 36
+
+
+def coef16_rows(p8):
+    """probs8's coefficient probability rows padded to 16 bytes, as the
+    kernel stages them: uint8 [2 (intra, inter block), 288, 16]; an intra
+    frame's inter rows are 0 (none of its blocks reads them)."""
+    out = np.zeros((2, _COEF_ROWS, 16), np.uint8)
+    for k, off in enumerate((_COEF_OFF, _COEF_OFF_INTER)):
+        if off + _COEF_ROWS * 11 <= len(p8):
+            out[k, :, :11] = p8[off:off + _COEF_ROWS * 11].reshape(-1, 11)
+    return out
+
+
 _TABLES = {}
 
 
 def _tables_dev(dev):
-    """The scan, neighbour and band tables on `dev` (int16, int16,
-    uint8), copied there once."""
+    """The packed scan words and their rows' offsets on `dev` (int32
+    tensors of packed_scans' arrays), copied there once."""
     tabs = _TABLES.get(dev)
     if tabs is None:
-        sc, nb = _scans_i32()
-        tabs = (torch.as_tensor(sc.astype(np.int16), device=dev),
-                torch.as_tensor(nb.astype(np.int16), device=dev),
-                torch.as_tensor(_BANDS.astype(np.uint8), device=dev))
+        words, offs = packed_scans()
+        tabs = (torch.as_tensor(words.view(np.int32), device=dev),
+                torch.as_tensor(offs, device=dev))
         _TABLES[dev] = tabs
     return tabs
 
 
-def _launch(inputs, meta, dev):
+def _launch(inputs, meta, dev, sections=None):
     """One launch of csrc/passa.cu on CUDA device `dev`: decode_frame's
     outputs, each lane's rows sized by lane_caps, stats [S, 3] int64
     (bools read, clock64 cycles of the lane's walk and of its MV
     quanta), and on an inter frame the grids, made on `dev` with 0 and
-    -1 before the launch."""
+    -1 before the launch. With `sections` (int64 [S, len(SECTIONS)] on
+    `dev`) the kernel's instance that times its sections fills it."""
     S = meta["S"]
     inter = int(bool(meta.get("inter")))
     caps = lane_caps(inputs, meta)
@@ -1618,8 +1684,9 @@ def _launch(inputs, meta, dev):
                                       1), device=dev)
     p8np = probs8(inputs)
     p8 = torch.as_tensor(p8np, device=dev)
+    coef16 = torch.as_tensor(coef16_rows(p8np), device=dev)
     qmul = torch.as_tensor(np.asarray(inputs["qmul"], np.int32), device=dev)
-    scans, nbs, bands = _tables_dev(dev)
+    scanw, scan_off = _tables_dev(dev)
     i32 = torch.int32
     blocks = torch.empty((S, bcap, 34), dtype=i32, device=dev)
     cpairs = torch.empty((S, ccap, 2), dtype=i32, device=dev)
@@ -1643,15 +1710,15 @@ def _launch(inputs, meta, dev):
         hflags = np.ascontiguousarray(aux["hflags"], np.int32)
     if S:
         _cuda.launch("passa.cu", _SIGNATURES, "passa_walk", packet,
-                     tile_off, tile_len, bounds, caps_d, p8, qmul, scans, nbs,
-                     bands, *prev,
+                     tile_off, tile_len, bounds, caps_d, p8, coef16, qmul,
+                     scanw, scan_off, *prev,
                      hflags.ctypes.data if inter else None, len(p8np), S,
                      meta["rows"], meta["cols"], meta["sb_cols"],
                      meta["sb_rows"], meta["txfmmode"], meta["seg"],
                      meta["lossless"], meta["bpp"], meta["ss_h"],
                      meta["ss_v"], meta["want_counts"], inter, bcap, ccap,
                      ecap, blocks, nblk, cpairs, ncp, epairs, nep, counts,
-                     err, stats, *grids)
+                     err, stats, *grids, sections)
         LAUNCHES["passa"] += 1
     out = (blocks, nblk, cpairs, ncp, epairs, nep, counts, err, stats)
     return out + grids if inter else out
@@ -1675,6 +1742,22 @@ def decode_frame(inputs, meta, device):
     if dev.type == "cpu":
         return decode_frame_plain(inputs, meta, dev)
     return _launch(inputs, meta, dev)
+
+
+def decode_frame_sections(inputs, meta, device):
+    """decode_frame on a CUDA device through the kernel's instance that
+    times its debug sections: (decode_frame's outputs, sections [S,
+    len(SECTIONS)] int64 on the host). Slower than decode_frame by the
+    clock reads; for measurement alone."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the sections are the kernel's: a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sec = torch.zeros((meta["S"], len(SECTIONS)), dtype=torch.int64,
+                      device=dev)
+    out = _launch(inputs, meta, dev, sec)
+    return out, sec.cpu().numpy()
 
 
 def check_err(err):

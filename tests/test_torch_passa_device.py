@@ -9,8 +9,12 @@ frame adapts, the symbol counts. Every comparison is exact. The cases
 are tools/make_passa_vectors_torch.py's (those of the JAX package's
 tests/test_passa_device.py, with its sizes, plus 10 and 12 bits, 4:4:4,
 lossless and an intra-only frame); the committed vectors/passa_* are
-held to them. The kernel, csrc/passa.cu, against this plain version:
-tests/test_torch_passa_decoder.py's `cuda` tests and chip_smoke.py."""
+held to them. The tables the kernel stages (packed_scans' words and
+offsets, coef16_rows' padded probability rows) are held to JAX's scans,
+neighbours, bands and probabilities, and each neighbour to an earlier
+scan position (the kernel never zeroes its energy cache). The kernel,
+csrc/passa.cu, against this plain version: tests/test_torch_passa_decoder.py's
+`cuda` tests and chip_smoke.py."""
 import os
 import re
 import sys
@@ -189,9 +193,81 @@ def test_kernel_constants_match_the_layouts():
                  ("kCoef", PD.COEF), ("kDone", PD.DONE),
                  ("kErrOverflow", PD.ERR_OVERFLOW), ("kErrEnd", PD.ERR_END),
                  ("kErrMarker", PD.ERR_MARKER),
-                 ("kMaxTileB8", PD.MAX_TILE_B8)):
+                 ("kMaxTileB8", PD.MAX_TILE_B8),
+                 ("kScanWords", PD.SCAN_WORDS), ("kScanRows", PD.SCAN_ROWS),
+                 ("kCoefRows", 2 * PD._COEF_ROWS),
+                 ("kPCoef", PD._COEF_OFF)):
         assert const(k) == v, k
+    # the debug sections: the kernel's enum Sec in SECTIONS' order
+    sec = re.search(r"enum Sec \{([^}]*)\}", src).group(1)
+    names = [n.strip() for n in sec.split(",")]
+    assert names[-1] == "kNumSec" and len(names) - 1 == len(PD.SECTIONS)
+    camel = {"part": "Part", "mode": "Mode", "mv_scan": "MvScan",
+             "mv": "Mv", "coef_loop": "CoefLoop", "coef_run": "CoefRun",
+             "coef": "Coef", "run_positions": "RunPos",
+             "emit": "Emit", "sync": "Sync", "bools_part": "BPart",
+             "bools_mode": "BMode",
+             "bools_mv": "BMv", "bools_coef": "BCoef", "mv_scans": "Scans"}
+    assert names[:-1] == ["kSec" + camel[n] for n in PD.SECTIONS]
     tool = _vectors_tool()
     [(_jd, td, fd)] = list(_intra_frames(_packets("passa_seg")))
     ti, _tm = PD.prep_keyframe(td, fd)
     assert len(PD.probs8(ti)) == offs[-1]
+
+
+def test_packed_scans_hold_the_scans_and_neighbours():
+    """packed_scans' words give each scan row of JAX's tables (every
+    transform size and type, lossless WHT included) position by position:
+    the scan index, and the two neighbours that JAX's table lists at the
+    position before (the context of this one); every neighbour is an
+    earlier position of the row, so the kernel's energy cache never needs
+    zeroing; three words follow the last row."""
+    sc, nb = JPD._scans_i32()
+    words, offs = PD.packed_scans()
+    assert words.dtype == np.uint32 and words.shape == (PD.SCAN_WORDS,)
+    assert offs.shape == (PD.SCAN_ROWS,) == (sc.shape[0],)
+    end = 0
+    for r in range(PD.SCAN_ROWS):
+        tx = r // 4
+        n = 16 << (2 * tx) if tx < 4 else 16
+        w = words[offs[r]:offs[r] + n].astype(np.int64)
+        assert np.array_equal(w & 0x3ff, sc[r, :n]), r
+        assert np.array_equal((w[1:] >> 10) & 0x3ff, nb[r, :n - 1, 0]), r
+        assert np.array_equal(w[1:] >> 20, nb[r, :n - 1, 1]), r
+        assert not (w[0] >> 10)
+        order = np.empty(1024, np.int64)
+        order[sc[r, :n]] = np.arange(n)
+        for k in range(2):
+            assert (order[nb[r, :n - 1, k]] < np.arange(1, n)).all(), r
+        end = max(end, int(offs[r]) + n)
+    assert end + 3 <= PD.SCAN_WORDS
+
+
+def test_kernel_bands_match_the_band_tables():
+    """The token loop's band of a position (csrc/passa.cu: kBands, 3 bits
+    a position up to 20, then 5 from band5) is JAX's band table at every
+    position of every transform size."""
+    src = open(os.path.join(ROOT, "ffmpeg_hybrid_tpu_torch", "csrc",
+                            "passa.cu")).read()
+    bands = int(re.search(r"kBands = (0x[0-9a-f]+)ull;", src).group(1), 16)
+    b5 = re.search(r"band5 = tx_p == 0 \? (\d+) : (\d+);", src)
+    for tx in range(4):
+        band5 = int(b5.group(1 if tx == 0 else 2))
+        assert band5 <= 21
+        for i in range(1, (4 << tx) ** 2):
+            band = 5 if i >= band5 else (bands >> (3 * i)) & 7
+            assert band == JPD._BANDS[tx, i], (tx, i)
+
+
+def test_coef16_rows_hold_the_coefficient_probabilities():
+    """coef16_rows pads each (band, context) row of probs8's coefficient
+    probabilities to 16 bytes: on a keyframe JAX's coef11 rows, the rest
+    0, and no inter rows."""
+    [(jd, td, fd)] = list(_intra_frames(_packets("passa_seg")))
+    ji, _jm = JPD.prep_keyframe(jd, fd)
+    ti, _tm = PD.prep_keyframe(td, fd)
+    rows = PD.coef16_rows(PD.probs8(ti))
+    assert rows.shape == (2, PD._COEF_ROWS, 16) and rows.dtype == np.uint8
+    assert np.array_equal(rows[0, :, :11],
+                          np.asarray(ji["coef11"]).reshape(-1, 11))
+    assert not rows[0, :, 11:].any() and not rows[1].any()

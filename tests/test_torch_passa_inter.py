@@ -13,16 +13,27 @@ against the native pass A on bench_1080p frames 1-5 (full-width inter
 frames of a few thousand bools): records, coefficient planes, eob grids
 and the frame's MV and reference grids (cur_mv, cur_ref). Every
 comparison is exact. The clips are tools/make_passa_inter_vectors_torch.py's
-cases; the committed vectors/passa_inter_* are held to them. The kernel,
-csrc/passa.cu, against this plain version: the `cuda` tests of
+cases; the committed vectors/passa_inter_* are held to them. A numpy
+model of the kernel's candidate scan (each of the 32 find_ref_mvs slots
+evaluated on its own, a lane each, then chosen by masks in slot order as
+its ballots choose) is held to the plain walk's serial scan: on every
+scan of the committed inter clips and of bench_1080p frames 1-3, on
+hypothesis-drawn neighbourhoods (sub-8x8 blocks, both references, sign
+biases) and on handcrafted ones through the rare branches of the
+reference's two-stage compare, the last two through the plain walk's own
+closure. The kernel, csrc/passa.cu,
+against this plain version: the `cuda` tests of
 tests/test_torch_passa_decoder.py and chip_smoke.py."""
 import itertools
 import os
 import re
 import sys
+import types
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 from ffmpeg_hybrid_tpu.codecs.vp9.decoder import VP9Decoder as JDec
@@ -334,6 +345,322 @@ def test_kernel_inter_constants_match_the_layouts():
                     ("kMvClassTree", T.MV_CLASS_TREE),
                     ("kMvFpTree", T.MV_FP_TREE)):
         assert table(k) == np.asarray(want).reshape(-1).tolist(), k
+    assert const("kPCoefI") == PD._COEF_OFF_INTER
+    # the padded rows of both kinds of block, as probs8 holds them
+    rows = PD.coef16_rows(PD.probs8(ti))
+    coef = np.asarray(aux["coef11i"]).reshape(8, 2, 36, 11)
+    for k in range(2):
+        assert np.array_equal(rows[k, :, :11], coef[:, k].reshape(-1, 11))
+    assert not rows[:, :, 11:].any()
     flags = re.search(r"enum HFlag \{([^}]*)\}", src).group(1)
     assert [f.strip() for f in flags.split(",")][-1] == "kNumHFlags"
     assert len(flags.split(",")) - 1 == len(aux["hflags"])
+
+
+# ---------------------------------------------------------------------------
+# the kernel's candidate scan (csrc/passa.cu find_ref_mv): a slot a lane,
+# chosen by ballots
+
+
+_FIND_REF_MV = next(c for c in PD._walk_lane.__code__.co_consts
+                    if isinstance(c, types.CodeType)
+                    and c.co_name == "find_ref_mv")
+
+
+def _plain_find_ref_mv(state):
+    """The plain walk's serial scan (the find_ref_mv closure of
+    _walk_lane) over `state`, the values of its free variables."""
+    cells = tuple(types.CellType(state[n])
+                  for n in _FIND_REF_MV.co_freevars)
+    return types.FunctionType(_FIND_REF_MV, PD.__dict__, "find_ref_mv",
+                              None, cells)
+
+
+def _slots(S, refz, z, sbp):
+    """Each of the 32 slots on its own, as the kernel's lane j loads and
+    classifies it: (valid [32] bool, v [32, 2] int64, the sign-bias flip
+    applied). S: the plain walk's state (_plain_find_ref_mv's)."""
+    bs, br, bc, c0 = S["bs"], S["br"], S["bc"], S["c0"]
+    C8, tb, sbias = S["C8"], S["tb"], S["sbias"]
+    gref, gmv = S["gref"], S["gmv"]
+    sbc = min(max(sbp, 0), 3)
+    valid = np.zeros(32, bool)
+    v = np.zeros((32, 2), np.int64)
+    for j in range(32):
+        kind, par = int(PD._SLOT_KIND[j]), int(PD._SLOT_PAR[j])
+        other = -1
+        if kind == 0:
+            valid[j] = sbp >= 1 if par == 0 else sbp == 3
+            v[j] = S["b_mv"][par][z]
+        elif kind <= 2:
+            if sbp >= 0 and (br > 0 if kind == 1 else bc > c0):
+                gi = (br - 1) * C8 + bc if kind == 1 else br * C8 + bc - 1
+                g0, g1 = gref[2 * gi], gref[2 * gi + 1]
+                valid[j] = refz in (g0, g1)
+                ctx = S["a_mv"][2 * bc + (sbc & 1)] if kind == 1 \
+                    else S["l_mv"][2 * S["row7"] + (sbc >> 1)]
+                v[j] = ctx[0 if g0 == refz else 1]
+        else:
+            if kind in (3, 5, 6):
+                if kind == 3 and sbp >= 0 and par < 2:
+                    continue
+                nc = bc + tb.mvref[bs][par][0]
+                nr = br + tb.mvref[bs][par][1]
+                if not (c0 <= nc < S["cols"] and 0 <= nr < S["rows"]):
+                    continue
+                gi = nr * C8 + nc
+                g0, g1 = gref[2 * gi], gref[2 * gi + 1]
+                m = gmv[4 * gi:4 * gi + 4]
+            else:
+                if not S["use_prev"]:
+                    continue
+                pi = br * C8 + bc
+                g0, g1 = tb.prev_ref[pi]
+                m = tb.prev_mv[pi]
+            v0, v1 = (m[0], m[1]), (m[2], m[3])
+            if kind in (3, 4):
+                valid[j] = refz in (g0, g1)
+                v[j] = v0 if g0 == refz else v1
+            elif kind in (5, 7):
+                valid[j] = 0 <= g0 != refz
+                v[j], other = v0, g0
+            else:
+                valid[j] = 0 <= g1 != refz and v0 != v1
+                v[j], other = v1, g1
+        if valid[j] and other >= 0 and sbias[other] != sbias[refz]:
+            v[j] = -v[j]
+    return valid, v
+
+
+def _select(valid, v, lo, hi, idxn, sbp):
+    """The kernel's choice among the slots: masks (its ballots) and the
+    first set lane of each (__ffs), a direct slot (lanes 0-2) unclamped,
+    the others clamped to [lo, hi]."""
+    c = np.clip(v, lo, hi)
+    zero = tuple(int(x) for x in np.clip([0, 0], lo, hi))
+    lanes = np.arange(32)
+
+    def first(m):
+        return int(np.flatnonzero(m)[0]) if m.any() else None
+
+    def out(a):
+        return int(a[0]), int(a[1])
+    if sbp <= 0:
+        f = first(valid)
+        if f is None:
+            return zero
+        if not idxn:
+            return out(c[f])
+        k = first(valid & (lanes > f) & (v != v[f]).any(1))
+        return zero if k is None else out(c[k])
+    if not idxn:
+        f = first(valid)
+        if f is None:
+            return zero
+        return out(v[f] if f < 3 else c[f])
+    direct = valid & (lanes < 3)
+    m = None
+    if direct.any():
+        d1 = first(direct)
+        m = v[d1]
+        k = first(direct & (lanes > d1) & (v != m).any(1))
+        if k is not None:
+            return out(v[k])
+    k1 = first(valid & (lanes >= 3))
+    if k1 is None:
+        return zero
+    if m is None or (c[k1] != m).any():
+        return out(c[k1])
+    k = first(valid & (lanes > k1) & (v != v[k1]).any(1))
+    if k is None:
+        return zero
+    return out(c[k]) if (c[k] != m).any() else (0, 0)
+
+
+def _model_find_ref_mv(S, refz, z, idxn, sbp):
+    bw8, bh8 = S["bwh"][1][S["bs"]]
+    lo = (-(128 + S["bc"] * 64), -(128 + S["br"] * 64))
+    hi = (128 + (S["cols"] - S["bc"] - bw8) * 64,
+          128 + (S["rows"] - S["br"] - bh8) * 64)
+    valid, v = _slots(S, refz, z, sbp)
+    return _select(valid, v, lo, hi, idxn, sbp)
+
+
+def _scans_of(frames, native=True):
+    """Every find_ref_mv call of the plain walk over the inter frames of
+    `frames`: (its state, arguments, return value)."""
+    calls, stack = [], []
+
+    def prof(frame, event, arg):
+        if frame.f_code is not _FIND_REF_MV:
+            return
+        if event == "call":
+            loc = frame.f_locals
+            S = {n: loc[n] for n in _FIND_REF_MV.co_freevars}
+            # the grids and contexts as they stand at the call
+            for n in ("gref", "gmv", "a_mv", "l_mv"):
+                S[n] = list(S[n])
+            S["b_mv"] = [list(q) for q in S["b_mv"]]
+            stack.append((S, tuple(loc[a] for a in ("refz", "z", "idxn",
+                                                    "sbp"))))
+        elif event == "return":
+            S, args = stack.pop()
+            calls.append((S, args, tuple(arg)))
+    dec = VP9Decoder(device="cpu", use_native=native)
+    for fd in frames:
+        if dec.decode_pass_a(fd).ready is not None:
+            continue
+        if dec.header.keyframe or dec.header.intraonly:
+            continue
+        inputs, meta = PD.prep_inter(dec, fd)
+        sys.setprofile(prof)
+        try:
+            PD.decode_frame(inputs, meta, "cpu")
+        finally:
+            sys.setprofile(None)
+    return calls
+
+
+@pytest.mark.parametrize("name", _tool().NAMES + ("bench_1080p",))
+def test_slot_parallel_scan_matches_the_plain_scan(name):
+    """The model of the kernel's slot-parallel candidate scan returns
+    what the plain walk's serial scan returned, on every scan of the
+    clip's inter frames (bench_1080p: frames 1-3); sub-8x8 sub-blocks,
+    NEARMV and both references of compound blocks among them."""
+    frames = _bench_frames(4) if name == "bench_1080p" else _packets(name)
+    calls = _scans_of(frames)
+    assert calls
+    for S, (refz, z, idxn, sbp), want in calls:
+        assert _model_find_ref_mv(S, refz, z, idxn, sbp) == want, \
+            (S["br"], S["bc"], S["bs"], refz, z, idxn, sbp)
+    if name == "passa_inter_modes":
+        kinds = {(args[2], args[3] > 0, args[1]) for _S, args, _w in calls}
+        assert {(True, True, 0), (False, True, 0), (True, False, 0),
+                (False, False, 1)} <= kinds
+
+
+class _Tb:
+    """The tables the plain scan reads from its _Tables."""
+
+    def __init__(self, mvref, prev_ref, prev_mv):
+        self.mvref, self.prev_ref, self.prev_mv = mvref, prev_ref, prev_mv
+
+
+# mv components drawn for the neighbourhoods: few values, so candidates
+# repeat, some past any clamp
+_MVS = np.asarray([0, 1, -1, 2, 6, -6, 130, -200, 700, -900])
+
+
+@st.composite
+def _neighbourhoods(draw):
+    """A block in a small frame, its position, size, mode, reference and
+    the frame's sign biases drawn; every grid cell, mv context, earlier
+    sub-block mv and previous-frame cell from a drawn seed, each from few
+    values (so that candidates repeat and clamp)."""
+    rows, cols = draw(st.integers(1, 12)), draw(st.integers(1, 12))
+    C8 = 16
+    bs = draw(st.integers(0, 12))
+    br, bc = draw(st.integers(0, rows - 1)), draw(st.integers(0, cols - 1))
+    c0 = draw(st.integers(0, bc))
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    ncell = C8 * 16
+
+    def mvs(*shape):
+        return _MVS[rng.integers(0, len(_MVS), shape)].tolist()
+
+    def refs(*shape):
+        return rng.integers(-1, 3, shape).tolist()
+
+    def ctx(n):
+        return [tuple(tuple(p) for p in q) for q in mvs(n, 2, 2)]
+    S = dict(C8=C8, a_mv=ctx(2 * (cols + 16)), b_mv=[list(q) for q in ctx(4)],
+             bc=bc, br=br, bs=bs, bwh=PD._BWH.tolist(), c0=c0, cols=cols,
+             gmv=mvs(4 * ncell), gref=refs(2 * ncell), l_mv=ctx(16),
+             row7=br & 7, rows=rows,
+             sbias=tuple(draw(st.lists(st.integers(0, 1), min_size=3,
+                                       max_size=3))),
+             tb=_Tb(PD._MVREF.tolist(), refs(ncell, 2), mvs(ncell, 4)),
+             use_prev=draw(st.booleans()))
+    # a sub-block past the first only where the block has one: 4x8 (11)
+    # has sub-block 1, 8x4 (10) sub-block 2, 4x4 (12) all four
+    sbp = draw(st.sampled_from({10: [-1, 0, 2], 11: [-1, 0, 1],
+                                12: [-1, 0, 1, 2, 3]}.get(bs, [-1])))
+    return (S, draw(st.integers(0, 2)), draw(st.integers(0, 1)),
+            draw(st.booleans()), sbp)
+
+
+@settings(max_examples=400, deadline=None)
+@given(_neighbourhoods())
+def test_slot_parallel_scan_matches_the_plain_scan_drawn(case):
+    """The model of the kernel's scan against the plain walk's own scan
+    (its closure, called on the drawn state) on drawn neighbourhoods."""
+    S, refz, z, idxn, sbp = case
+    want = _plain_find_ref_mv(S)(refz, z, idxn, sbp)
+    assert _model_find_ref_mv(S, refz, z, idxn, sbp) == tuple(want)
+
+
+def _empty_state(**kw):
+    """A 12x12-cell frame with no candidate anywhere (every grid cell's
+    references -1, no previous frame), a 4x4 block (bs 12) at cell (2, 2)
+    of tile 0; `kw` overrides any of the scan's free variables."""
+    ncell = 16 * 16
+    zero = ((0, 0), (0, 0))
+    S = dict(C8=16, a_mv=[zero] * 64, b_mv=[[(0, 0), (0, 0)]] * 4, bc=2,
+             br=2, bs=12, bwh=PD._BWH.tolist(), c0=0, cols=12,
+             gmv=[0] * (4 * ncell), gref=[-1] * (2 * ncell), l_mv=[zero] * 16,
+             row7=2, rows=12, sbias=(0, 0, 0),
+             tb=_Tb(PD._MVREF.tolist(), [[-1, -1]] * ncell,
+                    [[0] * 4] * ncell),
+             use_prev=False)
+    S.update(kw)
+    return S
+
+
+def _with_ctx(S, above, left):
+    """S with the block's above and left cells on reference 0 and the mv
+    contexts of sub-block 3 (column 5, row 5) set to `above` and `left`."""
+    gref = list(S["gref"])
+    for r, c in ((S["br"] - 1, S["bc"]), (S["br"], S["bc"] - 1)):
+        gref[2 * (r * S["C8"] + c)] = 0
+    a_mv, l_mv = list(S["a_mv"]), list(S["l_mv"])
+    a_mv[5] = (above, (0, 0))
+    l_mv[5] = (left, (0, 0))
+    return dict(S, gref=gref, a_mv=a_mv, l_mv=l_mv)
+
+
+# the edge of the block's clamp: maxx for a 4x4 block at column 2 of 12
+_EDGE = 128 + (12 - 2 - 1) * 64
+
+
+@pytest.mark.parametrize("case", ["zero_return", "second_direct",
+                                  "clamped_after_direct", "m8_differs"])
+def test_slot_parallel_scan_rare_branches(case):
+    """NEARMV on sub-block 3 of a 4x4 block (every direct slot valid)
+    through the rare branches of the reference's two-stage compare
+    (vp9mvs.c:95-124): the model of the kernel's ballots returns what the
+    plain walk's closure returns, and each case reaches its branch."""
+    m = (_EDGE, 0)
+    b_mv_same = [[m, (0, 0)]] * 4
+    if case == "zero_return":
+        # the first clamped candidate equals the direct ones (m8 = m), a
+        # later one differs from m8 but clamps to m: (0, 0)
+        S = _with_ctx(_empty_state(b_mv=b_mv_same), m, (_EDGE + 300, 0))
+        want = (0, 0)
+    elif case == "second_direct":
+        # the second direct candidate differs from the first: unclamped
+        b_mv = [[(8, 8), (0, 0)], [(_EDGE + 64, 0), (0, 0)], [m, (0, 0)],
+                [m, (0, 0)]]
+        S = _with_ctx(_empty_state(b_mv=b_mv), m, m)
+        want = (_EDGE + 64, 0)
+    elif case == "clamped_after_direct":
+        # no direct differs; the first clamped candidate does: clamped
+        S = _with_ctx(_empty_state(b_mv=b_mv_same), (-4, 6), m)
+        want = (-4, 6)
+    else:
+        # m8 from the first clamped candidate (equal to m), the next
+        # differs from m8 and from m once clamped: that one
+        S = _with_ctx(_empty_state(b_mv=b_mv_same), m, (16, -2))
+        want = (16, -2)
+    got = _plain_find_ref_mv(S)(0, 0, True, 3)
+    assert tuple(got) == want
+    assert _model_find_ref_mv(S, 0, 0, True, 3) == want
