@@ -148,9 +148,10 @@ Phases, one status line each; any failure exits non-zero:
                4:4:4) the same way, MC once per inter frame, the loop
                filter once per filtered frame (3 of 4). In every clip's
                conformance pass each frame's three visible planes also
-               go through plane_digest (csrc/digest.cu, utils/digest.py:
-               two mod-2^32 weighted sums a plane, a launch a plane,
-               flushed in one copy), held to its plain version on the
+               go through the digest (csrc/digest.cu, utils/digest.py:
+               two mod-2^32 weighted sums a plane, a frame's three
+               planes in one launch of frame_digest, flushed in one
+               copy), held to its plain version on the
                card and to plane_digest_host on the frame's bytes; its
                time on the three planes of fmt_inter_444_12_1080p's last
                frame beside its bound and the plain version's
@@ -225,8 +226,10 @@ Phases, one status line each; any failure exits non-zero:
                bench_4k frame 0's own replay inputs against
                lf_scan_sharded_plain, and with one stripe on the serial
                schedule against lf_scan_plain, its time on the card's
-               clock (and the steps' chain alone), its bound terms and
-               ptxas's registers and spills
+               clock beside csrc/lpf.cu's on the same frame, the host
+               time to build its superblock tickets, the chain alone (the
+               same tickets with every record a no-op), its bound terms
+               and ptxas's registers, stack and spills
   7b. gop_pipeline
                the chained-GOP stripe pipeline (parallel/gop_pipeline.py)
                on vectors/chained_1080p.ivf (tools/
@@ -241,7 +244,7 @@ Phases, one status line each; any failure exits non-zero:
                schedule gives, no kernel off the path; the run alone under
                CUDA events after a warm-up beside the serial
                decode_pass_b of the same frames, the replay's steps a
-               band and one band's time; the dry runs
+               band and one band's time (us a record); the dry runs
                (parallel/dryrun.py: dryrun_multichip(8),
                dryrun_gop_pipeline(4)); decode_chained_gop on
                vectors/dryrun_chained.ivf on the card equal to the CPU's
@@ -260,7 +263,8 @@ Phases, one status line each; any failure exits non-zero:
                rank's ms a frame (CUDA events), replay ms, swap ms and
                bytes, gather ms, segments and launches a frame; each
                rank's segments of bench_1080p_lf and bench_4k frame 0
-               alone in this process beside one launch of its stripes;
+               alone in this process (rank 0's of bench_1080p_lf held to
+               the plain version) beside one launch of its stripes;
                whether gloo's send and receive take CUDA tensors (two
                spawned processes, not gated); "nccl" on the shared card
                raising before any rank starts
@@ -3332,7 +3336,7 @@ def main_path_run():
         (lpf_replay, ("lf_scan_plain", "lf_scan_sharded_plain",
                       "apply_step_plain")),
         (passa_device, ("decode_frame_plain",)),
-        (digest, ("plane_digest_plain",)))
+        (digest, ("plane_digest_plain", "frame_digest_plain")))
         for fn in fns]
     saved = [getattr(mod, fn) for mod, fn in plains]
 
@@ -3351,26 +3355,42 @@ def main_path_run():
 def digest_entry(torch, np, digests):
     """The kernels-line entry of the plane digest (csrc/digest.cu): the
     launches and the largest |kernel - plain| of the decode phase's
-    digest steps (digest_check); its time on the card's clock on the
-    three visible planes of the last frame of DIGEST_TIMED, a launch a
-    plane (device_ms: the kernel and its memset of the two words), the
-    plain version's on the card and the bound: the cropped planes read
-    once (4 B a pixel) and the words written, or DIGEST_PIXEL_OPS a pixel
-    at the int32 rate. No single PyTorch call computes the mod-2^32
-    weighted sums: library_ms is null."""
+    digest steps (digest_check: a frame's three planes in one launch of
+    frame_digest); its time on the card's clock on the three visible
+    planes of the last frame of DIGEST_TIMED (device_ms), in one launch
+    (the main path's) and in three of plane_digest, each device op
+    counted (a memset would be one more), and under CUDA events (launch
+    gaps included); the plain version's on the card and the bound: the
+    cropped planes read once (4 B a pixel) and the words written, or
+    DIGEST_PIXEL_OPS a pixel at the int32 rate. No single PyTorch call
+    computes the mod-2^32 weighted sums: library_ms is null."""
     from ffmpeg_hybrid_tpu_torch.utils import digest as DG
     planes = digests[DIGEST_TIMED][3]
+    crops = [tuple(c.shape) for c in planes]
 
-    def kernel():
+    def frame():
+        DG.frame_digest_dev_async(planes, crops)
+
+    def per_plane():
         for c in planes:
             DG.plane_digest_dev_async(c, *c.shape)
 
     def plain():
-        for c in planes:
-            DG.plane_digest_plain(c, *c.shape)
-    ms, dev_ops = device_ms(torch, kernel, 50,
-                            ("plane_digest_kernel", "Memset"), per_call=3,
-                            kernel="plane_digest_kernel")
+        DG.frame_digest_plain(planes, crops)
+    ms, dev_ops = device_ms(torch, frame, 50, ("digest_kernel", "Memset"),
+                            kernel="digest_kernel")
+    ms3, ops3 = device_ms(torch, per_plane, 50, ("digest_kernel", "Memset"),
+                          per_call=3, kernel="digest_kernel")
+    if round(dev_ops) != 1 or round(ops3) != 3:
+        raise RuntimeError(f"plane_digest: {dev_ops:g} device ops a frame "
+                           f"launch, {ops3:g} for three plane launches "
+                           "(one each and no memset expected)")
+    ev_ms, ev3_ms = cuda_ms(frame, 50), cuda_ms(per_plane, 50)
+    got = DG.frame_digest_dev_async(planes, crops)
+    if not torch.equal(got, torch.stack([DG.plane_digest_dev_async(
+            c, *c.shape) for c in planes])):
+        raise RuntimeError("plane_digest: the frame and the plane entries "
+                           "differ")
     plain_ms = cuda_ms(plain, 10)
     pixels = sum(c.numel() for c in planes)
     nbytes = 4 * pixels + 8 * len(planes)
@@ -3378,18 +3398,28 @@ def digest_entry(torch, np, digests):
     launches = sum(v[1] for v in digests.values())
     err = max(v[2] for v in digests.values())
     say("kernels", f"plane_digest on the three visible planes of "
-        f"{DIGEST_TIMED}'s last frame ({[tuple(c.shape) for c in planes]}, "
-        f"int32): ms={ms:.5f} on the card's clock in {dev_ops:g} device ops "
-        f"(three launches and their memsets), plain_ms={plain_ms:.4f} (torch "
-        f"int64 on the card), bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} "
-        f"B); on every frame of the {len(digests)} decode-phase clips "
+        f"{DIGEST_TIMED}'s last frame ({crops}, int32): one launch "
+        f"(frame_digest) ms={ms:.5f} on the card's clock in {dev_ops:g} "
+        f"device op, {ev_ms:.5f} under CUDA events; a launch a plane "
+        f"(plane_digest) {ms3:.5f} in {ops3:g} ops, {ev3_ms:.5f} under CUDA "
+        f"events; no memset; plain_ms={plain_ms:.4f} (torch int64 on the "
+        f"card), bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B; "
+        f"{bound_ms / ms:.2f} of it reached); on every frame of the "
+        f"{len(digests)} decode-phase clips "
         f"({sum(v[0] for v in digests.values())} planes, {launches} "
-        f"launches): kernel = plain = plane_digest_host; on {card_line()}")
+        f"launches, a frame each): kernel = plain = plane_digest_host; on "
+        f"{card_line()}")
+    say("kernels", "plane_digest ptxas: "
+        + "; ".join(f"{n}: {p}" for n, p in ptxas_entries(DIGEST_SRC,
+                                                            "digest")))
     return {"name": "plane_digest", "route": "cuda", "source": DIGEST_SRC,
             "replaces": DIGEST_REPLACES, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "per": f"the three planes of {DIGEST_TIMED}'s last frame",
+            "per": f"the three planes of {DIGEST_TIMED}'s last frame, one "
+                   "launch",
+            "ms_a_launch_a_plane": ms3, "events_ms": ev_ms,
+            "events_ms_a_launch_a_plane": ev3_ms,
             "bytes_needed": nbytes, "ops": DIGEST_PIXEL_OPS * pixels,
             "device_ops_per_call": dev_ops}
 
@@ -3461,14 +3491,15 @@ def decode_phase(torch, np, name, frames, want, windows, digests):
             if got != want[n]:
                 raise RuntimeError(f"{name} frame {n}: md5 {got} != "
                                    f"{want[n]}")
-            for plane, host, (ph, pw) in zip(f.dev,
-                                             *visible_planes(np, raw, f)):
-                taken.append((DG.plane_digest_dev_async(plane, ph, pw),
-                              plane[:ph, :pw].clone(),
+            hosts, crops = visible_planes(np, raw, f)
+            pairs = DG.frame_digest_dev_async(list(f.dev), crops)
+            for k, (plane, host, (ph, pw)) in enumerate(zip(f.dev, hosts,
+                                                            crops)):
+                taken.append((pairs[k], plane[:ph, :pw].clone(),
                               DG.plane_digest_host(host, ph, pw)))
             n += 1
         digest_launches = DG.LAUNCHES["digest"]
-    if digest_launches != 3 * n:
+    if digest_launches != n:
         raise RuntimeError(f"{name}: the digest kernel launched "
                            f"{digest_launches} times for {n} frames")
     err = digest_check(np, name, taken)
@@ -3482,8 +3513,9 @@ def decode_phase(torch, np, name, frames, want, windows, digests):
     say("decode", f"{name}: {n} frames bit-exact vs framemd5 in "
         f"{time.perf_counter() - t0:.1f} s (first pass, incl. warm-up); "
         f"kernel launches on this path: {launches}; plane digests of the "
-        f"{3 * n} visible planes: the kernel ({digest_launches} launches) "
-        "equal to its plain version and to plane_digest_host")
+        f"{3 * n} visible planes: the kernel ({digest_launches} launches, "
+        "a frame's three planes in one) equal to its plain version and to "
+        "plane_digest_host")
     # timed pipelined passes (frames stay on the device): the host clock
     # spreads on a host-bound path, so report the median of WINDOWS; the
     # unsynchronised stage timers give each pass's host pass A and pass B
@@ -4193,24 +4225,30 @@ def serial_steps(np, tsteps, x0, halo):
     return out
 
 
-def lf_replay_checks(torch, np, captured):
+def lf_replay_checks(torch, np, captured, lf_dense):
     """The replay kernel (csrc/lpf_replay.cu) on the sharded runs' own
     inputs, as sharded_decode_pass_b hands them over (captured: {clip:
-    [(buffers, steps, wreal, bpp) for Y, U+V]}): the sharded launch
+    [(buffers, steps, wreal, bpp, sb) for Y, U+V]}): the sharded launch
     against lf_scan_sharded_plain; the stripes joined and the serial
     schedule through the one-stripe launch (lf_scan) against
     lf_scan_plain and against the sharded result; each launch's time
-    under CUDA events, and the chain alone (the same steps with every
-    record a no-op: its barriers and record loads); the bound terms.
-    Returns the kernels-line entry."""
+    under CUDA events on tickets built beforehand, the host time to build
+    them (lpf_replay.Replay), and the chain alone (the same tickets with
+    every record a no-op: their waits, windows, levels and write-backs);
+    the bound terms; on bench_1080p_lf beside csrc/lpf.cu's time on the
+    same frame (lf_dense: lpf_phase's entry). Returns the kernels-line
+    entry."""
     from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
     err, rows = 0, {}
     for clip, sets in captured.items():
-        for which, (buf, steps, wreal, bpp) in zip(("Y", "U+V"), sets):
+        for which, (buf, steps, wreal, bpp, sb) in zip(("Y", "U+V"), sets):
             T, B, H, Wb = buf.shape
             want, plain_ms = host_ms(torch, lambda: LR.lf_scan_sharded_plain(
                 buf, steps, wreal, bpp))
-            got = LR.lf_scan_sharded(buf.clone(), steps, wreal, bpp)
+            t0 = time.perf_counter()
+            rp = LR.Replay(steps, buf.shape, sb, wreal, LR.HALO, T > 1)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            got = LR.lf_scan_sharded(buf.clone(), rp, wreal, bpp, sb)
             e = int((got - want).abs().max())
             x0 = np.concatenate([[0], np.cumsum(wreal)[:-1]])
             joined = torch.cat([buf[t, :, :, LR.HALO:LR.HALO + w]
@@ -4218,7 +4256,10 @@ def lf_replay_checks(torch, np, captured):
             ssteps = serial_steps(np, steps, x0, LR.HALO)
             swant, splain_ms = host_ms(torch, lambda: LR.lf_scan_plain(
                 joined, ssteps, bpp))
-            sgot = LR.lf_scan(joined, ssteps, bpp)
+            t0 = time.perf_counter()
+            srp = LR.Replay(ssteps[None], (1,) + tuple(joined.shape), sb)
+            sbuild_ms = (time.perf_counter() - t0) * 1e3
+            sgot = LR.lf_scan(joined, srp, bpp, sb)
             sharded_joined = torch.cat([got[t, :, :, LR.HALO:LR.HALO + w]
                                         for t, w in enumerate(wreal)], dim=2)
             e = max(e, int((sgot - swant).abs().max()),
@@ -4228,25 +4269,20 @@ def lf_replay_checks(torch, np, captured):
                                    f"plain (max |diff| {e})")
             err = max(err, e)
             # CUDA events (the card's timestamps) around launches whose
-            # steps are on the card already (the run's upload is host work;
-            # the profiler kept no record of some of these long launches),
-            # less the copies that restore their inputs
-            run = LR.steps_run(steps)
-            sdev = torch.as_tensor(steps[:, :max(run, 1)], device=DEVICE)
-            srun = LR.steps_run(ssteps[None])
-            ssdev = torch.as_tensor(ssteps[:max(srun, 1)], device=DEVICE)
+            # tickets are on the card already (building them is host
+            # work, timed apart), less the copies that restore their inputs
             work = buf.clone()
             copy_ms = cuda_ms(lambda: work.copy_(buf), 10)
             ms = cuda_ms(lambda: (work.copy_(buf), LR.lf_scan_sharded(
-                work, sdev, wreal, bpp)), 10) - copy_ms
+                work, rp, wreal, bpp, sb)), 10) - copy_ms
             clone_ms = cuda_ms(lambda: joined.clone(), 10)
-            sms = cuda_ms(lambda: LR.lf_scan(joined, ssdev, bpp), 10) \
+            sms = cuda_ms(lambda: LR.lf_scan(joined, srp, bpp, sb), 10) \
                 - clone_ms
-            idle = sdev.clone()
-            idle[..., 3] = 0
+            idle = rp.idle()
             chain_ms = cuda_ms(lambda: LR.lf_scan_sharded(
-                work, idle, wreal, bpp), 10)
+                work, idle, wreal, bpp, sb), 10)
             nrec = int((steps[..., 3] > 0).sum())
+            run = LR.steps_run(steps)
             # the frame's columns of the plane set read and written once
             # (not the halos or the padding of the stripe buffers), each
             # record read once; the edge decision of every lane of every
@@ -4255,27 +4291,41 @@ def lf_replay_checks(torch, np, captured):
             nbytes = 2 * B * H * int(sum(wreal)) * 4 + nrec * 7 * 4
             halo_bytes = 2 * (T - 1) * B * H * LR.HALO * 4
             nops = nrec * 8 * B * LF_DECISION_OPS
+            waves = 2 * (H // sb[1] - 1) + int(sum(wreal)) // sb[0]
             bound_ms, bound_by, chain_bound = bounds(nbytes, nops, run)
             rows[(clip, which)] = dict(
                 ms=ms, serial_ms=sms, chain_ms=chain_ms, plain_ms=plain_ms,
                 serial_plain_ms=splain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, steps=run, records=nrec,
-                stripes=T, shape=(B, H, Wb), bytes=nbytes,
-                halo_bytes=halo_bytes, ops=nops,
-                us_per_step=ms * 1e3 / max(run, 1),
+                tickets=rp.ntickets, waves=waves, build_ms=build_ms,
+                serial_build_ms=sbuild_ms, stripes=T, shape=(B, H, Wb),
+                bytes=nbytes, halo_bytes=halo_bytes, ops=nops,
+                us_per_wave=ms * 1e3 / max(waves, 1),
+                us_per_record=ms * 1e3 / max(nrec, 1),
                 chain_bound_ms=chain_bound)
             say("kernels", f"lf_replay on {clip} frame 0 {which} ({T} stripes"
-                f" of {B} x {H} x {Wb}; {nrec} records in {run} steps): "
-                f"sharded ms={ms:.4f} ({ms * 1e3 / max(run, 1):.3f} us a "
-                f"step), the same steps as no-ops {chain_ms:.4f} ms, one "
-                f"stripe (the serial schedule) {sms:.4f} ms; plain "
-                f"{plain_ms:.1f} ms sharded, {splain_ms:.1f} ms serial; "
-                f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {nops} "
-                f"ops; the halo copy {halo_bytes} B more); exact vs both "
-                "plain versions and sharded == serial")
-    say("kernels", "lf_replay ptxas: "
-        + ptxas_of(LF_REPLAY_SRC, "lf_replay"))
+                f" of {B} x {H} x {Wb}, superblocks {sb[0]}x{sb[1]}; {nrec} "
+                f"records of {run} steps in {rp.ntickets} tickets, {waves} "
+                f"waves): sharded ms={ms:.4f} ({ms * 1e3 / max(waves, 1):.3f}"
+                f" us a wave), the same tickets as no-ops (the chain alone) "
+                f"{chain_ms:.4f} ms, one stripe (the serial schedule) "
+                f"{sms:.4f} ms; host build of the tickets {build_ms:.2f} ms "
+                f"sharded, {sbuild_ms:.2f} ms serial; plain {plain_ms:.1f} ms"
+                f" sharded, {splain_ms:.1f} ms serial; bound_ms="
+                f"{bound_ms:.6f} ({bound_by}, {nbytes} B, {nops} ops; the "
+                f"halo copy {halo_bytes} B more); exact vs both plain "
+                "versions and sharded == serial")
+    for name, props in ptxas_entries(LF_REPLAY_SRC, "lf_replay"):
+        say("kernels", f"lf_replay ptxas ({name}): {props}")
     lf = [rows[("bench_1080p_lf", w)] for w in ("Y", "U+V")]
+    say("kernels", f"lf_replay beside lf_dense (csrc/lpf.cu) on "
+        f"bench_1080p_lf frame 0: the replay's Y + U+V {lf[0]['ms']:.4f} + "
+        f"{lf[1]['ms']:.4f} = {lf[0]['ms'] + lf[1]['ms']:.4f} ms sharded "
+        f"({lf[0]['serial_ms'] + lf[1]['serial_ms']:.4f} ms serial, chain "
+        f"alone {lf[0]['chain_ms'] + lf[1]['chain_ms']:.4f}); lf_dense "
+        f"{lf_dense['ms']:.4f} ms both sets in one launch (Y alone "
+        f"{lf_dense['ms_y_alone']:.4f}, U+V alone "
+        f"{lf_dense['ms_uv_alone']:.4f}); on {card_line()}")
     return {"name": "lf_replay", "route": "cuda", "source": LF_REPLAY_SRC,
             "replaces": LF_REPLAY_REPLACES, "launches": None,
             "max_abs_err": err, "ms": sum(r["ms"] for r in lf),
@@ -4285,6 +4335,7 @@ def lf_replay_checks(torch, np, captured):
             "per": f"frame (a Y and a U+V launch, {lf[0]['stripes']} "
                    "stripes) of bench_1080p_lf frame 0",
             "chain_ms": sum(r["chain_ms"] for r in lf),
+            "lf_dense_ms": lf_dense["ms"],
             "by_input": {f"{c} {w}": r for (c, w), r in rows.items()}}
 
 
@@ -4337,23 +4388,26 @@ def sharded_run(torch, label, frames, want, mesh_shape, step=1, only=None):
     return nshard, nlf, ms
 
 
-def sharded_phase(torch, np, clips):
+def sharded_phase(torch, np, clips, lf_dense):
     """The tile-sharded pass B on the card (phase 7 of the docstring):
     sharded_decode_pass_b on each SHARDED_RUNS input, every frame
     bit-exact, on the main path (launches counted from zero, the plain
     versions set to raise; the replay kernel twice a filtered sharded
     frame); then lf_replay_checks on the replay inputs of bench_1080p_lf
-    and bench_4k frame 0. Returns the kernels-line entry of lf_replay."""
+    and bench_4k frame 0 (lf_dense: lpf_phase's entry, csrc/lpf.cu's time
+    on bench_1080p_lf frame 0). Returns the kernels-line entry of
+    lf_replay and the captured inputs."""
     from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
     captured = {}
     real = LR.lf_scan_sharded
 
     def capture_first(clip):
-        def wrapped(pl, steps, wreal, bpp):
+        def wrapped(pl, steps, wreal, bpp, sb):
             sets = captured.setdefault(clip, [])
             if len(sets) < 2:
-                sets.append((pl.clone(), np.array(steps), list(wreal), bpp))
-            return real(pl, steps, wreal, bpp)
+                sets.append((pl.clone(), np.array(steps), list(wreal), bpp,
+                             tuple(sb)))
+            return real(pl, steps, wreal, bpp, sb)
         return wrapped
 
     t0 = time.perf_counter()
@@ -4388,7 +4442,7 @@ def sharded_phase(torch, np, clips):
     say("sharded", "sharded_decode_pass_b: " + "; ".join(lines)
         + f"; kernel launches {launches} (lf_replay twice a filtered sharded "
         f"frame, {nlf_total} frames); {time.perf_counter() - t0:.1f} s")
-    entry = lf_replay_checks(torch, np, captured)
+    entry = lf_replay_checks(torch, np, captured, lf_dense)
     entry["launches"] = launches["lf_replay"]
     return entry, captured
 
@@ -4397,7 +4451,7 @@ def band_stats(np, frames, which):
     """The replay steps and records of the pipeline's bands of one plane
     set (prepare_frame's `ysteps` or `uvsteps` of every frame): (steps a
     band, records a band) as numpy arrays over the bands with a record."""
-    bands = [s for fr in frames for s in fr[which] if s is not None]
+    bands = [s.steps[0] for fr in frames for s in fr[which] if s is not None]
     steps = np.asarray([s.shape[0] for s in bands])
     recs = np.asarray([int((s[..., 3] > 0).sum()) for s in bands])
     return steps, recs
@@ -4518,16 +4572,18 @@ def gop_pipeline_phase(torch, np, by_name):
     # one band of each plane set alone: frame 0's band with the median
     # steps, its launch under CUDA events on its rows of the output
     band, bpp = {}, jobs[0].header.bpp
-    for which, Hp, planes in (("ysteps", PIPE_HS, (oy,)),
-                              ("uvsteps", PIPE_HS >> 1, (ou, ov))):
-        live = [(s.shape[0], j, s) for j, s in enumerate(frames[0][which])
-                if s is not None]
+    for which, Hp, planes, sb in (("ysteps", PIPE_HS, (oy,), (64, 64)),
+                                  ("uvsteps", PIPE_HS >> 1, (ou, ov),
+                                   (32, 32))):
+        live = [(s.steps.shape[1], j, s) for j, s in
+                enumerate(frames[0][which]) if s is not None]
         n, j, s = sorted(live, key=lambda t: t[0])[len(live) // 2]
         y0, y1 = max(j * Hp - 8, 0), (j + 1) * Hp
         pl = torch.stack([p[0][y0:y1] for p in planes])
-        ms = cuda_ms(lambda: LR.lf_scan(pl, s, bpp), 10) \
+        ms = cuda_ms(lambda: LR.lf_scan(pl, s, bpp, sb), 10) \
             - cuda_ms(lambda: pl.clone(), 10)
-        band[which] = (n, j, ms, ms * 1e3 / n)
+        band[which] = (n, j, ms, ms * 1e3 / n, s.nrecords,
+                       ms * 1e3 / max(s.nrecords, 1))
     say("gop_pipeline", f"decode_chained_gop on {CHAINED_CLIP} ({w}x{h}, "
         f"{PIPE_G} chained inter frames on a [{PIPE_G}, 1] mesh of "
         f"{mesh.row_device(0)}, {S_f} stripes of {PIPE_HS} rows, lag "
@@ -4548,9 +4604,10 @@ def gop_pipeline_phase(torch, np, by_name):
         f"records {spread(np, yrecs)}), U+V {spread(np, uvsteps)} "
         f"({int(uvsteps.sum())} in {len(uvsteps)}, records "
         f"{spread(np, uvrecs)}); frame 0's median band alone: " + ", ".join(
-            f"{label} stripe {j} {n} steps {ms:.4f} ms ({us:.3f} us a step)"
-            for label, (n, j, ms, us) in (("Y", band["ysteps"]),
-                                          ("U+V", band["uvsteps"]))))
+            f"{label} stripe {j} {n} steps, {nr} records {ms:.4f} ms ({us:.3f}"
+            f" us a step, {ur:.3f} us a record)"
+            for label, (n, j, ms, us, nr, ur) in (("Y", band["ysteps"]),
+                                                  ("U+V", band["uvsteps"]))))
 
     with main_path_run():
         dryrun.dryrun_multichip(DRYRUN_SLOTS)
@@ -4588,17 +4645,20 @@ def mesh_rank_setup(_rank):
     main_path_run().__enter__()
 
 
-def segments_alone(torch, np, captured, split):
+def segments_alone(torch, np, captured, split, check):
     """Each rank's replay segments (lf_scan_sharded_dist) on a clip's
-    frame-0 replay inputs (captured: [(buffers, steps, wreal, bpp)] for
-    Y and U+V, as sharded_decode_pass_b hands them over) in this process
-    alone, the swaps bringing back what was sent (so the merges keep the
-    rank's own columns and no other process shares the card): the
-    launches' device ms (CUDA events around each), the span of the
-    scan under CUDA events with its host wall ms, beside one launch of
-    the rank's stripes over the same steps (lf_scan_sharded). Returns
-    {rank: (launches, their device ms, span ms, host ms, one launch
-    ms)} summed over Y and U+V."""
+    frame-0 replay inputs (captured: [(buffers, steps, wreal, bpp, sb)]
+    for Y and U+V, as sharded_decode_pass_b hands them over) in this
+    process alone, the swaps bringing back what was sent (so the merges
+    keep the rank's own columns and no other process shares the card):
+    with check, rank 0's result held to lf_scan_sharded_dist_plain's with
+    the same swaps (max |diff| 0; the plain version is a Python loop of
+    many seconds a rank), the launches' device ms (CUDA events around each), the
+    span of the scan under CUDA events with its host wall ms (the
+    segments' tickets built in it), beside one launch of the rank's
+    stripes over the same steps (lf_scan_sharded, its tickets built
+    beforehand). Returns {rank: (launches, their device ms, span ms,
+    host ms, one launch ms)} summed over Y and U+V."""
     from ffmpeg_hybrid_tpu_torch.ops import lpf_replay as LR
     from ffmpeg_hybrid_tpu_torch.parallel import dist as D
 
@@ -4611,7 +4671,7 @@ def segments_alone(torch, np, captured, split):
     out = {}
     for rank in (0, 1):
         tot = np.zeros(5)
-        for buf, steps, wreal, bpp in captured:
+        for buf, steps, wreal, bpp, sb in captured:
             lo, hi, _cuts, _segs = LR.segment_plan(steps, wreal, ranks, rank)
             local = buf[lo:hi].clone()
             work = local.clone()
@@ -4623,14 +4683,22 @@ def segments_alone(torch, np, captured, split):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            LR.lf_scan_sharded_dist(work, steps, wreal, bpp, ranks, ex)
+            LR.lf_scan_sharded_dist(work, steps, wreal, bpp, ranks, ex, sb)
             end.record()
             end.synchronize()
             host = (time.perf_counter() - t0) * 1e3
-            sdev = torch.as_tensor(steps[lo:hi, :max(LR.steps_run(steps), 1)],
-                                   device=DEVICE)
+            if check and rank == 0:
+                want = LR.lf_scan_sharded_dist_plain(
+                    local.cpu(), steps, wreal, bpp, ranks, Own(rank))
+                e = int((work.cpu() - want).abs().max())
+                if e:
+                    raise RuntimeError(f"mesh_mp: rank {rank}'s segments "
+                                       "alone differ from the plain version"
+                                       f" (max |diff| {e})")
+            rp = LR.Replay(np.asarray(steps)[lo:hi], local.shape, sb,
+                           wreal[lo:hi], LR.HALO, hi - lo > 1)
             one = cuda_ms(lambda: (work.copy_(local), LR.lf_scan_sharded(
-                work, sdev, wreal[lo:hi], bpp)), 5) - copy_ms
+                work, rp, wreal[lo:hi], bpp, sb)), 5) - copy_ms
             tot += (len(ex.replay_events), ex.replay_ms(),
                     start.elapsed_time(end), host, one)
         out[rank] = tuple(tot)
@@ -4773,11 +4841,15 @@ def mesh_mp_phase(torch, np, by_name, replay_inputs):
             f"ranks, {time.perf_counter() - tc:.1f} s with the ranks' start")
     for clip, ntile in (("bench_1080p_lf", 4), ("bench_4k", 8)):
         split = (ntile // 2, ntile // 2)
+        check = clip == "bench_1080p_lf"
         for rank, (n, dev_ms, span, host, one) in segments_alone(
-                torch, np, replay_inputs[clip], split).items():
+                torch, np, replay_inputs[clip], split, check).items():
+            held = "; exact vs the plain version" if check and not rank \
+                else ""
             say("mesh_mp", f"{clip} frame 0, rank {rank} of split "
                 f"{'+'.join(map(str, split))} alone in this process (swaps "
-                f"bring back what was sent): {int(n)} segment launches "
+                f"bring back what was sent{held}): "
+                f"{int(n)} segment launches "
                 f"{dev_ms:.3f} ms on the card (CUDA events around each), the "
                 f"scan's span {span:.3f} ms (host wall {host:.3f}); one "
                 f"launch of its stripes over the same steps {one:.3f} ms; on "
@@ -4993,7 +5065,8 @@ def main():
     by_name["passa_walk"] = passa_phase(torch, np, clips)
     two_decoders_phase(torch, clips)
     gop_phase(torch, clips)
-    by_name["lf_replay"], replay_inputs = sharded_phase(torch, np, clips)
+    by_name["lf_replay"], replay_inputs = sharded_phase(torch, np, clips,
+                                                        by_name["lf_dense"])
     del clips
     gop_pipeline_phase(torch, np, by_name)
     mesh_mp_phase(torch, np, by_name, replay_inputs)

@@ -1,9 +1,10 @@
 """What the port's kernel wrappers share: the check of a tensor argument,
-and the launch of an entry point of a csrc/ library on the current
-stream."""
+the launch of an entry point of a csrc/ library on the current stream,
+and a kernel's scratch kept for a stream."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -60,3 +61,44 @@ def launch(source, signatures, name, *args):
                             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+class StreamState:
+    """A kernel's int32 scratch on one device for one stream, zero when
+    made, and the epochs its launches take (a new one each call, never
+    the same twice, on any thread)."""
+
+    def __init__(self, buf):
+        self.buf = buf
+        self.epoch = 0
+        self._lock = threading.Lock()
+
+    def next_epoch(self):
+        with self._lock:
+            if self.epoch == 0x7fffffff:    # flags may hold any epoch
+                self.buf.zero_()
+                self.epoch = 0
+            self.epoch += 1
+            return self.epoch
+
+
+_STATES = {}
+_STATES_LOCK = threading.Lock()
+
+
+def stream_state(name, device, n):
+    """The StreamState of kernel `name` for `device` and its current
+    stream, of at least n int32 words, made (zeroed) at first use or when
+    a call needs more. Launches on one stream run in order, so they may
+    share a scratch whose counters the kernel leaves at zero; launches on
+    other streams, which may run at once, get their own."""
+    device = torch.device(device)
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == "cuda" else 0)
+    key = (name, str(device), stream)
+    with _STATES_LOCK:
+        st = _STATES.get(key)
+        if st is None or st.buf.numel() < n:
+            st = _STATES[key] = StreamState(torch.zeros(
+                max(n, 64), dtype=torch.int32, device=device))
+        return st

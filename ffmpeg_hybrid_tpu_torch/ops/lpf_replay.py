@@ -21,15 +21,17 @@ over the stale copy (the wave's records of two stripes never touch the
 same pixel, so at most one side changes it).
 
 For planes on the card both run csrc/lpf_replay.cu, one launch a plane
-set (one thread block a stripe, the stripes of a frame in one cluster);
-for planes on the CPU the plain versions, lf_scan_plain and
-lf_scan_sharded_plain, a Python loop over the steps. Launches are counted
-in LAUNCHES.
+set: `build_tickets` turns the steps into superblock tickets on the host
+(a `Replay` holds them, uploaded once), which the kernel runs as a
+dataflow ordered by per-superblock flags; for planes on the CPU the plain
+versions, lf_scan_plain and lf_scan_sharded_plain, a Python loop over the
+steps. The wrappers take the superblock's size in the set's samples (sb,
+64 >> ss) from their callers. Launches are counted in LAUNCHES.
 
 `lf_scan_sharded_dist` replays the stripes of one process when a frame's
 stripes are split across torch.distributed ranks (parallel/mesh.py,
 parallel/dist.py): the rank's run of stripes in segments, each one launch
-(csrc/lpf_replay.cu's lf_replay_from, on steps uploaded once) that ends at
+(csrc/lpf_replay.cu's lf_replay_from, on tickets uploaded once) that ends at
 a step writing a column on a boundary with another rank
 (`segment_plan`), then a swap of those columns with the neighbour rank
 and the same merge. Its plain version is lf_scan_sharded_dist_plain.
@@ -40,6 +42,7 @@ window's reads clamp to the buffer and only a record's written range
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 
 import numpy as np
@@ -56,18 +59,25 @@ HALO = 8
 # reset_launches()
 LAUNCHES = {"lf_replay": 0}
 
-# stripes one launch takes (the portable cluster size)
+# stripes one launch takes
 MAX_STRIPES = 8
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # planes, steps, wreal (host), T, B, H, Wb, S, D, steps run, halo,
-    # bpp, stream
-    "lf_replay": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p],
-    # ... S, D, first, run, halo, bpp, stream
-    "lf_replay_from": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
-        ctypes.c_int] * 10 + [ctypes.c_void_p],
+    # planes, tickets, levels, records, wreal (host), T, B, H, Wb,
+    # tickets, most records, most levels, sbw, sbh, halo, bpp, state,
+    # epoch, stream
+    "lf_replay": [_P] * 5 + [_I] * 11 + [_P, _I, _P],
+    # ... sbw, sbh, first, halo, bpp, state, epoch, stream
+    "lf_replay_from": [_P] * 5 + [_I] * 12 + [_P, _I, _P],
 }
+
+# int32 words of a ticket (csrc/lpf_replay.cu: kTicketInt4 int4)
+TICKET_WORDS = 20
+
+# the superblock sides the kernel takes, in a plane set's samples: luma
+# and 4:4:4 chroma 64, subsampled chroma 32
+SB_SIZES = (32, 64)
 
 
 def reset_launches():
@@ -132,9 +142,11 @@ def steps_run(steps):
 # plain versions
 
 def _write_range(wd):
-    """The samples [lo, hi) of a record's 16 that its filter may write."""
-    lo = torch.where(wd >= 16, 1, torch.where(wd >= 8, 5, 6))
-    hi = torch.where(wd >= 16, 15, torch.where(wd >= 8, 11, 10))
+    """The samples [lo, hi) of a record's 16 that its filter may write
+    (wd a tensor or a numpy array)."""
+    where = torch.where if torch.is_tensor(wd) else np.where
+    lo = where(wd >= 16, 1, where(wd >= 8, 5, 6))
+    hi = where(wd >= 16, 15, where(wd >= 8, 11, 10))
     return lo, hi
 
 
@@ -390,17 +402,363 @@ def lf_scan_sharded_dist_plain(pl, steps, wreal, bpp, ranks, exchange):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's tickets
+
+def build_tickets(steps, spans, shape, sb, wreal, col_off, halo):
+    """The tickets of csrc/lpf_replay.cu for the live records (wd > 0) of
+    steps [T, S, D, 7] (host int32; stripe t's records in its buffer's
+    coordinates) over buffers of `shape` (T, B, H, Wb): one launch a span
+    (first, end) of steps, spans disjoint and in order.
+
+    A ticket is one superblock of sb = (sbw, sbh) samples with live
+    records in a span: its row is the records' lane, its column their px
+    in the frame's columns (px - col_off + x0[t], x0 the running sum of
+    wreal) over sbw; tickets go wave by wave (2 row + column), each
+    holding its records in recorded order, grouped into levels: a run
+    of records of one direction is split into chains, the V records of
+    one row group (py) or the H records of one column group (px), each
+    in order, the chains side by side when their groups are 8 samples
+    apart and inside the buffer (else the run goes one record a level).
+    Each ticket waits for the tickets of its span at (row, column - 1),
+    (row - 1, column - 1), (row - 1, column) and (row - 1, column + 1):
+    every superblock before it in the wave order whose window (the
+    superblock plus 8 samples all round) overlaps its own. With halo,
+    the superblocks next to a stripe boundary also wait for the halo
+    copy of a span that starts at step 0.
+
+    Returns a dict: tickets [n, TICKET_WORDS] int32 ((stripe, lv0, nlv,
+    copy | nwork << 8), four waits (the span's ticket index, -1 none),
+    the load box (r0, c0, rows, cols: the records' clamped footprints),
+    the write box (what their filters may write inside the buffer),
+    (rec0, nrec, rt, cl): the load box's rows before rt and columns
+    before cl are what the waits guard, the rest is copied before them);
+    levels [L + 1] int32, the record at which each level starts; records
+    [m, 4] int32 (py, px, dir | wd << 2, E | I << 8 | H << 16); source
+    [m]: each record's flat index into steps[..., 0] (stripe, step,
+    lane); launches [(ticket lo, hi, first, most records, most levels of
+    a ticket)] a span. The boxes are aligned to 4 columns: the kernel
+    moves int4 only, so Wb and, with halo, every wreal must be multiples
+    of 4. Raises ValueError where they are not, and where the records do
+    not fit the superblocks: two waves in one step, waves out of step
+    order, the rows (py) of one lane spread over sbh or more (lane l's
+    superblock starts at one offset plus l * sbh), a superblock in two
+    stripes, a box larger than the superblock plus 8 all round, or a
+    parameter the kernel cannot pack. On a single lane of a single
+    stripe (a band of the stripe pipeline) nothing in the records tells
+    a superblock too wide from a right one: the caller's sb must be the
+    set's."""
+    st = np.asarray(steps)
+    T, B, H, Wb = (int(v) for v in shape)
+    sbw, sbh = (int(v) for v in sb)
+    if sbw not in SB_SIZES or sbh not in SB_SIZES:
+        raise ValueError(f"superblocks of {sbw}x{sbh}: the kernel takes "
+                         f"{SB_SIZES} samples a side")
+    if st.ndim != 4 or st.shape[0] != T or st.shape[-1] != 7:
+        raise ValueError(f"steps of shape {st.shape} for {T} stripes")
+    wreal = np.asarray([int(w) for w in wreal], np.int64)
+    x0 = np.concatenate([[0], np.cumsum(wreal)[:-1]]).astype(np.int64)
+    if Wb % 4 or (halo and (wreal % 4).any()):
+        raise ValueError(f"buffers {Wb} wide, real widths {wreal.tolist()}: "
+                         "the kernel moves int4, so they must be multiples "
+                         "of 4")
+    S, D = st.shape[1], st.shape[2]
+    firsts = np.asarray([int(f) for f, _e in spans], np.int64)
+    span_of = np.full(S + 1, -1, np.int64)
+    for k, (first, end) in enumerate(spans):
+        if not 0 <= first <= end <= S or (k and first < spans[k - 1][1]):
+            raise ValueError(f"spans {spans} of {S} steps")
+        span_of[first:end] = k
+    # the live records of the spans (rec: their 7 words); then in (span,
+    # wave, row, step) order: a ticket a run, its records in step order
+    st2 = st.reshape(-1, 7)
+    flat = np.flatnonzero(st2[:, 3] > 0)
+    s_i = flat // D % S
+    keep = span_of[s_i] >= 0
+    flat, s_i = flat[keep], s_i[keep]
+    t_i, d_i = flat // (S * D), flat % D
+    rec = st2[flat].astype(np.int64)
+    sp = span_of[s_i]
+    col = (rec[:, 1] - col_off + x0[t_i]) // sbw
+    wave = 2 * d_i + col
+    n = len(flat)
+    if n:
+        # one wave a step: what a step's last record leaves, every one of
+        # its records must hold; and the waves in step order
+        w_of = np.full(S, -1, np.int64)
+        w_of[s_i] = wave
+        if (w_of[s_i] != wave).any():
+            raise ValueError(f"a step holds records of two waves: they do "
+                             f"not fit superblocks {sbw} wide")
+        if (np.diff(w_of[w_of >= 0]) < 0).any():
+            raise ValueError(f"the steps' waves go back: the records do "
+                             f"not fit superblocks {sbw}x{sbh}")
+        # a record's edge row lies in its superblock, whose rows start at
+        # one offset plus lane * sbh
+        top = rec[:, 0] - d_i * sbh
+        if top.max() - top.min() >= sbh:
+            raise ValueError(f"a lane's records span more rows than "
+                             f"superblocks {sbh} high")
+    order = np.argsort(((sp * (int(wave.max(initial=0)) + 1) + wave) * D
+                        + d_i) * S + s_i)
+    t_i, sp, row, col, flat, rec = (v[order] for v in (t_i, sp, d_i, col,
+                                                        flat, rec))
+    py, px, dr, wd = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
+    new = np.ones(n, bool)
+    new[1:] = ((sp[1:] != sp[:-1]) | (row[1:] != row[:-1])
+               | (col[1:] != col[:-1]))
+    tk = np.cumsum(new) - 1
+    starts = np.nonzero(new)[0]
+    nt = len(starts)
+    if (t_i != t_i[starts][tk]).any():
+        raise ValueError("a superblock's records lie in two stripes")
+    # levels: direction runs, chains of one row or column group
+    idx = np.arange(n)
+    v = dr == 0
+    key = np.where(v, py, px)
+    ph_new = new.copy()
+    ph_new[1:] |= dr[1:] != dr[:-1]
+    ph = np.cumsum(ph_new) - 1
+    ph_start = np.nonzero(ph_new)[0]
+    inside = (key >= 0) & (key + 7 < np.where(v, H, Wb))
+    if n:
+        m8 = key % 8
+        ph_ok = ((np.minimum.reduceat(m8, ph_start)
+                  == np.maximum.reduceat(m8, ph_start))
+                 & (np.minimum.reduceat(inside.astype(np.int8), ph_start)
+                    > 0))
+    else:
+        ph_ok = np.zeros(0, bool)
+    kmin = int(key.min(initial=0))
+    o2 = np.argsort(ph * (int(key.max(initial=0)) - kmin + 1) + key - kmin,
+                    kind="stable")
+    g_new = np.ones(n, bool)
+    g_new[1:] = (ph[o2][1:] != ph[o2][:-1]) | (key[o2][1:] != key[o2][:-1])
+    rank = np.empty(n, np.int64)
+    rank[o2] = idx - np.maximum.accumulate(np.where(g_new, idx, 0))
+    rank = np.where(ph_ok[ph], rank, idx - ph_start[ph])
+    depth = (np.maximum.reduceat(rank, ph_start) + 1 if n
+             else np.zeros(0, np.int64))
+    before = np.cumsum(depth) - depth
+    tk_first_ph = ph[starts]
+    base = before - before[tk_first_ph][tk[ph_start]]
+    level = rank + base[ph]
+    nlv = (np.add.reduceat(depth, tk_first_ph) if n
+           else np.zeros(0, np.int64))
+    o3 = np.argsort(tk * (int(level.max(initial=0)) + 1) + level,
+                    kind="stable")
+    level, tk2, flat, rec = level[o3], tk[o3], flat[o3], rec[o3]
+    py, px, dr, wd = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
+    par = rec[:, 4:7]
+    if ((dr != 0) & (dr != 1)).any() or (par < 0).any() or (
+            par > 255).any() or (wd >= 1 << 29).any():
+        raise ValueError("a record's direction or parameters are out of "
+                         "the kernel's range")
+    lv_new = np.ones(n, bool)
+    lv_new[1:] = (tk2[1:] != tk2[:-1]) | (level[1:] != level[:-1])
+    levels = np.append(np.nonzero(lv_new)[0], n)
+    if len(levels) - 1 != int(nlv.sum()):
+        raise AssertionError("levels of the tickets are not contiguous")
+    lv0 = np.cumsum(nlv) - nlv
+    width = np.diff(levels)
+    most = (np.maximum.reduceat(width, lv0) if nt
+            else np.zeros(0, np.int64))
+    nwork = np.clip((most * 8 * B + 31) // 32 * 32, 32, 256)
+    nrec = np.diff(np.append(starts, n))
+    # boxes: footprints clamped to the buffer; write ranges inside it
+    d0 = dr == 0
+    fr0 = np.clip(np.where(d0, py, py - 8), 0, H - 1)
+    fr1 = np.clip(py + 7, 0, H - 1)
+    fc0 = np.clip(np.where(d0, px - 8, px), 0, Wb - 1)
+    fc1 = np.clip(px + 7, 0, Wb - 1)
+    lo, hi = _write_range(wd)
+    wr0 = np.maximum(np.where(d0, py, py - 8 + lo), 0)
+    wr1 = np.minimum(np.where(d0, py + 7, py - 9 + hi), H - 1)
+    wc0 = np.maximum(np.where(d0, px - 8 + lo, px), 0)
+    wc1 = np.minimum(np.where(d0, px - 9 + hi, px + 7), Wb - 1)
+    empty = (wr0 > wr1) | (wc0 > wc1)
+    big, small = np.int64(1 << 40), np.int64(-(1 << 40))
+    wr0, wc0 = np.where(empty, big, wr0), np.where(empty, big, wc0)
+    wr1, wc1 = np.where(empty, small, wr1), np.where(empty, small, wc1)
+    red = (lambda fn, a: fn.reduceat(a, starts) if nt
+           else np.zeros(0, np.int64))
+    lb = [red(np.minimum, fr0), red(np.minimum, fc0), red(np.maximum, fr1),
+          red(np.maximum, fc1)]
+    wb = [red(np.minimum, wr0), red(np.minimum, wc0), red(np.maximum, wr1),
+          red(np.maximum, wc1)]
+    w_empty = wb[0] > wb[2]
+    lb[1], lb[3] = lb[1] & ~3, lb[3] | 3
+    wb[1], wb[3] = wb[1] & ~3, wb[3] | 3
+    load = np.stack([lb[0], lb[1], lb[2] - lb[0] + 1, lb[3] - lb[1] + 1], 1)
+    write = np.stack([wb[0], wb[1], wb[2] - wb[0] + 1, wb[3] - wb[1] + 1], 1)
+    write[w_empty] = 0
+    tstripe, trow, tcol = t_i[starts], row[starts], col[starts]
+    xs = tcol * sbw - x0[tstripe] + col_off
+    if nt and ((load[:, 2] > sbh + 16).any() or (load[:, 3] > sbw + 16).any()
+               or (lb[1] < xs - 8).any() or (lb[3] > xs + sbw + 7).any()):
+        raise ValueError(f"a superblock's records reach beyond its "
+                         f"{sbw}x{sbh} samples plus 8 all round")
+    # waits, within each span
+    tsp = sp[starts]
+    tloc = np.arange(nt) - np.searchsorted(tsp, tsp)
+    waits = np.full((nt, 4), -1, np.int64)
+    copy = np.zeros(nt, np.int64)
+    if nt:
+        cmin = int(tcol.min())
+        grid = np.full((len(spans), int(trow.max()) + 2,
+                        int(tcol.max()) - cmin + 3), -1, np.int64)
+        c = tcol - cmin + 1
+        grid[tsp, trow + 1, c] = tloc
+        for j, (dy, dx) in enumerate(((0, -1), (-1, -1), (-1, 0), (-1, 1))):
+            waits[:, j] = grid[tsp, trow + 1 + dy, c + dx]
+        if halo:
+            ct0 = x0[1:] // sbw
+            copy = (np.isin(tcol, ct0) | np.isin(tcol, ct0 - 1)).astype(
+                np.int64)
+    # what the waits guard in each load box: its rows up to the end of
+    # what the tickets above write there (rt), its columns up to the end
+    # of what the ticket on the left (and a launch's halo copy) write (cl);
+    # all they write lies in those rows or those columns (in the frame's
+    # columns: mirrors land where their source is), so the kernel copies
+    # the rest of the window before it waits
+    lr0, lc0 = load[:, 0], load[:, 1]
+    lr1, lc1 = lr0 + load[:, 2], lc0 + load[:, 3]
+    rt, cl = lr0.copy(), lc0.copy()
+    gcol = x0[tstripe] - col_off   # a buffer column + gcol: the frame's
+    base = np.arange(nt) - tloc
+    for j in range(4):
+        has = waits[:, j] >= 0
+        d = np.where(has, waits[:, j] + base, 0)
+        w = write[d]
+        wc0 = w[:, 1] + gcol[d] - gcol
+        wc1 = wc0 + w[:, 3]
+        hit = (has & (w[:, 2] > 0) & (w[:, 0] < lr1)
+               & (w[:, 0] + w[:, 2] > lr0) & (wc0 < lc1) & (wc1 > lc0))
+        if j == 0:
+            cl = np.where(hit, np.maximum(cl, np.minimum(wc1, lc1)), cl)
+        else:
+            rt = np.where(hit, np.maximum(rt, np.minimum(w[:, 0] + w[:, 2],
+                                                         lr1)), rt)
+    if halo and nt:
+        copies = (firsts[tsp] == 0) & (copy > 0)
+        cl = np.where(copies & (lc0 < HALO), np.maximum(cl, np.minimum(
+            HALO, lc1)), cl)
+    tickets = np.zeros((nt, TICKET_WORDS), np.int64)
+    tickets[:, 0] = tstripe
+    tickets[:, 1] = lv0
+    tickets[:, 2] = nlv
+    tickets[:, 3] = copy | nwork << 8
+    tickets[:, 4:8] = waits
+    tickets[:, 8:12] = load
+    tickets[:, 12:16] = write
+    tickets[:, 16] = starts
+    tickets[:, 17] = nrec
+    tickets[:, 18] = rt
+    tickets[:, 19] = cl
+    records = np.stack([py, px, dr | wd << 2,
+                        par[:, 0] | par[:, 1] << 8 | par[:, 2] << 16], 1)
+    # a launch a span: its tickets a .. b, the most records and levels of
+    # one (the spans with tickets hold consecutive runs of them)
+    ks = np.arange(len(spans))
+    a, b = np.searchsorted(tsp, ks), np.searchsorted(tsp, ks, "right")
+    most = np.zeros((len(spans), 2), np.int64)
+    if nt:
+        most[b > a] = np.stack([np.maximum.reduceat(nrec, a[b > a]),
+                                np.maximum.reduceat(nlv, a[b > a])], 1)
+    launches = [(int(a[k]), int(b[k]), int(firsts[k]), int(most[k, 0]),
+                 int(most[k, 1])) for k in ks]
+    return {"tickets": tickets.astype(np.int32),
+            "levels": levels.astype(np.int32),
+            "records": records.astype(np.int32), "launches": launches,
+            "source": flat}
+
+
+class Replay:
+    """A replay's tickets (build_tickets) for steps [T, S, D, 7] over
+    buffers of `shape` [T, B, H, Wb], built on the host once and uploaded
+    once a device; one launch a span of steps (spans: [(first, end)];
+    None: the whole run). The wrappers take one in place of the steps
+    (steps keeps them for the plain versions), so a caller that replays
+    the same records again, or ahead of its launches, builds them once:
+    parallel/gop_pipeline.py prepares each band's with its frame."""
+
+    def __init__(self, steps, shape, sb, wreal=None, col_off=0, halo=False,
+                 spans=None):
+        self.steps = np.asarray(steps, np.int32)
+        self.shape = tuple(int(v) for v in shape)
+        self.sb = tuple(int(v) for v in sb)
+        self.wreal = [int(w) for w in (wreal if wreal is not None
+                                       else [self.shape[-1]])]
+        self.halo = bool(halo)
+        if spans is None:
+            spans = [(0, steps_run(self.steps))]
+        self.spans = [(int(a), int(b)) for a, b in spans]
+        t = build_tickets(self.steps, self.spans, self.shape, self.sb,
+                          self.wreal, col_off, self.halo)
+        self.parts = t
+        self.launches = t["launches"]
+        self.ntickets = len(t["tickets"])
+        self.nrecords = len(t["records"])
+        lv = t["levels"]
+        lv = np.concatenate([lv, np.zeros(-len(lv) % 4, np.int32)])
+        self.host = np.concatenate([t["tickets"].ravel(), lv,
+                                    t["records"].ravel()])
+        self._at = (self.ntickets * TICKET_WORDS,
+                    self.ntickets * TICKET_WORDS + len(lv))
+        self._dev = {}
+
+    def idle(self):
+        """The same tickets with every record a no-op (wd 0): their
+        waits, windows, levels and write-backs without the filter's work,
+        what the dataflow alone costs (chip_smoke.py's chain alone)."""
+        out = copy.copy(self)
+        out.parts = dict(self.parts, records=self.parts["records"].copy())
+        out.parts["records"][:, 2] &= 3
+        out.host = self.host.copy()
+        out.host[self._at[1]:] = out.parts["records"].ravel()
+        out._dev = {}
+        return out
+
+    def tables(self, device):
+        """(tickets, levels, records) on `device`: views of one upload."""
+        key = str(device)
+        if key not in self._dev:
+            buf = torch.from_numpy(self.host).to(device)
+            a, b = self._at
+            self._dev[key] = (buf[:a], buf[a:b], buf[b:])
+        return self._dev[key]
+
+
+def _as_replay(steps, shape, sb, wreal, col_off, halo):
+    """steps as a Replay over buffers of `shape`: a Replay is checked, a
+    host array (or a tensor, copied to the host) is built."""
+    if isinstance(steps, Replay):
+        if (steps.shape != tuple(shape) or steps.sb != tuple(sb)
+                or steps.halo != bool(halo)
+                or steps.wreal != [int(w) for w in wreal]):
+            raise ValueError(f"a replay of {steps.shape} ({steps.sb} "
+                             f"superblocks) for buffers of {tuple(shape)} "
+                             f"({tuple(sb)})")
+        return steps
+    if torch.is_tensor(steps):
+        steps = steps.cpu().numpy()
+    return Replay(steps, shape, sb, wreal, col_off, halo)
+
+
+def _host_steps(steps):
+    """The steps of a Replay, a tensor or a host array, as given."""
+    return steps.steps if isinstance(steps, Replay) else steps
+
+
+# ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, CUDA kernel on the card
 
-def _launch(pl, steps, wreal, halo, bpp, first=None, end=None):
+def _launch(pl, rp, bpp, k=0, name="lf_replay"):
     """csrc/lpf_replay.cu on pl [T, B, H, Wb] in place, after checking
-    every tensor: steps [T, S, D, 7] int32 (a host array, whose trailing
-    no-op steps the launch skips, or a tensor on pl's device), wreal [T]
-    (halo exchange when halo is set), bpp 8-12. With first and end (a
-    tensor's steps): lf_replay_from, steps first .. end - 1."""
-    if pl.dim() != 4 or steps.ndim != 4 or steps.shape[-1] != 7:
-        raise ValueError(f"buffers of shape {tuple(pl.shape)} and steps of "
-                         f"shape {tuple(steps.shape)}")
+    every tensor: launch k of the Replay rp, whose shape is pl's; bpp
+    8-12. name: lf_replay (a whole replay) or lf_replay_from (a segment
+    of one). The kernel moves int4 only: pl must start on 16 bytes."""
+    if pl.dim() != 4:
+        raise ValueError(f"buffers of shape {tuple(pl.shape)}")
     T, B, H, Wb = pl.shape
     if not 1 <= T <= MAX_STRIPES or B not in (1, 2) or not 8 <= bpp <= 12:
         raise ValueError(f"{T} stripes of {B} planes at {bpp} bpp: the "
@@ -408,93 +766,98 @@ def _launch(pl, steps, wreal, halo, bpp, first=None, end=None):
                          "planes at 8-12 bpp")
     dev = pl.device
     check_tensor(pl, (torch.int32,), (T, B, H, Wb), dev, "planes")
-    if not pl.is_contiguous():
-        raise ValueError("the buffers are not contiguous: the kernel "
-                         "filters them in place")
-    S, D = steps.shape[1], steps.shape[2]
-    if torch.is_tensor(steps):
-        run = S if end is None else end
-    else:
-        # only the steps the launch runs go up
-        run = steps_run(steps) if S else 0
-        S = max(run, 1)
-        steps = torch.from_numpy(np.ascontiguousarray(
-            steps[:, :S], np.int32)).to(dev)
-    steps = check_tensor(steps, (torch.int32,), (T, S, D, 7), dev, "steps")
-    wr = np.asarray([int(w) for w in wreal], np.int32)
-    if len(wr) != T or (halo and not all(HALO <= w and w + HALO <= Wb
-                                         for w in wr)):
-        raise ValueError(f"real widths {wr.tolist()} in buffers of {Wb} "
+    if not pl.is_contiguous() or pl.data_ptr() % 16:
+        raise ValueError("the buffers are not contiguous on 16 bytes: the "
+                         "kernel filters them in place, an int4 at a time")
+    if rp.shape != (T, B, H, Wb):
+        raise ValueError(f"a replay of {rp.shape} for buffers of "
+                         f"{tuple(pl.shape)}")
+    if len(rp.wreal) != T or (rp.halo and not all(
+            HALO <= w and w + HALO <= Wb for w in rp.wreal)):
+        raise ValueError(f"real widths {rp.wreal} in buffers of {Wb} "
                          "columns")
-    if first is None:
-        _cuda.launch("lpf_replay.cu", _SIGNATURES, "lf_replay", pl, steps,
-                     wr.ctypes.data, T, B, H, Wb, S, D, run, int(halo), bpp)
-    else:
-        if not 0 <= first <= run <= S:
-            raise ValueError(f"steps {first} .. {run} of {S}")
-        _cuda.launch("lpf_replay.cu", _SIGNATURES, "lf_replay_from", pl,
-                     steps, wr.ctypes.data, T, B, H, Wb, S, D, first, run,
-                     int(halo), bpp)
+    lo, hi, first, most_recs, most_lv = rp.launches[k]
+    tickets, levels, records = rp.tables(dev)
+    nt = hi - lo
+    st = _cuda.stream_state("lpf_replay", dev, nt + 3)
+    wr = np.asarray(rp.wreal, np.int32)
+    args = [pl, tickets[lo * TICKET_WORDS:], levels, records,
+            wr.ctypes.data, T, B, H, Wb, nt, most_recs, most_lv, *rp.sb]
+    if name == "lf_replay_from":
+        args.append(first)
+    args += [int(rp.halo), bpp, st.buf, st.next_epoch()]
+    _cuda.launch("lpf_replay.cu", _SIGNATURES, name, *args)
     LAUNCHES["lf_replay"] += 1
     return pl
 
 
-def lf_scan(plane, steps, bpp):
-    """Replay the steps [S, D, 7] (pack_schedule; a host array or a
-    tensor) over the plane set plane [B, H, W] int32 (B = 1: Y, 2: U and
-    V) -> the filtered planes, a new tensor; the input is not modified.
-    CPU tensors take lf_scan_plain; any other device the kernel
+def lf_scan(plane, steps, bpp, sb):
+    """Replay the steps [S, D, 7] (pack_schedule; a host array, a tensor
+    or a Replay of shape [1, B, H, W]) over the plane set plane [B, H, W]
+    int32 (B = 1: Y, 2: U and V) of superblocks sb = (width, height) in
+    its samples -> the filtered planes, a new tensor; the input is not
+    modified. CPU tensors take lf_scan_plain; any other device the kernel
     (csrc/lpf_replay.cu, one launch, one stripe), which takes CUDA
     tensors only."""
     if plane.device.type == "cpu":
-        return lf_scan_plain(plane, steps, bpp)
+        s = _host_steps(steps)
+        return lf_scan_plain(plane, s[0] if isinstance(steps, Replay)
+                             else s, bpp)
     out = plane.clone(memory_format=torch.contiguous_format)[None]
-    return _launch(out, steps[None], [plane.shape[-1]], False, bpp)[0]
+    if not isinstance(steps, Replay):
+        steps = (steps.cpu().numpy() if torch.is_tensor(steps)
+                 else np.asarray(steps))[None]
+    rp = _as_replay(steps, out.shape, sb, [out.shape[-1]], 0, False)
+    return _launch(out, rp, bpp)[0]
 
 
-def lf_scan_sharded(pl, steps, wreal, bpp):
+def lf_scan_sharded(pl, steps, wreal, bpp, sb):
     """Replay each stripe's steps over the stripe buffers pl [T, B, H,
     HALO + Wpad] int32 with the halo exchange of lf_scan_sharded_plain
-    (steps [T, S, D, 7], a host array or a tensor; wreal [T] each
-    stripe's real width) -> the filtered buffers; CPU tensors take
+    (steps [T, S, D, 7], a host array, a tensor or a Replay; wreal [T]
+    each stripe's real width; sb the superblock's (width, height) in the
+    set's samples) -> the filtered buffers; CPU tensors take
     lf_scan_sharded_plain (a new tensor), any other device the kernel
-    (csrc/lpf_replay.cu: one launch, a thread block a stripe, the T of
-    them in one cluster), which filters pl in place and returns it."""
+    (csrc/lpf_replay.cu: one launch of the stripes' tickets), which
+    filters pl in place and returns it."""
     if pl.device.type == "cpu":
-        return lf_scan_sharded_plain(pl, steps, wreal, bpp)
-    return _launch(pl, steps, wreal, pl.shape[0] > 1, bpp)
+        return lf_scan_sharded_plain(pl, _host_steps(steps), wreal, bpp)
+    rp = _as_replay(steps, pl.shape, sb, wreal, HALO, pl.shape[0] > 1)
+    return _launch(pl, rp, bpp)
 
 
-def lf_scan_sharded_dist(pl, steps, wreal, bpp, ranks, exchange):
+def lf_scan_sharded_dist(pl, steps, wreal, bpp, ranks, exchange, sb):
     """Replay the stripes of one rank when a gop row's T stripes are
     split across ranks: pl [hi - lo, B, H, HALO + Wpad] int32, the
     stripes lo .. hi - 1 that `ranks` [T] (the row's rank a slot, a
     contiguous run each) gives exchange.rank; steps [T, S, D, 7] and wreal
     [T] of the whole row (every rank holds the whole job; the cuts read
-    the neighbours' records); exchange: a parallel/dist.py HaloExchange
-    (swap, note_plan, rank). Equal, stripe for stripe, to
-    lf_scan_sharded_plain over all T stripes. CPU tensors take
-    lf_scan_sharded_dist_plain (a new tensor); on the card the steps go
-    up once and each segment of segment_plan is one lf_replay_from launch
-    on pl in place, which is returned. The segment launches are timed
-    under CUDA events into exchange.replay_events when exchange.timed."""
+    the neighbours' records); sb the superblock's (width, height) in the
+    set's samples; exchange: a parallel/dist.py HaloExchange (swap,
+    note_plan, rank). Equal, stripe for stripe, to lf_scan_sharded_plain
+    over all T stripes. CPU tensors take lf_scan_sharded_dist_plain (a new
+    tensor); on the card the tickets of every segment of segment_plan are
+    built and uploaded once, and each segment is one lf_replay_from
+    launch on pl in place, which is returned. The segment launches are
+    timed under CUDA events into exchange.replay_events when
+    exchange.timed."""
     if pl.device.type == "cpu":
         return lf_scan_sharded_dist_plain(pl, steps, wreal, bpp, ranks,
                                           exchange)
     steps = np.asarray(steps)
-    run = max(steps_run(steps), 1)
     plan = segment_plan(steps, wreal, ranks, exchange.rank)
-    lo, hi = plan[:2]
-    local = torch.from_numpy(np.ascontiguousarray(
-        steps[lo:hi, :run], np.int32)).to(pl.device)
+    lo, hi, _cuts, segments = plan
     wl = [int(w) for w in wreal[lo:hi]]
+    rp = Replay(steps[lo:hi], pl.shape, sb, wl, HALO, hi - lo > 1,
+                [(first, end) for first, end, _s in segments])
+    at = iter(range(len(segments)))
 
     def replay(first, end):
         ev = exchange.timed and (torch.cuda.Event(enable_timing=True),
                                  torch.cuda.Event(enable_timing=True))
         if ev:
             ev[0].record()
-        _launch(pl, local, wl, hi - lo > 1, bpp, first, end)
+        _launch(pl, rp, bpp, next(at), "lf_replay_from")
         if ev:
             ev[1].record()
             exchange.replay_events.append(ev)

@@ -354,6 +354,14 @@ def _stripe_planes(s, t, cfg, plane_grids, residuals, has_inter, has_comp):
     return outs
 
 
+def _sb(cfg, which):
+    """The superblock's (width, height) in the samples of the plane set
+    whose steps are t[which]."""
+    if which == "ysteps":
+        return 64, 64
+    return 64 >> cfg["ss_h"], 64 >> cfg["ss_v"]
+
+
 def _sharded_lf(cfg, outs, scan):
     """The cross-tile loop filter of the stacked planes outs: the stripes
     of Y, then of U and V together, in buffers [T, B, H, HALO + Wpad],
@@ -476,7 +484,7 @@ def build_sharded_step(mesh, cfg, exchange=None, g=0):
 
             def scan(buf, which, wkey):
                 return lpf_replay.lf_scan_sharded(buf, t[which], t[wkey],
-                                                  cfg["bpp"])
+                                                  cfg["bpp"], _sb(cfg, which))
             stripes = _sharded_lf(cfg, outs, scan)
             return [_unstack(p, w) for p, w in zip(
                 stripes, (t["wreal"], t["wrealu"], t["wrealu"]))]
@@ -491,7 +499,8 @@ def build_sharded_step(mesh, cfg, exchange=None, g=0):
 
         def scan(buf, which, wkey):
             return lpf_replay.lf_scan_sharded_dist(
-                buf, t[which], t[wkey], cfg["bpp"], ranks, exchange)
+                buf, t[which], t[wkey], cfg["bpp"], ranks, exchange,
+                _sb(cfg, which))
         return Stripes(_sharded_lf(local_cfg, outs, scan), lo, hi, ranks,
                        t["wreal"], t["wrealu"])
 

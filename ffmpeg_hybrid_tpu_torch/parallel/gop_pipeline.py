@@ -116,13 +116,15 @@ def _check_frame(job, prev, lag, Hs):
                          "bound")
 
 
-def _band_steps(recs, n, sb_cols, S_f, sbs_per, Hs_p, device):
+def _band_steps(recs, n, sb_cols, S_f, sbs_per, Hs_p, W_p, B, sb, device):
     """A frame's recorded edge calls of one plane set (recs [n, 8]: sb,
     py, px, dir, wd, E, I, H) split into the stripes' superblock-row bands
     and packed into wavefront steps (pack_schedule, bucket=False), each
     record's row moved into its band, rows [max(j * Hs_p - 8, 0), (j +
-    1) * Hs_p) of the plane: a list of S_f step tensors [S, D, 7] on
-    `device`, None for a band without a record."""
+    1) * Hs_p) of the plane (W_p columns, B planes, superblocks of sb
+    samples): a list of S_f lpf_replay.Replay (the steps, and on the card
+    their tickets, built and uploaded here, ahead of the run), None for a
+    band without a record."""
     r = np.asarray(recs[:n], np.int32) if n else np.zeros((0, 8), np.int32)
     band = r[:, 0] // sb_cols // sbs_per
     out = []
@@ -134,8 +136,13 @@ def _band_steps(recs, n, sb_cols, S_f, sbs_per, Hs_p, device):
         rr[:, 0] -= j * sbs_per * sb_cols
         steps = lpf_replay.pack_schedule(rr, len(rr), sb_cols, bucket=False)
         live = steps[..., 3] > 0
-        steps[..., 0][live] -= max(j * Hs_p - 8, 0)
-        out.append(torch.from_numpy(steps).to(device))
+        y0 = max(j * Hs_p - 8, 0)
+        steps[..., 0][live] -= y0
+        rp = lpf_replay.Replay(steps[None], (1, B, (j + 1) * Hs_p - y0, W_p),
+                               sb)
+        if torch.device(device).type != "cpu":
+            rp.tables(device)
+        out.append(rp)
     return out
 
 
@@ -145,19 +152,24 @@ def prepare_frame(job, device, S_f, Hs):
     and its loop-filter recorder reads the job's): the cell grids and the
     three residual planes (recon.frame_residuals), and the loop filter's
     per-stripe steps of Y and of U+V (None where the frame is not
-    filtered). Returns a dict for the pipeline's run."""
+    filtered), with the superblock's (width, height) in each set's
+    samples. Returns a dict for the pipeline's run."""
     job.device = device
     recon.upload_job(job)
     grids, residuals, _has_inter, has_comp = recon.frame_residuals(job)
+    h = job.header
     fr = {"grids": grids, "residuals": residuals, "has_comp": has_comp,
-          "ysteps": [None] * S_f, "uvsteps": [None] * S_f}
-    if job.header.filter_level:
+          "ysteps": [None] * S_f, "uvsteps": [None] * S_f,
+          "sb": ((64, 64), (64 >> h.ss_h, 64 >> h.ss_v))}
+    if h.filter_level:
         y_rec, ny, uv_rec, nuv = record_lf(job)
         sbs_per = Hs // 64
+        W = job.sb_cols * 64
         fr["ysteps"] = _band_steps(y_rec, ny, job.sb_cols, S_f, sbs_per, Hs,
-                                   device)
+                                   W, 1, fr["sb"][0], device)
         fr["uvsteps"] = _band_steps(uv_rec, nuv, job.sb_cols, S_f, sbs_per,
-                                    Hs >> job.header.ss_v, device)
+                                    Hs >> h.ss_v, W >> h.ss_h, 2,
+                                    fr["sb"][1], device)
     return fr
 
 
@@ -234,12 +246,13 @@ def build_stripe_pipeline(mesh, G, S_f, Hs, lag, dims, lossless, bpp,
         y0, y1 = max(j * Hs - 8, 0), (j + 1) * Hs
         if fr["ysteps"][j] is not None:
             out[0][y0:y1] = lpf_replay.lf_scan(out[0][None, y0:y1],
-                                               fr["ysteps"][j], bpp)[0]
+                                               fr["ysteps"][j], bpp,
+                                               fr["sb"][0])[0]
         u0, u1 = max(j * Hs_p[1] - 8, 0), (j + 1) * Hs_p[1]
         if fr["uvsteps"][j] is not None:
             uv = lpf_replay.lf_scan(torch.stack([out[1][u0:u1],
                                                  out[2][u0:u1]]),
-                                    fr["uvsteps"][j], bpp)
+                                    fr["uvsteps"][j], bpp, fr["sb"][1])
             out[1][u0:u1] = uv[0]
             out[2][u0:u1] = uv[1]
 

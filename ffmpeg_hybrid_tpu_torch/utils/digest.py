@@ -15,12 +15,15 @@ probability of about 2^-64 over the pseudo-random weights.
 
 - plane_digest_host: numpy, on a host plane.
 - plane_digest_dev / plane_digest_dev_async: a torch plane. On the card
-  the kernel runs (csrc/digest.cu, one launch a plane, counted in
-  LAUNCHES); a plane on the CPU takes plane_digest_plain, torch int64
-  arithmetic masked to 32 bits. There is no fallback from the one to the
-  other.
+  the kernel runs (csrc/digest.cu, one launch a plane and no memset,
+  counted in LAUNCHES); a plane on the CPU takes plane_digest_plain, torch
+  int64 arithmetic masked to 32 bits. There is no fallback from the one
+  to the other.
+- frame_digest_dev_async: up to three planes in one launch of the same
+  kernel (frame_digest_plain on the CPU).
 - digests_to_host: one stacked copy of many async pairs.
 """
+import contextlib
 import ctypes
 
 import numpy as np
@@ -38,9 +41,17 @@ _M32 = 0xFFFFFFFF
 LAUNCHES = {"digest": 0}
 
 _P = ctypes.c_void_p
-# plane, stride, ph, pw, out, stream
-_SIGNATURES = {"plane_digest": [_P, ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int, _P, _P]}
+_SIGNATURES = {
+    # plane, stride, ph, pw, scratch, out, stream
+    "plane_digest": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+                     _P, _P],
+    # planes, strides, ph, pw (host arrays), np, scratch, out, stream
+    "frame_digest": [_P, _P, _P, _P, ctypes.c_int, _P, _P, _P],
+    # np
+    "digest_scratch_words": [ctypes.c_int],
+}
+# planes one frame_digest launch takes
+MAX_PLANES = 3
 
 
 def reset_launches():
@@ -82,15 +93,45 @@ def plane_digest_plain(plane, ph, pw):
     return _as_int32_words(torch.stack([d1, d2]))
 
 
+def _check(plane, ph, pw):
+    if plane.dim() != 2 or not (0 <= ph <= plane.shape[0]
+                                and 0 <= pw <= plane.shape[1]):
+        raise ValueError(f"crop {ph}x{pw} of a plane of shape "
+                         f"{tuple(plane.shape)}")
+
+
+# scratch words a launch needs, by device
+_WORDS = {}
+
+
+def _on(dev):
+    """A context that makes dev the current device (none if it is)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _scratch(dev):
+    """The kernel's partials and ticket for dev's current stream."""
+    from .. import _build
+    from ..ops import _cuda
+    n = _WORDS.get(dev)
+    if n is None:
+        with _on(dev):
+            n = _build.load("digest.cu", _SIGNATURES).digest_scratch_words(
+                MAX_PLANES)
+        if n < 0:
+            raise RuntimeError("digest_scratch_words: no CUDA device")
+        _WORDS[dev] = n
+    return _cuda.stream_state("digest", dev, n).buf
+
+
 def plane_digest_dev_async(plane, ph, pw):
     """(d1, d2) of plane[:ph, :pw] as an int32 [2] tensor of the uint32
     words' bits, on the plane's device, without a sync. plane: a 2-D
     torch tensor (int32 on the card; rows may be strided); a plane on
     the CPU takes plane_digest_plain."""
-    if plane.dim() != 2 or not (0 <= ph <= plane.shape[0]
-                                and 0 <= pw <= plane.shape[1]):
-        raise ValueError(f"crop {ph}x{pw} of a plane of shape "
-                         f"{tuple(plane.shape)}")
+    _check(plane, ph, pw)
     if plane.device.type == "cpu":
         return plane_digest_plain(plane, ph, pw)
     if plane.dtype != torch.int32:
@@ -99,9 +140,45 @@ def plane_digest_dev_async(plane, ph, pw):
         plane = plane.contiguous()
     from ..ops import _cuda
     out = torch.empty(2, dtype=torch.int32, device=plane.device)
-    with torch.cuda.device(plane.device):
+    with _on(plane.device):
         _cuda.launch("digest.cu", _SIGNATURES, "plane_digest", plane,
-                     plane.stride(0), ph, pw, out)
+                     plane.stride(0), ph, pw, _scratch(plane.device), out)
+    LAUNCHES["digest"] += 1
+    return out
+
+
+def frame_digest_plain(planes, crops):
+    """The plain version of frame_digest_dev_async: int32 [n, 2]."""
+    return torch.stack([plane_digest_plain(p, ph, pw)
+                        for p, (ph, pw) in zip(planes, crops)])
+
+
+def frame_digest_dev_async(planes, crops):
+    """(d1, d2) of each planes[j][:ph, :pw] (crops[j] = (ph, pw); one to
+    three planes, on one device) as an int32 [n, 2] tensor, without a
+    sync: one launch of csrc/digest.cu on the card, counted in LAUNCHES;
+    planes on the CPU take frame_digest_plain."""
+    if not 1 <= len(planes) <= MAX_PLANES or len(crops) != len(planes):
+        raise ValueError(f"{len(planes)} planes and {len(crops)} crops: "
+                         f"one launch takes 1-{MAX_PLANES}")
+    for p, (ph, pw) in zip(planes, crops):
+        _check(p, ph, pw)
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return frame_digest_plain(planes, crops)
+    if any(p.device != dev or p.dtype != torch.int32 for p in planes):
+        raise TypeError("the kernel takes int32 planes on one device")
+    planes = [p if p.stride(1) == 1 else p.contiguous() for p in planes]
+    from ..ops import _cuda
+    n = len(planes)
+    strides = (ctypes.c_longlong * n)(*(p.stride(0) for p in planes))
+    ph = (ctypes.c_int * n)(*(int(c[0]) for c in crops))
+    pw = (ctypes.c_int * n)(*(int(c[1]) for c in crops))
+    out = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    with _on(dev):
+        _cuda.launch("digest.cu", _SIGNATURES, "frame_digest", list(planes),
+                     ctypes.addressof(strides), ctypes.addressof(ph),
+                     ctypes.addressof(pw), n, _scratch(dev), out)
     LAUNCHES["digest"] += 1
     return out
 

@@ -115,3 +115,134 @@ def test_digest_kernel_matches_plain_on_the_card():
                 plane.cpu().numpy(), h, w)
             n += 2
     assert D.LAUNCHES["digest"] == n
+
+
+def row_split(addr, pw):
+    """How csrc/digest.cu reads a row of pw int32 samples starting at
+    byte address addr (a multiple of 4): (head, body, tail), the scalar
+    samples before the first 16-byte aligned one (at most 3, at most
+    pw), the int4 loads after them, and the scalar samples left."""
+    head = min(((16 - addr % 16) % 16) // 4, pw)
+    body = (pw - head) // 4
+    return head, body, pw - head - 4 * body
+
+
+def plane_digest_split(plane, ph, pw):
+    """The digest of a torch plane on the CPU summed as the kernel reads
+    it: each row's head, int4 body and tail (row_split of the row's own
+    address) at their columns, the three parts' sums added mod 2^32."""
+    a = plane.numpy()
+    d1 = d2 = 0
+    for y in range(ph):
+        head, body, tail = row_split(plane[y].data_ptr(), pw)
+        for x0, n in ((0, head), (head, 4 * body), (head + 4 * body, tail)):
+            if not n:
+                continue
+            p = a[y, x0:x0 + n].astype(np.uint32)
+            x = np.arange(x0, x0 + n, dtype=np.uint32)
+            with np.errstate(over="ignore"):
+                w = (np.uint32(y) * np.uint32(D._C1) + x * np.uint32(D._C2)
+                     + np.uint32(D._C3))
+                d1 += int(np.sum(p * w, dtype=np.uint32))
+                d2 += int(np.sum(p * ((w ^ np.uint32(D._CX))
+                                      * np.uint32(D._C4)), dtype=np.uint32))
+    return d1 & D._M32, d2 & D._M32
+
+
+# (plane shape, view: rows and columns sliced off the top left, crop):
+# odd widths, widths under 4, and views whose rows start 4, 8 and 12
+# bytes past a 16-byte boundary (and strides that move the start from row
+# to row)
+SPLITS = [((40, 64), (0, 0), (40, 64)), ((40, 64), (0, 1), (39, 63)),
+          ((40, 64), (1, 2), (39, 61)), ((40, 64), (2, 3), (38, 61)),
+          ((33, 67), (0, 0), (33, 67)), ((33, 67), (1, 1), (32, 5)),
+          ((20, 9), (0, 1), (20, 3)), ((20, 9), (0, 0), (20, 0)),
+          ((1088, 1920), (0, 0), (1080, 1917))]
+
+
+@pytest.mark.parametrize("i", range(len(SPLITS)))
+def test_row_split_covers_each_row_once(i):
+    """row_split, the kernel's split of a row into a scalar head up to
+    the first 16-byte aligned sample, an int4 body and a scalar tail: the
+    parts cover the crop once, the body starts aligned; the digest summed
+    over the split (plane_digest_split) equals the JAX package's
+    plane_digest_host on odd widths and strided views, tolerance 0; so
+    does the port's entry on the same view (the plain version here)."""
+    shape, (dy, dx), (ph, pw) = SPLITS[i]
+    p = torch.from_numpy(_plane(shape, None, 300 + i))
+    view = p[dy:, dx:]
+    for y in range(min(ph, 8)):
+        addr = view[y].data_ptr()
+        head, body, tail = row_split(addr, pw)
+        assert head + 4 * body + tail == pw and 0 <= tail < 4
+        assert head <= 3 and (not body or (addr + 4 * head) % 16 == 0)
+    want = _jax_digest().plane_digest_host(
+        np.ascontiguousarray(view.numpy()), ph, pw)
+    assert plane_digest_split(view, ph, pw) == want
+    assert D.plane_digest_dev(view, ph, pw) == want
+
+
+def test_frame_digest_plain_matches_jax_per_plane():
+    """frame_digest_dev_async on CPU planes (frame_digest_plain): a
+    frame's three planes, 4:2:0 crops of a 1080p frame and odd crops, each
+    row equal to the JAX package's plane_digest_host of its plane."""
+    JD = _jax_digest()
+    planes = [_plane((1088, 1920), None, 1), _plane((544, 960), None, 2),
+              _plane((544, 960), (0, 4095), 3)]
+    crops = [(1080, 1920), (540, 960), (539, 957)]
+    got = D.frame_digest_dev_async([torch.from_numpy(p) for p in planes],
+                                   crops)
+    assert got.dtype == torch.int32 and got.shape == (3, 2)
+    want = [JD.plane_digest_host(p, *c) for p, c in zip(planes, crops)]
+    assert [tuple(int(v) for v in r) for r in got.numpy().view(np.uint32)] \
+        == want
+    with pytest.raises(ValueError):
+        D.frame_digest_dev_async([torch.from_numpy(planes[0])] * 4,
+                                 crops + crops[:1])
+
+
+def test_cuda_planes_go_to_one_launch(monkeypatch):
+    """On tensors off the CPU the per-plane and the frame entry each make
+    one launch of csrc/digest.cu (recorded here) on the stream's scratch,
+    counted in LAUNCHES; the plain versions never run."""
+    from ffmpeg_hybrid_tpu_torch.ops import _cuda
+    calls = []
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda src, sig, name, *a: calls.append((src, name,
+                                                                 a)))
+    monkeypatch.setattr(D, "_scratch", lambda dev: torch.zeros(
+        8, dtype=torch.int32, device=dev))
+    monkeypatch.setattr(D, "plane_digest_plain", None)
+    monkeypatch.setattr(D, "frame_digest_plain", None)
+    monkeypatch.setattr(D, "_on", lambda _d: __import__(
+        "contextlib").nullcontext())
+    meta = torch.zeros((64, 72), dtype=torch.int32, device="meta")
+    D.reset_launches()
+    assert D.plane_digest_dev_async(meta[:, 1:], 60, 70).shape == (2,)
+    assert D.frame_digest_dev_async([meta, meta[:32, :36]],
+                                    [(64, 72), (32, 35)]).shape == (2, 2)
+    assert D.LAUNCHES["digest"] == 2
+    (s0, n0, a0), (s1, n1, a1) = calls
+    assert (s0, n0, s1, n1) == ("digest.cu", "plane_digest", "digest.cu",
+                                "frame_digest")
+    assert a0[1:4] == (72, 60, 70) and a1[4] == 2
+
+
+@pytest.mark.cuda
+def test_frame_digest_kernel_matches_plain_on_the_card():
+    """frame_digest_dev_async on the card (one launch of csrc/digest.cu
+    for up to three planes) against frame_digest_plain on the split
+    cases' views, strided and cropped, and on empty crops; one launch a
+    call counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    D.reset_launches()
+    n = 0
+    for i, (shape, (dy, dx), (ph, pw)) in enumerate(SPLITS):
+        p = torch.from_numpy(_plane(shape, None, 300 + i)).cuda()[dy:, dx:]
+        planes = [p, p[:ph // 2], p[:, :pw // 2]]
+        crops = [(ph, pw), (ph // 2, pw), (ph, pw // 2)]
+        got = D.frame_digest_dev_async(planes, crops)
+        assert torch.equal(got, D.frame_digest_plain(planes, crops)), i
+        n += 1
+    assert D.LAUNCHES["digest"] == n

@@ -45,6 +45,11 @@ def _frame():
     return job, PF.frame_tensors(job)
 
 
+# the superblock's (width, height) in each set's samples (the frame is
+# 4:2:0)
+_SB = {"ysteps": (64, 64), "uvsteps": (32, 32)}
+
+
 def _buffers(seed, which="ysteps"):
     """Seeded smooth stripe buffers for the frame's Y (or U+V) steps:
     (buf [4, B, H, HALO + Wpad], steps, wreal)."""
@@ -189,7 +194,7 @@ def test_dist_scan_with_loopback_matches_plain(split):
         def rank_scan(ex):
             lo, hi, cuts, segs = LR.segment_plan(steps, wreal, ranks, ex.rank)
             got = LR.lf_scan_sharded_dist(buf[lo:hi], steps, wreal, 8, ranks,
-                                          ex)
+                                          ex, _SB[which])
             assert ex.segments == len(segs) and ex.initial == len(cuts)
             assert ex.cut_steps == sum(len(c) for c in cuts.values())
             assert ex.exchanges == ex.initial + ex.cut_steps
@@ -230,7 +235,7 @@ def test_merge_takes_the_neighbours_changed_columns():
     # replay up to the first cut by hand: the rank's own values there
     mine = LR.lf_scan_sharded_plain(pl, steps[:1, :cut + 1], wreal[:1], 8)
     got = LR.lf_scan_sharded_dist(pl, steps[:, :cut + 1], wreal, 8, ranks,
-                                  Neighbour(0))
+                                  Neighbour(0), (64, 64))
     assert len(sent) == 2 and segs[0][1] == cut + 1
     tail = got[0, :, :, w:w + LR.HALO]
     assert torch.equal(tail[..., ::2], old[..., ::2] + 1)
@@ -239,10 +244,10 @@ def test_merge_takes_the_neighbours_changed_columns():
 
 
 def test_cuda_tensors_launch_each_segment(monkeypatch):
-    """On tensors off the CPU lf_scan_sharded_dist uploads the rank's
-    steps once and launches lf_replay_from once a segment, steps first
-    .. end - 1 of them (recorded here), each counted in LAUNCHES; the
-    plain version never runs."""
+    """On tensors off the CPU lf_scan_sharded_dist builds the tickets of
+    the rank's segments and uploads them once, and launches
+    lf_replay_from once a segment, on that segment's tickets (recorded
+    here), each counted in LAUNCHES; the plain version never runs."""
     calls = []
 
     def recorded(source, signatures, name, *args):
@@ -264,14 +269,21 @@ def test_cuda_tensors_launch_each_segment(monkeypatch):
                      device="meta")
     monkeypatch.setattr(torch, "where", lambda c, a, b: a)
     ex = Meta(1)
-    assert LR.lf_scan_sharded_dist(pl, steps, wreal, 8, ranks, ex) is pl
+    assert LR.lf_scan_sharded_dist(pl, steps, wreal, 8, ranks, ex,
+                                   (64, 64)) is pl
     assert LR.LAUNCHES["lf_replay"] == len(segs) == len(calls)
-    run = LR.steps_run(steps)
-    for (src, name, a), (first, end, _s) in zip(calls, segs):
+    rp = LR.Replay(np.asarray(steps)[2:4], pl.shape, (64, 64), wreal[2:4],
+                   LR.HALO, True, [(a, b) for a, b, _s in segs])
+    assert sum(hi - lo for lo, hi, *_r in rp.launches) == rp.ntickets > 0
+    for (src, name, a), (first, _end, _s), (lo, hi, _f, most_recs,
+                                            most_lv) in zip(
+            calls, segs, rp.launches):
         assert (src, name) == ("lpf_replay.cu", "lf_replay_from")
-        assert a[3:] == (2, 1, 128, 264, run, steps.shape[2], first, end,
-                         1, 8)
-        assert a[1] is calls[0][2][1]
+        # T, B, H, Wb, tickets, most records, most levels, sbw, sbh,
+        # first, halo, bpp
+        assert a[5:17] == (2, 1, 128, 264, hi - lo, most_recs, most_lv, 64,
+                           64, first, 1, 8)
+        assert a[2] is calls[0][2][2] and a[3] is calls[0][2][3]
     assert ex.exchanges == 1 + len(cuts["left"])
 
 
@@ -345,13 +357,14 @@ def test_cuda_dist_scan_matches_plain():
         for which, seed in (("ysteps", 2), ("uvsteps", 3)):
             buf, steps, wreal = _buffers(seed, which)
             want = _plain(seed, which)
+            sb = _SB[which]
             LR.reset_launches()
 
             def rank_scan(ex):
                 lo, hi, _cuts, segs = LR.segment_plan(steps, wreal, ranks,
                                                       ex.rank)
                 got = LR.lf_scan_sharded_dist(buf[lo:hi].cuda(), steps,
-                                              wreal, 8, ranks, ex)
+                                              wreal, 8, ranks, ex, sb)
                 torch.cuda.synchronize()
                 return lo, hi, got.cpu(), len(segs)
 

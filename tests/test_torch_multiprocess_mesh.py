@@ -101,7 +101,7 @@ for split in ((1, 3), (2, 2), (3, 1)):
         lo, hi, cuts, segs = LR.segment_plan(steps, wreal, ranks, rank)
         got = LR.lf_scan_sharded_dist(
             torch.from_numpy(data[which + "_buf"][lo:hi]), steps, wreal, 8,
-            ranks, ex)
+            ranks, ex, (64, 64) if which == "y" else (32, 32))
         key = f"{split[0]}{split[1]}_{which}"
         out[key] = got.numpy()
         out[key + "_counts"] = np.asarray(
@@ -205,7 +205,8 @@ def test_dist_scan_splits_over_gloo(tmp_path):
                                                wreal, 8).numpy()
         with pytest.raises(ValueError, match="contiguous"):
             LR.lf_scan_sharded_dist(torch.from_numpy(buf[:2]), steps, wreal,
-                                    8, [0, 1, 0, 1], D.HaloExchange(0))
+                                    8, [0, 1, 0, 1], D.HaloExchange(0),
+                                    (64, 64) if which == "y" else (32, 32))
     inf = tmp_path / "buffers.npz"
     np.savez(inf, **data)
     _texts, outs = _run_pair(CHILD_SCAN, tmp_path, inf)
